@@ -6,15 +6,21 @@
 Phases, each printed on its own line:
 1. the card (name and power limit from nvidia-smi);
 2. the kernel build from snail_tpu_torch/csrc, with its seconds;
-3. every kernel of the forward frame (B1-B4) against its plain PyTorch
-   version on the card, at full frame size, on two scenes: city_scene(24)
-   at leaf 16 and terrain_scene(724) (~1 Mtri) at leaf 32, 1024 x 1024;
-   B3 and B4 run on the frame's own shadow rays, and on the terrain also
-   toward a low light, since its overhead bench light blocks no ray;
-4. render_frame at 1024 x 1024 on both scenes: the launch count of each
-   kernel during one frame, the image checked against the CPU path on a
-   small frame (the terrain's lit by the low light), then ms/frame over
-   timed frames, MRays/s and peak memory.
+3. every kernel of the frame (B1-B6) against its plain PyTorch version on
+   the card, at full frame size, on two scenes: city_scene(24) at leaf 16
+   and terrain_scene(724) (~1 Mtri) at leaf 32, 1024 x 1024, both with
+   material 0 reflective and half transparent (bench_scenes
+   bounce_materials); B3 and B4 run on the frame's own shadow rays, and
+   on the terrain also toward a low light, since its overhead bench light
+   blocks no ray; B5 and B6 on the frame's own reflection rays, and on a
+   seeded wavefront that hits where too few of those do;
+4. three paths at 1024 x 1024 on both scenes, each with the launch count
+   of every kernel during one run, a check against the CPU path at 64 x 64
+   (the terrain's lit by the low light), and its time: render_frame
+   without bounces (ms/frame, MRays/s, peak memory); render_frame with
+   reflections and transparency (the same); and bench.py's fwd+bwd step
+   (render_frame_fast_diff, 7 gradient parameters, reflections and
+   shadows, MSE against a forward render; ms/step).
 
 The last two lines are a JSON object per kernel and the result line. Any
 failed phase ends the run with a non-zero exit and no result line; so does
@@ -30,6 +36,7 @@ import time
 
 WIDTH = HEIGHT = 1024
 TIMED_FRAMES = 10
+TIMED_STEPS = 5
 KERNEL_REPS = 20
 SRC = "snail_tpu_torch/csrc/worklist.cu"
 TPU = "snail_tpu/ops/traverse_pallas.py"
@@ -38,7 +45,10 @@ REPLACES = {  # kernel -> line of the Pallas kernel it replaces
     "camera_wl": f"{TPU}:3150",
     "words_shared": f"{TPU}:2822",
     "shadow_wl": f"{TPU}:3208",
+    "words_general": f"{TPU}:2834",
+    "closest_wl_g": f"{TPU}:3226",
 }
+FORWARD = ("words_camera", "camera_wl", "words_shared", "shadow_wl")
 # kind -> a low light for the blocked-ray checks of B3/B4 and of the small
 # frame: the terrain's bench light is overhead and its hills cast no
 # shadow toward it (~20 % of the frame's shadow rays toward this light are
@@ -81,7 +91,7 @@ def make_scene(kind: str, n: int):
     from snail_tpu_torch.scene.bench_scenes import SCENES, bench_scene
 
     t0 = time.perf_counter()
-    scene, cam, g, _ = bench_scene(kind, n, device="cuda")
+    scene, cam, g, _ = bench_scene(kind, n, device="cuda", bounce=True)
     print(f"scene {kind}_{n}: {g.num_tris} tris, {scene.leaves.n_leaf} "
           f"leaves (leaf {SCENES[kind][1]}), host build "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -182,6 +192,7 @@ def check_kernels(name, kind, scene, cam):
     if kind in LOW_LIGHT:
         check_shadow(f"{name} low light", scene, primary,
                      torch.tensor(LOW_LIGHT[kind], device="cuda"), True)
+    out.update(check_bounce(name, scene, primary))
     for k, (e, t, tp) in out.items():
         print(f"check {name} {k}: ok, max_abs_err {e}, kernel {t:.4f} ms, "
               f"plain {tp:.1f} ms", flush=True)
@@ -227,29 +238,152 @@ def check_shadow(name, scene, primary, lp, need_blocked):
     return out
 
 
-def run_frames(name, scene, cam, small, card):
-    """Phase 4: the main path through render_frame; returns launches.
-    ``small``: (scene, camera) of the check against the CPU path."""
+def check_bounce(name, scene, primary):
+    """B5 and B6 against their plain versions on the reflection wavefront
+    the frame casts from the ``primary`` hits. Where too few of its live
+    rays hit anything (a terrain's reflections mostly leave for the sky),
+    they are also checked on a seeded wavefront that must hit on 0.02-0.98
+    of its rays. Returns {kernel: (max_abs_err, ms, plain_ms)} of the
+    frame's wavefront."""
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.fast import bounce_wavefront
+
+    o, d, tm, _ = pt.general_planes(*bounce_wavefront(scene, *primary))
+    out, share = check_general(f"{name} reflections", scene, o, d, tm)
+    if not 0.02 < share < 0.98:
+        o, d, tm = seeded_general(scene, tm.shape[0])
+        seeded, share = check_general(f"{name} seeded", scene, o, d, tm)
+        if not 0.02 < share < 0.98:
+            fail(f"{name} seeded wavefront: hit share {share}")
+        for k, (e, t, tp) in seeded.items():
+            print(f"check {name} seeded {k}: ok, max_abs_err {e}, kernel "
+                  f"{t:.4f} ms, plain {tp:.1f} ms", flush=True)
+    return out
+
+
+def seeded_general(scene, n_packets, seed=5):
+    """A wavefront of rays with their own origins, ``n_packets`` packets:
+    each packet's rays start within 1 % of the scene box's extent of a
+    seeded point in the box and run within a narrow cone around a seeded
+    direction (down into the geometry or up out of it); every 7th ray
+    masked. Returns the (o, d, tm) planes of ``general_planes``."""
+    import numpy as np
     import torch
 
-    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.core.vecmath import BIG
+    from snail_tpu_torch.ops import traverse as pt
+
+    rng = np.random.default_rng(seed)
+    lo, hi = scene.root_lo.cpu().numpy(), scene.root_hi.cpu().numpy()
+    shape = (n_packets, pt.PACKET_R, 3)
+    o = (rng.uniform(lo, hi, (n_packets, 1, 3))
+         + rng.uniform(-0.01, 0.01, shape) * (hi - lo))
+    axis = rng.normal(size=(n_packets, 1, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    d = axis + rng.uniform(-0.05, 0.05, shape)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tm = np.full(shape[:2], BIG)
+    tm[:, ::7] = -BIG
+    flat = lambda a: torch.from_numpy(
+        np.ascontiguousarray(a, np.float32).reshape(-1)).cuda()
+    o, d, tm, _ = pt.general_planes(tuple(flat(o[..., k]) for k in range(3)),
+                                    tuple(flat(d[..., k]) for k in range(3)),
+                                    flat(tm))
+    return o, d, tm
+
+
+def check_general(name, scene, o, d, tm):
+    """B5 (words identical, floors to rtol 1e-6) and B6 (the checks of
+    B2, the miss and masked conventions exactly, tri clamped at 0)
+    against their plain versions on the planes ``o``, ``d``, ``tm``.
+    Returns ({kernel: (max_abs_err, ms, plain_ms)}, hit share of the live
+    rays)."""
+    import torch
+
+    from snail_tpu_torch.core.vecmath import BIG
+    from snail_tpu_torch.ops import traverse as pt
+
+    lt, rows = scene.leaves, scene.tri_rows
+    out = {}
+    kern = pt.words_general(o, d, tm, lt)
+    plain, plain_ms = timed_plain(
+        lambda: pt.words_general_plain(o, d, tm, lt, pt.WL_BANDS))
+    err = words_err(kern, plain, f"{name} words_general")
+    ms = cuda_ms(lambda: pt.words_general(o, d, tm, lt), KERNEL_REPS)
+    out["words_general"] = (err, ms, plain_ms)
+    words, summ, floors = kern
+    kept = pt.unpack_bits(words).any(1).sum(1).float()
+
+    kern = pt.closest_wl_g(o, d, tm, rows, lt, words, summ, floors)
+    plain, plain_ms = timed_plain(
+        lambda: pt.closest_wl_g_plain(o, d, tm, rows, lt, words))
+    kd, ku, kv, kt = kern
+    pd, pu, pv, ptri = plain
+    live = tm >= 0
+    hit = live & (pd < BIG)
+    same = hit & (kt == ptri)
+    n_live, n_hit = int(live.sum()), int(hit.sum())
+    share = n_hit / max(n_live, 1)
+    derr = float((kd - pd)[hit].abs().max()) if n_hit else 0.0
+    checks = {
+        "masked": bool((kd[~live] == -BIG).all()
+                       and (pd[~live] == -BIG).all()),
+        "misses": bool((kd[live & ~hit] == BIG).all()),
+        "tri clamp": bool((kt[~hit] == 0).all() and (ptri[~hit] == 0).all()),
+        "dist": bool(torch.allclose(kd, pd, rtol=2e-4, atol=2e-4)),
+        "tri": n_hit == 0 or float((kt[hit] == ptri[hit]).float().mean())
+        > 0.999,
+        "u": not bool(same.any()) or float((ku - pu)[same].abs().max())
+        <= 2e-3,
+        "v": not bool(same.any()) or float((kv - pv)[same].abs().max())
+        <= 2e-3,
+    }
+    print(f"check {name} closest_wl_g: hit share {share} of {n_live} live "
+          f"rays; B5 leaves kept per packet: mean {float(kept.mean()):.1f}, "
+          f"max {int(kept.max())} of {lt.n_leaf}", flush=True)
+    if not all(checks.values()):
+        fail(f"{name} closest_wl_g: {checks}, max dist err {derr}")
+    ms = cuda_ms(lambda: pt.closest_wl_g(o, d, tm, rows, lt, words, summ,
+                                         floors), KERNEL_REPS)
+    out["closest_wl_g"] = (derr, ms, plain_ms)
+    return out, share
+
+
+def launched(name, path, need):
+    """The launch counts since the last reset; every kernel in ``need``
+    must have launched."""
+    from snail_tpu_torch.ops import traverse as pt
+
+    launches = pt.launch_counts()
+    if not all(launches[k] > 0 for k in need):
+        fail(f"{name} {path}: a kernel of the path was not launched: "
+             f"{launches}")
+    return launches
+
+
+def run_frame(name, path, opts, need, scene, cam, small, card):
+    """Phase 4, one path through render_frame: the launch counts of one
+    frame (each kernel in ``need`` > 0), a 64 x 64 card frame of ``small``
+    ((scene, camera)) against the CPU path, ms/frame and MRays/s. Returns
+    the launch counts."""
+    import torch
+
     from snail_tpu_torch.ops import traverse as pt
     from snail_tpu_torch.render.renderer import render_frame
 
-    opts = RenderOpts(reflections=False, transparency=False, textures=False)
     torch.cuda.synchronize()
     pt.reset_launch_counts()
-    img = render_frame(scene, cam, WIDTH, HEIGHT, opts)
+    with pt.count_live_rays() as live:
+        img = render_frame(scene, cam, WIDTH, HEIGHT, opts)
     torch.cuda.synchronize()
-    launches = pt.launch_counts()
-    if not all(n > 0 for n in launches.values()):
-        fail(f"{name}: a kernel of the path was not launched: {launches}")
+    launches = launched(name, path, need)
+    traced = sum(int(n) for n in live)
     if tuple(img.shape) != (HEIGHT, WIDTH, 3):
-        fail(f"{name}: image shape {tuple(img.shape)}")
+        fail(f"{name} {path}: image shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()) or not float(img.abs().max()) > 0:
-        fail(f"{name}: image not finite or all zero")
-    print(f"frame {name}: launches {launches}, mean {float(img.mean()):.6f}",
-          flush=True)
+        fail(f"{name} {path}: image not finite or all zero")
+    print(f"frame {name} {path}: launches {launches}, mean "
+          f"{float(img.mean()):.6f}", flush=True)
 
     # a 64 x 64 frame on the card and on the CPU path (plain versions)
     sscene, scam = small
@@ -257,21 +391,91 @@ def run_frames(name, scene, cam, small, card):
     ref = render_frame(sscene.to("cpu"), scam.to("cpu"), 64, 64, opts)
     off = float(((img64 - ref).abs().amax(-1) > 2e-3).float().mean())
     if off > 2e-3:
-        fail(f"{name}: 64x64 card frame differs from the CPU path on "
-             f"{off} of pixels")
+        fail(f"{name} {path}: 64x64 card frame differs from the CPU path "
+             f"on {off} of pixels")
     if not float(ref.abs().max()) > 0:
-        fail(f"{name}: the 64x64 reference frame is all zero")
-    print(f"frame {name}: 64x64 card vs CPU path, share of pixels off by "
-          f"> 2e-3: {off}", flush=True)
+        fail(f"{name} {path}: the 64x64 reference frame is all zero")
+    print(f"frame {name} {path}: 64x64 card vs CPU path, share of pixels "
+          f"off by > 2e-3: {off}", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: render_frame(scene, cam, WIDTH, HEIGHT, opts),
                  TIMED_FRAMES)
     peak = torch.cuda.max_memory_allocated() / 2**20
     rays = WIDTH * HEIGHT * (1 + len(scene.lights))
-    print(f"frame {name} {WIDTH}x{HEIGHT}: {ms:.3f} ms/frame, "
-          f"{rays / ms / 1e3:.2f} MRays/s ({rays} rays), peak memory "
-          f"{peak:.1f} MiB, on {card}", flush=True)
+    print(f"frame {name} {path} {WIDTH}x{HEIGHT}: {ms:.3f} ms/frame, "
+          f"{rays / ms / 1e3:.2f} MRays/s ({rays} rays as bench.py counts; "
+          f"{traced} live rays traced in {len(live)} wavefronts), peak "
+          f"memory {peak:.1f} MiB, on {card}", flush=True)
+    return launches
+
+
+def run_step(name, scene, cam, small, card):
+    """Phase 4, bench.py's fwd+bwd step (bench.py:236-247): the loss and
+    gradients of its 7 parameters through render_frame_fast_diff with
+    reflections and shadows, MSE against a forward render. Launch counts
+    of one step (all six kernels), a 64 x 64 step on the card against the
+    CPU path (its target lit at half the light colour, so that the
+    gradients are not ~0), ms/step. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from snail_tpu_torch.core.types import Light
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.renderer import render_frame
+    from snail_tpu_torch.scene.bench_scenes import STEP_OPTS, bench_step
+
+    target = render_frame(scene, cam, WIDTH, HEIGHT, STEP_OPTS)
+    torch.cuda.synchronize()
+    pt.reset_launch_counts()
+    with pt.count_live_rays() as live:
+        loss, grads = bench_step(scene, cam, target, WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    launches = launched(name, "fwd_bwd", tuple(REPLACES))
+    traced = sum(int(n) for n in live)
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    loss = float(loss)
+    if not np.isfinite(loss) or bad:
+        fail(f"{name} fwd_bwd: loss {loss}, non-finite grads {bad}")
+    print(f"step {name} fwd_bwd: launches {launches}, loss {loss}, "
+          "grad max |g| " + ", ".join(
+              f"{k} {float(g.abs().max()):.3e}" for k, g in grads.items()),
+          flush=True)
+
+    sscene, scam = small
+    lights = sscene.lights
+    half = dataclasses.replace(sscene, lights=Light(
+        pos=lights.pos, color=lights.color * 0.5, radius=lights.radius))
+    t64 = render_frame(half, scam, 64, 64, STEP_OPTS)
+    lk, gk = bench_step(sscene, scam, t64, 64, 64)
+    lc, gc = bench_step(sscene.to("cpu"), scam.to("cpu"), t64.cpu(), 64, 64)
+    lk, lc = float(lk), float(lc)
+    # the tolerances of tests/test_fast_diff.py:84-91
+    worst = {}
+    ok = abs(lk - lc) < 3e-4 * max(1.0, abs(lc))
+    for k in gc:
+        a, b = gk[k].cpu().numpy(), gc[k].numpy()
+        denom = max(float(np.abs(b).max()), 1e-8)
+        q, m = (float(np.quantile(np.abs(a - b), 0.999)) / denom,
+                float(np.abs(a - b).mean()) / denom)
+        worst[k] = (q, m)
+        ok = ok and q < 5e-3 and m < 1e-3
+    print(f"step {name} fwd_bwd: 64x64 card vs CPU path, loss {lk} vs {lc}; "
+          "grad |diff| q99.9 / mean over max |g|: " + ", ".join(
+              f"{k} {q:.2e}/{m:.2e}" for k, (q, m) in worst.items()),
+          flush=True)
+    if not ok:
+        fail(f"{name} fwd_bwd: 64x64 card step differs from the CPU path")
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: bench_step(scene, cam, target, WIDTH, HEIGHT),
+                 TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    rays = WIDTH * HEIGHT * (1 + len(scene.lights))
+    print(f"step {name} fwd_bwd {WIDTH}x{HEIGHT}: {ms:.3f} ms/step, "
+          f"{rays / ms / 1e3:.2f} MRays/s ({rays} rays as bench.py counts; "
+          f"{traced} live rays traced in {len(live)} wavefronts), peak "
+          f"memory {peak:.1f} MiB, on {card}", flush=True)
     return launches
 
 
@@ -283,7 +487,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     try:
-        from snail_tpu_torch.core.types import Light
+        from snail_tpu_torch.core.types import Light, RenderOpts
         from snail_tpu_torch.ops import _build
         from snail_tpu_torch.scene.bench_scenes import BENCH_N, SCENES
     except ImportError as e:
@@ -315,11 +519,21 @@ def main() -> None:
                 LOW_LIGHT[kind], (1.0, 1.0, 1.0), SCENES[kind][3],
                 device="cuda")), small[1])
         checks = check_kernels(name, kind, scene, cam)
-        launches = run_frames(name, scene, cam, small, card)
+        fwd = RenderOpts(reflections=False, transparency=False,
+                         textures=False)
+        launches = {
+            "fwd": run_frame(name, "fwd", fwd, FORWARD, scene, cam, small,
+                             card),
+            "bounce": run_frame(name, "bounce", RenderOpts(textures=False),
+                                tuple(REPLACES), scene, cam, small, card),
+            "fwd_bwd": run_step(name, scene, cam, small, card),
+        }
+        # launches: those of the bounce frame, which runs all six
         for k, (err, ms, plain_ms) in checks.items():
             kernels.append({
                 "name": f"{k}/{name}", "route": "cuda", "source": SRC,
-                "replaces": REPLACES[k], "launches": launches[k],
+                "replaces": REPLACES[k], "launches": launches["bounce"][k],
+                "launches_by_path": {p: n[k] for p, n in launches.items()},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
         del scene, small
         torch.cuda.empty_cache()

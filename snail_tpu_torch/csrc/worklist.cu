@@ -1,11 +1,13 @@
-// Worklist traversal kernels for Hopper (sm_90a): the primary and shadow
-// wavefronts of the forward frame.
+// Worklist traversal kernels for Hopper (sm_90a): the primary, shadow and
+// bounce wavefronts of the frame.
 //
 // Replaces, in snail_tpu/ops/traverse_pallas.py:
-//   words_kernel<CAMERA>  <- _words_camera_kernel (B1)
-//   words_kernel<SHARED>  <- _words_shared_kernel (B3)
-//   camera_wl_kernel      <- _camera_wl_kernel    (B2)
-//   shadow_wl_kernel      <- _shadow_wl_kernel    (B4)
+//   words_kernel<CAMERA>  <- _words_camera_kernel  (B1)
+//   words_kernel<SHARED>  <- _words_shared_kernel  (B3)
+//   words_kernel<GENERAL> <- _words_general_kernel (B5)
+//   camera_wl_kernel      <- _camera_wl_kernel     (B2)
+//   shadow_wl_kernel      <- _shadow_wl_kernel     (B4)
+//   closest_wl_g_kernel   <- _closest_wl_kernel_g  (B6)
 // The plain PyTorch versions are in snail_tpu_torch/ops/traverse.py, which
 // documents the word layout. The file has a plain C interface (bottom) and
 // is loaded with ctypes; it is compiled with --fmad=false so every product
@@ -28,6 +30,13 @@
 //   dependent loads) and divergence; no shared memory and no block
 //   barriers. The TPU's grid ran in order and kept a leaf ring and the
 //   leaf table staged across grid steps; here all state is per warp.
+// - bounce rays (B5, B6) have an origin per ray: the packet and warp
+//   intervals carry origin bounds too, and the leaf test takes the four
+//   corner products of origin and inverse-direction bounds per slab. B6
+//   intersects the raw 64-B rows (a, ba, ca, n) with the full Moller test,
+//   ~2x the flops of the shared-origin test. A 64x64 tile's reflections
+//   are far less coherent than its primaries, so its packet interval
+//   keeps more leaves; the warp culls are what keep the scan short.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,7 +54,7 @@ constexpr int kWordsThreads = 256;
 constexpr int kTraceThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Origin { CAMERA = 0, SHARED = 1 };
+enum Origin { CAMERA = 0, SHARED = 1, GENERAL = 2 };
 
 // Camera scalars (ops/traverse.py cam_vec): right 0:3, up 3:6,
 // front*plane_dist 6:9, pos 9:12, w/2 12, h/2 13, 1/h 14, tiles_x 15,
@@ -55,6 +64,23 @@ struct PrimaryRay {
   float idir[3];
   float t_exit;
 };
+
+// Exit distance of the ray o + t d (idir = 1 / d) from the box [lo, hi],
+// times 1.0001; 0 when the ray misses the box or the box lies behind it.
+__device__ __forceinline__ float box_exit(const float* lo, const float* hi,
+                                          const float* o,
+                                          const float* idir) {
+  float t1[3], t2[3];
+  for (int c = 0; c < 3; ++c) {
+    t1[c] = (lo[c] - o[c]) * idir[c];
+    t2[c] = (hi[c] - o[c]) * idir[c];
+  }
+  const float tn = fmaxf(fmaxf(fminf(t1[0], t2[0]), fminf(t1[1], t2[1])),
+                         fminf(t1[2], t2[2]));
+  const float tf = fminf(fminf(fmaxf(t1[0], t2[0]), fmaxf(t1[1], t2[1])),
+                         fmaxf(t1[2], t2[2]));
+  return (tn <= tf && tf > 0.0f) ? tf * 1.0001f : 0.0f;
+}
 
 __device__ __forceinline__ PrimaryRay camera_ray(const float* cam, int pid,
                                                  int k) {
@@ -73,19 +99,7 @@ __device__ __forceinline__ PrimaryRay camera_ray(const float* cam, int pid,
     r.d[c] = d[c] * inv_len;
     r.idir[c] = 1.0f / (r.d[c] + kInvEps);
   }
-  float tn, tf;
-  {
-    float t1[3], t2[3];
-    for (int c = 0; c < 3; ++c) {
-      t1[c] = (cam[16 + c] - cam[9 + c]) * r.idir[c];
-      t2[c] = (cam[19 + c] - cam[9 + c]) * r.idir[c];
-    }
-    tn = fmaxf(fmaxf(fminf(t1[0], t2[0]), fminf(t1[1], t2[1])),
-               fminf(t1[2], t2[2]));
-    tf = fminf(fminf(fmaxf(t1[0], t2[0]), fmaxf(t1[1], t2[1])),
-               fmaxf(t1[2], t2[2]));
-  }
-  r.t_exit = (tn <= tf && tf > 0.0f) ? tf * 1.0001f : 0.0f;
+  r.t_exit = box_exit(cam + 16, cam + 19, cam + 9, r.idir);
   return r;
 }
 
@@ -125,24 +139,45 @@ __device__ __forceinline__ float widen_hi(float hi) {
 }
 
 struct Interval {
-  float o[3];   // shared origin
+  float om[3];  // origin bounds; a shared origin has om == oM
+  float oM[3];
   float im[3];  // inverse-direction bounds
   float iM[3];
   float mb;     // packet distance bound
 };
 
 // Interval entry distance of leaf l; ok = the packet may hit the box.
+// GEN: the origin is an interval, and each slab distance (x - o) * i is
+// bounded by its four corner products (_leaf_pass :2671-2684); otherwise
+// om is the one origin and two products suffice.
+template <bool GEN>
 __device__ __forceinline__ float leaf_entry(const float* box, int lp, int l,
                                             int n_leaf, const Interval& iv,
                                             bool& ok) {
   float tn = 0.0f, tf = iv.mb;
   for (int k = 0; k < 3; ++k) {
-    const float a = box[k * lp + l] - iv.o[k];
-    const float c = box[(3 + k) * lp + l] - iv.o[k];
-    const float a1 = a * iv.im[k], a2 = a * iv.iM[k];
-    const float c1 = c * iv.im[k], c2 = c * iv.iM[k];
-    tn = fmaxf(tn, fminf(fminf(a1, a2), fminf(c1, c2)));
-    tf = fminf(tf, fmaxf(fmaxf(a1, a2), fmaxf(c1, c2)));
+    const float lo = box[k * lp + l], hi = box[(3 + k) * lp + l];
+    if (GEN) {
+      const float a1 = lo - iv.om[k], a2 = lo - iv.oM[k];
+      const float c1 = hi - iv.om[k], c2 = hi - iv.oM[k];
+      const float p0 = a1 * iv.im[k], p1 = a1 * iv.iM[k];
+      const float p2 = a2 * iv.im[k], p3 = a2 * iv.iM[k];
+      const float q0 = c1 * iv.im[k], q1 = c1 * iv.iM[k];
+      const float q2 = c2 * iv.im[k], q3 = c2 * iv.iM[k];
+      const float lo_min = fminf(fminf(p0, p1), fminf(p2, p3));
+      const float lo_max = fmaxf(fmaxf(p0, p1), fmaxf(p2, p3));
+      const float hi_min = fminf(fminf(q0, q1), fminf(q2, q3));
+      const float hi_max = fmaxf(fmaxf(q0, q1), fmaxf(q2, q3));
+      tn = fmaxf(tn, fminf(lo_min, hi_min));
+      tf = fminf(tf, fmaxf(lo_max, hi_max));
+    } else {
+      const float a = lo - iv.om[k];
+      const float c = hi - iv.om[k];
+      const float a1 = a * iv.im[k], a2 = a * iv.iM[k];
+      const float c1 = c * iv.im[k], c2 = c * iv.iM[k];
+      tn = fmaxf(tn, fminf(fminf(a1, a2), fminf(c1, c2)));
+      tf = fminf(tf, fmaxf(fmaxf(a1, a2), fmaxf(c1, c2)));
+    }
   }
   // padding slots never pass: inverted boxes alone are not enough when a
   // direction interval spans zero
@@ -150,11 +185,13 @@ __device__ __forceinline__ float leaf_entry(const float* box, int lp, int l,
   return tn;
 }
 
-// B1 / B3. One block per packet. Dynamic shared memory: K * NS summary
-// words.
+// B1 / B3 / B5. One block per packet. Dynamic shared memory: K * NS
+// summary words.
 template <int MODE>
 __global__ void __launch_bounds__(kWordsThreads)
 words_kernel(const float* __restrict__ cam_or_orig,
+             const float* __restrict__ ox, const float* __restrict__ oy,
+             const float* __restrict__ oz,
              const float* __restrict__ dx, const float* __restrict__ dy,
              const float* __restrict__ dz, const float* __restrict__ tm,
              const float* __restrict__ box, int lp, int n_leaf, int k_bands,
@@ -167,9 +204,11 @@ words_kernel(const float* __restrict__ cam_or_orig,
 
   const int pid = blockIdx.x;
   const int nw = lp / 32, ns = lp / kLeafBlock;
+  constexpr bool kGen = MODE == GENERAL;
 
   // 1. ray interval bounds of the packet
   float imn[3] = {kBig, kBig, kBig}, imx[3] = {-kBig, -kBig, -kBig};
+  float omn[3] = {kBig, kBig, kBig}, omx[3] = {-kBig, -kBig, -kBig};
   float mb_local = -kBig;
   for (int k = threadIdx.x; k < kPacketR; k += blockDim.x) {
     float idir[3];
@@ -183,7 +222,16 @@ words_kernel(const float* __restrict__ cam_or_orig,
       idir[1] = 1.0f / (dy[g] + kInvEps);
       idir[2] = 1.0f / (dz[g] + kInvEps);
       const float t = tm[g];
-      mb_local = fmaxf(mb_local, t >= 0.0f ? t : -kBig);
+      if (kGen) {
+        mb_local = fmaxf(mb_local, t >= 0.0f ? fminf(t, kBig) : -kBig);
+        const float o[3] = {ox[g], oy[g], oz[g]};
+        for (int c = 0; c < 3; ++c) {
+          omn[c] = fminf(omn[c], o[c]);
+          omx[c] = fmaxf(omx[c], o[c]);
+        }
+      } else {
+        mb_local = fmaxf(mb_local, t >= 0.0f ? t : -kBig);
+      }
     }
     for (int c = 0; c < 3; ++c) {
       imn[c] = fminf(imn[c], idir[c]);
@@ -192,7 +240,12 @@ words_kernel(const float* __restrict__ cam_or_orig,
   }
   Interval iv;
   for (int c = 0; c < 3; ++c) {
-    iv.o[c] = cam_or_orig[MODE == CAMERA ? 9 + c : c];
+    if (kGen) {
+      iv.om[c] = widen_lo(block_reduce<false>(omn[c], s_red));
+      iv.oM[c] = widen_hi(block_reduce<true>(omx[c], s_red));
+    } else {
+      iv.om[c] = iv.oM[c] = cam_or_orig[MODE == CAMERA ? 9 + c : c];
+    }
     iv.im[c] = widen_lo(block_reduce<false>(imn[c], s_red));
     iv.iM[c] = widen_hi(block_reduce<true>(imx[c], s_red));
   }
@@ -205,7 +258,7 @@ words_kernel(const float* __restrict__ cam_or_orig,
   float tmin = kBig;
   for (int l = threadIdx.x; l < lp; l += blockDim.x) {
     bool ok;
-    const float tn = leaf_entry(box, lp, l, n_leaf, iv, ok);
+    const float tn = leaf_entry<kGen>(box, lp, l, n_leaf, iv, ok);
     if (ok) tmin = fminf(tmin, tn);
   }
   const float t0 = fminf(block_reduce<false>(tmin, s_red), iv.mb);
@@ -216,7 +269,7 @@ words_kernel(const float* __restrict__ cam_or_orig,
     const float scale = (float)kBins / span;
     for (int l = threadIdx.x; l < lp; l += blockDim.x) {
       bool ok;
-      const float tn = leaf_entry(box, lp, l, n_leaf, iv, ok);
+      const float tn = leaf_entry<kGen>(box, lp, l, n_leaf, iv, ok);
       if (ok) {
         const float f = fminf((tn - t0) * scale, (float)kBins);
         const int b = min(max((int)f, 0), kBins - 1);
@@ -248,7 +301,8 @@ words_kernel(const float* __restrict__ cam_or_orig,
   int32_t* wout = words + (size_t)pid * k_bands * nw;
   for (int g = warp; g < nw; g += nwarps) {
     bool ok;
-    const float tn = leaf_entry(box, lp, g * 32 + lane, n_leaf, iv, ok);
+    const float tn = leaf_entry<kGen>(box, lp, g * 32 + lane, n_leaf, iv,
+                                      ok);
     int band = 0;
     for (int b = 1; b < k_bands; ++b) band += tn >= s_los[b];
     unsigned mine = 0;
@@ -285,6 +339,17 @@ __device__ __forceinline__ TriRow load_row(const float* rows, int t) {
   return TriRow{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y};
 }
 
+// Raw triangle row: a, ba, ca, n = ba x ca, pad.
+struct RawRow {
+  float ax, ay, az, bax, bay, baz, cax, cay, caz, nx, ny, nz;
+};
+
+__device__ __forceinline__ RawRow load_raw_row(const float* rows, int t) {
+  const float4* p = reinterpret_cast<const float4*>(rows) + (size_t)t * 4;
+  const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+  return RawRow{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w};
+}
+
 // Per-ray slab test of leaf l: entry distance, and pass = the ray enters
 // the box in front of it.
 __device__ __forceinline__ float ray_slab(const float* box, int lp, int l,
@@ -313,6 +378,9 @@ struct WarpCull {
   float lo[3], hi[3];
 };
 
+// GEN: every lane has its own origin, and the interval's origin bounds
+// are those of the warp's live lanes.
+template <bool GEN>
 __device__ __forceinline__ WarpCull warp_cull(const float o[3],
                                               const float d[3],
                                               const float idir[3],
@@ -320,7 +388,12 @@ __device__ __forceinline__ WarpCull warp_cull(const float o[3],
   const bool live = limit > 0.0f;
   WarpCull c;
   for (int k = 0; k < 3; ++k) {
-    c.iv.o[k] = o[k];
+    if (GEN) {
+      c.iv.om[k] = widen_lo(warp_min(live ? o[k] : kBig));
+      c.iv.oM[k] = widen_hi(warp_max(live ? o[k] : -kBig));
+    } else {
+      c.iv.om[k] = c.iv.oM[k] = o[k];
+    }
     c.iv.im[k] = widen_lo(warp_min(live ? idir[k] : kBig));
     c.iv.iM[k] = widen_hi(warp_max(live ? idir[k] : -kBig));
     const float end = o[k] + d[k] * limit;
@@ -336,10 +409,11 @@ __device__ __forceinline__ WarpCull warp_cull(const float o[3],
 }
 
 // The warp-level cull of leaf l: the interval test, then the segment box.
+template <bool GEN>
 __device__ __forceinline__ bool warp_keeps(const float* box, int lp, int l,
                                            const WarpCull& c) {
   bool ok;
-  leaf_entry(box, lp, l, lp, c.iv, ok);
+  leaf_entry<GEN>(box, lp, l, lp, c.iv, ok);
   for (int k = 0; k < 3; ++k)
     ok = ok && box[k * lp + l] <= c.hi[k] && box[(3 + k) * lp + l] >= c.lo[k];
   return ok;
@@ -354,7 +428,7 @@ __device__ __forceinline__ bool warp_keeps(const float* box, int lp, int l,
 // packet whose direction interval spans zero can pass every leaf of a
 // scene; its warps' culls do not); leaf_fn(l) then runs for the
 // survivors, in order, and returns true to end the scan.
-template <typename BoundFn, typename LeafFn>
+template <bool GEN, typename BoundFn, typename LeafFn>
 __device__ __forceinline__ void scan_words(const int32_t* words,
                                            const int32_t* summ,
                                            const float* floors, int k_bands,
@@ -375,7 +449,7 @@ __device__ __forceinline__ void scan_words(const int32_t* words,
         wc.iv.mb = bound_fn();
         if (!(wc.iv.mb > 0.0f)) return;
         const bool ok = ((word >> lane) & 1u) &&
-                        warp_keeps(box, lp, w * 32 + lane, wc);
+                        warp_keeps<GEN>(box, lp, w * 32 + lane, wc);
         word = __ballot_sync(kFull, ok);
         while (word) {
           const int l = w * 32 + __ffs(word) - 1;
@@ -408,9 +482,9 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
   float best = r.t_exit, bu = 0.0f, bv = 0.0f;
   int tri = -1;
   // a ray that misses the root box (best = 0) can hit nothing
-  WarpCull wc = warp_cull(o, r.d, r.idir, best);
+  WarpCull wc = warp_cull<false>(o, r.d, r.idir, best);
 
-  scan_words(
+  scan_words<false>(
       words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
       floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc,
       [&] { return warp_max(fmaxf(best, 0.0f)); },
@@ -474,9 +548,9 @@ shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
   const float tmax = tm[g];
   const float limit = tmax >= 0.0f ? tmax : -kBig;
   bool blocked = false;
-  WarpCull wc = warp_cull(o, d, idir, limit);
+  WarpCull wc = warp_cull<false>(o, d, idir, limit);
 
-  scan_words(
+  scan_words<false>(
       words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
       floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc,
       [&] { return warp_max(fmaxf(blocked ? -kBig : limit, 0.0f)); },
@@ -502,6 +576,86 @@ shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
   out_blocked[g] = blocked ? 1.0f : 0.0f;
 }
 
+// B6: closest hit of rays with their own origins, one thread per ray, on
+// the raw triangle rows. A live ray (tmax >= 0) starts at min(tmax, BIG);
+// a miss returns BIG, a masked ray -BIG, and tri is clamped at 0
+// (_closest_wl_kernel_g :3247-3269). A bounce ray's tmax is BIG, so the
+// culls look no further than where it leaves the scene's root box, as
+// B2's camera rays do: a segment box as long as BIG culls nothing.
+__global__ void __launch_bounds__(kTraceThreads)
+closest_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+                    const float* __restrict__ oz, const float* __restrict__ dx,
+                    const float* __restrict__ dy, const float* __restrict__ dz,
+                    const float* __restrict__ tm,
+                    const float* __restrict__ rows,
+                    const float* __restrict__ box,
+                    const float* __restrict__ root,
+                    const int32_t* __restrict__ lfirst,
+                    const int32_t* __restrict__ lcount, int lp,
+                    const int32_t* __restrict__ words,
+                    const int32_t* __restrict__ summ,
+                    const float* __restrict__ floors, int k_bands,
+                    float* __restrict__ out_dist, float* __restrict__ out_u,
+                    float* __restrict__ out_v, int32_t* __restrict__ out_tri) {
+  const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int pid = (int)(g / kPacketR);
+  const int nw = lp / 32, ns = lp / kLeafBlock;
+  const float o[3] = {ox[g], oy[g], oz[g]};
+  const float d[3] = {dx[g], dy[g], dz[g]};
+  const float idir[3] = {1.0f / (d[0] + kInvEps), 1.0f / (d[1] + kInvEps),
+                         1.0f / (d[2] + kInvEps)};
+  const bool active = tm[g] >= 0.0f;
+  float best = active ? fminf(tm[g], kBig) : -kBig, bu = 0.0f, bv = 0.0f;
+  int tri = -1;
+  const float t_root = box_exit(root, root + 3, o, idir);
+  WarpCull wc = warp_cull<true>(o, d, idir, fminf(best, t_root));
+
+  scan_words<true>(
+      words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
+      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc,
+      [&] { return warp_max(fmaxf(fminf(best, t_root), 0.0f)); },
+      [&](int l) {
+        bool pass;
+        const float tn = ray_slab(box, lp, l, o, idir, pass);
+        if (pass && tn < best) {
+          const int first = __ldg(lfirst + l), cnt = __ldg(lcount + l);
+          for (int j = 0; j < cnt; ++j) {
+            const RawRow t = load_raw_row(rows, first + j);
+            // full Moller, in the order of _intersect4 (:431-458)
+            const float tvx = o[0] - t.ax, tvy = o[1] - t.ay,
+                        tvz = o[2] - t.az;
+            const float det = d[0] * t.nx + d[1] * t.ny + d[2] * t.nz;
+            const float tmul = -(tvx * t.nx + tvy * t.ny + tvz * t.nz);
+            const float u = d[0] * (tvy * t.caz - tvz * t.cay) +
+                            d[1] * (tvz * t.cax - tvx * t.caz) +
+                            d[2] * (tvx * t.cay - tvy * t.cax);
+            const float v = d[0] * (t.bay * tvz - t.baz * tvy) +
+                            d[1] * (t.baz * tvx - t.bax * tvz) +
+                            d[2] * (t.bax * tvy - t.bay * tvx);
+            const float duv = det - u - v;
+            // two-sided: u, v and det - u - v share a sign
+            const bool side = fmaxf(u, fmaxf(v, duv)) <= 0.0f ||
+                              fminf(u, fminf(v, duv)) >= 0.0f;
+            const float idet = 1.0f / (det == 0.0f ? 1e-30f : det);
+            const float dist = tmul * idet;
+            // strictly nearer only: the first hit found keeps a tie
+            if (side && det != 0.0f && dist > 0.0f && dist < best) {
+              best = dist;
+              tri = first + j;
+              bu = u * idet;
+              bv = v * idet;
+            }
+          }
+        }
+        return false;
+      });
+
+  out_dist[g] = tri >= 0 ? best : (active ? kBig : -kBig);
+  out_u[g] = bu;
+  out_v[g] = bv;
+  out_tri[g] = max(tri, 0);
+}
+
 int words_smem(int k_bands, int lp) {
   return k_bands * (lp / kLeafBlock) * (int)sizeof(unsigned);
 }
@@ -523,8 +677,9 @@ int snail_words_camera(const float* cam, const float* box, int lp, int n_leaf,
     return (int)cudaErrorInvalidValue;
   words_kernel<CAMERA>
       <<<n_packets, kWordsThreads, words_smem(k_bands, lp),
-         (cudaStream_t)stream>>>(cam, nullptr, nullptr, nullptr, nullptr, box,
-                                 lp, n_leaf, k_bands, words, summ, floors);
+         (cudaStream_t)stream>>>(cam, nullptr, nullptr, nullptr, nullptr,
+                                 nullptr, nullptr, nullptr, box, lp, n_leaf,
+                                 k_bands, words, summ, floors);
   return (int)cudaGetLastError();
 }
 
@@ -537,8 +692,23 @@ int snail_words_shared(const float* orig, const float* dx, const float* dy,
     return (int)cudaErrorInvalidValue;
   words_kernel<SHARED>
       <<<n_packets, kWordsThreads, words_smem(k_bands, lp),
-         (cudaStream_t)stream>>>(orig, dx, dy, dz, tm, box, lp, n_leaf,
-                                 k_bands, words, summ, floors);
+         (cudaStream_t)stream>>>(orig, nullptr, nullptr, nullptr, dx, dy, dz,
+                                 tm, box, lp, n_leaf, k_bands, words, summ,
+                                 floors);
+  return (int)cudaGetLastError();
+}
+
+int snail_words_general(const float* ox, const float* oy, const float* oz,
+                        const float* dx, const float* dy, const float* dz,
+                        const float* tm, const float* box, int lp, int n_leaf,
+                        int k_bands, int n_packets, int32_t* words,
+                        int32_t* summ, float* floors, void* stream) {
+  if (!words_args_ok(lp, n_leaf, k_bands, n_packets))
+    return (int)cudaErrorInvalidValue;
+  words_kernel<GENERAL>
+      <<<n_packets, kWordsThreads, words_smem(k_bands, lp),
+         (cudaStream_t)stream>>>(nullptr, ox, oy, oz, dx, dy, dz, tm, box, lp,
+                                 n_leaf, k_bands, words, summ, floors);
   return (int)cudaGetLastError();
 }
 
@@ -569,6 +739,24 @@ int snail_shadow_wl(const float* orig, const float* dx, const float* dy,
                      (cudaStream_t)stream>>>(
       orig, dx, dy, dz, tm, rows, box, lfirst, lcount, lp, words, summ,
       floors, k_bands, blocked);
+  return (int)cudaGetLastError();
+}
+
+int snail_closest_wl_g(const float* ox, const float* oy, const float* oz,
+                       const float* dx, const float* dy, const float* dz,
+                       const float* tm, const float* rows, const float* box,
+                       const float* root, const int32_t* lfirst,
+                       const int32_t* lcount, int lp, const int32_t* words,
+                       const int32_t* summ,
+                       const float* floors, int k_bands, int n_packets,
+                       float* dist, float* u, float* v, int32_t* tri,
+                       void* stream) {
+  if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0)
+    return (int)cudaErrorInvalidValue;
+  closest_wl_g_kernel<<<n_packets * (kPacketR / kTraceThreads), kTraceThreads,
+                        0, (cudaStream_t)stream>>>(
+      ox, oy, oz, dx, dy, dz, tm, rows, box, root, lfirst, lcount, lp, words,
+      summ, floors, k_bands, dist, u, v, tri);
   return (int)cudaGetLastError();
 }
 

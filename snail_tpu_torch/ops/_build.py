@@ -41,6 +41,8 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P, _P],
     "snail_shadow_wl": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                         _I, _I, _P, _P],
+    "snail_words_general": [_P] * 8 + [_I] * 4 + [_P] * 4,
+    "snail_closest_wl_g": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 5,
 }
 
 

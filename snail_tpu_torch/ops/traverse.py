@@ -1,5 +1,5 @@
-"""Worklist traversal: primary closest hit and shadow any-hit
-(``snail_tpu.ops.traverse_pallas``, the ``SNAIL_WL=1`` path).
+"""Worklist traversal: primary closest hit, shadow any-hit and bounce
+closest hit (``snail_tpu.ops.traverse_pallas``, the ``SNAIL_WL=1`` path).
 
 A frame is traced in packets of TILE x TILE = 64 x 64 pixels (PACKET_R =
 4096 rays). Ray k of a packet is pixel ``(k & 31, k >> 5)`` of the
@@ -9,16 +9,18 @@ float32 per component in that order.
 
 Each wavefront runs two kernels:
 
-1. a *words* pass (B1 camera, B3 shared origin): per packet, the ray
-   interval bounds are tested against every leaf box of the BVH; passing
-   leaves are sorted into ``k_bands`` equal-count near-to-far distance
-   bands and emitted as bit words, one summary word per 1024 leaves and
-   one distance floor per band;
+1. a *words* pass (B1 camera, B3 shared origin, B5 per-ray origins): per
+   packet, the ray interval bounds (inverse directions, and origins for
+   B5) are tested against every leaf box of the BVH; passing leaves are
+   sorted into ``k_bands`` equal-count near-to-far distance bands and
+   emitted as bit words, one summary word per 1024 leaves and one
+   distance floor per band;
 2. a *trace* pass (B2 closest hit from the camera, B4 any-hit from a
-   light): the surviving leaf bits are scanned band by band; each ray
-   culls the leaf box against its own current best and intersects the
-   leaf's triangles with the shared-origin Moller terms of
-   :func:`shared_rows`.
+   light, B6 closest hit from per-ray origins): the surviving leaf bits
+   are scanned band by band; each ray culls the leaf box against its own
+   current best and intersects the leaf's triangles, with the
+   shared-origin Moller terms of :func:`shared_rows` (B2, B4) or the full
+   Moller test on the raw triangle rows (B6).
 
 Word layout, per packet: ``words`` int32 (P, K, Lp/32), bit p of word w =
 leaf 32*w + p; ``summ`` int32 (P, K, Lp/1024), bit j of word s = word
@@ -33,8 +35,10 @@ Each wrapper counts its kernel launches in ``launches``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -76,6 +80,11 @@ class LeafTables:
     @property
     def lp(self) -> int:
         return self.box.shape[1]
+
+    @functools.cached_property
+    def root(self) -> torch.Tensor:
+        """float32 (6,): the box around every leaf, lo.xyz then hi.xyz."""
+        return torch.cat([self.box[:3].amin(1), self.box[3:].amax(1)])
 
     def to(self, device) -> "LeafTables":
         return LeafTables(self.box.to(device), self.first.to(device),
@@ -247,9 +256,22 @@ def unpack_bits(words: torch.Tensor) -> torch.Tensor:
         *words.shape[:-1], -1)
 
 
-def _leaf_pass(tables: LeafTables, o, idir, mb, k_bands: int):
+def _corner_range(x, om, oM, lm, lM):
+    """Least and greatest of (x - o) * i over the corners of the origin
+    interval [om, oM] and the inverse-direction interval [lm, lM]; one
+    origin (om is oM) has two corners."""
+    xs = (x - om,) if om is oM else (x - om, x - oM)
+    prods = [a * lm for a in xs] + [a * lM for a in xs]
+    lo, hi = prods[0], prods[0]
+    for q in prods[1:]:
+        lo, hi = torch.minimum(lo, q), torch.maximum(hi, q)
+    return lo, hi
+
+
+def _leaf_pass(tables: LeafTables, om, oM, idir, mb, k_bands: int):
     """Interval test of every leaf against each packet's bounds, banding
-    and bit packing. ``o``: float32 (3,) shared origin; ``idir``: three
+    and bit packing. ``om``/``oM``: the origin bounds, three scalars each
+    (a shared origin: the same tensors) or three (P, 1); ``idir``: three
     (P, PACKET_R) inverse dirs; ``mb``: (P,) packet distance bound."""
     im, iM = zip(*[_widen(c.amin(1), c.amax(1)) for c in idir])
     box = tables.box
@@ -257,13 +279,12 @@ def _leaf_pass(tables: LeafTables, o, idir, mb, k_bands: int):
     tn = torch.zeros((p, lp), dtype=torch.float32, device=box.device)
     tf = mb[:, None].expand(p, lp)
     for k in range(3):
-        a = box[k][None, :] - o[k]
-        c = box[3 + k][None, :] - o[k]
         lm, lM = im[k][:, None], iM[k][:, None]
-        lo_min = torch.minimum(a * lm, a * lM)
-        lo_max = torch.maximum(a * lm, a * lM)
-        hi_min = torch.minimum(c * lm, c * lM)
-        hi_max = torch.maximum(c * lm, c * lM)
+        o_lo = om[k]
+        o_hi = o_lo if om is oM else oM[k]
+        lo_min, lo_max = _corner_range(box[k][None, :], o_lo, o_hi, lm, lM)
+        hi_min, hi_max = _corner_range(box[3 + k][None, :], o_lo, o_hi,
+                                       lm, lM)
         tn = torch.maximum(tn, torch.minimum(lo_min, hi_min))
         tf = torch.minimum(tf, torch.maximum(lo_max, hi_max))
     # padding slots must never pass: with a direction interval spanning 0
@@ -306,7 +327,8 @@ def words_camera_plain(cam, width: int, height: int, tables: LeafTables,
     """Plain B1: the primary leaf pass of packets ``pids``."""
     _, idir, t_exit = _camera_rays(cam, width, height, pids)
     mb = t_exit.amax(1) * 1.0001 + 1e-30
-    return _leaf_pass(tables, cam[9:12], idir, mb, k_bands)
+    o = cam[9:12]
+    return _leaf_pass(tables, o, o, idir, mb, k_bands)
 
 
 def words_shared_plain(orig, d, tm, tables: LeafTables, k_bands: int):
@@ -315,27 +337,46 @@ def words_shared_plain(orig, d, tm, tables: LeafTables, k_bands: int):
     idir = [1.0 / (c + INV_EPS) for c in d]
     limit = torch.where(tm >= 0.0, tm, -BIG)
     mb = limit.amax(1) * 1.0001 + 1e-30
-    return _leaf_pass(tables, orig, idir, mb, k_bands)
+    return _leaf_pass(tables, orig, orig, idir, mb, k_bands)
+
+
+def words_general_plain(o, d, tm, tables: LeafTables, k_bands: int):
+    """Plain B5: the leaf pass of rays with their own origins; ``o`` and
+    ``d`` three and ``tm`` one (P, PACKET_R) float32 planes, masked rays
+    already substituted (:func:`substitute_masked`)."""
+    idir = [1.0 / (c + INV_EPS) for c in d]
+    limit = torch.where(tm >= 0.0, tm.clamp_max(BIG), -BIG)
+    mb = limit.amax(1) * 1.0001 + 1e-30
+    om, oM = zip(*[_widen(c.amin(1, keepdim=True), c.amax(1, keepdim=True))
+                   for c in o])
+    return _leaf_pass(tables, om, oM, idir, mb, k_bands)
 
 
 def _packet_leaves(tables: LeafTables, words_p):
     """Leaf ids set in any band of one packet's words, and for each of
     their triangles the triangle id and the position of its leaf."""
     leaves = torch.nonzero(unpack_bits(words_p).any(0)).flatten()
+    return (leaves, *_leaf_tris(tables, leaves))
+
+
+def _leaf_tris(tables: LeafTables, leaves):
+    """Triangle ids of ``leaves`` and, per triangle, its leaf's position."""
     cnt = tables.count[leaves].long()
     owner = torch.repeat_interleave(torch.arange(len(leaves),
                                                  device=cnt.device), cnt)
     start = torch.cumsum(cnt, 0) - cnt
     tri = (tables.first[leaves].long()[owner]
            + torch.arange(len(owner), device=cnt.device) - start[owner])
-    return leaves, tri, owner
+    return tri, owner
 
 
 def _leaf_slab(tables: LeafTables, o, idir, leaves):
-    """Per-ray slab test of ``leaves``: entry and exit, (R, n) each."""
+    """Per-ray slab test of ``leaves``: entry and exit, (R, n) each. ``o``:
+    three scalars (a shared origin) or three (R,)."""
     box = tables.box[:, leaves]
-    t1 = [(box[k][None, :] - o[k]) * idir[k][:, None] for k in range(3)]
-    t2 = [(box[3 + k][None, :] - o[k]) * idir[k][:, None]
+    t1 = [(box[k][None, :] - o[k].reshape(-1, 1)) * idir[k][:, None]
+          for k in range(3)]
+    t2 = [(box[3 + k][None, :] - o[k].reshape(-1, 1)) * idir[k][:, None]
           for k in range(3)]
     return _slab(t1, t2)
 
@@ -398,6 +439,77 @@ def camera_wl_plain(cam, width: int, height: int, rows, tables: LeafTables,
             bv[i] = torch.where(upd, vi, bv[i])
     dist = torch.where(btri >= 0, best, BIG)
     return dist, bu, bv, btri.to(torch.int32), d[0], d[1], d[2]
+
+
+def _moller_g(rows, o, d):
+    """Full Moller terms of rays from their own origins ``o`` along ``d``
+    (three (R,) each) against raw triangle rows (n, 16) [a, ba, ca, n]:
+    det, u, v, tmul, each (R, n) (the JAX package's ``_intersect4``)."""
+    col = lambda j: rows[None, :, j]
+    ax, ay, az = col(0), col(1), col(2)
+    bax, bay, baz = col(3), col(4), col(5)
+    cax, cay, caz = col(6), col(7), col(8)
+    nx, ny, nz = col(9), col(10), col(11)
+    dx, dy, dz = (c[:, None] for c in d)
+    tvx, tvy, tvz = o[0][:, None] - ax, o[1][:, None] - ay, o[2][:, None] - az
+    det = dx * nx + dy * ny + dz * nz
+    tmul = -(tvx * nx + tvy * ny + tvz * nz)
+    u = (dx * (tvy * caz - tvz * cay) + dy * (tvz * cax - tvx * caz)
+         + dz * (tvx * cay - tvy * cax))
+    v = (dx * (bay * tvz - baz * tvy) + dy * (baz * tvx - bax * tvz)
+         + dz * (bax * tvy - bay * tvx))
+    return det, u, v, tmul
+
+
+def closest_wl_g_plain(o, d, tm, rows, tables: LeafTables, words):
+    """Plain B6: closest hit of rays from their own origins over the
+    leaves set in ``words``; ``o``/``d`` three and ``tm`` one (P,
+    PACKET_R) planes, ``rows`` the raw triangle rows (T, 16).
+
+    Returns (dist, u, v, tri), each (P, PACKET_R). A live ray (tmax >= 0)
+    starts at min(tmax, BIG) and a hit must be strictly nearer; it
+    returns BIG on a miss, a masked ray -BIG; tri is clamped at 0. The
+    two-sided test and tie rule of :func:`camera_wl_plain`."""
+    idir = [1.0 / (c + INV_EPS) for c in d]
+    active = tm >= 0.0
+    best = torch.where(active, tm.clamp_max(BIG), -BIG)
+    bu = torch.zeros_like(best)
+    bv = torch.zeros_like(best)
+    btri = torch.full(best.shape, -1, dtype=torch.int64, device=best.device)
+    for i in range(tm.shape[0]):
+        op = [c[i] for c in o]
+        dp = [c[i] for c in d]
+        leaves, _, _ = _packet_leaves(tables, words[i])
+        tn, tf = _leaf_slab(tables, op, [c[i] for c in idir], leaves)
+        slab = (tn <= tf) & (tf > 0.0)
+        # only the leaves some ray of the packet enters
+        keep = slab.any(0)
+        slab = slab[:, keep]
+        tri, owner = _leaf_tris(tables, leaves[keep])
+        for s in range(0, len(tri), _PLAIN_TRIS):
+            t = tri[s:s + _PLAIN_TRIS]
+            det, u, v, tmul = _moller_g(rows[t], op, dp)
+            duv = det - u - v
+            side = ((torch.maximum(u, torch.maximum(v, duv)) <= 0.0)
+                    | (torch.minimum(u, torch.minimum(v, duv)) >= 0.0))
+            idet = 1.0 / torch.where(det == 0.0, 1e-30, det)
+            dist = tmul * idet
+            ok = (side & (det != 0.0) & (dist > 0.0)
+                  & slab[:, owner[s:s + _PLAIN_TRIS]])
+            dist = torch.where(ok, dist, BIG)
+            m = dist.amin(1)
+            is_min = ok & (dist == m[:, None])
+            j = torch.where(is_min, t[None, :], 2**62).argmin(1)
+            upd = m < best[i]
+            best[i] = torch.where(upd, m, best[i])
+            btri[i] = torch.where(upd, t[j], btri[i])
+            ui = (u * idet).gather(1, j[:, None])[:, 0]
+            vi = (v * idet).gather(1, j[:, None])[:, 0]
+            bu[i] = torch.where(upd, ui, bu[i])
+            bv[i] = torch.where(upd, vi, bv[i])
+    hit = btri >= 0
+    dist = torch.where(hit, best, torch.where(active, BIG, -BIG))
+    return dist, bu, bv, btri.clamp_min(0).to(torch.int32)
 
 
 def shadow_wl_plain(orig, d, tm, rows, tables: LeafTables, words):
@@ -464,6 +576,16 @@ def _launched(rc: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+_PLANES = ("ox", "oy", "oz", "dx", "dy", "dz", "tmax")
+
+
+def _check_planes(planes, p, dev):
+    """Checks ray planes, each (P, PACKET_R) float32, named by the tail of
+    ``_PLANES``: directions and tmax, or origins, directions and tmax."""
+    for name, t in zip(_PLANES[-len(planes):], planes):
+        _check(t, name, torch.float32, (p, PACKET_R), dev)
+
+
 def _check_tables(tables: LeafTables, dev):
     lp = tables.lp
     _check(tables.box, "leaf box", torch.float32, (6, lp), dev)
@@ -512,8 +634,7 @@ def words_shared(orig, d, tm, tables: LeafTables, k_bands: int = 1):
     dev = tm.device
     p = tm.shape[0]
     _check(orig, "origin", torch.float32, (3,), dev)
-    for name, t in zip(("dx", "dy", "dz", "tmax"), (*d, tm)):
-        _check(t, name, torch.float32, (p, PACKET_R), dev)
+    _check_planes((*d, tm), p, dev)
     _check_tables(tables, dev)
     words, summ, floors = _words_out(p, k_bands, tables.lp, dev)
     lib = library()
@@ -572,8 +693,7 @@ def shadow_wl(orig, d, tm, rows, tables: LeafTables, words, summ, floors):
     dev = tm.device
     p = tm.shape[0]
     _check(orig, "origin", torch.float32, (3,), dev)
-    for name, t in zip(("dx", "dy", "dz", "tmax"), (*d, tm)):
-        _check(t, name, torch.float32, (p, PACKET_R), dev)
+    _check_planes((*d, tm), p, dev)
     _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
     _check_tables(tables, dev)
     _check_words(words, summ, floors, p, tables.lp, dev)
@@ -589,7 +709,59 @@ def shadow_wl(orig, d, tm, rows, tables: LeafTables, words, summ, floors):
     return blocked
 
 
-KERNELS = (words_camera, camera_wl, words_shared, shadow_wl)
+def words_general(o, d, tm, tables: LeafTables, k_bands: int = WL_BANDS):
+    """B5: leaf pass of rays with their own origins (replaces
+    ``_words_general_kernel``). ``o`` and ``d`` three and ``tm`` one (P,
+    PACKET_R) float32 planes, masked rays substituted. Returns (words,
+    summ, floors)."""
+    if not _on_cuda(tm):
+        return words_general_plain(o, d, tm, tables, k_bands)
+    from ._build import library
+
+    dev = tm.device
+    p = tm.shape[0]
+    _check_planes((*o, *d, tm), p, dev)
+    _check_tables(tables, dev)
+    words, summ, floors = _words_out(p, k_bands, tables.lp, dev)
+    lib = library()
+    _launched(lib.snail_words_general(
+        *(_ptr(t) for t in (*o, *d, tm)), _ptr(tables.box), tables.lp,
+        tables.n_leaf, k_bands, p, _ptr(words), _ptr(summ), _ptr(floors),
+        _stream()), "words_general")
+    words_general.launches += 1
+    return words, summ, floors
+
+
+def closest_wl_g(o, d, tm, rows, tables: LeafTables, words, summ, floors):
+    """B6: closest hit of rays from their own origins over B5's words
+    (replaces ``_closest_wl_kernel_g``); ``rows`` the raw triangle rows.
+    Returns (dist, u, v, tri), each (P, PACKET_R): a miss has dist BIG, a
+    masked ray -BIG, and tri is clamped at 0."""
+    if not _on_cuda(tm):
+        return closest_wl_g_plain(o, d, tm, rows, tables, words)
+    from ._build import library
+
+    dev = tm.device
+    p = tm.shape[0]
+    _check_planes((*o, *d, tm), p, dev)
+    _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
+    _check_tables(tables, dev)
+    _check_words(words, summ, floors, p, tables.lp, dev)
+    dist, u, v = (torch.empty((p, PACKET_R), dtype=torch.float32,
+                              device=dev) for _ in range(3))
+    tri = torch.empty((p, PACKET_R), dtype=torch.int32, device=dev)
+    lib = library()
+    _launched(lib.snail_closest_wl_g(
+        *(_ptr(t) for t in (*o, *d, tm)), _ptr(rows), _ptr(tables.box),
+        _ptr(tables.root), _ptr(tables.first), _ptr(tables.count), tables.lp,
+        _ptr(words), _ptr(summ), _ptr(floors), words.shape[1], p, _ptr(dist),
+        _ptr(u), _ptr(v), _ptr(tri), _stream()), "closest_wl_g")
+    closest_wl_g.launches += 1
+    return dist, u, v, tri
+
+
+KERNELS = (words_camera, camera_wl, words_shared, shadow_wl, words_general,
+           closest_wl_g)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -601,6 +773,27 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+_live_rays = None
+
+
+@contextlib.contextmanager
+def count_live_rays():
+    """Within the block, every wavefront traced appends its live rays
+    (every primary ray; tmax >= 0 otherwise) to the yielded list, as 0-d
+    tensors on its device (no host sync)."""
+    global _live_rays
+    _live_rays = []
+    try:
+        yield _live_rays
+    finally:
+        _live_rays = None
+
+
+def _count_live(tmax: torch.Tensor) -> None:
+    if _live_rays is not None:
+        _live_rays.append((tmax >= 0.0).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -623,7 +816,54 @@ def camera_trace(scene, camera, width: int, height: int):
     rows = shared_rows(scene.tri_rows, camera.pos)
     out = camera_wl(cam, width, height, rows, scene.leaves, words, summ,
                     floors)
+    _count_live(out[0])
     return tuple(a.reshape(-1) for a in out)
+
+
+def substitute_masked(comps, tm, unit_fallback: bool = False):
+    """Masked rays' (tmax < 0) components -> their packet's mean over its
+    live rays, a point inside the packet's own interval, so garbage (miss
+    points at BIG) cannot blow the interval bounds open; masked rays'
+    hits are discarded by tmax < 0 regardless. ``unit_fallback``: a fully
+    masked packet's mean direction gets z = 1, so its inverse stays
+    finite. ``comps`` flat (R,) each, R a multiple of PACKET_R."""
+    mask = tm >= 0.0
+    nlive = mask.reshape(-1, PACKET_R).sum(1).clamp_min(1)
+    means = [torch.repeat_interleave(
+        torch.where(mask, c, 0.0).reshape(-1, PACKET_R).sum(1) / nlive,
+        PACKET_R) for c in comps]
+    if unit_fallback:
+        mlen = means[0] * means[0] + means[1] * means[1] + means[2] * means[2]
+        means[2] = torch.where(mlen < 1e-12, 1.0, means[2])
+    return tuple(torch.where(mask, c, m) for c, m in zip(comps, means))
+
+
+def general_planes(o3, d3, tmax):
+    """A wavefront of rays with their own origins as the B5/B6 kernels take
+    it: padded to whole packets (origins 0, directions 1, tmax -BIG), masked
+    rays substituted, cut into (P, PACKET_R) planes. ``o3``/``d3`` three
+    flat (R,) components, ``tmax`` (R,) (negative = masked). Returns (o,
+    d, tm, R)."""
+    o = [pad_flat(c)[0] for c in o3]
+    d = [pad_flat(c, 1.0)[0] for c in d3]
+    tm, n = pad_flat(tmax, -BIG)
+    o = substitute_masked(o, tm)
+    d = substitute_masked(d, tm, unit_fallback=True)
+    pk = lambda a: a.reshape(-1, PACKET_R)
+    return tuple(map(pk, o)), tuple(map(pk, d)), pk(tm), n
+
+
+def closest_hit_c(scene, o3, d3, tmax):
+    """Closest hit of a wavefront of rays with their own origins (bounce
+    rays): ``o3``/``d3`` three flat (R,) components, ``tmax`` (R,), a
+    negative tmax masks the ray. Returns flat (R,) dist, u, v, tri: a miss
+    has dist BIG, a masked ray -BIG, and tri is clamped at 0."""
+    o, d, tm, n = general_planes(o3, d3, tmax)
+    _count_live(tm)
+    words, summ, floors = words_general(o, d, tm, scene.leaves, WL_BANDS)
+    out = closest_wl_g(o, d, tm, scene.tri_rows, scene.leaves, words, summ,
+                       floors)
+    return tuple(a.reshape(-1)[:n] for a in out)
 
 
 def any_hit_shared(scene, light_pos, d3, tmax):
@@ -634,6 +874,7 @@ def any_hit_shared(scene, light_pos, d3, tmax):
     dy, _ = pad_flat(d3[1], 1.0)
     dz, _ = pad_flat(d3[2], 1.0)
     tm, _ = pad_flat(tmax, -BIG)
+    _count_live(tm)
     pk = lambda a: a.reshape(-1, PACKET_R)
     d = (pk(dx), pk(dy), pk(dz))
     orig = light_pos.float().contiguous()

@@ -1,13 +1,15 @@
-"""Profile the forward frame on a CUDA card: device time per kernel, per
-frame, and the share of the frame the device is busy.
+"""Profile a frame on a CUDA card: device time per kernel, per frame, and
+the share of the frame the device is busy.
 
     python -m snail_tpu_torch.profile_frame [--kind city|terrain]
-        [--trace out.json]
+        [--path fwd|bounce|fwd_bwd] [--trace out.json]
 
-Traces five 1024 x 1024 frames of ``render_frame`` on a benchmark scene
-at bench.py's size with ``torch.profiler``, after two warm-up frames;
-prints the kernels by device time and the busy share (union of kernel
-intervals over the traced window). Needs a card.
+Traces five 1024 x 1024 frames on a benchmark scene at bench.py's size
+with ``torch.profiler``, after two warm-up frames: ``render_frame``
+without bounces (fwd), with reflections and transparency on the bounce
+material (bounce), or bench.py's fwd+bwd step (fwd_bwd); prints the
+kernels by device time and the busy share (union of kernel intervals over
+the traced window). Needs a card.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ def _union_us(intervals) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", default="city", choices=("city", "terrain"))
+    ap.add_argument("--path", default="fwd",
+                    choices=("fwd", "bounce", "fwd_bwd"))
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
     args = ap.parse_args(argv)
@@ -44,15 +48,23 @@ def main(argv=None) -> int:
 
     from .core.types import RenderOpts
     from .render.renderer import render_frame
-    from .scene.bench_scenes import BENCH_N, bench_scene
+    from .scene.bench_scenes import (BENCH_N, STEP_OPTS, bench_scene,
+                                     bench_step)
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     n = BENCH_N[args.kind]
-    scene, cam, g, _ = bench_scene(args.kind, n, device="cuda")
-    opts = RenderOpts(reflections=False, transparency=False, textures=False)
-    frame = lambda: render_frame(scene, cam, SIZE, SIZE, opts)
+    scene, cam, g, _ = bench_scene(args.kind, n, device="cuda",
+                                   bounce=args.path != "fwd")
+    if args.path == "fwd_bwd":
+        target = render_frame(scene, cam, SIZE, SIZE, STEP_OPTS)
+        frame = lambda: bench_step(scene, cam, target, SIZE, SIZE)
+    else:
+        opts = (RenderOpts(textures=False) if args.path == "bounce" else
+                RenderOpts(reflections=False, transparency=False,
+                           textures=False))
+        frame = lambda: render_frame(scene, cam, SIZE, SIZE, opts)
     for _ in range(2):
         frame()
     torch.cuda.synchronize()
@@ -77,7 +89,8 @@ def main(argv=None) -> int:
         spans.append((e.time_range.start, e.time_range.end))
     busy = _union_us(spans)
     dev = torch.cuda.get_device_name(0)
-    print(f"{args.kind}_{n} ({g.num_tris} tris) {SIZE}^2 on {dev}: "
+    print(f"{args.kind}_{n} {args.path} ({g.num_tris} tris) {SIZE}^2 on "
+          f"{dev}: "
           f"{wall_us / FRAMES / 1e3:.3f} ms/frame (host clock, "
           f"profiler on), device busy {busy / FRAMES / 1e3:.3f} "
           f"ms/frame = {busy / wall_us:.3f} of the window, "

@@ -1,13 +1,18 @@
 """The benchmark scenes of ``bench.py``, built with the port's procedural
-copies and the shared BVH builder, with their light and camera."""
+copies and the shared BVH builder, with their light and camera, and the
+parameters of ``bench.py``'s gradient step."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from snail_tpu.bvh import build_bvh
 
-from ..core.types import Camera, Light
+from ..core.types import Camera, Light, RenderOpts
+from .materials import MaterialTable
 from .procedural import city_scene, terrain_scene
 from .scene import make_traced_scene
 
@@ -24,18 +29,72 @@ SCENES = {
 # kind -> the size bench.py renders it at (terrain 724: ~1.05 Mtri)
 BENCH_N = {"city": 24, "terrain": 724}
 
+# the parameters bench.py's fwd+bwd step differentiates (bench.py:223-231)
+GRAD_PARAMS = ("tri_a", "tri_ba", "tri_ca", "mat_diffuse", "light_pos",
+               "light_color", "cam_pos")
+# its render options (bench.py:218)
+STEP_OPTS = RenderOpts(reflections=True, transparency=False, textures=False,
+                       shadows=True)
 
-def bench_scene(kind: str, n: int, device="cpu"):
-    """(scene, camera, geometry, bvh) of ``kind`` at size ``n``."""
+
+def bounce_materials() -> MaterialTable:
+    """The default table with material 0 at reflectivity 0.5 and dissolve
+    0.5, so every hit casts a reflection and a transparency ray. The bench
+    scenes carry no such material of their own (every material defaults to
+    reflectivity 0 and dissolve 1), which leaves bounces compiled out."""
+    mats = MaterialTable.build({"": 0})
+    mats.reflectivity[0] = 0.5
+    mats.dissolve[0] = 0.5
+    return mats
+
+
+def bench_scene(kind: str, n: int, device="cpu", bounce: bool = False):
+    """(scene, camera, geometry, bvh) of ``kind`` at size ``n``; with
+    ``bounce``, material 0 is :func:`bounce_materials`'."""
     make, leaf, light, radius, offset = SCENES[kind]
     g = make(n).flatten()
     lo, hi = g.bounds()
     bvh = build_bvh(lo, hi, leaf_size=leaf)
     scene = make_traced_scene(
-        g, bvh, lights=Light.make(light, (1.0, 1.0, 1.0), radius),
-        device=device)
+        g, bvh, bounce_materials() if bounce else None,
+        lights=Light.make(light, (1.0, 1.0, 1.0), radius), device=device)
     c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
     ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
     cam = Camera.look_at(pos=tuple(c + np.array(offset) * ext),
                          target=tuple(c), device=device)
     return scene, cam, g, bvh
+
+
+def grad_params(scene, camera) -> dict:
+    """Fresh leaf tensors of :data:`GRAD_PARAMS`, from the scene's light 0
+    table and the camera, requiring grad."""
+    src = {name: getattr(scene, name) for name in GRAD_PARAMS[:4]}
+    src.update(light_pos=scene.lights.pos, light_color=scene.lights.color,
+               cam_pos=camera.pos)
+    return {k: src[k].detach().clone().requires_grad_() for k in GRAD_PARAMS}
+
+
+def with_params(scene, camera, params: dict):
+    """(scene, camera) with ``params`` in place, as bench.py's step builds
+    them (bench.py:237-245)."""
+    lights = Light(pos=params["light_pos"], color=params["light_color"],
+                   radius=scene.lights.radius)
+    s = dataclasses.replace(scene, tri_a=params["tri_a"],
+                            tri_ba=params["tri_ba"], tri_ca=params["tri_ca"],
+                            mat_diffuse=params["mat_diffuse"], lights=lights)
+    return s, dataclasses.replace(camera, pos=params["cam_pos"])
+
+
+def bench_step(scene, camera, target, width: int, height: int):
+    """bench.py's fwd+bwd step (bench.py:236-247): the MSE of
+    ``render_frame_fast_diff`` under :data:`STEP_OPTS` against ``target``,
+    and its gradients with respect to fresh copies of the
+    :data:`GRAD_PARAMS`. Returns (loss, {name: gradient})."""
+    from ..render.fast import render_frame_fast_diff
+
+    params = grad_params(scene, camera)
+    s, c = with_params(scene, camera, params)
+    img = render_frame_fast_diff(s, c, width, height, STEP_OPTS)
+    loss = ((img - target) ** 2).mean()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))

@@ -1,6 +1,7 @@
-"""The device scene (``snail_tpu.scene.scene.TracedScene``), with only what
-the forward frame reads: triangle rows, leaf tables, shading rows,
-materials and lights, as tensors on one device.
+"""The device scene (``snail_tpu.scene.scene.TracedScene``), with what the
+forward and differentiable frames read: triangle rows, leaf tables,
+shading rows, materials, the primal triangle and material arrays that
+gradients flow to, and lights, as tensors on one device.
 """
 
 from __future__ import annotations
@@ -27,7 +28,14 @@ class TracedScene:
     sh_pack float32 (T, 32): n0, n_e1, n_e2, uv0, uv_e1, uv_e2, mat id,
     then the triangle's material row written out in full (16:32).
     mat_pack float32 (M, 16): kd, ks, reflect, dissolve, difftex, disstex,
-    emissive, flags, pad."""
+    emissive, flags, pad.
+
+    The primal arrays, the parameters of ``render_frame_fast_diff``:
+    tri_a, tri_ba, tri_ca float32 (T, 3) in the order and padding of
+    tri_rows; sh_mat int32 (T,) the material id of each triangle;
+    mat_diffuse, mat_specular float32 (M, 3). The kernels trace tri_rows
+    as built: replacing tri_a (a gradient step) does not move the rows,
+    as the JAX package's pk_tris is not rebuilt either (ROADMAP C9)."""
 
     tri_rows: torch.Tensor
     leaves: LeafTables
@@ -35,6 +43,12 @@ class TracedScene:
     root_hi: torch.Tensor
     sh_pack: torch.Tensor
     mat_pack: torch.Tensor
+    tri_a: torch.Tensor
+    tri_ba: torch.Tensor
+    tri_ca: torch.Tensor
+    sh_mat: torch.Tensor
+    mat_diffuse: torch.Tensor
+    mat_specular: torch.Tensor
     lights: Optional[Light]
     has_refl: bool
     has_transp: bool
@@ -48,10 +62,13 @@ class TracedScene:
     def to(self, device) -> "TracedScene":
         mv = lambda t: t.to(device)
         return dataclasses.replace(
-            self, tri_rows=mv(self.tri_rows), leaves=self.leaves.to(device),
-            root_lo=mv(self.root_lo), root_hi=mv(self.root_hi),
-            sh_pack=mv(self.sh_pack), mat_pack=mv(self.mat_pack),
-            lights=None if self.lights is None else self.lights.to(device))
+            self, leaves=self.leaves.to(device),
+            lights=None if self.lights is None else self.lights.to(device),
+            **{name: mv(getattr(self, name)) for name in _TENSORS})
+
+
+_TENSORS = ("tri_rows", "root_lo", "root_hi", "sh_pack", "mat_pack", "tri_a",
+            "tri_ba", "tri_ca", "sh_mat", "mat_diffuse", "mat_specular")
 
 
 def _mat_pack(materials: MaterialTable) -> np.ndarray:
@@ -101,6 +118,12 @@ def make_traced_scene(geom: FlatGeometry, bvh,
         root_hi=dev(bvh.node_hi[0].astype(np.float32)),
         sh_pack=dev(_sh_pack(g, mat_pack)),
         mat_pack=dev(mat_pack),
+        tri_a=dev(g.a),
+        tri_ba=dev(g.ba),
+        tri_ca=dev(g.ca),
+        sh_mat=dev(g.mat_id.astype(np.int32)),
+        mat_diffuse=dev(materials.diffuse),
+        mat_specular=dev(materials.specular),
         lights=None if lights is None else lights.to(device),
         has_refl=bool(np.any(materials.reflectivity > 0.0)),
         has_transp=bool(np.any(materials.dissolve < 1.0)),
@@ -112,9 +135,11 @@ def traced_scene_from_numpy(arrays: Mapping[str, np.ndarray],
                             device="cpu") -> TracedScene:
     """The port's scene from the JAX ``TracedScene``'s fields as NumPy
     arrays, keyed by their JAX names: node_lo, node_hi, node_child,
-    node_count, tri_a, tri_ba, tri_ca, sh_pack, mat_pack, mat_reflect,
-    mat_dissolve, optionally tex_atlas, and the lights as light_pos,
-    light_color, light_radius (absent: no lights)."""
+    node_count, tri_a, tri_ba, tri_ca, sh_mat, sh_pack, mat_pack,
+    mat_diffuse, mat_specular, mat_reflect, mat_dissolve, optionally
+    tex_atlas, and the lights as light_pos, light_color, light_radius
+    (absent: no lights). The triangle rows are packed from tri_a, tri_ba
+    and tri_ca as given."""
     a = {k: np.asarray(v) for k, v in arrays.items() if v is not None}
     dev = lambda x: torch.from_numpy(np.array(x, np.float32)).to(device)
     lights = None
@@ -129,6 +154,12 @@ def traced_scene_from_numpy(arrays: Mapping[str, np.ndarray],
         root_hi=dev(a["node_hi"][0]),
         sh_pack=dev(a["sh_pack"]),
         mat_pack=dev(a["mat_pack"]),
+        tri_a=dev(a["tri_a"]),
+        tri_ba=dev(a["tri_ba"]),
+        tri_ca=dev(a["tri_ca"]),
+        sh_mat=torch.from_numpy(np.array(a["sh_mat"], np.int32)).to(device),
+        mat_diffuse=dev(a["mat_diffuse"]),
+        mat_specular=dev(a["mat_specular"]),
         lights=lights,
         has_refl=bool(np.any(a["mat_reflect"] > 0.0)),
         has_transp=bool(np.any(a["mat_dissolve"] < 1.0)),

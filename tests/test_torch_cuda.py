@@ -7,6 +7,8 @@ where JAX is absent:
         tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,8 @@ from snail_tpu_torch.core.types import Camera, Light, RenderOpts
 from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
 from snail_tpu_torch.render.renderer import render_frame
+from snail_tpu_torch.scene.bench_scenes import (STEP_OPTS, bench_step,
+                                                bounce_materials)
 from snail_tpu_torch.scene.procedural import city_scene, terrain_scene
 from snail_tpu_torch.scene.scene import make_traced_scene
 
@@ -29,8 +33,9 @@ def _need_cuda():
         pytest.skip("needs a CUDA device")
 
 
-def _scene(which: str):
-    """(scene on the card, camera, width, height, light position)."""
+def _scene(which: str, bounce: bool = False):
+    """(scene on the card, camera, width, height, light position); with
+    ``bounce``, material 0 reflective and half transparent."""
     if which == "city":
         g = city_scene(6).flatten()
         leaf, light, r, size = 4, (0.0, 30.0, 0.0), 120.0, (256, 128)
@@ -39,7 +44,8 @@ def _scene(which: str):
         leaf, light, r, size = 4, (0.0, 60.0, 0.0), 200.0, (256, 256)
     lo, hi = g.bounds()
     bvh = build_bvh(lo, hi, leaf_size=leaf)
-    scene = make_traced_scene(g, bvh, lights=Light.make(light, (1, 1, 1), r),
+    scene = make_traced_scene(g, bvh, bounce_materials() if bounce else None,
+                              lights=Light.make(light, (1, 1, 1), r),
                               device="cuda")
     c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
     ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
@@ -147,6 +153,113 @@ def test_shadow_wl_kernel_matches_plain(which):
     assert (kb[live] == pb[live]).mean() > 0.999
 
 
+def _bounce_rays(scene, n_packets, seed=7):
+    """Seeded rays with their own origins, the last packet 1000 rays
+    short: each packet's rays start near a point of the scene box and run
+    in a narrow cone (down into the geometry or up out of it); every 7th
+    ray masked, with a garbage origin as a miss point carries. Returns the
+    planes of ``general_planes``."""
+    rng = np.random.default_rng(seed)
+    lo, hi = scene.root_lo.cpu().numpy(), scene.root_hi.cpu().numpy()
+    shape = (n_packets, pt.PACKET_R, 3)
+    o = (rng.uniform(lo, hi, (n_packets, 1, 3))
+         + rng.uniform(-0.01, 0.01, shape) * (hi - lo))
+    axis = rng.normal(size=(n_packets, 1, 3))
+    d = axis / np.linalg.norm(axis, axis=-1, keepdims=True)
+    d = d + rng.uniform(-0.05, 0.05, shape)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tm = np.full(shape[:2], BIG)
+    tm[:, ::7] = -BIG
+    o[:, ::7] = 1e30
+    n = n_packets * pt.PACKET_R - 1000
+    flat = lambda a: torch.from_numpy(
+        np.ascontiguousarray(a, np.float32).reshape(-1)[:n]).cuda()
+    o, d, tm, _ = pt.general_planes(tuple(flat(o[..., k]) for k in range(3)),
+                                    tuple(flat(d[..., k]) for k in range(3)),
+                                    flat(tm))
+    return o, d, tm
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_words_general_kernel_matches_plain(which):
+    _need_cuda()
+    scene, _, _, _, _ = _scene(which)
+    o, d, tm = _bounce_rays(scene, 6)
+    kern = pt.words_general(o, d, tm, scene.leaves)
+    torch.cuda.synchronize()
+    _assert_words_equal(kern, pt.words_general_plain(o, d, tm, scene.leaves,
+                                                     pt.WL_BANDS))
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_closest_wl_g_kernel_matches_plain(which):
+    _need_cuda()
+    scene, _, _, _, _ = _scene(which)
+    o, d, tm = _bounce_rays(scene, 6)
+    words, summ, floors = pt.words_general(o, d, tm, scene.leaves)
+    kern = pt.closest_wl_g(o, d, tm, scene.tri_rows, scene.leaves, words,
+                           summ, floors)
+    torch.cuda.synchronize()
+    plain = pt.closest_wl_g_plain(o, d, tm, scene.tri_rows, scene.leaves,
+                                  words)
+    kd, ku, kv, kt = (a.cpu().numpy() for a in kern)
+    pd, pu, pv, ptri = (a.cpu().numpy() for a in plain)
+    live = (tm >= 0).cpu().numpy()
+    big = np.float32(BIG)
+    hit = live & (pd < big)
+    assert 0.02 < hit.sum() / live.sum() < 0.98
+    np.testing.assert_array_equal(kd[~live], -big)
+    np.testing.assert_array_equal(kd[live & ~hit], big)
+    np.testing.assert_array_equal(kt[~hit], 0)
+    np.testing.assert_allclose(kd, pd, rtol=2e-4, atol=2e-4)
+    assert (kt[hit] == ptri[hit]).mean() > 0.999
+    same = hit & (kt == ptri)
+    np.testing.assert_allclose(ku[same], pu[same], atol=2e-3)
+    np.testing.assert_allclose(kv[same], pv[same], atol=2e-3)
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_bounce_frame_on_card_matches_cpu(which):
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which, bounce=True)
+    opts = RenderOpts(textures=False)
+    pt.reset_launch_counts()
+    img = render_frame(scene, cam, w, h, opts)
+    torch.cuda.synchronize()
+    counts = pt.launch_counts()
+    assert all(n > 0 for n in counts.values()), counts
+    ref = render_frame(scene.to("cpu"), cam.to("cpu"), w, h, opts)
+    err = (img.cpu() - ref).abs().amax(-1)
+    assert torch.isfinite(img).all() and img.abs().amax() > 0
+    assert (err > 2e-3).float().mean() < 1e-3, float(err.max())
+
+
+def test_diff_step_on_card_matches_cpu():
+    """bench.py's fwd+bwd step (7 parameters, reflections and shadows) on
+    the card and on the CPU path, against a target at half the light
+    colour."""
+    _need_cuda()
+    scene, cam, w, h, _ = _scene("city", bounce=True)
+    half = dataclasses.replace(scene, lights=Light(
+        pos=scene.lights.pos, color=scene.lights.color * 0.5,
+        radius=scene.lights.radius))
+    target = render_frame(half, cam, w, h, STEP_OPTS)
+    pt.reset_launch_counts()
+    lk, gk = bench_step(scene, cam, target, w, h)
+    counts = pt.launch_counts()
+    assert all(n > 0 for n in counts.values()), counts
+    lc, gc = bench_step(scene.to("cpu"), cam.to("cpu"), target.cpu(), w, h)
+    # tests/test_fast_diff.py:83-91
+    lk, lc = float(lk), float(lc)
+    assert abs(lk - lc) < 3e-4 * max(1.0, abs(lc))
+    for k in gc:
+        a, b = gk[k].cpu().numpy(), gc[k].numpy()
+        denom = max(np.abs(b).max(), 1e-8)
+        assert np.isfinite(a).all() and np.abs(b).max() > 0, k
+        assert np.quantile(np.abs(a - b), 0.999) < 5e-3 * denom, k
+        assert np.abs(a - b).mean() < 1e-3 * denom, k
+
+
 @pytest.mark.parametrize("which", SCENES)
 def test_render_frame_on_card_matches_cpu(which):
     _need_cuda()
@@ -155,7 +268,9 @@ def test_render_frame_on_card_matches_cpu(which):
     img = render_frame(scene, cam, w, h, OPTS)
     torch.cuda.synchronize()
     counts = pt.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    # the forward frame's kernels; no bounce wavefront
+    assert all(counts[k.__name__] > 0 for k in pt.KERNELS[:4]), counts
+    assert counts["words_general"] == counts["closest_wl_g"] == 0, counts
     ref = render_frame(scene.to("cpu"), cam.to("cpu"), w, h, OPTS)
     err = (img.cpu() - ref).abs().amax(-1)
     assert torch.isfinite(img).all() and img.abs().amax() > 0

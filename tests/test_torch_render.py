@@ -1,6 +1,7 @@
-"""The port's forward frame against the JAX package's render_frame_fast
-(Pallas kernels in interpret mode on the CPU), the committed golden image,
-and the options the port does not run yet."""
+"""The port's frame against the JAX package's render_frame_fast (Pallas
+kernels in interpret mode on the CPU), without and with reflection and
+transparency bounces, the committed golden image, and the options the
+port does not run yet."""
 
 import os
 import subprocess
@@ -17,6 +18,7 @@ from snail_tpu.core.types import Light as JLight
 from snail_tpu.core.types import RenderOpts as JRenderOpts
 from snail_tpu.render.fast import render_frame_fast as j_render_frame_fast
 from snail_tpu.scene import procedural as jproc
+from snail_tpu.scene.materials import MaterialTable as JMaterialTable
 from snail_tpu.scene.scene import make_traced_scene as j_make_traced_scene
 
 from snail_tpu_torch.core.types import Camera, Light, RenderOpts
@@ -24,7 +26,7 @@ from snail_tpu_torch.ops import traverse as pt
 from snail_tpu_torch.render.fast import render_frame_fast
 from snail_tpu_torch.render.renderer import Renderer, render_frame, to_rgb8
 from snail_tpu_torch.scene import procedural as pproc
-from snail_tpu_torch.scene.materials import MaterialTable
+from snail_tpu_torch.scene.bench_scenes import bounce_materials
 from snail_tpu_torch.scene.scene import make_traced_scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,9 +34,18 @@ GOLD = os.path.join(REPO, "tests", "golden", "cornell64_fast.png")
 OPTS = dict(reflections=False, transparency=False, textures=False)
 
 
-def _pair(name):
+def _jax_bounce_materials():
+    """The JAX package's counterpart of ``bounce_materials``."""
+    mats = JMaterialTable.build({"": 0}, [])
+    mats.reflectivity[0] = 0.5
+    mats.dissolve[0] = 0.5
+    return mats
+
+
+def _pair(name, bounce=False):
     """Both packages' scene and camera on one BVH: (js, jcam, ps, pcam, w,
-    h) — the golden config for cornell, the bench.py camera for city."""
+    h) — the golden config for cornell, the bench.py camera for city; with
+    ``bounce``, material 0 reflective and half transparent."""
     if name == "cornell":
         mk, leaf, w = (lambda m: m.cornell_scene()), 8, 64
         light = ((0.0, 3.5, 0.0), (1.0, 0.9, 0.8), 30.0)
@@ -46,8 +57,12 @@ def _pair(name):
     g = mk(jproc).flatten()
     lo, hi = g.bounds()
     bvh = build_bvh(lo, hi, leaf_size=leaf)
-    js = j_make_traced_scene(g, bvh, lights=JLight.make(*light))
-    ps = make_traced_scene(mk(pproc).flatten(), bvh, lights=Light.make(*light))
+    js = j_make_traced_scene(g, bvh,
+                             _jax_bounce_materials() if bounce else None,
+                             lights=JLight.make(*light))
+    ps = make_traced_scene(mk(pproc).flatten(), bvh,
+                           bounce_materials() if bounce else None,
+                           lights=Light.make(*light))
     if pos is None:
         c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
         ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
@@ -117,28 +132,28 @@ def test_renderer_returns_host_image(frames):
     assert r.render_rgb8(pcam).dtype == np.uint8
 
 
-def _reflective_scene():
-    g = pproc.cornell_scene().flatten()
-    lo, hi = g.bounds()
-    mats = MaterialTable.build({"": 0})
-    mats.reflectivity[0] = 0.5
-    mats.dissolve[0] = 0.5
-    return make_traced_scene(g, build_bvh(lo, hi, leaf_size=8), mats,
-                             Light.make((0.0, 3.5, 0.0), (1, 1, 1), 30.0))
+@pytest.mark.parametrize("name", ["cornell", "city"])
+def test_bounce_frame_matches_jax(name):
+    """Reflection and transparency bounces (one level, RenderOpts'
+    max_bounces) on every hit, through the general kernels' plain
+    versions, against the JAX package's frame."""
+    js, jcam, ps, pcam, w, h = _pair(name, bounce=True)
+    assert ps.has_refl and ps.has_transp
+    opts = dict(textures=False)
+    jimg = np.asarray(j_render_frame_fast(js, jcam, w, h,
+                                          JRenderOpts(**opts)))
+    pimg = render_frame(ps, pcam, w, h, RenderOpts(**opts))
+    err = np.abs(pimg.numpy() - jimg).max(-1)
+    assert (err > 2e-3).mean() <= 1e-3, (name, err.max())
+    # the bounces changed the frame
+    flat = render_frame(ps, pcam, w, h, RenderOpts(**OPTS)).numpy()
+    assert np.abs(flat - jimg).max() > 0.1
 
 
-@pytest.mark.parametrize("opts,match", [
-    (dict(reflections=True, transparency=False, textures=False),
-     "reflection"),
-    (dict(reflections=False, transparency=True, textures=False),
-     "transparency"),
-    (dict(photons=True, **OPTS), "photon"),
-])
-def test_unported_options_raise(opts, match):
-    scene = _reflective_scene()
-    cam = Camera.look_at(pos=(0.0, 2.0, 6.0), target=(0.0, 1.5, 0.0))
-    with pytest.raises(NotImplementedError, match=match):
-        render_frame(scene, cam, 64, 64, RenderOpts(**opts))
+def test_unported_options_raise():
+    _, _, ps, pcam, w, h = _pair("cornell", bounce=True)
+    with pytest.raises(NotImplementedError, match="photon"):
+        render_frame(ps, pcam, w, h, RenderOpts(photons=True, **OPTS))
 
 
 def test_bounce_options_run_when_no_material_bounces():
@@ -151,23 +166,36 @@ def test_bounce_options_run_when_no_material_bounces():
 
 
 def test_port_renders_without_jax():
-    """snail_tpu_torch imports no JAX, directly or through another module."""
+    """snail_tpu_torch imports no JAX, directly or through another module,
+    for a forward frame, a bounce frame or a differentiable one."""
     code = textwrap.dedent("""
+        import dataclasses
         import sys
         sys.modules["jax"] = None
         from snail_tpu.bvh import build_bvh
         from snail_tpu_torch.core.types import Camera, Light, RenderOpts
+        from snail_tpu_torch.render.fast import render_frame_fast_diff
         from snail_tpu_torch.render.renderer import render_frame
+        from snail_tpu_torch.scene.bench_scenes import bounce_materials
         from snail_tpu_torch.scene.procedural import cornell_scene
         from snail_tpu_torch.scene.scene import make_traced_scene
         g = cornell_scene().flatten()
         lo, hi = g.bounds()
-        scene = make_traced_scene(g, build_bvh(lo, hi, leaf_size=8),
-                                  lights=Light.make((0, 3.5, 0), (1, 1, 1), 30))
+        bvh = build_bvh(lo, hi, leaf_size=8)
+        light = Light.make((0, 3.5, 0), (1, 1, 1), 30)
+        scene = make_traced_scene(g, bvh, lights=light)
         cam = Camera.look_at(pos=(0.0, 2.0, 6.0), target=(0.0, 1.5, 0.0))
         img = render_frame(scene, cam, 64, 64,
                            RenderOpts(reflections=False, transparency=False))
         assert img.shape == (64, 64, 3) and float(img.max()) > 0.1
+        bounce = make_traced_scene(g, bvh, bounce_materials(), lights=light)
+        img = render_frame(bounce, cam, 64, 64, RenderOpts(textures=False))
+        assert img.shape == (64, 64, 3) and float(img.max()) > 0.1
+        tri_a = bounce.tri_a.clone().requires_grad_()
+        img = render_frame_fast_diff(dataclasses.replace(bounce, tri_a=tri_a),
+                                     cam, 64, 64, RenderOpts(textures=False))
+        img.square().mean().backward()
+        assert tri_a.grad.abs().max() > 0
         assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

@@ -56,10 +56,14 @@ def city():
     return jscene, pscene, bvh
 
 
+PRIMAL = ("tri_a", "tri_ba", "tri_ca", "sh_mat", "mat_diffuse",
+          "mat_specular")
+
+
 def _jax_fields(jscene):
     out = {k: np.asarray(getattr(jscene, k)) for k in (
-        "node_lo", "node_hi", "node_child", "node_count", "tri_a", "tri_ba",
-        "tri_ca", "sh_pack", "mat_pack", "mat_reflect", "mat_dissolve")}
+        "node_lo", "node_hi", "node_child", "node_count", "sh_pack",
+        "mat_pack", "mat_reflect", "mat_dissolve") + PRIMAL}
     out["light_pos"] = np.asarray(jscene.lights.pos)
     out["light_color"] = np.asarray(jscene.lights.color)
     out["light_radius"] = np.asarray(jscene.lights.radius)
@@ -87,6 +91,10 @@ def test_traced_scene_arrays_match_jax(city):
     assert (pscene.has_refl, pscene.has_transp) == (jscene.has_refl,
                                                     jscene.has_transp)
     assert pscene.num_tris == jscene.num_tris
+    for name in PRIMAL:
+        a, b = getattr(pscene, name).numpy(), np.asarray(getattr(jscene, name))
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 def test_leaf_tables_match_jax(city):
@@ -106,8 +114,10 @@ def test_leaf_tables_match_jax(city):
 def test_traced_scene_from_numpy_round_trips(city):
     jscene, pscene, _ = city
     rt = traced_scene_from_numpy(_jax_fields(jscene))
-    for name in ("tri_rows", "sh_pack", "mat_pack", "root_lo", "root_hi"):
-        assert torch.equal(getattr(rt, name), getattr(pscene, name)), name
+    for name in ("tri_rows", "sh_pack", "mat_pack", "root_lo",
+                 "root_hi") + PRIMAL:
+        a, b = getattr(rt, name), getattr(pscene, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
     for name in ("box", "first", "count"):
         assert torch.equal(getattr(rt.leaves, name),
                            getattr(pscene.leaves, name)), name
@@ -117,6 +127,14 @@ def test_traced_scene_from_numpy_round_trips(city):
                            getattr(pscene.lights, name)), name
     assert (rt.has_refl, rt.has_transp, rt.textured, rt.num_tris) == (
         pscene.has_refl, pscene.has_transp, False, pscene.num_tris)
+    # the parameters carry across as given: an edited vertex table arrives
+    # with its rows packed from it
+    fields = _jax_fields(jscene)
+    fields["tri_a"] = fields["tri_a"] + np.float32(0.25)
+    moved = traced_scene_from_numpy(fields)
+    np.testing.assert_array_equal(moved.tri_a.numpy(), fields["tri_a"])
+    np.testing.assert_array_equal(moved.tri_rows.numpy()[:, 0:3],
+                                  fields["tri_a"])
 
 
 def test_scene_to_device_keeps_every_tensor(city):
@@ -126,6 +144,15 @@ def test_scene_to_device_keeps_every_tensor(city):
     assert torch.equal(moved.leaves.box, pscene.leaves.box)
     assert torch.equal(moved.lights.pos, pscene.lights.pos)
     assert moved.leaves.n_leaf == pscene.leaves.n_leaf
+    # every tensor field goes: "meta" tensors have a device and no data
+    meta = pscene.to("meta")
+    for f in dataclasses.fields(meta):
+        t = getattr(meta, f.name)
+        if isinstance(t, torch.Tensor):
+            assert t.device.type == "meta", f.name
+            assert t.shape == getattr(pscene, f.name).shape, f.name
+    assert meta.leaves.box.device.type == "meta"
+    assert meta.lights.pos.device.type == "meta"
 
 
 def test_pack_leaf_tables_rejects_big_leaves():

@@ -1,8 +1,9 @@
-"""The port's plain kernel versions (B1-B4) against the JAX package's
+"""The port's plain kernel versions (B1-B6) against the JAX package's
 Pallas kernels, run in interpret mode on the CPU, on one scene and BVH.
 
 Scene: city_scene(6) at leaf size 4 (~90 leaves), a 128 x 64 frame
-(2 packets) of primary rays and 2 packets of shadow rays from a light.
+(2 packets) of primary rays, 2 packets of shadow rays from a light and
+2 packets (the last one partial) of bounce rays with their own origins.
 Each JAX kernel runs once per module (module-scoped fixtures)."""
 
 import numpy as np
@@ -37,7 +38,8 @@ def scenes():
     assert js.wl_lfc is not None  # the JAX worklist path
     fields = {k: np.asarray(getattr(js, k)) for k in (
         "node_lo", "node_hi", "node_child", "node_count", "tri_a", "tri_ba",
-        "tri_ca", "sh_pack", "mat_pack", "mat_reflect", "mat_dissolve")}
+        "tri_ca", "sh_mat", "sh_pack", "mat_pack", "mat_diffuse",
+        "mat_specular", "mat_reflect", "mat_dissolve")}
     ps = traced_scene_from_numpy(fields)
     slo, shi = np.asarray(js.node_lo[0]), np.asarray(js.node_hi[0])
     c = (slo + shi) * 0.5
@@ -196,6 +198,124 @@ def test_any_hit_shared_pads_partial_packets(scenes, shadow_rays):
     # padding only adds masked rays; the packet interval is unchanged or
     # narrower, and verdicts are per ray
     assert torch.equal(part, full[:n])
+
+
+@pytest.fixture(scope="module")
+def bounce_rays(scenes):
+    """Seeded rays with their own origins: 2 packets less 1000 rays, so
+    the last packet is partial; every 7th ray masked. Origins in the
+    street level of the scene box, directions random."""
+    js, _, _, _ = scenes
+    rng = np.random.default_rng(11)
+    n = 2 * pt.PACKET_R - 1000
+    lo, hi = np.asarray(js.node_lo[0]), np.asarray(js.node_hi[0])
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(0.2, 2.0, n)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    tm = np.full(n, BIG, np.float32)
+    tm[::7] = -BIG
+    tm[1::13] = rng.uniform(1.0, 8.0, len(tm[1::13]))  # finite tmax
+    o[::7] = 1e30  # garbage on masked rays, as miss points carry
+    return o, d, tm
+
+
+def _planes(bounce_rays):
+    o, d, tm = bounce_rays
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return pt.general_planes(tuple(t(o[:, k]) for k in range(3)),
+                             tuple(t(d[:, k]) for k in range(3)), t(tm))
+
+
+def test_substitute_masked_matches_jax(bounce_rays):
+    o, d, tm = bounce_rays
+    po, pd, ptm, n = _planes(bounce_rays)
+    assert n == len(tm) and ptm.shape == (2, pt.PACKET_R)
+    jo = tp._substitute_masked(
+        tuple(tp._pad_flat(jnp.asarray(o[:, k]))[0] for k in range(3)),
+        tp._pad_flat(jnp.asarray(tm), -BIG)[0])
+    jd = tp._substitute_masked(
+        tuple(tp._pad_flat(jnp.asarray(d[:, k]), 1.0)[0] for k in range(3)),
+        tp._pad_flat(jnp.asarray(tm), -BIG)[0], unit_fallback=True)
+    for a, b in zip(po + pd, jo + jd):
+        np.testing.assert_allclose(a.numpy().reshape(-1), np.asarray(b),
+                                   rtol=1e-6, atol=1e-6)
+    # masked rays lie inside their packet's live bounds
+    live = (ptm >= 0).numpy()
+    for c in po + pd:
+        c = c.numpy()
+        for i in range(c.shape[0]):
+            lv = c[i][live[i]]
+            assert lv.min() <= c[i].min() and c[i].max() <= lv.max()
+
+
+@pytest.fixture(scope="module")
+def general_words(scenes, bounce_rays):
+    """B5 on the port's padded, substituted planes, in both packages."""
+    js, ps, _, _ = scenes
+    o, d, tm, _ = _planes(bounce_rays)
+    jpk = lambda a: jnp.asarray(a.numpy().reshape(-1, tp.RAY_SUB,
+                                                  tp.RAY_LANE))
+    jblock = tp._run_words_general(*(jpk(c) for c in (*o, *d, tm)),
+                                   js.lf_boxv, tp.WL_BANDS, js.wl_nl)
+    port = pt.words_general(o, d, tm, ps.leaves, pt.WL_BANDS)
+    return jblock, port, jpk
+
+
+def test_words_general_plain_matches_jax(scenes, general_words):
+    _, ps, _, _ = scenes
+    jblock, port, _ = general_words
+    _check_words(jblock, port, pt.WL_BANDS, ps.leaves.lp)
+
+
+def test_closest_wl_g_plain_matches_jax(scenes, bounce_rays, general_words):
+    js, ps, _, _ = scenes
+    jblock, port, jpk = general_words
+    o, d, tm, _ = _planes(bounce_rays)
+    jd, ju, jv, jt = (np.asarray(a).reshape(tm.shape) for a in
+                      tp._run_closest_wl_g(
+                          js.wl_lfc, *(jpk(c) for c in (*o, *d, tm)),
+                          js.pk_tris, js.wl_boxrows, jblock, tp.WL_BANDS,
+                          js.lf_boxv.shape[1]))
+    pd, pu, pv, ptri = (a.numpy() for a in pt.closest_wl_g_plain(
+        o, d, tm, ps.tri_rows, ps.leaves, port[0]))
+    _check_closest(pd, pu, pv, ptri, jd, ju, jv, jt, tm.numpy())
+
+
+def _check_closest(pd, pu, pv, ptri, jd, ju, jv, jt, tm):
+    """Bounce closest-hit outputs against the JAX package's: exact miss and
+    masked conventions, dist allclose, tri ids equal but at ties."""
+    big = np.float32(BIG)
+    live = tm >= 0
+    hit = live & (jd < big)
+    assert 0.05 < hit.sum() / live.sum() < 0.95
+    np.testing.assert_array_equal(jd[~live], -big)
+    np.testing.assert_array_equal(pd[~live], -big)
+    np.testing.assert_array_equal(pd[live & ~hit], big)
+    np.testing.assert_array_equal(ptri[~hit], 0)
+    np.testing.assert_array_equal(jt[~hit], 0)
+    np.testing.assert_allclose(pd[hit], jd[hit], rtol=2e-4, atol=2e-4)
+    assert (ptri[hit] == jt[hit]).mean() > 0.999
+    same = hit & (ptri == jt)
+    np.testing.assert_allclose(pu[same], ju[same], atol=2e-3)
+    np.testing.assert_allclose(pv[same], jv[same], atol=2e-3)
+    # a finite tmax bounds the hit
+    assert (pd[hit] < tm[hit] * (1 + 1e-6)).all()
+
+
+def test_closest_hit_c_plain_matches_jax(scenes, bounce_rays):
+    js, ps, _, _ = scenes
+    o, d, tm = bounce_rays
+    jout = [np.asarray(a) for a in tp.closest_hit_c(
+        js, tuple(jnp.asarray(o[:, k]) for k in range(3)),
+        tuple(jnp.asarray(d[:, k]) for k in range(3)), jnp.asarray(tm))]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    pout = [a.numpy() for a in pt.closest_hit_c(
+        ps, tuple(t(o[:, k]) for k in range(3)),
+        tuple(t(d[:, k]) for k in range(3)), t(tm))]
+    assert all(a.shape == (len(tm),) for a in pout)
+    assert pout[3].dtype == np.int32
+    _check_closest(*pout, *jout, tm)
 
 
 def test_wrappers_route_by_device(scenes):
