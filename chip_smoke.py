@@ -6,25 +6,41 @@
 Phases, each printed on its own line:
 1. the card (name and power limit from nvidia-smi);
 2. the kernel build from snail_tpu_torch/csrc, with its seconds;
-3. every kernel of the frame (B1-B6) against its plain PyTorch version on
+3. every kernel of the frames (B1-B8) against its plain PyTorch version on
    the card, at full frame size, on two scenes: city_scene(24) at leaf 16
    and terrain_scene(724) (~1 Mtri) at leaf 32, 1024 x 1024, both with
    material 0 reflective and half transparent (bench_scenes
-   bounce_materials); B3 and B4 run on the frame's own shadow rays, and
-   on the terrain also toward a low light, since its overhead bench light
-   blocks no ray; B5 and B6 on the frame's own reflection rays, and on a
-   seeded wavefront that hits where too few of those do;
-4. three paths at 1024 x 1024 on both scenes, each with the launch count
-   of every kernel during one run, a check against the CPU path at 64 x 64
+   bounce_materials). B1, B2 and B8a run on the primary rays; B3, B4 and
+   B8b on the frame's own shadow rays, and on the terrain also toward a
+   low light, since its overhead bench light blocks no ray; B5 and B6 on
+   the frame's own reflection rays, and on a seeded wavefront that hits
+   where too few of those do; B7 on a seeded wavefront of shadow rays with
+   their own origins, and on the instanced frame's own shadow wavefront
+   (phase 4). B8a and B8b must give B2's and B4's outputs bit for bit,
+   and their counters must equal the plain versions' simulation of every
+   warp on a few seeded packets;
+4. the paths at 1024 x 1024 on both scenes, each with the launch count of
+   every kernel during one run, a check against the CPU path at 64 x 64
    (the terrain's lit by the low light), and its time: render_frame
-   without bounces (ms/frame, MRays/s, peak memory); render_frame with
-   reflections and transparency (the same); and bench.py's fwd+bwd step
-   (render_frame_fast_diff, 7 gradient parameters, reflections and
-   shadows, MSE against a forward render; ms/step).
+   without bounces (fwd: ms/frame, MRays/s, peak memory); render_frame
+   with reflections and transparency (bounce: the same); bench.py's
+   fwd+bwd step (fwd_bwd: ms/step); the counter frame
+   render_frame_fast_stats (stats: its image bit-identical to the fwd
+   frame's, its counters, its ms/frame beside the fwd frame's); and the
+   instanced frame render_instanced on a grid of rigid instances of the
+   scene (bench_scenes.instanced_grid: 16 of city_24, fwd and bounce
+   options; 4 of terrain_724, fwd), where the camera must see every
+   instance and some instances hide others.
 
-The last two lines are a JSON object per kernel and the result line. Any
-failed phase ends the run with a non-zero exit and no result line; so does
-a machine without a CUDA device or a directory without the package.
+The last two lines are a JSON object per kernel and the result line. Every
+kernel's line gives its time beside its bound: the larger of the bytes it
+must move (each input read once, each output written once) over the card's
+memory rate and the float operations of the tests its wavefront needs over
+the card's float32 rate (``needed_work``; a trace kernel's bytes count
+only the leaves its rays enter). Each phase prints the seconds since the
+start. Any failed phase ends the run with a non-zero exit and no result
+line; so does a machine without a CUDA device or a directory without the
+package.
 """
 
 import dataclasses
@@ -36,8 +52,10 @@ import time
 
 WIDTH = HEIGHT = 1024
 TIMED_FRAMES = 10
+INSTANCED_FRAMES = 3  # an instanced bounce frame takes ~0.2 s
 TIMED_STEPS = 5
 KERNEL_REPS = 20
+SIM_PACKETS = 3  # seeded packets whose counters are simulated
 SRC = "snail_tpu_torch/csrc/worklist.cu"
 TPU = "snail_tpu/ops/traverse_pallas.py"
 REPLACES = {  # kernel -> line of the Pallas kernel it replaces
@@ -47,13 +65,43 @@ REPLACES = {  # kernel -> line of the Pallas kernel it replaces
     "shadow_wl": f"{TPU}:3208",
     "words_general": f"{TPU}:2834",
     "closest_wl_g": f"{TPU}:3226",
+    "shadow_wl_g": f"{TPU}:3272",
+    "camera_wl_stats": f"{TPU}:3160",
+    "shadow_wl_stats": f"{TPU}:3217",
 }
 FORWARD = ("words_camera", "camera_wl", "words_shared", "shadow_wl")
+BOUNCE = FORWARD + ("words_general", "closest_wl_g")
+STATS = ("words_camera", "camera_wl_stats", "words_shared", "shadow_wl_stats")
+INSTANCED = ("words_general", "closest_wl_g", "shadow_wl_g")
+# the path whose launches a kernel's line reports
+PATH_OF = {**{k: "bounce" for k in BOUNCE}, "shadow_wl_g": "instanced_fwd",
+           "camera_wl_stats": "stats", "shadow_wl_stats": "stats"}
 # kind -> a low light for the blocked-ray checks of B3/B4 and of the small
 # frame: the terrain's bench light is overhead and its hills cast no
 # shadow toward it (~20 % of the frame's shadow rays toward this light are
 # blocked on terrain_scene(128))
 LOW_LIGHT = {"terrain": (-80.0, 20.0, 0.0)}
+# kind -> instances per side of the instanced frame's grid, and its paths;
+# the terrain's overhead light blocks few of its shadow rays, so B7's
+# blocked share is held to 0.02-0.98 on the city's instanced wavefront and
+# on both scenes' seeded ones
+INSTANCE_GRID = {"city": (4, ("fwd", "bounce")), "terrain": (2, ("fwd",))}
+
+# The card's peak rates (NVIDIA H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s
+F32_OPS_PER_MS = 67e9  # 67 TFLOP/s float32 outside the tensor cores
+# Float operations of one test, counted from csrc/worklist.cu (adds,
+# multiplies, divides, min/max and compares alike): a words pass's
+# interval test of one leaf per packet (leaf_entry: one origin, or an
+# origin interval's four corner products) and its set-up per ray (the
+# camera's includes the raygen); one ray's slab test of a leaf box
+# (ray_slab); one ray-triangle test of each trace kernel (shared-origin
+# or raw rows, closest or any hit).
+LEAF_OPS = {"words_camera": 45, "words_shared": 45, "words_general": 87}
+RAY_OPS = {"words_camera": 61, "words_shared": 14, "words_general": 20}
+SLAB_OPS = 25
+TRI_OPS = {"camera_wl": 29, "shadow_wl": 22, "closest_wl_g": 56,
+           "shadow_wl_g": 49}
 
 
 def fail(msg: str) -> None:
@@ -91,7 +139,7 @@ def make_scene(kind: str, n: int):
     from snail_tpu_torch.scene.bench_scenes import SCENES, bench_scene
 
     t0 = time.perf_counter()
-    scene, cam, g, _ = bench_scene(kind, n, device="cuda", bounce=True)
+    scene, cam, g, _ = bench_scene(kind, n, bounce=True)
     print(f"scene {kind}_{n}: {g.num_tris} tris, {scene.leaves.n_leaf} "
           f"leaves (leaf {SCENES[kind][1]}), host build "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -99,15 +147,89 @@ def make_scene(kind: str, n: int):
 
 
 def timed_plain(fn):
-    """Result of a first call of fn, and the host ms of a second (warm)."""
+    """Result of one call of fn, and its host ms."""
     import torch
 
-    res = fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    res = fn()
     torch.cuda.synchronize()
     return res, (time.perf_counter() - t0) * 1e3
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def entry(err, ms, plain_ms, n_bytes, ops, **extra):
+    """One kernel's numbers, with its bound: the larger of its bytes over
+    the card's memory rate and its operations over its float32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **extra}
+
+
+def words_entry(kernel, err, ms, plain_ms, lt, planes, out):
+    """The entry of a words pass: one interval test of every leaf per
+    packet, and its set-up per ray."""
+    from snail_tpu_torch.ops.traverse import PACKET_R
+
+    p = out[0].shape[0]
+    ops = p * (lt.n_leaf * LEAF_OPS[kernel] + PACKET_R * RAY_OPS[kernel])
+    return entry(err, ms, plain_ms, nbytes(*planes, lt.box, *out), ops)
+
+
+def root_exit(lt, o, idir):
+    """Each ray's exit distance from the scene's root box, as the kernels'
+    box_exit (0 where it misses)."""
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+
+    t1 = [(lt.root[k] - o[k]) * idir[k] for k in range(3)]
+    t2 = [(lt.root[3 + k] - o[k]) * idir[k] for k in range(3)]
+    tn, tf = pt._slab(t1, t2)
+    return torch.where((tn <= tf) & (tf > 0.0), tf * 1.0001, 0.0)
+
+
+def needed_work(kernel, lt, rows, words, o, idir, reach, n_blocked=0):
+    """The work a trace kernel's wavefront needs, as (float operations,
+    bytes of leaf data). Operations: for each ray, the slab tests of the
+    leaves of its packet's words whose box it enters before ``reach`` (P,
+    PACKET_R; -inf for a ray that needs none) and the ray-triangle tests
+    of those leaves' triangles; one of each for each of the ``n_blocked``
+    rays that an any-hit finds blocked. Bytes: the box, first and count of
+    every leaf some ray enters and its triangles' ``rows``, each read
+    once (a blocked ray's blocker may lie in a leaf another ray enters, so
+    it adds none). ``o``: three 0-d tensors (one origin) or three (P,
+    PACKET_R) planes."""
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+
+    slab = torch.zeros((), dtype=torch.int64, device=reach.device)
+    tri = torch.zeros_like(slab)
+    entered = torch.zeros(lt.lp, dtype=torch.bool, device=reach.device)
+    for i in range(words.shape[0]):
+        leaves = torch.nonzero(pt.unpack_bits(words[i]).any(0)).flatten()
+        oi = [c if c.dim() == 0 else c[i] for c in o]
+        ii = [c[i] for c in idir]
+        for s in range(0, len(leaves), 16384):
+            ls = leaves[s:s + 16384]
+            tn, tf = pt._leaf_slab(lt, oi, ii, ls)
+            enter = (tn <= tf) & (tf > 0.0) & (tn < reach[i][:, None])
+            slab += enter.sum()
+            tri += (enter * lt.count[ls]).sum()
+            entered[ls] |= enter.any(0)
+    ops = ((int(slab) + n_blocked) * SLAB_OPS
+           + (int(tri) + n_blocked) * TRI_OPS[kernel])
+    leaf_bytes = (lt.box.shape[0] * lt.box.element_size()
+                  + lt.first.element_size() + lt.count.element_size())
+    n_bytes = (int(entered.sum()) * leaf_bytes + int(lt.count[entered].sum())
+               * rows.shape[1] * rows.element_size())
+    return ops, n_bytes
 
 
 def words_err(kern, plain, name):
@@ -128,9 +250,35 @@ def words_err(kern, plain, name):
     return err
 
 
+def sample_packets(stats, seed):
+    """SIM_PACKETS seeded packets among those whose warps tested
+    triangles."""
+    import numpy as np
+    import torch
+
+    busy = torch.nonzero(stats[:, 3] > 0).flatten().cpu().numpy()
+    if len(busy) < 2:
+        fail(f"only {len(busy)} packets tested triangles")
+    pick = np.random.default_rng(seed).choice(
+        busy, min(SIM_PACKETS, len(busy)), replace=False)
+    return torch.from_numpy(np.sort(pick)).to(stats.device)
+
+
+def check_counters(name, stats, pk, sim):
+    """The kernel's counter rows of packets ``pk`` against the plain
+    version's simulation of their warps: equal in every slot."""
+    import torch
+
+    if not torch.equal(stats[pk], sim):
+        fail(f"{name}: counters of packets {pk.tolist()} differ from the "
+             f"simulation:\n{stats[pk].tolist()}\n{sim.tolist()}")
+    print(f"check {name}: counters of packets {pk.tolist()} equal the "
+          f"simulation: {sim[:, :5].tolist()}", flush=True)
+
+
 def check_kernels(name, kind, scene, cam):
-    """Phase 3: each kernel against its plain version on the card; returns
-    {kernel: (max_abs_err, ms, plain_ms)}."""
+    """Phase 3 on the frame's wavefronts: each kernel against its plain
+    version on the card; returns {kernel: entry}."""
     import torch
 
     from snail_tpu_torch.core.vecmath import BIG
@@ -149,7 +297,8 @@ def check_kernels(name, kind, scene, cam):
         lambda: pt.words_camera_plain(cv, w, h, lt, pt.WL_BANDS, pids))
     err = words_err(kern, plain, f"{name} words_camera")
     ms = cuda_ms(lambda: pt.words_camera(cv, w, h, lt), KERNEL_REPS)
-    out["words_camera"] = (err, ms, plain_ms)
+    out["words_camera"] = words_entry("words_camera", err, ms, plain_ms, lt,
+                                      (cv,), kern)
     words, summ, floors = kern
 
     # B2
@@ -179,10 +328,29 @@ def check_kernels(name, kind, scene, cam):
         fail(f"{name} camera_wl: {checks}, max dist err {derr}")
     ms = cuda_ms(lambda: pt.camera_wl(cv, w, h, rows, lt, words, summ,
                                       floors), KERNEL_REPS)
-    out["camera_wl"] = (derr, ms, plain_ms)
+    _, idir, t_exit = pt._camera_rays(cv, w, h, pids)
+    ops, leaf_bytes = needed_work("camera_wl", lt, rows, words,
+                                  cv[9:12].unbind(), idir,
+                                  torch.where(kt >= 0, kd, t_exit))
+    b2_bytes = nbytes(cv, words, summ, floors, *kern) + leaf_bytes
+    out["camera_wl"] = entry(derr, ms, plain_ms, b2_bytes, ops)
 
-    # B3 and B4 on the shadow rays the frame casts from these hits toward
-    # its light 0, and toward the scene's low light where it has one
+    # B8a on the same inputs: B2's outputs bit for bit, and the counters of
+    # a few seeded packets equal to the simulation of their warps
+    *k8, st = pt.camera_wl_stats(cv, w, h, rows, lt, words, summ, floors)
+    if not all(torch.equal(a, b) for a, b in zip(k8, kern)):
+        fail(f"{name} camera_wl_stats: outputs differ from camera_wl's")
+    pk = sample_packets(st, 1)
+    (*_, sim), plain_ms = timed_plain(lambda: pt.camera_wl_stats_plain(
+        cv, w, h, rows, lt, words[pk], floors[pk], pk))
+    check_counters(f"{name} camera_wl_stats", st, pk, sim)
+    ms = cuda_ms(lambda: pt.camera_wl_stats(cv, w, h, rows, lt, words, summ,
+                                            floors), KERNEL_REPS)
+    out["camera_wl_stats"] = entry(0.0, ms, plain_ms, b2_bytes + nbytes(st),
+                                   ops, plain_packets=len(pk))
+
+    # B3, B4 and B8b on the shadow rays the frame casts from these hits
+    # toward its light 0, and toward the scene's low light where it has one
     primary = ((cam.pos[0], cam.pos[1], cam.pos[2]),
                (kdx.reshape(-1), kdy.reshape(-1), kdz.reshape(-1)),
                kd.reshape(-1), ku.reshape(-1), kv.reshape(-1),
@@ -193,17 +361,25 @@ def check_kernels(name, kind, scene, cam):
         check_shadow(f"{name} low light", scene, primary,
                      torch.tensor(LOW_LIGHT[kind], device="cuda"), True)
     out.update(check_bounce(name, scene, primary))
-    for k, (e, t, tp) in out.items():
-        print(f"check {name} {k}: ok, max_abs_err {e}, kernel {t:.4f} ms, "
-              f"plain {tp:.1f} ms", flush=True)
+    check_seeded_shadows(name, scene, p)
+    print_checks(name, out)
     return out
 
 
+def print_checks(name, out):
+    for k, e in out.items():
+        print(f"check {name} {k}: ok, max_abs_err {e['max_abs_err']}, "
+              f"kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.1f} ms, "
+              f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})", flush=True)
+
+
 def check_shadow(name, scene, primary, lp, need_blocked):
-    """B3 and B4 against their plain versions on the frame's shadow rays
-    from the ``primary`` hits toward the light at ``lp``. Every wavefront
-    must leave some rays unblocked; with ``need_blocked`` it must also
-    block some. Returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    """B3, B4 and B8b against their plain versions on the frame's shadow
+    rays from the ``primary`` hits toward the light at ``lp``. Every
+    wavefront must leave some rays unblocked; with ``need_blocked`` it
+    must also block some. Returns {kernel: entry}."""
+    import torch
+
     from snail_tpu_torch.ops import traverse as pt
     from snail_tpu_torch.render.fast import shadow_wavefront
 
@@ -217,7 +393,8 @@ def check_shadow(name, scene, primary, lp, need_blocked):
         lambda: pt.words_shared_plain(orig, d, tm, lt, 1))
     err = words_err(kern, plain, f"{name} words_shared")
     ms = cuda_ms(lambda: pt.words_shared(orig, d, tm, lt, 1), KERNEL_REPS)
-    out["words_shared"] = (err, ms, plain_ms)
+    out["words_shared"] = words_entry("words_shared", err, ms, plain_ms, lt,
+                                      (orig, *d, tm), kern)
     words, summ, floors = kern
 
     srows = pt.shared_rows(scene.tri_rows, orig)
@@ -234,7 +411,29 @@ def check_shadow(name, scene, primary, lp, need_blocked):
         fail(f"{name} shadow_wl: agreement {agree}, blocked share {frac}")
     ms = cuda_ms(lambda: pt.shadow_wl(orig, d, tm, srows, lt, words, summ,
                                       floors), KERNEL_REPS)
-    out["shadow_wl"] = (float((kern - plain).abs().max()), ms, plain_ms)
+    idir = [1.0 / (c + pt.INV_EPS) for c in d]
+    blocked = kern > 0
+    ops, leaf_bytes = needed_work(
+        "shadow_wl", lt, srows, words, orig.unbind(), idir,
+        torch.where(live & ~blocked, tm, float("-inf")),
+        int((live & blocked).sum()))
+    b4_bytes = nbytes(orig, *d, tm, words, summ, floors, kern) + leaf_bytes
+    out["shadow_wl"] = entry(float((kern - plain).abs().max()), ms, plain_ms,
+                             b4_bytes, ops)
+
+    # B8b: B4's verdicts bit for bit, and the simulated counters
+    k8, st = pt.shadow_wl_stats(orig, d, tm, srows, lt, words, summ, floors)
+    if not torch.equal(k8, kern):
+        fail(f"{name} shadow_wl_stats: verdicts differ from shadow_wl's")
+    pk = sample_packets(st, 2)
+    (_, sim), plain_ms = timed_plain(lambda: pt.shadow_wl_stats_plain(
+        orig, tuple(c[pk] for c in d), tm[pk], srows, lt, words[pk],
+        floors[pk]))
+    check_counters(f"{name} shadow_wl_stats", st, pk, sim)
+    ms = cuda_ms(lambda: pt.shadow_wl_stats(orig, d, tm, srows, lt, words,
+                                            summ, floors), KERNEL_REPS)
+    out["shadow_wl_stats"] = entry(0.0, ms, plain_ms, b4_bytes + nbytes(st),
+                                   ops, plain_packets=len(pk))
     return out
 
 
@@ -243,8 +442,7 @@ def check_bounce(name, scene, primary):
     the frame casts from the ``primary`` hits. Where too few of its live
     rays hit anything (a terrain's reflections mostly leave for the sky),
     they are also checked on a seeded wavefront that must hit on 0.02-0.98
-    of its rays. Returns {kernel: (max_abs_err, ms, plain_ms)} of the
-    frame's wavefront."""
+    of its rays. Returns {kernel: entry} of the frame's wavefront."""
     from snail_tpu_torch.ops import traverse as pt
     from snail_tpu_torch.render.fast import bounce_wavefront
 
@@ -255,9 +453,7 @@ def check_bounce(name, scene, primary):
         seeded, share = check_general(f"{name} seeded", scene, o, d, tm)
         if not 0.02 < share < 0.98:
             fail(f"{name} seeded wavefront: hit share {share}")
-        for k, (e, t, tp) in seeded.items():
-            print(f"check {name} seeded {k}: ok, max_abs_err {e}, kernel "
-                  f"{t:.4f} ms, plain {tp:.1f} ms", flush=True)
+        print_checks(f"{name} seeded", seeded)
     return out
 
 
@@ -296,8 +492,7 @@ def check_general(name, scene, o, d, tm):
     """B5 (words identical, floors to rtol 1e-6) and B6 (the checks of
     B2, the miss and masked conventions exactly, tri clamped at 0)
     against their plain versions on the planes ``o``, ``d``, ``tm``.
-    Returns ({kernel: (max_abs_err, ms, plain_ms)}, hit share of the live
-    rays)."""
+    Returns ({kernel: entry}, hit share of the live rays)."""
     import torch
 
     from snail_tpu_torch.core.vecmath import BIG
@@ -310,7 +505,8 @@ def check_general(name, scene, o, d, tm):
         lambda: pt.words_general_plain(o, d, tm, lt, pt.WL_BANDS))
     err = words_err(kern, plain, f"{name} words_general")
     ms = cuda_ms(lambda: pt.words_general(o, d, tm, lt), KERNEL_REPS)
-    out["words_general"] = (err, ms, plain_ms)
+    out["words_general"] = words_entry("words_general", err, ms, plain_ms, lt,
+                                       (*o, *d, tm), kern)
     words, summ, floors = kern
     kept = pt.unpack_bits(words).any(1).sum(1).float()
 
@@ -345,8 +541,82 @@ def check_general(name, scene, o, d, tm):
         fail(f"{name} closest_wl_g: {checks}, max dist err {derr}")
     ms = cuda_ms(lambda: pt.closest_wl_g(o, d, tm, rows, lt, words, summ,
                                          floors), KERNEL_REPS)
-    out["closest_wl_g"] = (derr, ms, plain_ms)
+    idir = [1.0 / (c + pt.INV_EPS) for c in d]
+    reach = torch.where(hit, kd, torch.minimum(tm, root_exit(lt, o, idir)))
+    ops, leaf_bytes = needed_work("closest_wl_g", lt, rows, words, o, idir,
+                                  torch.where(live, reach, float("-inf")))
+    out["closest_wl_g"] = entry(derr, ms, plain_ms, nbytes(
+        *o, *d, tm, lt.root, words, summ, floors, *kern) + leaf_bytes, ops)
     return out, share
+
+
+def blocked_share(scene, o, d, tm):
+    """B5 (one band, as ``any_hit_c``) and B7 on the planes ``o``, ``d``,
+    ``tm``: (words, summ, floors, blocked, blocked share of the live
+    rays)."""
+    from snail_tpu_torch.ops import traverse as pt
+
+    words, summ, floors = pt.words_general(o, d, tm, scene.leaves, 1)
+    kern = pt.shadow_wl_g(o, d, tm, scene.tri_rows, scene.leaves, words,
+                          summ, floors)
+    return words, summ, floors, kern, float(kern[tm >= 0].mean())
+
+
+def check_shadow_general(name, scene, o, d, tm, need_window=True):
+    """B7 against its plain version on the planes ``o``, ``d``, ``tm``:
+    agreement > 0.999 on the live rays, masked rays never blocked, and
+    with ``need_window`` a blocked share of the live rays in 0.02-0.98.
+    Returns its entry."""
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+
+    lt, rows = scene.leaves, scene.tri_rows
+    words, summ, floors, kern, share = blocked_share(scene, o, d, tm)
+    live = tm >= 0
+    plain, plain_ms = timed_plain(
+        lambda: pt.shadow_wl_g_plain(o, d, tm, rows, lt, words))
+    agree = float((kern[live] == plain[live]).float().mean())
+    print(f"check {name} shadow_wl_g: agreement {agree}, blocked share "
+          f"{share} of {int(live.sum())} live rays", flush=True)
+    if (agree <= 0.999 or bool(kern[~live].any())
+            or bool(plain[~live].any())
+            or (need_window and not 0.02 < share < 0.98)):
+        fail(f"{name} shadow_wl_g: agreement {agree}, blocked share {share}")
+    ms = cuda_ms(lambda: pt.shadow_wl_g(o, d, tm, rows, lt, words, summ,
+                                        floors), KERNEL_REPS)
+    idir = [1.0 / (c + pt.INV_EPS) for c in d]
+    blocked = kern > 0
+    reach = torch.minimum(tm, root_exit(lt, o, idir))
+    ops, leaf_bytes = needed_work(
+        "shadow_wl_g", lt, rows, words, o, idir,
+        torch.where(live & ~blocked, reach, float("-inf")),
+        int((live & blocked).sum()))
+    e = entry(float((kern - plain).abs().max()), ms, plain_ms, nbytes(
+        *o, *d, tm, lt.root, words, summ, floors, kern) + leaf_bytes, ops)
+    print_checks(name, {"shadow_wl_g": e})
+    return e
+
+
+def check_seeded_shadows(name, scene, n_packets):
+    """B7 on seeded shadow rays with their own origins: the rays of
+    ``seeded_general``, each live one looking 0.05-0.6 of the scene box's
+    diagonal far; checked on the first seed whose blocked share lies in
+    0.02-0.98."""
+    import numpy as np
+    import torch
+
+    for seed in range(5, 25):
+        o, d, tm = seeded_general(scene, n_packets, seed)
+        rng = np.random.default_rng(seed)
+        diag = float((scene.root_hi - scene.root_lo).norm())
+        frac = torch.from_numpy(rng.uniform(0.05, 0.6, tuple(tm.shape))
+                                .astype(np.float32)).cuda()
+        tm = torch.where(tm >= 0, frac * diag, tm)
+        if 0.02 < blocked_share(scene, o, d, tm)[-1] < 0.98:
+            check_shadow_general(f"{name} seeded {seed}", scene, o, d, tm)
+            return
+    fail(f"{name}: no seeded shadow wavefront blocks 0.02-0.98 of its rays")
 
 
 def launched(name, path, need):
@@ -361,20 +631,37 @@ def launched(name, path, need):
     return launches
 
 
-def run_frame(name, path, opts, need, scene, cam, small, card):
-    """Phase 4, one path through render_frame: the launch counts of one
-    frame (each kernel in ``need`` > 0), a 64 x 64 card frame of ``small``
-    ((scene, camera)) against the CPU path, ms/frame and MRays/s. Returns
-    the launch counts."""
+def check_small(name, path, frame, small):
+    """A 64 x 64 frame ``frame(scene, camera, 64, 64)`` of ``small``
+    ((scene, camera)) on the card against the CPU path (plain versions):
+    within 2e-3 on all but 0.2 % of pixels, the reference not all zero."""
+    card_img = frame(*small, 64, 64).cpu()
+    ref = frame(small[0].to("cpu"), small[1].to("cpu"), 64, 64)
+    off = float(((card_img - ref).abs().amax(-1) > 2e-3).float().mean())
+    if off > 2e-3:
+        fail(f"{name} {path}: 64x64 card frame differs from the CPU path "
+             f"on {off} of pixels")
+    if not float(ref.abs().max()) > 0:
+        fail(f"{name} {path}: the 64x64 reference frame is all zero")
+    print(f"frame {name} {path}: 64x64 card vs CPU path, share of pixels "
+          f"off by > 2e-3: {off}", flush=True)
+
+
+def run_path(name, path, need, frame, scene, cam, small, card, rays,
+             frames=TIMED_FRAMES):
+    """Phase 4, one path: the launch counts of one 1024 x 1024 frame
+    ``frame(scene, camera, w, h)`` (each kernel in ``need`` > 0), a 64 x
+    64 frame of ``small`` against the CPU path, ms/frame over ``frames``,
+    MRays/s (``rays`` as bench.py counts them) and peak memory. Returns the
+    launch counts."""
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
-    from snail_tpu_torch.render.renderer import render_frame
 
     torch.cuda.synchronize()
     pt.reset_launch_counts()
     with pt.count_live_rays() as live:
-        img = render_frame(scene, cam, WIDTH, HEIGHT, opts)
+        img = frame(scene, cam, WIDTH, HEIGHT)
     torch.cuda.synchronize()
     launches = launched(name, path, need)
     traced = sum(int(n) for n in live)
@@ -384,25 +671,11 @@ def run_frame(name, path, opts, need, scene, cam, small, card):
         fail(f"{name} {path}: image not finite or all zero")
     print(f"frame {name} {path}: launches {launches}, mean "
           f"{float(img.mean()):.6f}", flush=True)
-
-    # a 64 x 64 frame on the card and on the CPU path (plain versions)
-    sscene, scam = small
-    img64 = render_frame(sscene, scam, 64, 64, opts).cpu()
-    ref = render_frame(sscene.to("cpu"), scam.to("cpu"), 64, 64, opts)
-    off = float(((img64 - ref).abs().amax(-1) > 2e-3).float().mean())
-    if off > 2e-3:
-        fail(f"{name} {path}: 64x64 card frame differs from the CPU path "
-             f"on {off} of pixels")
-    if not float(ref.abs().max()) > 0:
-        fail(f"{name} {path}: the 64x64 reference frame is all zero")
-    print(f"frame {name} {path}: 64x64 card vs CPU path, share of pixels "
-          f"off by > 2e-3: {off}", flush=True)
+    check_small(name, path, frame, small)
 
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(lambda: render_frame(scene, cam, WIDTH, HEIGHT, opts),
-                 TIMED_FRAMES)
+    ms = cuda_ms(lambda: frame(scene, cam, WIDTH, HEIGHT), frames)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    rays = WIDTH * HEIGHT * (1 + len(scene.lights))
     print(f"frame {name} {path} {WIDTH}x{HEIGHT}: {ms:.3f} ms/frame, "
           f"{rays / ms / 1e3:.2f} MRays/s ({rays} rays as bench.py counts; "
           f"{traced} live rays traced in {len(live)} wavefronts), peak "
@@ -410,13 +683,142 @@ def run_frame(name, path, opts, need, scene, cam, small, card):
     return launches
 
 
+def run_frame(name, path, opts, need, scene, cam, small, card):
+    """Phase 4, one path through render_frame (see run_path)."""
+    from snail_tpu_torch.render.renderer import render_frame
+
+    return run_path(name, path, need,
+                    lambda s, c, w, h: render_frame(s, c, w, h, opts),
+                    scene, cam, small, card,
+                    WIDTH * HEIGHT * (1 + len(scene.lights)))
+
+
+def run_stats(name, opts, scene, cam, small, card):
+    """Phase 4, the counter frame: B8a and B8b in place of B2 and B4, its
+    image bit-identical to render_frame's, its counters (and the 64 x 64
+    frame's on the card and the CPU path), and its ms/frame beside the
+    forward frame's, timed in turns. Returns the launch counts."""
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.fast import render_frame_fast_stats
+    from snail_tpu_torch.render.renderer import render_frame
+
+    rays = WIDTH * HEIGHT * (1 + len(scene.lights))
+    counters = {}  # (frame width, device) -> the counters of its last run
+
+    def frame(s, c, w, h):
+        img, st = render_frame_fast_stats(s, c, w, h, opts)
+        counters[w, img.device.type] = st
+        return img
+
+    launches = run_path(name, "stats", STATS, frame, scene, cam, small,
+                        card, rays)
+    if launches["camera_wl"] or launches["shadow_wl"]:
+        fail(f"{name} stats: B2/B4 ran beside B8a/B8b: {launches}")
+    img, st = render_frame_fast_stats(scene, cam, WIDTH, HEIGHT, opts)
+    if not torch.equal(img, render_frame(scene, cam, WIDTH, HEIGHT, opts)):
+        fail(f"{name} stats: the counter frame's image is not the fwd "
+             "frame's")
+    if st["rays"] != rays or min(st.values()) <= 0:
+        fail(f"{name} stats: counters {st}")
+    s64, c64 = counters[64, "cuda"], counters[64, "cpu"]
+    packets = (WIDTH // pt.TILE) * (HEIGHT // pt.TILE) * (1 + len(
+        scene.lights))
+    fwd = lambda: render_frame(scene, cam, WIDTH, HEIGHT, opts)
+    stats = lambda: render_frame_fast_stats(scene, cam, WIDTH, HEIGHT, opts)
+    f1, s1, s2, f2 = (cuda_ms(fn, TIMED_FRAMES)
+                      for fn in (fwd, stats, stats, fwd))
+    print(f"frame {name} stats: counters {st}, "
+          f"{st['leaves'] / packets:.1f} leaves kept per packet (summed over "
+          f"its warps); 64x64 card {s64}, CPU path {c64}, equal: "
+          f"{s64 == c64}", flush=True)
+    print(f"frame {name} stats {WIDTH}x{HEIGHT}: {(s1 + s2) / 2:.3f} ms/frame "
+          f"(runs {s1:.3f}, {s2:.3f}) beside the fwd frame's "
+          f"{(f1 + f2) / 2:.3f} ({f1:.3f}, {f2:.3f}), on {card}", flush=True)
+    return launches
+
+
+def run_instanced(name, kind, scene, small, card):
+    """Phase 3's B7 check on the instanced frame's own shadow wavefront and
+    phase 4's instanced frames on a grid of instances of ``scene``, timed
+    over INSTANCED_FRAMES. Returns (B7's entry, {path: launch counts})."""
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.scene.bench_scenes import instanced_grid
+    from snail_tpu_torch.scene.instancing import render_instanced
+
+    grid, paths = INSTANCE_GRID[kind]
+    isc, icam = instanced_grid(kind, scene, grid)
+    small_isc, small_cam = instanced_grid(kind, small[0], grid)
+    iname = f"{name} x{grid * grid}"
+    b7 = check_instanced(iname, isc, icam, need_window=kind == "city")
+    launches = {}
+    for path in paths:
+        opts = (RenderOpts(textures=False) if path == "bounce" else
+                RenderOpts(reflections=False, transparency=False,
+                           textures=False))
+        launches[f"instanced_{path}"] = run_path(
+            iname, f"instanced {path}", INSTANCED,
+            lambda s, c, w, h: render_instanced(s, c, w, h, opts), isc, icam,
+            (small_isc, small_cam), card,
+            WIDTH * HEIGHT * (1 + len(isc.lights)), INSTANCED_FRAMES)
+    return b7, launches
+
+
+def check_instanced(name, isc, icam, need_window):
+    """What the instanced frame's camera sees (every instance; some rays'
+    hits on one instance hidden behind another), and B7 against its plain
+    version on the frame's shadow wavefront toward light 0 in the object
+    space of the first instance it touches (``check_shadow_general``).
+    Returns B7's entry."""
+    import torch
+
+    from snail_tpu_torch.core.vecmath import BIG
+    from snail_tpu_torch.ops import dispatch
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.fast import _toward_light, shadow_tmax
+    from snail_tpu_torch.scene import instancing as inst
+
+    o3, d3, tm, _ = inst.primary_wavefront(icam, WIDTH, HEIGHT)
+    dist, ids, _, _, _, _, n3 = inst.instanced_hits(isc, o3, d3, tm)
+    hit = (dist > 0.0) & (dist < BIG)
+    seen = torch.unique(ids[hit]).numel()
+    hidden = []
+    for j in range(isc.num_instances):
+        d_j, _, _ = dispatch.closest_hit(isc.base, *inst._to_object(
+            isc, j, o3, d3), tm)
+        hidden.append(int(((d_j > 0.0) & (d_j < BIG) & (ids != j)).sum()))
+    print(f"check {name}: the camera sees {seen} of {isc.num_instances} "
+          f"instances on {float(hit.float().mean()):.4f} of its rays; rays "
+          f"whose hit on an instance another hides: {hidden}", flush=True)
+    if seen != isc.num_instances or not any(hidden):
+        fail(f"{name}: the camera sees {seen} instances, hidden {hidden}")
+
+    p3 = tuple(o + d * torch.where(hit, dist, 0.0) for o, d in zip(o3, d3))
+    lp = isc.lights.pos[0]
+    fl3, ldist, _, mask = _toward_light(p3, n3, hit, lp)
+    stm = shadow_tmax(ldist, mask)
+    lo3 = tuple(lp[k].expand(stm.shape) for k in range(3))
+    for i in range(isc.num_instances):
+        touch = inst._ray_hits_box(lo3, fl3, stm, isc.inst_lo[i],
+                                   isc.inst_hi[i])
+        if bool(touch.any()):
+            break
+    o, d = inst._to_object(isc, i, lo3, fl3)
+    o, d, tmi, _ = pt.general_planes(o.unbind(1), d.unbind(1),
+                                     torch.where(touch, stm, -BIG))
+    return check_shadow_general(f"{name} instance {i} shadows", isc.base, o,
+                                d, tmi, need_window)
+
+
 def run_step(name, scene, cam, small, card):
     """Phase 4, bench.py's fwd+bwd step (bench.py:236-247): the loss and
     gradients of its 7 parameters through render_frame_fast_diff with
     reflections and shadows, MSE against a forward render. Launch counts
-    of one step (all six kernels), a 64 x 64 step on the card against the
-    CPU path (its target lit at half the light colour, so that the
-    gradients are not ~0), ms/step. Returns the launch counts."""
+    of one step (the six kernels of the bounce path), a 64 x 64 step on
+    the card against the CPU path (its target lit at half the light
+    colour, so that the gradients are not ~0), ms/step. Returns the launch
+    counts."""
     import numpy as np
     import torch
 
@@ -431,7 +833,7 @@ def run_step(name, scene, cam, small, card):
     with pt.count_live_rays() as live:
         loss, grads = bench_step(scene, cam, target, WIDTH, HEIGHT)
     torch.cuda.synchronize()
-    launches = launched(name, "fwd_bwd", tuple(REPLACES))
+    launches = launched(name, "fwd_bwd", BOUNCE)
     traced = sum(int(n) for n in live)
     bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
     loss = float(loss)
@@ -502,6 +904,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
+    stamp = lambda what: print(f"time: {what} done after "
+                               f"{time.perf_counter() - t0:.1f} s",
+                               flush=True)
     path, secs = _build.build()
     _build.library()
     print(f"build: {path.name}, nvcc {secs:.2f} s, ready after "
@@ -516,25 +921,35 @@ def main() -> None:
         small = (scene, cam) if n_small == n else make_scene(kind, n_small)
         if kind in LOW_LIGHT:
             small = (dataclasses.replace(small[0], lights=Light.make(
-                LOW_LIGHT[kind], (1.0, 1.0, 1.0), SCENES[kind][3],
-                device="cuda")), small[1])
+                LOW_LIGHT[kind], (1.0, 1.0, 1.0), SCENES[kind][3])),
+                small[1])
+        stamp(f"{name} scenes")
         checks = check_kernels(name, kind, scene, cam)
+        stamp(f"{name} kernel checks")
         fwd = RenderOpts(reflections=False, transparency=False,
                          textures=False)
-        launches = {
-            "fwd": run_frame(name, "fwd", fwd, FORWARD, scene, cam, small,
-                             card),
-            "bounce": run_frame(name, "bounce", RenderOpts(textures=False),
-                                tuple(REPLACES), scene, cam, small, card),
-            "fwd_bwd": run_step(name, scene, cam, small, card),
-        }
-        # launches: those of the bounce frame, which runs all six
-        for k, (err, ms, plain_ms) in checks.items():
+        launches = {}
+        launches["fwd"] = run_frame(name, "fwd", fwd, FORWARD, scene, cam,
+                                    small, card)
+        launches["bounce"] = run_frame(name, "bounce",
+                                       RenderOpts(textures=False), BOUNCE,
+                                       scene, cam, small, card)
+        stamp(f"{name} fwd and bounce frames")
+        launches["fwd_bwd"] = run_step(name, scene, cam, small, card)
+        stamp(f"{name} fwd_bwd step")
+        launches["stats"] = run_stats(name, fwd, scene, cam, small, card)
+        stamp(f"{name} counter frame")
+        checks["shadow_wl_g"], by_path = run_instanced(name, kind, scene,
+                                                       small, card)
+        launches.update(by_path)
+        stamp(f"{name} instanced frames")
+        for k, e in checks.items():
             kernels.append({
                 "name": f"{k}/{name}", "route": "cuda", "source": SRC,
-                "replaces": REPLACES[k], "launches": launches["bounce"][k],
+                "replaces": REPLACES[k], "launches": launches[PATH_OF[k]][k],
+                "path": PATH_OF[k],
                 "launches_by_path": {p: n[k] for p, n in launches.items()},
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                **e, "library_ms": None})
         del scene, small
         torch.cuda.empty_cache()
 

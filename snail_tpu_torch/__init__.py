@@ -4,16 +4,22 @@ The package mirrors ``snail_tpu``'s module names so each piece can be read
 beside its JAX counterpart:
 
 - ``core``   — constants and the Camera / Light / RenderOpts records;
+- ``bvh``    — the NumPy SAH builder;
 - ``scene``  — NumPy scene assembly (procedural scenes, flattening, the
-  default material table) and the device scene (:class:`TracedScene`);
+  default material table), the device scene (:class:`TracedScene`) and
+  rigid instances of one base scene (``scene.instancing``);
 - ``ops``    — the traversal: host-side packing, the plain PyTorch versions
   of the kernels and the wrappers that launch the hand-written CUDA
   kernels in ``csrc/`` for tensors on a CUDA device;
-- ``render`` — the packed Whitted forward frame and the frame renderer.
+- ``render`` — the packed Whitted frames (forward, bounces, gradients,
+  counters) and the frame renderer;
+- ``utils``  — the traversal counters' ``TreeStats`` record.
 
-The one import taken from ``snail_tpu`` is ``snail_tpu.bvh`` (NumPy only),
-so both packages share one BVH and a triangle id means the same in both.
-Nothing here imports JAX.
+Nothing here imports JAX or ``snail_tpu``: what the port needs of the JAX
+package's NumPy host code it keeps as its own copy, which the CPU tests
+hold equal to the original (the BVH builder, the procedural scenes, the
+default material table), so a triangle id means the same in both.
+Entry points build on the card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

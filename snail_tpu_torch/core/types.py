@@ -12,7 +12,20 @@ import numpy as np
 import torch
 
 
-def _f32(x, device=None) -> torch.Tensor:
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds on: the card by default. Kernels are
+    routed by the device of their tensors, so a CPU run must be asked for
+    (``device="cpu"``); asking for the card without one raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the plain PyTorch "
+            "versions of the kernels on the CPU")
+    return dev
+
+
+def _f32(x, device) -> torch.Tensor:
+    device = resolve_device(device)
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
     return torch.tensor(np.asarray(x, np.float32), device=device)
@@ -33,7 +46,7 @@ class Camera:
 
     @staticmethod
     def look_at(pos, target, up=(0.0, 1.0, 0.0), plane_dist=1.0,
-                device=None) -> "Camera":
+                device="cuda") -> "Camera":
         pos = _f32(pos, device)
         front = _f32(target, device) - pos
         front = front / torch.linalg.vector_norm(front)
@@ -58,7 +71,7 @@ class Light:
     radius: torch.Tensor
 
     @staticmethod
-    def make(pos, color, radius, device=None) -> "Light":
+    def make(pos, color, radius, device="cuda") -> "Light":
         return Light(pos=torch.atleast_2d(_f32(pos, device)),
                      color=torch.atleast_2d(_f32(color, device)),
                      radius=torch.atleast_1d(_f32(radius, device)))
@@ -90,4 +103,4 @@ class RenderOpts:
     photon_exposure: float = 1.0
 
 
-__all__ = ["Camera", "Light", "RenderOpts"]
+__all__ = ["Camera", "Light", "RenderOpts", "resolve_device"]

@@ -8,6 +8,9 @@
 //   camera_wl_kernel      <- _camera_wl_kernel     (B2)
 //   shadow_wl_kernel      <- _shadow_wl_kernel     (B4)
 //   closest_wl_g_kernel   <- _closest_wl_kernel_g  (B6)
+//   shadow_wl_g_kernel    <- _shadow_wl_kernel_g   (B7)
+//   camera_wl_kernel<true> <- _camera_wl_kernel_stats (B8a)
+//   shadow_wl_kernel<true> <- _shadow_wl_kernel_stats (B8b)
 // The plain PyTorch versions are in snail_tpu_torch/ops/traverse.py, which
 // documents the word layout. The file has a plain C interface (bottom) and
 // is loaded with ctypes; it is compiled with --fmad=false so every product
@@ -37,6 +40,14 @@
 //   ~2x the flops of the shared-origin test. A 64x64 tile's reflections
 //   are far less coherent than its primaries, so its packet interval
 //   keeps more leaves; the warp culls are what keep the scan short.
+// - B7 is B4 with an origin per ray, on B6's raw rows and warp culls: the
+//   full Moller terms (~2x B4's flops per triangle) and B4's exit once
+//   every live ray of a warp is blocked.
+// - B8a/B8b are B2/B4 with counters (template STATS; with STATS=false no
+//   counting code is compiled in). Every counter is warp-uniform, kept in
+//   registers and added to the packet's row by one integer atomicAdd per
+//   counter and warp at the end: order-free, so deterministic. Their cost
+//   is a few warp votes per word and leaf.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -419,7 +430,41 @@ __device__ __forceinline__ bool warp_keeps(const float* box, int lp, int l,
   return ok;
 }
 
-// Scan of one packet's words in band order, shared by B2 and B4. Band b
+// Traversal counters of one warp (B8), the slots of its packet's (P, 8)
+// int32 row; every lane holds the same values:
+//   [0] nodes      populated bit words the warp tests against its cull
+//   [1] leaves     leaves the warp keeps after its cull (ballot survivors)
+//   [2] quarters   (leaf, warp) pairs in which some lane passes its slab
+//                  test and intersects the leaf's triangles
+//   [3] tri_blocks triangles tested, summed over those pairs: the most any
+//                  lane tested, one unit = one triangle against a 32-ray
+//                  warp (B4's lanes stop at their first blocker)
+//   [4] chunks     bands the warp enters (not skipped by their floor)
+//   [5..7] 0
+struct Counters {
+  int nodes = 0, leaves = 0, quarters = 0, tri_blocks = 0, chunks = 0;
+};
+
+__device__ __forceinline__ void add_counters(const Counters& c,
+                                             int32_t* row) {
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(row + 0, c.nodes);
+    atomicAdd(row + 1, c.leaves);
+    atomicAdd(row + 2, c.quarters);
+    atomicAdd(row + 3, c.tri_blocks);
+    atomicAdd(row + 4, c.chunks);
+  }
+}
+
+// Counts one (leaf, warp) pair: ``go`` = this lane intersects the leaf,
+// ``tested`` = the triangles it tested.
+__device__ __forceinline__ void count_leaf(Counters& c, bool go,
+                                           int tested) {
+  c.quarters += __any_sync(kFull, go) ? 1 : 0;
+  c.tri_blocks += (int)__reduce_max_sync(kFull, (unsigned)tested);
+}
+
+// Scan of one packet's words in band order, shared by B2/B4/B6/B7. Band b
 // is skipped once its floor is at or above the warp's bound
 // (bound_fn() = max over lanes of the distance still of interest, <= 0
 // when the warp is done); every leaf in a band has its interval entry at
@@ -427,19 +472,22 @@ __device__ __forceinline__ bool warp_keeps(const float* box, int lp, int l,
 // one per lane, against the warp's cull ``wc`` with its current bound (a
 // packet whose direction interval spans zero can pass every leaf of a
 // scene; its warps' culls do not); leaf_fn(l) then runs for the
-// survivors, in order, and returns true to end the scan.
-template <bool GEN, typename BoundFn, typename LeafFn>
+// survivors, in order, and returns true to end the scan. With STATS the
+// scan counts into ``st`` (chunks, nodes, leaves; leaf_fn the rest).
+template <bool GEN, bool STATS = false, typename BoundFn, typename LeafFn>
 __device__ __forceinline__ void scan_words(const int32_t* words,
                                            const int32_t* summ,
                                            const float* floors, int k_bands,
                                            int nw, int ns, const float* box,
                                            int lp, WarpCull& wc,
-                                           BoundFn bound_fn, LeafFn leaf_fn) {
+                                           Counters& st, BoundFn bound_fn,
+                                           LeafFn leaf_fn) {
   const int lane = threadIdx.x & 31;
   for (int b = 0; b < k_bands; ++b) {
     const float bound = bound_fn();
     if (!(bound > 0.0f)) return;
     if (floors[b] >= bound) continue;
+    if constexpr (STATS) ++st.chunks;
     for (int s = 0; s < ns; ++s) {
       unsigned sw = (unsigned)summ[b * ns + s];
       while (sw) {
@@ -448,9 +496,11 @@ __device__ __forceinline__ void scan_words(const int32_t* words,
         unsigned word = (unsigned)words[b * nw + w];
         wc.iv.mb = bound_fn();
         if (!(wc.iv.mb > 0.0f)) return;
+        if constexpr (STATS) ++st.nodes;
         const bool ok = ((word >> lane) & 1u) &&
                         warp_keeps<GEN>(box, lp, w * 32 + lane, wc);
         word = __ballot_sync(kFull, ok);
+        if constexpr (STATS) st.leaves += __popc(word);
         while (word) {
           const int l = w * 32 + __ffs(word) - 1;
           word &= word - 1;
@@ -461,7 +511,9 @@ __device__ __forceinline__ void scan_words(const int32_t* words,
   }
 }
 
-// B2: camera raygen + closest hit, one thread per ray.
+// B2 (B8a with STATS): camera raygen + closest hit, one thread per ray;
+// STATS adds the packet's counters to ``out_stats`` (P, 8).
+template <bool STATS>
 __global__ void __launch_bounds__(kTraceThreads)
 camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
                  const float* __restrict__ box,
@@ -473,7 +525,7 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
                  float* __restrict__ out_dist, float* __restrict__ out_u,
                  float* __restrict__ out_v, int32_t* __restrict__ out_tri,
                  float* __restrict__ out_dx, float* __restrict__ out_dy,
-                 float* __restrict__ out_dz) {
+                 float* __restrict__ out_dz, int32_t* __restrict__ out_stats) {
   const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int pid = (int)(g / kPacketR), k = (int)(g % kPacketR);
   const int nw = lp / 32, ns = lp / kLeafBlock;
@@ -483,15 +535,18 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
   int tri = -1;
   // a ray that misses the root box (best = 0) can hit nothing
   WarpCull wc = warp_cull<false>(o, r.d, r.idir, best);
+  Counters st;
 
-  scan_words<false>(
+  scan_words<false, STATS>(
       words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
-      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc,
+      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc, st,
       [&] { return warp_max(fmaxf(best, 0.0f)); },
       [&](int l) {
         bool pass;
         const float tn = ray_slab(box, lp, l, o, r.idir, pass);
-        if (pass && tn < best) {
+        const bool go = pass && tn < best;
+        if constexpr (STATS) count_leaf(st, go, go ? __ldg(lcount + l) : 0);
+        if (go) {
           const int first = __ldg(lfirst + l), cnt = __ldg(lcount + l);
           for (int j = 0; j < cnt; ++j) {
             const TriRow t = load_row(rows, first + j);
@@ -523,10 +578,12 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
   out_dx[g] = r.d[0];
   out_dy[g] = r.d[1];
   out_dz[g] = r.d[2];
+  if constexpr (STATS) add_counters(st, out_stats + pid * 8);
 }
 
-// B4: any-hit from a shared origin, one thread per ray; a warp stops once
-// every live ray in it is blocked.
+// B4 (B8b with STATS): any-hit from a shared origin, one thread per ray;
+// a warp stops once every live ray in it is blocked.
+template <bool STATS>
 __global__ void __launch_bounds__(kTraceThreads)
 shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
                  const float* __restrict__ dy, const float* __restrict__ dz,
@@ -537,7 +594,8 @@ shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
                  const int32_t* __restrict__ words,
                  const int32_t* __restrict__ summ,
                  const float* __restrict__ floors, int k_bands,
-                 float* __restrict__ out_blocked) {
+                 float* __restrict__ out_blocked,
+                 int32_t* __restrict__ out_stats) {
   const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int pid = (int)(g / kPacketR);
   const int nw = lp / 32, ns = lp / kLeafBlock;
@@ -549,16 +607,19 @@ shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
   const float limit = tmax >= 0.0f ? tmax : -kBig;
   bool blocked = false;
   WarpCull wc = warp_cull<false>(o, d, idir, limit);
+  Counters st;
 
-  scan_words<false>(
+  scan_words<false, STATS>(
       words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
-      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc,
+      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc, st,
       [&] { return warp_max(fmaxf(blocked ? -kBig : limit, 0.0f)); },
       [&](int l) {
         const float lim = blocked ? -kBig : limit;
         bool pass;
         const float tn = ray_slab(box, lp, l, o, idir, pass);
-        if (pass && tn < lim) {
+        const bool go = pass && tn < lim;
+        int tested = 0;
+        if (go) {
           const int first = __ldg(lfirst + l), cnt = __ldg(lcount + l);
           for (int j = 0; j < cnt && !blocked; ++j) {
             const TriRow t = load_row(rows, first + j);
@@ -568,12 +629,15 @@ shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
             // one-sided, as the reference's shadow test (triangle.cpp:95-96)
             blocked = fminf(u, v) >= 0.0f && u + v <= det &&
                       t.tmul > 0.0f && t.tmul < limit * det;
+            if constexpr (STATS) ++tested;
           }
         }
+        if constexpr (STATS) count_leaf(st, go, tested);
         return __all_sync(kFull, blocked || !(limit > 0.0f));
       });
 
   out_blocked[g] = blocked ? 1.0f : 0.0f;
+  if constexpr (STATS) add_counters(st, out_stats + pid * 8);
 }
 
 // B6: closest hit of rays with their own origins, one thread per ray, on
@@ -609,10 +673,11 @@ closest_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   int tri = -1;
   const float t_root = box_exit(root, root + 3, o, idir);
   WarpCull wc = warp_cull<true>(o, d, idir, fminf(best, t_root));
+  Counters none;
 
   scan_words<true>(
       words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
-      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc,
+      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc, none,
       [&] { return warp_max(fmaxf(fminf(best, t_root), 0.0f)); },
       [&](int l) {
         bool pass;
@@ -654,6 +719,74 @@ closest_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   out_u[g] = bu;
   out_v[g] = bv;
   out_tri[g] = max(tri, 0);
+}
+
+// B7: any-hit of rays with their own origins, one thread per ray, on the
+// raw triangle rows: B4's scan and exit (a warp stops once every live ray
+// in it is blocked) with B6's per-ray-origin warp culls and root-box clip,
+// and the one-sided shadow rule of _shadow_ival_drain_g (:2044-2050) on
+// the full Moller terms. A masked ray (tmax < 0) is never blocked.
+__global__ void __launch_bounds__(kTraceThreads)
+shadow_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+                   const float* __restrict__ oz, const float* __restrict__ dx,
+                   const float* __restrict__ dy, const float* __restrict__ dz,
+                   const float* __restrict__ tm,
+                   const float* __restrict__ rows,
+                   const float* __restrict__ box,
+                   const float* __restrict__ root,
+                   const int32_t* __restrict__ lfirst,
+                   const int32_t* __restrict__ lcount, int lp,
+                   const int32_t* __restrict__ words,
+                   const int32_t* __restrict__ summ,
+                   const float* __restrict__ floors, int k_bands,
+                   float* __restrict__ out_blocked) {
+  const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int pid = (int)(g / kPacketR);
+  const int nw = lp / 32, ns = lp / kLeafBlock;
+  const float o[3] = {ox[g], oy[g], oz[g]};
+  const float d[3] = {dx[g], dy[g], dz[g]};
+  const float idir[3] = {1.0f / (d[0] + kInvEps), 1.0f / (d[1] + kInvEps),
+                         1.0f / (d[2] + kInvEps)};
+  const float tmax = tm[g];
+  const float limit = tmax >= 0.0f ? tmax : -kBig;
+  // nothing beyond the root box can block: the culls look no further
+  const float reach = fminf(limit, box_exit(root, root + 3, o, idir));
+  bool blocked = false;
+  WarpCull wc = warp_cull<true>(o, d, idir, reach);
+  Counters none;
+
+  scan_words<true>(
+      words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
+      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc, none,
+      [&] { return warp_max(fmaxf(blocked ? -kBig : reach, 0.0f)); },
+      [&](int l) {
+        const float lim = blocked ? -kBig : limit;
+        bool pass;
+        const float tn = ray_slab(box, lp, l, o, idir, pass);
+        if (pass && tn < lim) {
+          const int first = __ldg(lfirst + l), cnt = __ldg(lcount + l);
+          for (int j = 0; j < cnt && !blocked; ++j) {
+            const RawRow t = load_raw_row(rows, first + j);
+            // full Moller, in the order of _intersect4 (:431-458)
+            const float tvx = o[0] - t.ax, tvy = o[1] - t.ay,
+                        tvz = o[2] - t.az;
+            const float det = d[0] * t.nx + d[1] * t.ny + d[2] * t.nz;
+            const float tmul = -(tvx * t.nx + tvy * t.ny + tvz * t.nz);
+            const float u = d[0] * (tvy * t.caz - tvz * t.cay) +
+                            d[1] * (tvz * t.cax - tvx * t.caz) +
+                            d[2] * (tvx * t.cay - tvy * t.cax);
+            const float v = d[0] * (t.bay * tvz - t.baz * tvy) +
+                            d[1] * (t.baz * tvx - t.bax * tvz) +
+                            d[2] * (t.bax * tvy - t.bay * tvx);
+            // one-sided (triangle.cpp:95-96)
+            blocked = fminf(u, v) >= 0.0f && u + v <= det && tmul > 0.0f &&
+                      tmul < limit * det;
+          }
+        }
+        return __all_sync(kFull, blocked || !(reach > 0.0f));
+      });
+
+  out_blocked[g] = blocked ? 1.0f : 0.0f;
 }
 
 int words_smem(int k_bands, int lp) {
@@ -712,33 +845,48 @@ int snail_words_general(const float* ox, const float* oy, const float* oz,
   return (int)cudaGetLastError();
 }
 
+// B2, or B8a when ``stats`` (P, 8) int32, zeroed by the caller, is given.
 int snail_camera_wl(const float* cam, const float* rows, const float* box,
                     const int32_t* lfirst, const int32_t* lcount, int lp,
                     const int32_t* words, const int32_t* summ,
                     const float* floors, int k_bands, int n_packets,
                     float* dist, float* u, float* v, int32_t* tri, float* dx,
-                    float* dy, float* dz, void* stream) {
+                    float* dy, float* dz, int32_t* stats, void* stream) {
   if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0)
     return (int)cudaErrorInvalidValue;
-  camera_wl_kernel<<<n_packets * (kPacketR / kTraceThreads), kTraceThreads, 0,
-                     (cudaStream_t)stream>>>(
-      cam, rows, box, lfirst, lcount, lp, words, summ, floors, k_bands, dist,
-      u, v, tri, dx, dy, dz);
+  const int blocks = n_packets * (kPacketR / kTraceThreads);
+  if (stats)
+    camera_wl_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(
+        cam, rows, box, lfirst, lcount, lp, words, summ, floors, k_bands,
+        dist, u, v, tri, dx, dy, dz, stats);
+  else
+    camera_wl_kernel<false><<<blocks, kTraceThreads, 0,
+                              (cudaStream_t)stream>>>(
+        cam, rows, box, lfirst, lcount, lp, words, summ, floors, k_bands,
+        dist, u, v, tri, dx, dy, dz, nullptr);
   return (int)cudaGetLastError();
 }
 
+// B4, or B8b when ``stats`` (P, 8) int32, zeroed by the caller, is given.
 int snail_shadow_wl(const float* orig, const float* dx, const float* dy,
                     const float* dz, const float* tm, const float* rows,
                     const float* box, const int32_t* lfirst,
                     const int32_t* lcount, int lp, const int32_t* words,
                     const int32_t* summ, const float* floors, int k_bands,
-                    int n_packets, float* blocked, void* stream) {
+                    int n_packets, float* blocked, int32_t* stats,
+                    void* stream) {
   if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0)
     return (int)cudaErrorInvalidValue;
-  shadow_wl_kernel<<<n_packets * (kPacketR / kTraceThreads), kTraceThreads, 0,
-                     (cudaStream_t)stream>>>(
-      orig, dx, dy, dz, tm, rows, box, lfirst, lcount, lp, words, summ,
-      floors, k_bands, blocked);
+  const int blocks = n_packets * (kPacketR / kTraceThreads);
+  if (stats)
+    shadow_wl_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(
+        orig, dx, dy, dz, tm, rows, box, lfirst, lcount, lp, words, summ,
+        floors, k_bands, blocked, stats);
+  else
+    shadow_wl_kernel<false><<<blocks, kTraceThreads, 0,
+                              (cudaStream_t)stream>>>(
+        orig, dx, dy, dz, tm, rows, box, lfirst, lcount, lp, words, summ,
+        floors, k_bands, blocked, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -757,6 +905,22 @@ int snail_closest_wl_g(const float* ox, const float* oy, const float* oz,
                         0, (cudaStream_t)stream>>>(
       ox, oy, oz, dx, dy, dz, tm, rows, box, root, lfirst, lcount, lp, words,
       summ, floors, k_bands, dist, u, v, tri);
+  return (int)cudaGetLastError();
+}
+
+int snail_shadow_wl_g(const float* ox, const float* oy, const float* oz,
+                      const float* dx, const float* dy, const float* dz,
+                      const float* tm, const float* rows, const float* box,
+                      const float* root, const int32_t* lfirst,
+                      const int32_t* lcount, int lp, const int32_t* words,
+                      const int32_t* summ, const float* floors, int k_bands,
+                      int n_packets, float* blocked, void* stream) {
+  if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0)
+    return (int)cudaErrorInvalidValue;
+  shadow_wl_g_kernel<<<n_packets * (kPacketR / kTraceThreads), kTraceThreads,
+                       0, (cudaStream_t)stream>>>(
+      ox, oy, oz, dx, dy, dz, tm, rows, box, root, lfirst, lcount, lp, words,
+      summ, floors, k_bands, blocked);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,55 @@
+"""Traversal dispatch (``snail_tpu.ops.dispatch``): the seam through which
+callers that hold rays as (R, 3) arrays — instancing, and later the
+portable integrator — reach the worklist kernels.
+
+``closest_hit``, ``any_hit`` and ``any_hit_from`` route to the worklist
+wrappers of :mod:`.traverse`; as everywhere in the port, the device of the
+scene's tensors picks the CUDA kernels or their plain versions. The JAX
+package's other branch, the stack-walk traversal ``traverse_ref`` for
+scenes without packed tables, is not ported yet (ROADMAP queue A item 11).
+Visibility is boolean, so the any-hit entries run without gradients.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.vecmath import BIG
+from .traverse import (any_hit_aos, any_hit_shared, closest_hit_aos,
+                       pad_flat, substitute_masked)
+
+
+def _worklist(scene):
+    if getattr(scene, "leaves", None) is None:
+        raise NotImplementedError(
+            "this scene has no worklist leaf tables; the stack-walk "
+            "traversal for it is not ported yet (ROADMAP queue A item 11)")
+    return scene
+
+
+def closest_hit(scene, orig, dirn, tmax):
+    """(dist, tri, bary (R, 2)) of rays ``orig``/``dirn`` (R, 3): a miss
+    has dist BIG, a masked ray (tmax < 0) -BIG."""
+    return closest_hit_aos(_worklist(scene), orig, dirn, tmax)
+
+
+@torch.no_grad()
+def any_hit_from(scene, origin, dirn, tmax):
+    """Any-hit of rays that all start at ``origin`` (3,) (shadow rays are
+    traced from the light, scene_inl.h:127-129) along ``dirn`` (R, 3):
+    blocked bool (R,), never for a masked ray. Masked rays' directions
+    are substituted by their packet's mean live direction first, so they
+    cannot widen the packet's direction interval."""
+    _worklist(scene)
+    n = dirn.shape[0]
+    tm, _ = pad_flat(tmax, -BIG)
+    d = substitute_masked(tuple(pad_flat(dirn[:, k], 1.0)[0]
+                                for k in range(3)), tm, unit_fallback=True)
+    return any_hit_shared(scene, origin, d, tm)[:n] & (tmax >= 0.0)
+
+
+@torch.no_grad()
+def any_hit(scene, orig, dirn, tmax):
+    """Any-hit of rays ``orig``/``dirn`` (R, 3): blocked bool (R,), never
+    for a masked ray (tmax < 0)."""
+    return any_hit_aos(_worklist(scene), orig, dirn, tmax)

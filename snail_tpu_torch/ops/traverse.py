@@ -16,11 +16,12 @@ Each wavefront runs two kernels:
    emitted as bit words, one summary word per 1024 leaves and one
    distance floor per band;
 2. a *trace* pass (B2 closest hit from the camera, B4 any-hit from a
-   light, B6 closest hit from per-ray origins): the surviving leaf bits
-   are scanned band by band; each ray culls the leaf box against its own
-   current best and intersects the leaf's triangles, with the
-   shared-origin Moller terms of :func:`shared_rows` (B2, B4) or the full
-   Moller test on the raw triangle rows (B6).
+   light, B6 closest hit and B7 any-hit from per-ray origins): the
+   surviving leaf bits are scanned band by band; each ray culls the leaf
+   box against its own current best and intersects the leaf's triangles,
+   with the shared-origin Moller terms of :func:`shared_rows` (B2, B4) or
+   the full Moller test on the raw triangle rows (B6, B7). B8a/B8b are
+   B2/B4 that also count what each packet's warps did (:data:`STATS`).
 
 Word layout, per packet: ``words`` int32 (P, K, Lp/32), bit p of word w =
 leaf 32*w + p; ``summ`` int32 (P, K, Lp/1024), bit j of word s = word
@@ -54,6 +55,14 @@ WL_BANDS = 8  # closest-hit distance bands
 LEAF_BLOCK = 1024  # leaves per summary word (32 words of 32 bits)
 TRI_ROW = 16  # floats per 64-B triangle row
 _HIST_BINS = 32  # histogram bins of the equal-count band edges
+WARP = 32  # rays per warp: one thread per ray
+WARPS = PACKET_R // WARP  # warps per packet
+# The counters of B8a/B8b, per packet: the slots of its (P, 8) int32 row
+# (the JAX package's names and slots; slots 5-7 stay 0). What each counts
+# is in csrc/worklist.cu (struct Counters).
+STATS = ("nodes", "leaves", "quarters", "tri_blocks", "chunks")
+# rays per tri_blocks unit: one triangle is tested against one warp
+RAYS_PER_TRI_BLOCK = WARP
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +103,7 @@ class LeafTables:
 def pack_leaf_tables(node_lo, node_hi, node_child,
                      node_count) -> LeafTables:
     """Leaf boxes, first triangle and count per leaf of a BVH given by its
-    node arrays (``snail_tpu.bvh.BVH`` fields)."""
+    node arrays (``snail_tpu_torch.bvh.BVH`` fields)."""
     leaf = np.where(node_count > 0)[0]
     if len(leaf) == 0:
         raise ValueError("BVH has no leaves")
@@ -477,15 +486,19 @@ def closest_wl_g_plain(o, d, tm, rows, tables: LeafTables, words):
     bv = torch.zeros_like(best)
     btri = torch.full(best.shape, -1, dtype=torch.int64, device=best.device)
     for i in range(tm.shape[0]):
-        op = [c[i] for c in o]
-        dp = [c[i] for c in d]
+        # a masked ray keeps -BIG: only the packet's live rays are traced
+        rays = torch.nonzero(active[i]).flatten()
+        op = [c[i, rays] for c in o]
+        dp = [c[i, rays] for c in d]
         leaves, _, _ = _packet_leaves(tables, words[i])
-        tn, tf = _leaf_slab(tables, op, [c[i] for c in idir], leaves)
+        tn, tf = _leaf_slab(tables, op, [c[i, rays] for c in idir], leaves)
         slab = (tn <= tf) & (tf > 0.0)
         # only the leaves some ray of the packet enters
         keep = slab.any(0)
         slab = slab[:, keep]
         tri, owner = _leaf_tris(tables, leaves[keep])
+        pb, ptr, pu, pv = (best[i, rays], btri[i, rays], bu[i, rays],
+                           bv[i, rays])
         for s in range(0, len(tri), _PLAIN_TRIS):
             t = tri[s:s + _PLAIN_TRIS]
             det, u, v, tmul = _moller_g(rows[t], op, dp)
@@ -500,13 +513,15 @@ def closest_wl_g_plain(o, d, tm, rows, tables: LeafTables, words):
             m = dist.amin(1)
             is_min = ok & (dist == m[:, None])
             j = torch.where(is_min, t[None, :], 2**62).argmin(1)
-            upd = m < best[i]
-            best[i] = torch.where(upd, m, best[i])
-            btri[i] = torch.where(upd, t[j], btri[i])
+            upd = m < pb
+            pb = torch.where(upd, m, pb)
+            ptr = torch.where(upd, t[j], ptr)
             ui = (u * idet).gather(1, j[:, None])[:, 0]
             vi = (v * idet).gather(1, j[:, None])[:, 0]
-            bu[i] = torch.where(upd, ui, bu[i])
-            bv[i] = torch.where(upd, vi, bv[i])
+            pu = torch.where(upd, ui, pu)
+            pv = torch.where(upd, vi, pv)
+        best[i, rays], btri[i, rays] = pb, ptr
+        bu[i, rays], bv[i, rays] = pu, pv
     hit = btri >= 0
     dist = torch.where(hit, best, torch.where(active, BIG, -BIG))
     return dist, bu, bv, btri.clamp_min(0).to(torch.int32)
@@ -535,6 +550,230 @@ def shadow_wl_plain(orig, d, tm, rows, tables: LeafTables, words):
             occ_any |= occ.any(1)
         blocked[i] = occ_any.float()
     return blocked
+
+
+def shadow_wl_g_plain(o, d, tm, rows, tables: LeafTables, words):
+    """Plain B7: any-hit of rays from their own origins over the leaves
+    set in ``words``; ``o``/``d`` three and ``tm`` one (P, PACKET_R)
+    planes, ``rows`` the raw triangle rows. Returns blocked float32 (P,
+    PACKET_R), 1 where an occluder lies in (0, tmax) by the one-sided
+    test (``_shadow_ival_drain_g`` :2044-2050); a masked ray is never
+    blocked."""
+    idir = [1.0 / (c + INV_EPS) for c in d]
+    limit = torch.where(tm >= 0.0, tm, -BIG)
+    blocked = torch.zeros_like(tm)
+    for i in range(tm.shape[0]):
+        # a masked ray is never blocked: only the live rays are traced
+        rays = torch.nonzero(tm[i] >= 0.0).flatten()
+        op = [c[i, rays] for c in o]
+        dp = [c[i, rays] for c in d]
+        lim = limit[i, rays][:, None]
+        leaves, _, _ = _packet_leaves(tables, words[i])
+        tn, tf = _leaf_slab(tables, op, [c[i, rays] for c in idir], leaves)
+        slab = (tn <= tf) & (tf > 0.0) & (tn < lim)
+        keep = slab.any(0)
+        slab = slab[:, keep]
+        tri, owner = _leaf_tris(tables, leaves[keep])
+        occ_any = torch.zeros(len(rays), dtype=torch.bool, device=tm.device)
+        for s in range(0, len(tri), _PLAIN_TRIS):
+            det, u, v, tmul = _moller_g(rows[tri[s:s + _PLAIN_TRIS]], op, dp)
+            occ = ((torch.minimum(u, v) >= 0.0) & (u + v <= det)
+                   & (tmul > 0.0) & (tmul < lim * det)
+                   & slab[:, owner[s:s + _PLAIN_TRIS]])
+            occ_any |= occ.any(1)
+        blocked[i, rays] = occ_any.float()
+    return blocked
+
+
+# --- The counters of B8a/B8b: a simulation of each warp's scan ---------
+#
+# The counts depend on the order in which a warp meets leaves (its culls
+# use its current bound), so the plain versions walk every warp of a
+# packet through its words as the kernels do: band, summary word, word,
+# bit, with the kernels' float arithmetic. Warps are a batch dimension;
+# the walk loops over the packet's populated words and kept leaves.
+
+
+def _warp_cull_sim(o, d, idir, limit):
+    """The kernels' warp cull (``warp_cull<false>``) of each warp of a
+    packet of rays from the shared origin ``o`` (three 0-d): ``d``/``idir``
+    three and ``limit`` one (WARPS, WARP). Returns (im, iM, lo, hi), three
+    (WARPS,) each: the inverse-direction bounds of the warp's live rays
+    and the padded box around their segments."""
+    live = limit > 0.0
+    im, iM, lo, hi = [], [], [], []
+    for k in range(3):
+        a, b = _widen(torch.where(live, idir[k], BIG).amin(1),
+                      torch.where(live, idir[k], -BIG).amax(1))
+        end = o[k] + d[k] * limit
+        l = torch.where(live, torch.minimum(o[k], end), BIG).amin(1)
+        h = torch.where(live, torch.maximum(o[k], end), -BIG).amax(1)
+        pad = 1e-4 * torch.maximum(l.abs(), h.abs()) + 1e-4
+        im.append(a)
+        iM.append(b)
+        lo.append(l - pad)
+        hi.append(h + pad)
+    return im, iM, lo, hi
+
+
+def _warp_keeps_sim(box, ls, o, cull, mb):
+    """(WARPS, len(ls)) bool: each warp's cull (``warp_keeps<false>``) of
+    leaves ``ls`` at the warp bounds ``mb`` (WARPS,)."""
+    im, iM, lo, hi = cull
+    tn = torch.zeros((mb.shape[0], len(ls)), dtype=torch.float32,
+                     device=box.device)
+    tf = mb[:, None].expand_as(tn)
+    for k in range(3):
+        a = box[k, ls][None, :] - o[k]
+        c = box[3 + k, ls][None, :] - o[k]
+        a1, a2 = a * im[k][:, None], a * iM[k][:, None]
+        c1, c2 = c * im[k][:, None], c * iM[k][:, None]
+        tn = torch.maximum(tn, torch.minimum(torch.minimum(a1, a2),
+                                             torch.minimum(c1, c2)))
+        tf = torch.minimum(tf, torch.maximum(torch.maximum(a1, a2),
+                                             torch.maximum(c1, c2)))
+    ok = (tn <= tf) & (tf > 0.0)
+    for k in range(3):
+        ok &= ((box[k, ls][None, :] <= hi[k][:, None])
+               & (box[3 + k, ls][None, :] >= lo[k][:, None]))
+    return ok
+
+
+def _scan_sim(tables: LeafTables, words_p, floors_p, o, cull, bound_fn,
+              leaf_fn):
+    """One packet's counters (int64 (5,), the order of :data:`STATS`):
+    every warp walks the packet's words ``words_p`` (K, Lp/32) in band
+    order as ``scan_words`` does. ``bound_fn()`` gives the warps' bounds
+    (WARPS,); ``leaf_fn(l, proc)`` runs leaf l for the warps in ``proc``
+    and returns, per warp, whether some lane intersected, the triangles
+    tested and whether the warp ends its scan (or None)."""
+    words_cpu = words_p.cpu()
+    dev = words_p.device
+    lanes = torch.arange(WARP, device=dev)
+    done = torch.zeros(WARPS, dtype=torch.bool, device=dev)
+    cnt = torch.zeros((5, WARPS), dtype=torch.int64, device=dev)
+    for b in range(words_p.shape[0]):
+        bound = bound_fn()
+        done |= ~(bound > 0.0)
+        enter = ~done & ~(floors_p[b] >= bound)
+        cnt[4] += enter
+        if not bool(enter.any()):
+            continue
+        for w in torch.nonzero(words_cpu[b]).flatten().tolist():
+            active = enter & ~done
+            if not bool(active.any()):
+                break
+            mb = bound_fn()
+            done |= active & ~(mb > 0.0)
+            active &= ~done
+            cnt[0] += active
+            ls = w * WARP + lanes
+            bits = ((words_p[b, w] >> lanes.to(torch.int32)) & 1).bool()
+            keep = (active[:, None] & bits[None, :]
+                    & _warp_keeps_sim(tables.box, ls, o, cull, mb))
+            cnt[1] += keep.sum(1)
+            for j in torch.nonzero(keep.any(0)).flatten().tolist():
+                proc = keep[:, j] & ~done
+                go, tested, fin = leaf_fn(w * WARP + j, proc)
+                cnt[2] += go
+                cnt[3] += tested
+                if fin is not None:
+                    done |= proc & fin
+    return cnt.sum(1)
+
+
+def _lane_slab(tables: LeafTables, o, idir, l):
+    """Each lane's slab test of leaf l (``ray_slab``): entry and pass,
+    (WARPS, WARP) each; ``o`` three 0-d, ``idir`` three (WARPS, WARP)."""
+    t1 = [(tables.box[k, l] - o[k]) * idir[k] for k in range(3)]
+    t2 = [(tables.box[3 + k, l] - o[k]) * idir[k] for k in range(3)]
+    tn, tf = _slab(t1, t2)
+    return tn, (tn <= tf) & (tf > 0.0)
+
+
+def _leaf_rows(tables: LeafTables, rows, l):
+    first, cnt = int(tables.first[l]), int(tables.count[l])
+    return rows[first:first + cnt], cnt
+
+
+def _stats_row(c):
+    row = torch.zeros(8, dtype=torch.int32, device=c.device)
+    row[:5] = c.to(torch.int32)
+    return row
+
+
+def camera_wl_stats_plain(cam, width: int, height: int, rows,
+                          tables: LeafTables, words, floors,
+                          pids: torch.Tensor):
+    """Plain B8a: :func:`camera_wl_plain`'s outputs for packets ``pids``
+    and their counters, int32 (len(pids), 8), from a simulation of every
+    warp's scan (``words``/``floors`` those of ``pids``)."""
+    out = camera_wl_plain(cam, width, height, rows, tables, words, pids)
+    d, idir, t_exit = _camera_rays(cam, width, height, pids)
+    o = cam[9:12]
+    stats = []
+    for i in range(len(pids)):
+        wd = [c[i].reshape(WARPS, WARP) for c in d]
+        wi = [c[i].reshape(WARPS, WARP) for c in idir]
+        best = t_exit[i].reshape(WARPS, WARP).clone()
+        cull = _warp_cull_sim(o, wd, wi, best)
+
+        def leaf(l, proc):
+            tn, pas = _lane_slab(tables, o, wi, l)
+            go = proc[:, None] & pas & (tn < best)
+            t, cnt = _leaf_rows(tables, rows, l)
+            det, u, v, tmul = _moller_sh(t, [c.reshape(-1) for c in wd])
+            duv = det - u - v
+            side = ((torch.maximum(u, torch.maximum(v, duv)) <= 0.0)
+                    | (torch.minimum(u, torch.minimum(v, duv)) >= 0.0))
+            dist = tmul * (1.0 / torch.where(det == 0.0, 1e-30, det))
+            ok = side & (det != 0.0) & (dist > 0.0)
+            m = torch.where(ok, dist, float("inf")).amin(1).reshape(best.shape)
+            best.copy_(torch.where(go & (m < best), m, best))
+            anyg = go.any(1)
+            return anyg, anyg * cnt, None
+
+        stats.append(_stats_row(_scan_sim(
+            tables, words[i], floors[i], o, cull,
+            lambda: torch.clamp_min(best, 0.0).amax(1), leaf)))
+    return (*out, torch.stack(stats))
+
+
+def shadow_wl_stats_plain(orig, d, tm, rows, tables: LeafTables, words,
+                          floors):
+    """Plain B8b: :func:`shadow_wl_plain`'s blocked planes and their
+    counters, int32 (P, 8), from a simulation of every warp's scan."""
+    blocked = shadow_wl_plain(orig, d, tm, rows, tables, words)
+    idir = [1.0 / (c + INV_EPS) for c in d]
+    limit_all = torch.where(tm >= 0.0, tm, -BIG)
+    stats = []
+    for i in range(tm.shape[0]):
+        wd = [c[i].reshape(WARPS, WARP) for c in d]
+        wi = [c[i].reshape(WARPS, WARP) for c in idir]
+        limit = limit_all[i].reshape(WARPS, WARP)
+        blk = torch.zeros_like(limit, dtype=torch.bool)
+        cull = _warp_cull_sim(orig, wd, wi, limit)
+
+        def leaf(l, proc):
+            lim = torch.where(blk, -BIG, limit)
+            tn, pas = _lane_slab(tables, orig, wi, l)
+            go = proc[:, None] & pas & (tn < lim)
+            t, cnt = _leaf_rows(tables, rows, l)
+            det, u, v, tmul = _moller_sh(t, [c.reshape(-1) for c in wd])
+            occ = ((torch.minimum(u, v) >= 0.0) & (u + v <= det)
+                   & (tmul > 0.0) & (tmul < limit.reshape(-1, 1) * det))
+            hit = occ.any(1)
+            # a lane stops at its first blocker
+            tested = torch.where(hit, occ.int().argmax(1) + 1, cnt)
+            tested = torch.where(go, tested.reshape(limit.shape), 0)
+            blk.copy_(blk | (go & hit.reshape(limit.shape)))
+            return go.any(1), tested.amax(1), (blk | ~(limit > 0.0)).all(1)
+
+        stats.append(_stats_row(_scan_sim(
+            tables, words[i], floors[i], orig, cull,
+            lambda: torch.where(blk, 0.0, torch.clamp_min(limit, 0.0))
+            .amax(1), leaf)))
+    return blocked, torch.stack(stats)
 
 
 # ---------------------------------------------------------------------------
@@ -653,17 +892,11 @@ def _check_words(words, summ, floors, p, lp, dev):
     _check(floors, "floors", torch.float32, (p, k), dev)
 
 
-def camera_wl(cam, width: int, height: int, rows, tables: LeafTables,
-              words, summ, floors):
-    """B2: closest hit of the primary rays over B1's words (replaces
-    ``_camera_wl_kernel``). Returns (dist, u, v, tri, dx, dy, dz), each
-    (P, PACKET_R); a miss has dist BIG and tri -1."""
-    p = (width // TILE) * (height // TILE)
-    if not _on_cuda(cam):
-        return camera_wl_plain(cam, width, height, rows, tables, words,
-                               torch.arange(p))
+def _camera_wl_launch(cam, width, height, rows, tables, words, summ,
+                      floors, stats):
     from ._build import library
 
+    p = (width // TILE) * (height // TILE)
     dev = cam.device
     _check(cam, "cam", torch.float32, (22,), dev)
     _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
@@ -673,21 +906,52 @@ def camera_wl(cam, width: int, height: int, rows, tables: LeafTables,
            for _ in range(6)]
     tri = torch.empty((p, PACKET_R), dtype=torch.int32, device=dev)
     dist, u, v, dx, dy, dz = f32
-    lib = library()
-    _launched(lib.snail_camera_wl(
+    _launched(library().snail_camera_wl(
         _ptr(cam), _ptr(rows), _ptr(tables.box), _ptr(tables.first),
         _ptr(tables.count), tables.lp, _ptr(words), _ptr(summ),
         _ptr(floors), words.shape[1], p, _ptr(dist), _ptr(u), _ptr(v),
-        _ptr(tri), _ptr(dx), _ptr(dy), _ptr(dz), _stream()), "camera_wl")
-    camera_wl.launches += 1
+        _ptr(tri), _ptr(dx), _ptr(dy), _ptr(dz),
+        None if stats is None else _ptr(stats), _stream()), "camera_wl")
     return dist, u, v, tri, dx, dy, dz
 
 
-def shadow_wl(orig, d, tm, rows, tables: LeafTables, words, summ, floors):
-    """B4: any-hit from a shared origin over B3's words (replaces
-    ``_shadow_wl_kernel``). Returns blocked float32 (P, PACKET_R)."""
-    if not _on_cuda(tm):
-        return shadow_wl_plain(orig, d, tm, rows, tables, words)
+def camera_wl(cam, width: int, height: int, rows, tables: LeafTables,
+              words, summ, floors):
+    """B2: closest hit of the primary rays over B1's words (replaces
+    ``_camera_wl_kernel``). Returns (dist, u, v, tri, dx, dy, dz), each
+    (P, PACKET_R); a miss has dist BIG and tri -1."""
+    if not _on_cuda(cam):
+        p = (width // TILE) * (height // TILE)
+        return camera_wl_plain(cam, width, height, rows, tables, words,
+                               torch.arange(p))
+    out = _camera_wl_launch(cam, width, height, rows, tables, words, summ,
+                            floors, None)
+    camera_wl.launches += 1
+    return out
+
+
+def camera_wl_stats(cam, width: int, height: int, rows, tables: LeafTables,
+                    words, summ, floors):
+    """B8a: :func:`camera_wl` with counters (replaces
+    ``_camera_wl_kernel_stats``). Returns B2's outputs, bit for bit, and
+    int32 (P, 8): per packet, summed over its 128 warps, the slots of
+    :data:`STATS` — populated words a warp tests against its cull, leaves
+    it keeps, (leaf, warp) pairs in which some lane intersects, triangles
+    tested per warp over those pairs, bands entered; slots 5-7 are 0."""
+    if not _on_cuda(cam):
+        p = (width // TILE) * (height // TILE)
+        return camera_wl_stats_plain(cam, width, height, rows, tables, words,
+                                     floors, torch.arange(p))
+    p = (width // TILE) * (height // TILE)
+    stats = torch.zeros((p, 8), dtype=torch.int32, device=cam.device)
+    out = _camera_wl_launch(cam, width, height, rows, tables, words, summ,
+                            floors, stats)
+    camera_wl_stats.launches += 1
+    return (*out, stats)
+
+
+def _shadow_wl_launch(orig, d, tm, rows, tables, words, summ, floors,
+                      stats):
     from ._build import library
 
     dev = tm.device
@@ -698,15 +962,42 @@ def shadow_wl(orig, d, tm, rows, tables: LeafTables, words, summ, floors):
     _check_tables(tables, dev)
     _check_words(words, summ, floors, p, tables.lp, dev)
     blocked = torch.empty((p, PACKET_R), dtype=torch.float32, device=dev)
-    lib = library()
-    _launched(lib.snail_shadow_wl(
+    _launched(library().snail_shadow_wl(
         _ptr(orig), _ptr(d[0]), _ptr(d[1]), _ptr(d[2]), _ptr(tm),
         _ptr(rows), _ptr(tables.box), _ptr(tables.first),
         _ptr(tables.count), tables.lp, _ptr(words), _ptr(summ),
-        _ptr(floors), words.shape[1], p, _ptr(blocked), _stream()),
-        "shadow_wl")
-    shadow_wl.launches += 1
+        _ptr(floors), words.shape[1], p, _ptr(blocked),
+        None if stats is None else _ptr(stats), _stream()), "shadow_wl")
     return blocked
+
+
+def shadow_wl(orig, d, tm, rows, tables: LeafTables, words, summ, floors):
+    """B4: any-hit from a shared origin over B3's words (replaces
+    ``_shadow_wl_kernel``). Returns blocked float32 (P, PACKET_R)."""
+    if not _on_cuda(tm):
+        return shadow_wl_plain(orig, d, tm, rows, tables, words)
+    out = _shadow_wl_launch(orig, d, tm, rows, tables, words, summ, floors,
+                            None)
+    shadow_wl.launches += 1
+    return out
+
+
+def shadow_wl_stats(orig, d, tm, rows, tables: LeafTables, words, summ,
+                    floors):
+    """B8b: :func:`shadow_wl` with counters (replaces
+    ``_shadow_wl_kernel_stats``). Returns B4's blocked planes, bit for
+    bit, and the counters of :func:`camera_wl_stats`, int32 (P, 8);
+    ``tri_blocks`` counts, per (leaf, warp) pair, the most triangles a
+    lane tested before its first blocker."""
+    if not _on_cuda(tm):
+        return shadow_wl_stats_plain(orig, d, tm, rows, tables, words,
+                                     floors)
+    stats = torch.zeros((tm.shape[0], 8), dtype=torch.int32,
+                        device=tm.device)
+    out = _shadow_wl_launch(orig, d, tm, rows, tables, words, summ, floors,
+                            stats)
+    shadow_wl_stats.launches += 1
+    return out, stats
 
 
 def words_general(o, d, tm, tables: LeafTables, k_bands: int = WL_BANDS):
@@ -760,8 +1051,33 @@ def closest_wl_g(o, d, tm, rows, tables: LeafTables, words, summ, floors):
     return dist, u, v, tri
 
 
+def shadow_wl_g(o, d, tm, rows, tables: LeafTables, words, summ, floors):
+    """B7: any-hit of rays from their own origins over B5's words
+    (replaces ``_shadow_wl_kernel_g``); ``rows`` the raw triangle rows.
+    Returns blocked float32 (P, PACKET_R); a masked ray is never
+    blocked."""
+    if not _on_cuda(tm):
+        return shadow_wl_g_plain(o, d, tm, rows, tables, words)
+    from ._build import library
+
+    dev = tm.device
+    p = tm.shape[0]
+    _check_planes((*o, *d, tm), p, dev)
+    _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
+    _check_tables(tables, dev)
+    _check_words(words, summ, floors, p, tables.lp, dev)
+    blocked = torch.empty((p, PACKET_R), dtype=torch.float32, device=dev)
+    _launched(library().snail_shadow_wl_g(
+        *(_ptr(t) for t in (*o, *d, tm)), _ptr(rows), _ptr(tables.box),
+        _ptr(tables.root), _ptr(tables.first), _ptr(tables.count), tables.lp,
+        _ptr(words), _ptr(summ), _ptr(floors), words.shape[1], p,
+        _ptr(blocked), _stream()), "shadow_wl_g")
+    shadow_wl_g.launches += 1
+    return blocked
+
+
 KERNELS = (words_camera, camera_wl, words_shared, shadow_wl, words_general,
-           closest_wl_g)
+           closest_wl_g, shadow_wl_g, camera_wl_stats, shadow_wl_stats)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -801,23 +1117,41 @@ def _count_live(tmax: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
-def camera_trace(scene, camera, width: int, height: int):
-    """Fused raygen + closest hit for a full frame of primary rays.
-
-    Returns flat (R,) tensors dist, u, v, tri, dx, dy, dz in packet order
-    (see :func:`kernel_ray_index`). Requires width and height to be
-    multiples of TILE."""
+def _camera_words(scene, camera, width: int, height: int):
+    """B1 for a full frame of primary rays: (cam, rows, words, summ,
+    floors) for B2/B8a."""
     if width % TILE or height % TILE:
         raise ValueError(f"frame {width}x{height} is not a multiple of "
                          f"the {TILE}-pixel tile")
     cam = cam_vec(camera, width, height, scene.root_lo, scene.root_hi)
     words, summ, floors = words_camera(cam, width, height, scene.leaves,
                                        WL_BANDS)
-    rows = shared_rows(scene.tri_rows, camera.pos)
+    return cam, shared_rows(scene.tri_rows, camera.pos), words, summ, floors
+
+
+def camera_trace(scene, camera, width: int, height: int):
+    """Fused raygen + closest hit for a full frame of primary rays.
+
+    Returns flat (R,) tensors dist, u, v, tri, dx, dy, dz in packet order
+    (see :func:`kernel_ray_index`). Requires width and height to be
+    multiples of TILE."""
+    cam, rows, words, summ, floors = _camera_words(scene, camera, width,
+                                                   height)
     out = camera_wl(cam, width, height, rows, scene.leaves, words, summ,
                     floors)
     _count_live(out[0])
     return tuple(a.reshape(-1) for a in out)
+
+
+def camera_trace_stats(scene, camera, width: int, height: int):
+    """:func:`camera_trace` through B8a: its outputs, bit for bit, and the
+    per-packet counters int32 (P, 8) (see :func:`camera_wl_stats`)."""
+    cam, rows, words, summ, floors = _camera_words(scene, camera, width,
+                                                   height)
+    *out, stats = camera_wl_stats(cam, width, height, rows, scene.leaves,
+                                  words, summ, floors)
+    _count_live(out[0])
+    return (*(a.reshape(-1) for a in out), stats)
 
 
 def substitute_masked(comps, tm, unit_fallback: bool = False):
@@ -866,21 +1200,75 @@ def closest_hit_c(scene, o3, d3, tmax):
     return tuple(a.reshape(-1)[:n] for a in out)
 
 
-def any_hit_shared(scene, light_pos, d3, tmax):
-    """Shadow any-hit from a shared origin. ``d3`` three flat (R,)
-    direction components, ``tmax`` (R,) (negative = masked ray). Returns
-    blocked bool (R,)."""
+def _shared_planes(scene, light_pos, d3, tmax):
+    """A shadow wavefront from one origin as B3/B4 take it, with B3's
+    words (one band: any-hit needs no order): (orig, d, tm, n, words,
+    summ, floors, rows)."""
     dx, n = pad_flat(d3[0], 1.0)
     dy, _ = pad_flat(d3[1], 1.0)
     dz, _ = pad_flat(d3[2], 1.0)
     tm, _ = pad_flat(tmax, -BIG)
     _count_live(tm)
     pk = lambda a: a.reshape(-1, PACKET_R)
-    d = (pk(dx), pk(dy), pk(dz))
+    d, tm = (pk(dx), pk(dy), pk(dz)), pk(tm)
     orig = light_pos.float().contiguous()
-    # any-hit needs no ordering: one band
-    words, summ, floors = words_shared(orig, d, pk(tm), scene.leaves, 1)
-    rows = shared_rows(scene.tri_rows, orig)
-    out = shadow_wl(orig, d, pk(tm), rows, scene.leaves, words, summ,
-                    floors)
+    words, summ, floors = words_shared(orig, d, tm, scene.leaves, 1)
+    return (orig, d, tm, n, words, summ, floors,
+            shared_rows(scene.tri_rows, orig))
+
+
+def any_hit_shared(scene, light_pos, d3, tmax):
+    """Shadow any-hit from a shared origin. ``d3`` three flat (R,)
+    direction components, ``tmax`` (R,) (negative = masked ray). Returns
+    blocked bool (R,)."""
+    orig, d, tm, n, words, summ, floors, rows = _shared_planes(
+        scene, light_pos, d3, tmax)
+    out = shadow_wl(orig, d, tm, rows, scene.leaves, words, summ, floors)
     return out.reshape(-1)[:n] > 0.0
+
+
+def any_hit_shared_stats(scene, light_pos, d3, tmax):
+    """:func:`any_hit_shared` through B8b: blocked bool (R,), bit for bit,
+    and the per-packet counters int32 (P, 8) (see
+    :func:`shadow_wl_stats`)."""
+    orig, d, tm, n, words, summ, floors, rows = _shared_planes(
+        scene, light_pos, d3, tmax)
+    out, stats = shadow_wl_stats(orig, d, tm, rows, scene.leaves, words,
+                                 summ, floors)
+    return out.reshape(-1)[:n] > 0.0, stats
+
+
+def any_hit_c(scene, o3, d3, tmax):
+    """Any-hit of a wavefront of rays with their own origins (``any_hit_c``
+    :3999, its worklist branch): ``o3``/``d3`` three flat (R,)
+    components, ``tmax`` (R,), a negative tmax masks the ray. Masked rays
+    are substituted before B5 (one band) and B7. Returns blocked bool
+    (R,)."""
+    o, d, tm, n = general_planes(o3, d3, tmax)
+    _count_live(tm)
+    words, summ, floors = words_general(o, d, tm, scene.leaves, 1)
+    out = shadow_wl_g(o, d, tm, scene.tri_rows, scene.leaves, words, summ,
+                      floors)
+    return out.reshape(-1)[:n] > 0.0
+
+
+# --- (R, 3) AoS wrappers: the dispatch seam (``pallas_closest_hit`` /
+# ``pallas_any_hit``, traverse_pallas.py:3986, :4057) --------------------
+
+
+def closest_hit_aos(scene, orig, dirn, tmax):
+    """Closest hit of rays ``orig``/``dirn`` (R, 3) with ``tmax`` (R,).
+    Returns (dist, tri, bary (R, 2)): a miss has dist BIG, a masked ray
+    (tmax < 0) -BIG, and a hit lies nearer than tmax."""
+    dist, u, v, tri = closest_hit_c(scene, orig.unbind(1), dirn.unbind(1),
+                                    tmax)
+    dist = torch.where(dist < tmax.clamp_max(BIG), dist, BIG)
+    dist = torch.where(tmax >= 0.0, dist, -BIG)
+    return dist, tri, torch.stack([u, v], dim=-1)
+
+
+def any_hit_aos(scene, orig, dirn, tmax):
+    """Any-hit of rays ``orig``/``dirn`` (R, 3) with ``tmax`` (R,):
+    blocked bool (R,), never for a masked ray (tmax < 0)."""
+    blocked = any_hit_c(scene, orig.unbind(1), dirn.unbind(1), tmax)
+    return blocked & (tmax >= 0.0)

@@ -2,14 +2,16 @@
 the share of the frame the device is busy.
 
     python -m snail_tpu_torch.profile_frame [--kind city|terrain]
-        [--path fwd|bounce|fwd_bwd] [--trace out.json]
+        [--path fwd|bounce|fwd_bwd|stats|instanced] [--trace out.json]
 
 Traces five 1024 x 1024 frames on a benchmark scene at bench.py's size
 with ``torch.profiler``, after two warm-up frames: ``render_frame``
 without bounces (fwd), with reflections and transparency on the bounce
-material (bounce), or bench.py's fwd+bwd step (fwd_bwd); prints the
-kernels by device time and the busy share (union of kernel intervals over
-the traced window). Needs a card.
+material (bounce), bench.py's fwd+bwd step (fwd_bwd), the counter frame
+``render_frame_fast_stats`` (stats, fwd options) or the instanced frame
+of ``bench_scenes.instanced_grid`` (instanced: 4 x 4 instances, fwd
+options); prints the kernels by device time and the busy share (union of
+kernel intervals over the traced window). Needs a card.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", default="city", choices=("city", "terrain"))
     ap.add_argument("--path", default="fwd",
-                    choices=("fwd", "bounce", "fwd_bwd"))
+                    choices=("fwd", "bounce", "fwd_bwd", "stats",
+                             "instanced"))
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
     args = ap.parse_args(argv)
@@ -47,23 +50,30 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from .core.types import RenderOpts
+    from .render.fast import render_frame_fast_stats
     from .render.renderer import render_frame
     from .scene.bench_scenes import (BENCH_N, STEP_OPTS, bench_scene,
-                                     bench_step)
+                                     bench_step, instanced_grid)
+    from .scene.instancing import render_instanced
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     n = BENCH_N[args.kind]
-    scene, cam, g, _ = bench_scene(args.kind, n, device="cuda",
-                                   bounce=args.path != "fwd")
+    scene, cam, g, _ = bench_scene(args.kind, n,
+                                   bounce=args.path in ("bounce", "fwd_bwd"))
+    opts = (RenderOpts(textures=False) if args.path == "bounce" else
+            RenderOpts(reflections=False, transparency=False,
+                       textures=False))
     if args.path == "fwd_bwd":
         target = render_frame(scene, cam, SIZE, SIZE, STEP_OPTS)
         frame = lambda: bench_step(scene, cam, target, SIZE, SIZE)
+    elif args.path == "stats":
+        frame = lambda: render_frame_fast_stats(scene, cam, SIZE, SIZE, opts)
+    elif args.path == "instanced":
+        iscene, icam = instanced_grid(args.kind, scene, 4)
+        frame = lambda: render_instanced(iscene, icam, SIZE, SIZE, opts)
     else:
-        opts = (RenderOpts(textures=False) if args.path == "bounce" else
-                RenderOpts(reflections=False, transparency=False,
-                           textures=False))
         frame = lambda: render_frame(scene, cam, SIZE, SIZE, opts)
     for _ in range(2):
         frame()

@@ -16,6 +16,12 @@ kernels under ``torch.no_grad`` and recomputes distance and barycentrics
 in closed form from the primal triangle arrays, so gradients flow to the
 vertices, the material colours, the lights and the camera position.
 
+The counter frame (``render_frame_fast_stats``) is the forward frame
+through the counting kernels (B8a/B8b) on its primary and shadow
+wavefronts. Other tracers plug into the same shading through the
+``normals``/``any_hit``/``bounce`` hooks of ``_shade_and_light``
+(instanced scenes, ``scene.instancing``).
+
 Textures and photon radiance are later slices of the port: options that
 would run them raise ``NotImplementedError``.
 """
@@ -28,8 +34,10 @@ import torch
 
 from ..core.types import Camera, RenderOpts
 from ..core.vecmath import BIG
-from ..ops.traverse import (QX, TILE, _pixel_xy, _rsqrt_rn, any_hit_shared,
-                            camera_trace, closest_hit_c, substitute_masked)
+from ..ops.traverse import (QX, STATS, TILE, _pixel_xy, _rsqrt_rn,
+                            any_hit_shared, any_hit_shared_stats,
+                            camera_trace, camera_trace_stats, closest_hit_c,
+                            substitute_masked)
 
 DIFF_ROWS = 42  # sh_pack (32) | tri_a | tri_ba | tri_ca (9) | mat id
 
@@ -72,27 +80,35 @@ class _SmallLookup(torch.autograd.Function):
         return d, None
 
 
+def shadow_tmax(ldist, mask):
+    """tmax of the shadow rays toward one light: ``ldist * 0.9999`` for
+    the rays in ``mask``, -BIG (masked) for the others."""
+    return torch.where(mask, ldist * 0.9999, -BIG)
+
+
 def _shadow_rays(fl3, ldist, mask):
-    """One light's shadow wavefront: unit directions ``fl3`` (three (R,),
-    from the light) and tmax ``ldist * 0.9999`` for the rays in ``mask``.
-    Returns (dirs, tmax); masked rays get tmax -BIG and, in place of
-    their garbage directions (misses, backfaces), the packet's mean live
-    direction, which keeps its direction interval as it is."""
-    stm = torch.where(mask, ldist * 0.9999, -BIG)
+    """One light's shadow wavefront for the shared-origin kernels: unit
+    directions ``fl3`` (three (R,), from the light) and ``shadow_tmax``.
+    Returns (dirs, tmax); masked rays get, in place of their garbage
+    directions (misses, backfaces), the packet's mean live direction,
+    which keeps its direction interval as it is."""
+    stm = shadow_tmax(ldist, mask)
     return substitute_masked(fl3, stm, unit_fallback=True), stm
 
 
-def _surface(scene, o3, d3, dist, u, v, tri, sh=None):
+def _surface(scene, o3, d3, dist, u, v, tri, sh=None, normals=None):
     """Hit mask, shading rows (``sh_pack`` gathered, (32, R), unless given),
-    normals and hit points of a traced wavefront from ``o3`` (a shared
-    origin, three 0-d tensors, or three (R,))."""
+    normals (interpolated, unless given) and hit points of a traced
+    wavefront from ``o3`` (a shared origin, three 0-d tensors, or three
+    (R,))."""
     hit = (dist > 0.0) & (dist < BIG)
     if sh is None:
         # ONE row gather per hit: shading deltas + the material row
         sh = scene.sh_pack.index_select(0, torch.where(hit, tri, 0).long()).T
-    n3 = (sh[0] + sh[3] * u + sh[6] * v,
-          sh[1] + sh[4] * u + sh[7] * v,
-          sh[2] + sh[5] * u + sh[8] * v)
+    n3 = normals if normals is not None else (
+        sh[0] + sh[3] * u + sh[6] * v,
+        sh[1] + sh[4] * u + sh[7] * v,
+        sh[2] + sh[5] * u + sh[8] * v)
     # miss rays carry dist = BIG: collapse their positions to the origin
     safe_dist = torch.where(hit, dist, 0.0)
     p3 = tuple(o + d * safe_dist for o, d in zip(o3, d3))
@@ -136,10 +152,15 @@ def bounce_wavefront(scene, o3, d3, dist, u, v, tri):
     return _reflect_rays(d3, n3, p3, hit & (sh[22] > 0.0))
 
 
-def _lights(scene, p3, n3, hit, opts: RenderOpts):
+def _lights(scene, p3, n3, hit, opts: RenderOpts, any_hit=None,
+            stats_out=None):
     """Diffuse and specular light sums (TraceLight, scene_inl.h:89-167):
     ((ldr, ldg, ldb), (lsr, lsg, lsb)). Shadow rays are traced on detached
-    tensors: visibility is piecewise constant."""
+    tensors: visibility is piecewise constant. ``any_hit(lp, dirs,
+    tmax)``, where given, traces them in place of the shared-origin
+    kernels and gets the directions as they are (the packet-mean
+    substitution serves those kernels only, JAX fast.py:343-344);
+    ``stats_out``, a list, gets each shadow wavefront's counters (B8b)."""
     ld = [torch.full_like(hit, opts.ambient, dtype=torch.float32)] * 3
     ls = [torch.zeros_like(hit, dtype=torch.float32)] * 3
     lights = scene.lights
@@ -148,9 +169,19 @@ def _lights(scene, p3, n3, hit, opts: RenderOpts):
         fl3, ldist, dot, mask = _toward_light(p3, n3, hit, lp)
         if opts.shadows:
             with torch.no_grad():
-                sd3, stm = _shadow_rays(tuple(c.detach() for c in fl3),
-                                        ldist.detach(), mask)
-                blocked = any_hit_shared(scene, lp.detach(), sd3, stm)
+                fl3d = tuple(c.detach() for c in fl3)
+                stm = shadow_tmax(ldist.detach(), mask)
+                if any_hit is not None:
+                    blocked = any_hit(lp.detach(), fl3d, stm)
+                else:
+                    sd3 = substitute_masked(fl3d, stm, unit_fallback=True)
+                    if stats_out is None:
+                        blocked = any_hit_shared(scene, lp.detach(), sd3,
+                                                 stm)
+                    else:
+                        blocked, st = any_hit_shared_stats(
+                            scene, lp.detach(), sd3, stm)
+                        stats_out.append(st)
             lit = mask & ~blocked
         else:
             lit = mask
@@ -171,14 +202,25 @@ def _lights(scene, p3, n3, hit, opts: RenderOpts):
 
 def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
                      depth: int, pack: Optional[torch.Tensor] = None,
-                     sh_row=None):
+                     sh_row=None, normals=None, any_hit=None, bounce=None,
+                     stats_out=None):
     """Shading, bounces and lights of one traced wavefront. ``o3``: a
     shared origin (three 0-d tensors) or three (R,). ``pack``: the
     differentiable frame's (T, DIFF_ROWS) table, whose gathered columns
     ``sh_row`` carry the mat id: material colours then come from the
-    primal ``mat_diffuse``/``mat_specular``. Returns (r, g, b)."""
+    primal ``mat_diffuse``/``mat_specular``.
+
+    Hooks for other tracers (JAX fast.py:101-104): ``normals`` (three
+    (R,)) replace the interpolated ones, ``any_hit`` traces the shadow
+    rays (see :func:`_lights`) and ``bounce(o3, d3, tmax, depth)`` traces
+    and shades a bounce wavefront in place of :func:`_trace_and_shade`.
+    ``stats_out`` collects the counters of this wavefront's shadow rays,
+    not those of its bounces (as the JAX package). Returns (r, g, b)."""
     _check_supported(scene, opts)
-    hit, sh, n3, p3 = _surface(scene, o3, d3, dist, u, v, tri, sh_row)
+    trace = bounce or (lambda bo3, bd3, btm, bdepth: _trace_and_shade(
+        scene, bo3, bd3, btm, opts, bdepth, pack))
+    hit, sh, n3, p3 = _surface(scene, o3, d3, dist, u, v, tri, sh_row,
+                               normals)
     mp = sh[16:32]  # the triangle's material row
     if pack is not None:
         mid = sh[DIFF_ROWS - 1].long()
@@ -197,7 +239,7 @@ def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
         refl = torch.where(hit, mp[6], 0.0)
         rsel = hit & (refl > 0.0)
         ro3, rd3, rtm = _reflect_rays(d3, n3, p3, rsel)
-        rc = _trace_and_shade(scene, ro3, rd3, rtm, opts, depth + 1, pack)
+        rc = trace(ro3, rd3, rtm, depth + 1)
         dc = [torch.where(rsel, dc[k] + (rc[k] - dc[k]) * refl, dc[k])
               for k in range(3)]
 
@@ -207,11 +249,11 @@ def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
         tsel = hit & (opac < 1.0)
         to3 = tuple(p + d * 0.1 for p, d in zip(p3, d3))
         ttm = torch.where(tsel, BIG, -BIG)
-        tc = _trace_and_shade(scene, to3, d3, ttm, opts, depth + 1, pack)
+        tc = trace(to3, d3, ttm, depth + 1)
         dc = [torch.where(tsel, tc[k] + (dc[k] - tc[k]) * opac, dc[k])
               for k in range(3)]
 
-    ld, ls = _lights(scene, p3, n3, hit, opts)
+    ld, ls = _lights(scene, p3, n3, hit, opts, any_hit, stats_out)
     return tuple(torch.where(hit, dc[k] * ld[k]
                              + torch.where(hit, ks[k], 0.0) * ls[k], 0.0)
                  for k in range(3))
@@ -309,6 +351,43 @@ def render_frame_fast(scene, camera: Camera, width: int, height: int,
         cr, cg, cb = _shade_and_light(scene, o3, (dx, dy, dz), dist, u, v,
                                       tri, opts, 0)
     return _packets_to_image(cr, cg, cb, width, height)
+
+
+def stats_path_available(scene) -> bool:
+    """Whether the counter frame can render ``scene``: it needs the
+    worklist leaf tables, which every port scene has (the JAX package's
+    counters also cover its walk kernels, not ported yet)."""
+    return getattr(scene, "leaves", None) is not None
+
+
+def render_frame_fast_stats(scene, camera: Camera, width: int, height: int,
+                            opts: RenderOpts = RenderOpts()):
+    """:func:`render_frame_fast` through the counting kernels (B8a for
+    the primary wavefront, B8b for each light's shadow wavefront from the
+    primary hits; bounce wavefronts run uncounted, as in the JAX
+    package). Returns (image, the same as render_frame_fast's bit for
+    bit, and a dict of real in-kernel counts summed over the frame's
+    packets: ``nodes``, ``leaves``, ``quarters``, ``tri_blocks``,
+    ``chunks`` (see ``ops.traverse.camera_wl_stats``) and ``rays`` =
+    width * height * (1 + lights with shadows on))."""
+    dist, u, v, tri, dx, dy, dz, pstats = camera_trace_stats(
+        scene, camera, width, height)
+    stats_out = [pstats]
+    if not opts.shading:
+        idist = torch.where((dist > 0.0) & (dist < BIG), 1.0 / dist, 0.0)
+        cr, cg, cb = idist * 20.0, idist * 250.0, idist * 2.0
+    else:
+        o3 = (camera.pos[0], camera.pos[1], camera.pos[2])
+        cr, cg, cb = _shade_and_light(scene, o3, (dx, dy, dz), dist, u, v,
+                                      tri, opts, 0, stats_out=stats_out)
+    img = _packets_to_image(cr, cg, cb, width, height)
+    # summed on the device; one copy to the host
+    tot = torch.stack([st.sum(0, dtype=torch.int64)
+                       for st in stats_out]).sum(0).cpu().tolist()
+    n_lights = 0 if scene.lights is None else len(scene.lights)
+    stats = dict(zip(STATS, tot))
+    stats["rays"] = width * height * (1 + (n_lights if opts.shadows else 0))
+    return img, stats
 
 
 def render_frame_fast_diff(scene, camera: Camera, width: int, height: int,

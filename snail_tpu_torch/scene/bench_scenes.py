@@ -1,6 +1,6 @@
 """The benchmark scenes of ``bench.py``, built with the port's procedural
-copies and the shared BVH builder, with their light and camera, and the
-parameters of ``bench.py``'s gradient step."""
+copies and BVH builder, with their light and camera, the parameters of
+``bench.py``'s gradient step, and an instanced grid of a bench scene."""
 
 from __future__ import annotations
 
@@ -9,8 +9,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from snail_tpu.bvh import build_bvh
-
+from ..bvh import build_bvh
 from ..core.types import Camera, Light, RenderOpts
 from .materials import MaterialTable
 from .procedural import city_scene, terrain_scene
@@ -48,8 +47,9 @@ def bounce_materials() -> MaterialTable:
     return mats
 
 
-def bench_scene(kind: str, n: int, device="cpu", bounce: bool = False):
-    """(scene, camera, geometry, bvh) of ``kind`` at size ``n``; with
+def bench_scene(kind: str, n: int, device="cuda", bounce: bool = False):
+    """(scene, camera, geometry, bvh) of ``kind`` at size ``n`` on
+    ``device`` (the card unless the caller asks for the CPU); with
     ``bounce``, material 0 is :func:`bounce_materials`'."""
     make, leaf, light, radius, offset = SCENES[kind]
     g = make(n).flatten()
@@ -57,12 +57,44 @@ def bench_scene(kind: str, n: int, device="cpu", bounce: bool = False):
     bvh = build_bvh(lo, hi, leaf_size=leaf)
     scene = make_traced_scene(
         g, bvh, bounce_materials() if bounce else None,
-        lights=Light.make(light, (1.0, 1.0, 1.0), radius), device=device)
+        lights=Light.make(light, (1.0, 1.0, 1.0), radius, device=device),
+        device=device)
     c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
     ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
     cam = Camera.look_at(pos=tuple(c + np.array(offset) * ext),
                          target=tuple(c), device=device)
     return scene, cam, g, bvh
+
+
+def instanced_grid(kind: str, base, grid: int = 4):
+    """``grid`` x ``grid`` rigid instances of ``base``, a
+    :func:`bench_scene` of ``kind``, on its device: spaced 1.1x its
+    root-box x/z extent, instance i turned by ``rotation_y(0.4 i)`` about
+    its centre. The light is the bench light at grid/2 times its height
+    and grid times its radius, so that it reaches the corners; the camera,
+    at bench.py's offset from the grid's centre in units of 0.9 of the
+    grid's extent, sees every instance, and the nearer instances hide
+    parts of those behind them. Returns (iscene, camera)."""
+    from .instancing import make_instances, rotation_y
+
+    _, _, light, radius, offset = SCENES[kind]
+    dev = base.device
+    base = dataclasses.replace(base, lights=Light.make(
+        tuple(np.array(light) * (grid / 2)), (1.0, 1.0, 1.0), radius * grid,
+        device=dev))
+    lo, hi = base.root_lo.cpu().numpy(), base.root_hi.cpu().numpy()
+    c = (lo + hi) * 0.5
+    ij = np.stack(np.meshgrid(np.arange(grid), np.arange(grid),
+                              indexing="ij"), -1).reshape(-1, 2)
+    pos = np.zeros((grid * grid, 3), np.float32)
+    pos[:, [0, 2]] = (ij - (grid - 1) / 2) * 1.1 * (hi - lo)[[0, 2]]
+    rot = rotation_y(torch.arange(grid * grid, dtype=torch.float32) * 0.4)
+    # about the base's centre: world = R (p - c) + c + pos
+    trans = torch.from_numpy(pos + c) - rot @ torch.from_numpy(c)
+    ext = float(np.max(hi - lo)) * grid * 1.1 * 0.9
+    cam = Camera.look_at(pos=tuple(c + np.array(offset) * ext),
+                         target=tuple(c), device=dev)
+    return make_instances(base, rot, trans), cam
 
 
 def grad_params(scene, camera) -> dict:

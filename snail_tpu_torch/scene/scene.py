@@ -12,7 +12,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from ..core.types import Light
+from ..core.types import Light, resolve_device
 from ..ops.traverse import LeafTables, pack_leaf_tables, pack_tri_rows
 from .base_scene import FlatGeometry
 from .materials import MaterialTable
@@ -101,10 +101,12 @@ def _sh_pack(g: FlatGeometry, mat_pack: np.ndarray) -> np.ndarray:
 def make_traced_scene(geom: FlatGeometry, bvh,
                       materials: Optional[MaterialTable] = None,
                       lights: Optional[Light] = None,
-                      device="cpu") -> TracedScene:
+                      device="cuda") -> TracedScene:
     """Assemble the device scene from host-built pieces: ``geom`` as
-    flattened, ``bvh`` from ``snail_tpu.bvh.build_bvh`` (leaf size at most
-    ``ops.traverse.IVAL_LEAF``)."""
+    flattened, ``bvh`` from ``snail_tpu_torch.bvh.build_bvh`` (leaf size at
+    most ``ops.traverse.IVAL_LEAF``), on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     g = geom.permuted(bvh.order).padded(LEAF_PAD)
     if materials is None:
         materials = MaterialTable.build({"": 0})
@@ -132,14 +134,16 @@ def make_traced_scene(geom: FlatGeometry, bvh,
 
 
 def traced_scene_from_numpy(arrays: Mapping[str, np.ndarray],
-                            device="cpu") -> TracedScene:
+                            device="cuda") -> TracedScene:
     """The port's scene from the JAX ``TracedScene``'s fields as NumPy
     arrays, keyed by their JAX names: node_lo, node_hi, node_child,
     node_count, tri_a, tri_ba, tri_ca, sh_mat, sh_pack, mat_pack,
     mat_diffuse, mat_specular, mat_reflect, mat_dissolve, optionally
     tex_atlas, and the lights as light_pos, light_color, light_radius
     (absent: no lights). The triangle rows are packed from tri_a, tri_ba
-    and tri_ca as given."""
+    and tri_ca as given. On ``device``: the card unless the caller asks
+    for the CPU."""
+    device = resolve_device(device)
     a = {k: np.asarray(v) for k, v in arrays.items() if v is not None}
     dev = lambda x: torch.from_numpy(np.array(x, np.float32)).to(device)
     lights = None

@@ -1,0 +1,58 @@
+"""Traversal and render statistics (``snail_tpu.utils.stats``, the
+reference's TreeStats, src/tree_stats.h:36-130: counters for
+intersections, loop iterations and rays, and timer sums, shown on the HUD
+by GenInfo "in:.. it:.. ms:..").
+
+The counters come from the counting kernels (B8a/B8b) through
+``render.fast.render_frame_fast_stats``; :func:`tree_stats_from_counters`
+turns its dict into a :class:`TreeStats` as the render server does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from ..ops.traverse import RAYS_PER_TRI_BLOCK
+
+
+@dataclasses.dataclass
+class TreeStats:
+    intersects: int = 0
+    loop_iters: int = 0
+    rays: int = 0
+    runs: int = 0
+    timers_ms: dict = dataclasses.field(default_factory=dict)
+
+    def __iadd__(self, other: "TreeStats") -> "TreeStats":
+        self.intersects += other.intersects
+        self.loop_iters += other.loop_iters
+        self.rays += other.rays
+        self.runs += other.runs
+        for k, v in other.timers_ms.items():
+            self.timers_ms[k] = self.timers_ms.get(k, 0.0) + v
+        return self
+
+    def gen_info(self, ms: float, mrays: float) -> str:
+        """HUD string (reference TreeStats::GenInfo)."""
+        return (
+            f"in:{self.intersects // 1000}k it:{self.loop_iters // 1000}k "
+            f"ms:{ms:.2f} MRays/s:{mrays:.1f}"
+        )
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def tree_stats_from_counters(kstats: dict, n_lights: int) -> TreeStats:
+    """A frame's :class:`TreeStats` from the counter dict of
+    ``render_frame_fast_stats`` (the conversion of the JAX package's
+    server, apps/server.py:111-121): ray-triangle tests are tri_blocks
+    times the rays of one (RAYS_PER_TRI_BLOCK), loop iterations the bit
+    words scanned, runs the primary wavefront and one per light."""
+    return TreeStats(intersects=kstats["tri_blocks"] * RAYS_PER_TRI_BLOCK,
+                     loop_iters=kstats["nodes"], rays=kstats["rays"],
+                     runs=1 + n_lights)
+

@@ -13,13 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from snail_tpu.bvh import build_bvh
+from snail_tpu_torch.bvh import build_bvh
 from snail_tpu_torch.core.types import Camera, Light, RenderOpts
 from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
+from snail_tpu_torch.render.fast import render_frame_fast_stats
 from snail_tpu_torch.render.renderer import render_frame
-from snail_tpu_torch.scene.bench_scenes import (STEP_OPTS, bench_step,
-                                                bounce_materials)
+from snail_tpu_torch.scene import instancing
+from snail_tpu_torch.scene.bench_scenes import (STEP_OPTS, bench_scene,
+                                                bench_step, bounce_materials)
 from snail_tpu_torch.scene.procedural import city_scene, terrain_scene
 from snail_tpu_torch.scene.scene import make_traced_scene
 
@@ -45,12 +47,11 @@ def _scene(which: str, bounce: bool = False):
     lo, hi = g.bounds()
     bvh = build_bvh(lo, hi, leaf_size=leaf)
     scene = make_traced_scene(g, bvh, bounce_materials() if bounce else None,
-                              lights=Light.make(light, (1, 1, 1), r),
-                              device="cuda")
+                              lights=Light.make(light, (1, 1, 1), r))
     c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
     ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
     cam = Camera.look_at(pos=tuple(c + np.array([0.45, 0.35, 0.9]) * ext),
-                         target=tuple(c), device="cuda")
+                         target=tuple(c))
     return scene, cam, size[0], size[1], torch.tensor(light, device="cuda")
 
 
@@ -227,7 +228,8 @@ def test_bounce_frame_on_card_matches_cpu(which):
     img = render_frame(scene, cam, w, h, opts)
     torch.cuda.synchronize()
     counts = pt.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    # the six kernels of the bounce path; B7 and B8 run on other paths
+    assert all(counts[k.__name__] > 0 for k in pt.KERNELS[:6]), counts
     ref = render_frame(scene.to("cpu"), cam.to("cpu"), w, h, opts)
     err = (img.cpu() - ref).abs().amax(-1)
     assert torch.isfinite(img).all() and img.abs().amax() > 0
@@ -247,7 +249,8 @@ def test_diff_step_on_card_matches_cpu():
     pt.reset_launch_counts()
     lk, gk = bench_step(scene, cam, target, w, h)
     counts = pt.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    # the six kernels of the bounce path; B7 and B8 run on other paths
+    assert all(counts[k.__name__] > 0 for k in pt.KERNELS[:6]), counts
     lc, gc = bench_step(scene.to("cpu"), cam.to("cpu"), target.cpu(), w, h)
     # tests/test_fast_diff.py:83-91
     lk, lc = float(lk), float(lc)
@@ -286,3 +289,121 @@ def test_wrappers_check_inputs():
         pt.words_camera(cv.double(), w, h, scene.leaves)
     with pytest.raises(ValueError, match="on cpu"):
         pt.words_camera(cv, w, h, scene.leaves.to("cpu"))
+
+
+def _shadow_g_rays(scene, n_packets, seed=11):
+    """The rays of ``_bounce_rays`` as shadow rays: each live ray looks
+    0.05-0.6 of the scene box's diagonal far."""
+    o, d, tm = _bounce_rays(scene, n_packets, seed)
+    rng = np.random.default_rng(seed)
+    diag = float((scene.root_hi - scene.root_lo).norm())
+    frac = torch.from_numpy(rng.uniform(0.05, 0.6, tuple(tm.shape))
+                            .astype(np.float32)).cuda()
+    return o, d, torch.where(tm >= 0, frac * diag, tm)
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_shadow_wl_g_kernel_matches_plain(which):
+    _need_cuda()
+    scene, _, _, _, _ = _scene(which)
+    o, d, tm = _shadow_g_rays(scene, 6)
+    words, summ, floors = pt.words_general(o, d, tm, scene.leaves, 1)
+    kern = pt.shadow_wl_g(o, d, tm, scene.tri_rows, scene.leaves, words,
+                          summ, floors)
+    torch.cuda.synchronize()
+    plain = pt.shadow_wl_g_plain(o, d, tm, scene.tri_rows, scene.leaves,
+                                 words)
+    live = (tm >= 0).cpu().numpy()
+    kb, pb = kern.cpu().numpy(), plain.cpu().numpy()
+    assert not kb[~live].any() and not pb[~live].any()
+    assert 0.02 < pb[live].mean() < 0.98
+    # blockers at the tmax boundary, as B4 (test_pallas.py:183-190)
+    assert (kb[live] == pb[live]).mean() > 0.999
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_camera_wl_stats_kernel_matches_b2_and_simulation(which):
+    """B8a: B2's outputs bit for bit, and every packet's counters equal to
+    the plain version's simulation of its warps."""
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which)
+    cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h)
+    *out, stats = pt.camera_wl_stats(cv, w, h, rows, scene.leaves, words,
+                                     summ, floors)
+    ref = pt.camera_wl(cv, w, h, rows, scene.leaves, words, summ, floors)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    *_, sim = pt.camera_wl_stats_plain(
+        cv, w, h, rows, scene.leaves, words, floors,
+        torch.arange(stats.shape[0], device="cuda"))
+    assert torch.equal(stats, sim), (stats, sim)
+    assert (stats[:, 3] > 0).sum() > 1
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_shadow_wl_stats_kernel_matches_b4_and_simulation(which):
+    _need_cuda()
+    scene, _, _, _, light = _scene(which)
+    d, tm = _shadow_rays(scene, light, 3)
+    words, summ, floors = pt.words_shared(light, d, tm, scene.leaves, 1)
+    rows = pt.shared_rows(scene.tri_rows, light)
+    blocked, stats = pt.shadow_wl_stats(light, d, tm, rows, scene.leaves,
+                                        words, summ, floors)
+    ref = pt.shadow_wl(light, d, tm, rows, scene.leaves, words, summ, floors)
+    torch.cuda.synchronize()
+    assert torch.equal(blocked, ref)
+    _, sim = pt.shadow_wl_stats_plain(light, d, tm, rows, scene.leaves, words,
+                                      floors)
+    assert torch.equal(stats, sim), (stats, sim)
+    assert (stats[:, 3] > 0).sum() > 1
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_stats_frame_on_card_matches_cpu(which):
+    """The counter frame runs B8a once and B8b once per light, gives the
+    forward frame's image, and the CPU path's image and counters."""
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which)
+    pt.reset_launch_counts()
+    img, st = render_frame_fast_stats(scene, cam, w, h, OPTS)
+    counts = pt.launch_counts()
+    assert counts["camera_wl_stats"] == 1, counts
+    assert counts["shadow_wl_stats"] == len(scene.lights), counts
+    assert counts["camera_wl"] == counts["shadow_wl"] == 0, counts
+    assert torch.equal(img, render_frame(scene, cam, w, h, OPTS))
+    ref, st_cpu = render_frame_fast_stats(scene.to("cpu"), cam.to("cpu"), w,
+                                          h, OPTS)
+    err = (img.cpu() - ref).abs().amax(-1)
+    assert (err > 2e-3).float().mean() < 1e-3, float(err.max())
+    assert st == st_cpu
+
+
+def test_instanced_frame_on_card_matches_cpu():
+    """Two instances of the bounce-material city through B5, B6 and B7,
+    against the CPU path."""
+    _need_cuda()
+    scene, cam, w, h, _ = _scene("city", bounce=True)
+    isc = instancing.make_instances(
+        scene, torch.stack([torch.eye(3), instancing.rotation_y(0.7)]),
+        [[0.0, 0.0, 0.0], [14.0, 0.0, -10.0]])
+    opts = RenderOpts(textures=False)
+    pt.reset_launch_counts()
+    img = instancing.render_instanced(isc, cam, w, h, opts)
+    torch.cuda.synchronize()
+    counts = pt.launch_counts()
+    assert all(counts[k] > 0 for k in ("words_general", "closest_wl_g",
+                                       "shadow_wl_g")), counts
+    assert counts["camera_wl"] == counts["shadow_wl"] == 0, counts
+    ref = instancing.render_instanced(isc.to("cpu"), cam.to("cpu"), w, h,
+                                      opts)
+    err = (img.cpu() - ref).abs().amax(-1)
+    assert torch.isfinite(img).all() and img.abs().amax() > 0
+    assert (err > 2e-3).float().mean() < 1e-3, float(err.max())
+
+
+def test_entry_points_default_to_the_card():
+    _need_cuda()
+    scene, cam, _, _ = bench_scene("city", 4)
+    assert scene.device.type == "cuda" and cam.pos.is_cuda
+    assert scene.leaves.box.is_cuda and scene.lights.pos.is_cuda
+    assert Light.make((0.0, 1.0, 0.0), (1.0, 1.0, 1.0), 5.0).pos.is_cuda

@@ -57,9 +57,9 @@ def scenes():
     fields.update(light_pos=np.asarray(js.lights.pos),
                   light_color=np.asarray(js.lights.color),
                   light_radius=np.asarray(js.lights.radius))
-    ps = traced_scene_from_numpy(fields)
+    ps = traced_scene_from_numpy(fields, device="cpu")
     jcam = JCamera.look_at(pos=POS, target=TARGET)
-    pcam = Camera.look_at(pos=POS, target=TARGET)
+    pcam = Camera.look_at(pos=POS, target=TARGET, device="cpu")
     moved = dataclasses.replace(js, lights=JLight.make(MOVED, *LIGHT[1:]))
     target = np.array(j_render_frame_fast(moved, jcam, W, H, _jax_opts()))
     return js, jcam, ps, pcam, target

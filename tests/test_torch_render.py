@@ -62,13 +62,14 @@ def _pair(name, bounce=False):
                              lights=JLight.make(*light))
     ps = make_traced_scene(mk(pproc).flatten(), bvh,
                            bounce_materials() if bounce else None,
-                           lights=Light.make(*light))
+                           lights=Light.make(*light, device="cpu"),
+                           device="cpu")
     if pos is None:
         c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
         ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
         pos, target = tuple(c + np.array([0.45, 0.35, 0.9]) * ext), tuple(c)
     jcam = JCamera.look_at(pos=pos, target=target)
-    pcam = Camera.look_at(pos=pos, target=target)
+    pcam = Camera.look_at(pos=pos, target=target, device="cpu")
     return js, jcam, ps, pcam, w, w
 
 
@@ -166,29 +167,46 @@ def test_bounce_options_run_when_no_material_bounces():
 
 
 def test_port_renders_without_jax():
-    """snail_tpu_torch imports no JAX, directly or through another module,
-    for a forward frame, a bounce frame or a differentiable one."""
+    """snail_tpu_torch imports neither JAX nor snail_tpu, directly or
+    through another module: every module of the package and chip_smoke.py
+    import without them, and the CPU renders a forward frame, a bounce
+    frame, a differentiable one, an instanced and a counter frame."""
     code = textwrap.dedent("""
         import dataclasses
+        import importlib
+        import pkgutil
         import sys
         sys.modules["jax"] = None
-        from snail_tpu.bvh import build_bvh
+        sys.modules["snail_tpu"] = None
+        import torch
+        import snail_tpu_torch
+        for m in pkgutil.walk_packages(snail_tpu_torch.__path__,
+                                       "snail_tpu_torch."):
+            importlib.import_module(m.name)
+        import chip_smoke
+        from snail_tpu_torch.bvh import build_bvh
         from snail_tpu_torch.core.types import Camera, Light, RenderOpts
-        from snail_tpu_torch.render.fast import render_frame_fast_diff
+        from snail_tpu_torch.render.fast import (render_frame_fast_diff,
+                                                 render_frame_fast_stats)
         from snail_tpu_torch.render.renderer import render_frame
         from snail_tpu_torch.scene.bench_scenes import bounce_materials
+        from snail_tpu_torch.scene.instancing import (make_instances,
+                                                      render_instanced,
+                                                      rotation_y)
         from snail_tpu_torch.scene.procedural import cornell_scene
         from snail_tpu_torch.scene.scene import make_traced_scene
         g = cornell_scene().flatten()
         lo, hi = g.bounds()
         bvh = build_bvh(lo, hi, leaf_size=8)
-        light = Light.make((0, 3.5, 0), (1, 1, 1), 30)
-        scene = make_traced_scene(g, bvh, lights=light)
-        cam = Camera.look_at(pos=(0.0, 2.0, 6.0), target=(0.0, 1.5, 0.0))
+        light = Light.make((0, 3.5, 0), (1, 1, 1), 30, device="cpu")
+        scene = make_traced_scene(g, bvh, lights=light, device="cpu")
+        cam = Camera.look_at(pos=(0.0, 2.0, 6.0), target=(0.0, 1.5, 0.0),
+                             device="cpu")
         img = render_frame(scene, cam, 64, 64,
                            RenderOpts(reflections=False, transparency=False))
         assert img.shape == (64, 64, 3) and float(img.max()) > 0.1
-        bounce = make_traced_scene(g, bvh, bounce_materials(), lights=light)
+        bounce = make_traced_scene(g, bvh, bounce_materials(), lights=light,
+                                   device="cpu")
         img = render_frame(bounce, cam, 64, 64, RenderOpts(textures=False))
         assert img.shape == (64, 64, 3) and float(img.max()) > 0.1
         tri_a = bounce.tri_a.clone().requires_grad_()
@@ -196,7 +214,14 @@ def test_port_renders_without_jax():
                                      cam, 64, 64, RenderOpts(textures=False))
         img.square().mean().backward()
         assert tri_a.grad.abs().max() > 0
-        assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
+        isc = make_instances(bounce, torch.stack([torch.eye(3),
+                                                  rotation_y(0.5)]),
+                             [[0.0, 0.0, 0.0], [3.0, 0.0, -4.0]])
+        img = render_instanced(isc, cam, 64, 64, RenderOpts(textures=False))
+        assert img.shape == (64, 64, 3) and float(img.max()) > 0.1
+        img, stats = render_frame_fast_stats(scene, cam, 64, 64)
+        assert float(img.max()) > 0.1 and stats["tri_blocks"] > 0
+        assert not any(m.split(".")[0] in ("jax", "jaxlib", "snail_tpu")
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
     """)

@@ -16,9 +16,10 @@ from snail_tpu.ops import traverse_pallas as tp
 from snail_tpu.scene import procedural as jproc
 from snail_tpu.scene.scene import make_traced_scene as j_make_traced_scene
 
-from snail_tpu_torch.core.types import Light
+from snail_tpu_torch.core.types import Camera, Light
 from snail_tpu_torch.ops import traverse as pt
 from snail_tpu_torch.scene import procedural as pproc
+from snail_tpu_torch.scene.bench_scenes import bench_scene
 from snail_tpu_torch.scene.materials import MaterialTable
 from snail_tpu_torch.scene.scene import (make_traced_scene,
                                          traced_scene_from_numpy)
@@ -52,7 +53,8 @@ def city():
         jproc.city_scene(6).flatten(), bvh,
         lights=JLight.make((0.0, 30.0, 0.0), (1.0, 1.0, 1.0), 120.0))
     pscene = make_traced_scene(
-        g, bvh, lights=Light.make((0.0, 30.0, 0.0), (1.0, 1.0, 1.0), 120.0))
+        g, bvh, lights=Light.make((0.0, 30.0, 0.0), (1.0, 1.0, 1.0), 120.0,
+                                  device="cpu"), device="cpu")
     return jscene, pscene, bvh
 
 
@@ -113,7 +115,7 @@ def test_leaf_tables_match_jax(city):
 
 def test_traced_scene_from_numpy_round_trips(city):
     jscene, pscene, _ = city
-    rt = traced_scene_from_numpy(_jax_fields(jscene))
+    rt = traced_scene_from_numpy(_jax_fields(jscene), device="cpu")
     for name in ("tri_rows", "sh_pack", "mat_pack", "root_lo",
                  "root_hi") + PRIMAL:
         a, b = getattr(rt, name), getattr(pscene, name)
@@ -131,7 +133,7 @@ def test_traced_scene_from_numpy_round_trips(city):
     # with its rows packed from it
     fields = _jax_fields(jscene)
     fields["tri_a"] = fields["tri_a"] + np.float32(0.25)
-    moved = traced_scene_from_numpy(fields)
+    moved = traced_scene_from_numpy(fields, device="cpu")
     np.testing.assert_array_equal(moved.tri_a.numpy(), fields["tri_a"])
     np.testing.assert_array_equal(moved.tri_rows.numpy()[:, 0:3],
                                   fields["tri_a"])
@@ -187,3 +189,20 @@ def test_kernel_ray_index_matches_jax():
     for w, h in ((64, 64), (128, 64), (192, 128)):
         np.testing.assert_array_equal(pt.kernel_ray_index(w, h),
                                       tp.kernel_ray_index(w, h))
+
+
+def test_entry_points_need_a_device_without_a_card(monkeypatch):
+    """Scenes, cameras and lights are built on the card unless the caller
+    asks for the CPU: with no card and no device argument they raise
+    rather than run the plain versions unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = pproc.box_scene().flatten()
+    bvh = build_bvh(*g.bounds(), leaf_size=8)
+    for build in (lambda: Camera.look_at(pos=(0.0, 0.0, 5.0),
+                                         target=(0.0, 0.0, 0.0)),
+                  lambda: Light.make((0.0, 3.0, 0.0), (1.0, 1.0, 1.0), 9.0),
+                  lambda: make_traced_scene(g, bvh),
+                  lambda: bench_scene("city", 2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert make_traced_scene(g, bvh, device="cpu").device.type == "cpu"

@@ -40,7 +40,7 @@ def scenes():
         "node_lo", "node_hi", "node_child", "node_count", "tri_a", "tri_ba",
         "tri_ca", "sh_mat", "sh_pack", "mat_pack", "mat_diffuse",
         "mat_specular", "mat_reflect", "mat_dissolve")}
-    ps = traced_scene_from_numpy(fields)
+    ps = traced_scene_from_numpy(fields, device="cpu")
     slo, shi = np.asarray(js.node_lo[0]), np.asarray(js.node_hi[0])
     c = (slo + shi) * 0.5
     ext = float(np.max(shi - slo))
