@@ -30,7 +30,27 @@ Phases, each printed on its own line:
    instanced frame render_instanced on a grid of rigid instances of the
    scene (bench_scenes.instanced_grid: 16 of city_24, fwd and bounce
    options; 4 of terrain_724, fwd), where the camera must see every
-   instance and some instances hide others.
+   instance and some instances hide others;
+5. the walk kernels B9a-d (csrc/walk.cu) against their plain versions
+   (ops/traverse_ref.py) on both scenes rebuilt with node tables
+   (``walk=True``; the terrain's ~88.5k nodes are more than the 24,576 of
+   the TPU's node cap, so the check is also the parity of the paged
+   B10a-d that the same kernels cover), each over its whole wavefront:
+   B9a on the primary rays, B9b on the frame's shadow rays (and the
+   terrain's toward the low light), B9c on the frame's reflection rays and
+   on a seeded wavefront, B9d on a seeded shadow wavefront with its own
+   origins; closest hits equal bit for bit where the triangle agrees, the
+   triangle differing only on a distance tie, verdicts identical;
+6. the walk paths at 1024 x 1024: the fwd, bounce and instanced fwd
+   frames of the walk scenes, launching walk kernels only, each checked
+   against the CPU path at 64 x 64 and timed, the fwd and bounce frames
+   also against the same scene's worklist frame (within 2e-3 on >= 99.8 %
+   of pixels); and the portable path: render_frame at 1280 x 720 (not a
+   multiple of the tile: the integrator and the dispatch seam), fwd and
+   bounce on both leaf-table scenes and the walk terrain, with launches,
+   a check against the CPU path at 80 x 48 and ms/frame, and on city_24
+   one fwd+bwd step of the portable fwd frame (ms/step, gradients on the
+   card against the CPU path at 48 x 32).
 
 The last two lines are a JSON object per kernel and the result line. Every
 kernel's line gives its time beside its bound: the larger of the bytes it
@@ -57,6 +77,7 @@ TIMED_STEPS = 5
 KERNEL_REPS = 20
 SIM_PACKETS = 3  # seeded packets whose counters are simulated
 SRC = "snail_tpu_torch/csrc/worklist.cu"
+WALK_SRC = "snail_tpu_torch/csrc/walk.cu"
 TPU = "snail_tpu/ops/traverse_pallas.py"
 REPLACES = {  # kernel -> line of the Pallas kernel it replaces
     "words_camera": f"{TPU}:2785",
@@ -68,14 +89,33 @@ REPLACES = {  # kernel -> line of the Pallas kernel it replaces
     "shadow_wl_g": f"{TPU}:3272",
     "camera_wl_stats": f"{TPU}:3160",
     "shadow_wl_stats": f"{TPU}:3217",
+    # the B9 kernel, and the paged B10 twin it also covers
+    "walk_camera": f"{TPU}:1809, {TPU}:1828",
+    "walk_shadow": f"{TPU}:1901, {TPU}:1918",
+    "walk_closest_g": f"{TPU}:2178, {TPU}:2199",
+    "walk_shadow_g": f"{TPU}:2255, {TPU}:2274",
 }
 FORWARD = ("words_camera", "camera_wl", "words_shared", "shadow_wl")
 BOUNCE = FORWARD + ("words_general", "closest_wl_g")
 STATS = ("words_camera", "camera_wl_stats", "words_shared", "shadow_wl_stats")
 INSTANCED = ("words_general", "closest_wl_g", "shadow_wl_g")
+WALK = ("walk_camera", "walk_shadow", "walk_closest_g", "walk_shadow_g")
+WALK_FWD = WALK[:2]
+WALK_BOUNCE = WALK[:3]
+WALK_INSTANCED = WALK[2:]
+# the kernels the portable frame reaches through the dispatch seam
+PORTABLE = {"leaves": ("words_general", "closest_wl_g", "words_shared",
+                       "shadow_wl"),
+            "nodes": ("walk_closest_g", "walk_shadow")}
+PORTABLE_SIZE = (1280, 720)
+PORTABLE_SMALL = (80, 48)
+PORTABLE_STEP_SMALL = (48, 32)
+PORTABLE_FRAMES = 3
 # the path whose launches a kernel's line reports
 PATH_OF = {**{k: "bounce" for k in BOUNCE}, "shadow_wl_g": "instanced_fwd",
-           "camera_wl_stats": "stats", "shadow_wl_stats": "stats"}
+           "camera_wl_stats": "stats", "shadow_wl_stats": "stats",
+           **{k: "walk_bounce" for k in WALK_BOUNCE},
+           "walk_shadow_g": "walk_instanced_fwd"}
 # kind -> a low light for the blocked-ray checks of B3/B4 and of the small
 # frame: the terrain's bench light is overhead and its hills cast no
 # shadow toward it (~20 % of the frame's shadow rays toward this light are
@@ -102,6 +142,9 @@ RAY_OPS = {"words_camera": 61, "words_shared": 14, "words_general": 20}
 SLAB_OPS = 25
 TRI_OPS = {"camera_wl": 29, "shadow_wl": 22, "closest_wl_g": 56,
            "shadow_wl_g": 49}
+# the walk kernels test triangles with the same device functions
+TRI_OPS.update(walk_camera=29, walk_shadow=22, walk_closest_g=56,
+               walk_shadow_g=49)
 
 
 def fail(msg: str) -> None:
@@ -135,15 +178,31 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def make_scene(kind: str, n: int):
-    """A benchmark scene of bench.py on the card (scene/bench_scenes.py)."""
+    """A benchmark scene of bench.py on the card (scene/bench_scenes.py):
+    (scene, camera, geometry, BVH)."""
     from snail_tpu_torch.scene.bench_scenes import SCENES, bench_scene
 
     t0 = time.perf_counter()
-    scene, cam, g, _ = bench_scene(kind, n, bounce=True)
+    scene, cam, g, bvh = bench_scene(kind, n, bounce=True)
     print(f"scene {kind}_{n}: {g.num_tris} tris, {scene.leaves.n_leaf} "
           f"leaves (leaf {SCENES[kind][1]}), host build "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    return scene, cam
+    return scene, cam, g, bvh
+
+
+def walk_twin(name, scene, g, bvh):
+    """``scene`` rebuilt on its geometry, BVH, material table and lights
+    with node tables for the walk kernels in place of leaf tables."""
+    from snail_tpu_torch.scene.bench_scenes import bounce_materials
+    from snail_tpu_torch.scene.scene import make_traced_scene
+
+    t0 = time.perf_counter()
+    walk = make_traced_scene(g, bvh, bounce_materials(), lights=scene.lights,
+                             device=scene.device, walk=True)
+    print(f"scene {name} walk: {walk.nodes.n_nodes} nodes, depth "
+          f"{walk.nodes.depth}, host build {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return walk
 
 
 def timed_plain(fn):
@@ -631,52 +690,58 @@ def launched(name, path, need):
     return launches
 
 
-def check_small(name, path, frame, small):
-    """A 64 x 64 frame ``frame(scene, camera, 64, 64)`` of ``small``
+def check_small(name, path, frame, small, size=(64, 64)):
+    """A small frame ``frame(scene, camera, *size)`` of ``small``
     ((scene, camera)) on the card against the CPU path (plain versions):
     within 2e-3 on all but 0.2 % of pixels, the reference not all zero."""
-    card_img = frame(*small, 64, 64).cpu()
-    ref = frame(small[0].to("cpu"), small[1].to("cpu"), 64, 64)
+    card_img = frame(*small, *size).cpu()
+    ref = frame(small[0].to("cpu"), small[1].to("cpu"), *size)
     off = float(((card_img - ref).abs().amax(-1) > 2e-3).float().mean())
+    wh = f"{size[0]}x{size[1]}"
     if off > 2e-3:
-        fail(f"{name} {path}: 64x64 card frame differs from the CPU path "
+        fail(f"{name} {path}: {wh} card frame differs from the CPU path "
              f"on {off} of pixels")
     if not float(ref.abs().max()) > 0:
-        fail(f"{name} {path}: the 64x64 reference frame is all zero")
-    print(f"frame {name} {path}: 64x64 card vs CPU path, share of pixels "
+        fail(f"{name} {path}: the {wh} reference frame is all zero")
+    print(f"frame {name} {path}: {wh} card vs CPU path, share of pixels "
           f"off by > 2e-3: {off}", flush=True)
 
 
 def run_path(name, path, need, frame, scene, cam, small, card, rays,
-             frames=TIMED_FRAMES):
-    """Phase 4, one path: the launch counts of one 1024 x 1024 frame
-    ``frame(scene, camera, w, h)`` (each kernel in ``need`` > 0), a 64 x
-    64 frame of ``small`` against the CPU path, ms/frame over ``frames``,
-    MRays/s (``rays`` as bench.py counts them) and peak memory. Returns the
-    launch counts."""
+             frames=TIMED_FRAMES, size=(WIDTH, HEIGHT), small_size=(64, 64),
+             only=None):
+    """Phase 4, one path: the launch counts of one frame ``frame(scene,
+    camera, *size)`` (each kernel in ``need`` > 0; with ``only``, no kernel
+    outside it), a ``small_size`` frame of ``small`` against the CPU path,
+    ms/frame over ``frames``, MRays/s (``rays`` as bench.py counts them)
+    and peak memory. Returns the launch counts."""
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
 
+    width, height = size
     torch.cuda.synchronize()
     pt.reset_launch_counts()
     with pt.count_live_rays() as live:
-        img = frame(scene, cam, WIDTH, HEIGHT)
+        img = frame(scene, cam, width, height)
     torch.cuda.synchronize()
     launches = launched(name, path, need)
+    if only is not None and any(n for k, n in launches.items()
+                                if k not in only):
+        fail(f"{name} {path}: a kernel outside {only} ran: {launches}")
     traced = sum(int(n) for n in live)
-    if tuple(img.shape) != (HEIGHT, WIDTH, 3):
+    if tuple(img.shape) != (height, width, 3):
         fail(f"{name} {path}: image shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()) or not float(img.abs().max()) > 0:
         fail(f"{name} {path}: image not finite or all zero")
     print(f"frame {name} {path}: launches {launches}, mean "
           f"{float(img.mean()):.6f}", flush=True)
-    check_small(name, path, frame, small)
+    check_small(name, path, frame, small, small_size)
 
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(lambda: frame(scene, cam, WIDTH, HEIGHT), frames)
+    ms = cuda_ms(lambda: frame(scene, cam, width, height), frames)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    print(f"frame {name} {path} {WIDTH}x{HEIGHT}: {ms:.3f} ms/frame, "
+    print(f"frame {name} {path} {width}x{height}: {ms:.3f} ms/frame, "
           f"{rays / ms / 1e3:.2f} MRays/s ({rays} rays as bench.py counts; "
           f"{traced} live rays traced in {len(live)} wavefronts), peak "
           f"memory {peak:.1f} MiB, on {card}", flush=True)
@@ -881,6 +946,350 @@ def run_step(name, scene, cam, small, card):
     return launches
 
 
+def walk_work(kernel, nodes, rows, work):
+    """The work a walk wavefront needs, as (float operations, bytes of
+    tree data), from its plain walk's ``work`` (ops/traverse_ref.py
+    ``walk_plain``): for each ray the slab tests of the nodes it enters
+    and the ray-triangle tests of the leaves it enters (up to its blocker);
+    each node some ray enters (32 B) and its leaf's triangle rows, read
+    once."""
+    count = nodes.columns()[3]
+    entered = work["entered"]
+    ops = work["slab"] * SLAB_OPS + work["tri"] * TRI_OPS[kernel]
+    n_bytes = (int(entered.sum()) * nodes.node.shape[1]
+               * nodes.node.element_size()
+               + int(count[entered].sum()) * rows.shape[1]
+               * rows.element_size())
+    return ops, n_bytes
+
+
+def closest_equal(name, kern, plain, live):
+    """A walk kernel's closest hits (dist, u, v, tri) against its plain
+    version's, on the ``live`` rays and the rest: the triangle equal on >
+    0.999 of the hits and, where it differs, a distance tie (rtol 1e-5);
+    dist, u and v equal bit for bit where it agrees. Returns (max abs
+    dist error over the hits, hit share of the live rays)."""
+    import torch
+
+    from snail_tpu_torch.core.vecmath import BIG
+
+    kd, ku, kv, kt = kern
+    pd, pu, pv, ptri = plain
+    hit = live & (pd.abs() < BIG)
+    same = kt == ptri
+    n_hit = int(hit.sum())
+    checks = {
+        "tri": n_hit == 0 or float(same[hit].float().mean()) > 0.999,
+        "bits": all(torch.equal(a[same], b[same])
+                    for a, b in ((kd, pd), (ku, pu), (kv, pv))),
+        "ties": bool(torch.allclose(kd[~same], pd[~same], rtol=1e-5,
+                                    atol=0.0)),
+    }
+    err = float((kd - pd)[hit].abs().max()) if n_hit else 0.0
+    print(f"check {name}: tri differs on {int((~same).sum())} rays "
+          f"(distance ties), hit share {n_hit / max(int(live.sum()), 1)}",
+          flush=True)
+    if not all(checks.values()):
+        fail(f"{name}: {checks}, max dist err {err}")
+    return err, n_hit / max(int(live.sum()), 1)
+
+
+def check_walk_kernels(name, kind, scene, cam):
+    """Phase 5 on a walk scene's wavefronts: B9a-d against their plain
+    versions on the card, each over its whole wavefront; returns {kernel:
+    entry}."""
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops.traverse_ref import walk_camera_plain
+    from snail_tpu_torch.render.fast import bounce_wavefront
+
+    w, h = WIDTH, HEIGHT
+    p = (w // pt.TILE) * (h // pt.TILE)
+    nodes = scene.nodes
+    cv = pt.cam_vec(cam, w, h, scene.root_lo, scene.root_hi)
+    rows = pt.shared_rows(scene.tri_rows, cam.pos)
+    out = {}
+
+    # B9a
+    kern = pt.walk_camera(cv, w, h, rows, nodes)
+    work = {}
+    plain, plain_ms = timed_plain(lambda: walk_camera_plain(
+        cv, w, h, rows, nodes, torch.arange(p, device="cuda"), work))
+    if not all(torch.equal(a, b) for a, b in zip(kern[4:], plain[4:])):
+        fail(f"{name} walk_camera: directions differ from the plain version")
+    err, share = closest_equal(f"{name} walk_camera", kern[:4], plain[:4],
+                               torch.ones_like(kern[0], dtype=torch.bool))
+    if share <= 0.3:
+        fail(f"{name} walk_camera: hit share {share}")
+    ms = cuda_ms(lambda: pt.walk_camera(cv, w, h, rows, nodes), KERNEL_REPS)
+    ops, tree_bytes = walk_work("walk_camera", nodes, rows, work)
+    out["walk_camera"] = entry(err, ms, plain_ms,
+                               nbytes(cv, *kern) + tree_bytes, ops)
+    kd, ku, kv, kt, kdx, kdy, kdz = kern
+
+    # B9b on the frame's shadow rays, B9c on its reflection rays and on a
+    # seeded wavefront, B9d on a seeded shadow wavefront
+    primary = ((cam.pos[0], cam.pos[1], cam.pos[2]),
+               (kdx.reshape(-1), kdy.reshape(-1), kdz.reshape(-1)),
+               kd.reshape(-1), ku.reshape(-1), kv.reshape(-1),
+               kt.reshape(-1))
+    out["walk_shadow"] = check_walk_shadow(
+        f"{name} light 0", scene, primary, scene.lights.pos[0],
+        kind not in LOW_LIGHT)
+    if kind in LOW_LIGHT:
+        check_walk_shadow(f"{name} low light", scene, primary,
+                          torch.tensor(LOW_LIGHT[kind], device="cuda"), True)
+    o, d, tm, _ = pt.general_planes(*bounce_wavefront(scene, *primary))
+    out["walk_closest_g"], _ = check_walk_closest(f"{name} reflections",
+                                                  scene, o, d, tm)
+    seeded, share = check_walk_closest(f"{name} seeded", scene,
+                                       *seeded_general(scene, p))
+    if not 0.02 < share < 0.98:
+        fail(f"{name} seeded wavefront: hit share {share}")
+    print_checks(f"{name} seeded", {"walk_closest_g": seeded})
+    out["walk_shadow_g"] = check_walk_seeded_shadows(name, scene, p)
+    print_checks(name, out)
+    return out
+
+
+def check_walk_shadow(name, scene, primary, lp, need_blocked):
+    """B9b against its plain version on the frame's shadow rays from the
+    ``primary`` hits toward the light at ``lp``: verdicts identical, some
+    rays unblocked and, with ``need_blocked``, some blocked. Returns its
+    entry."""
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops.traverse_ref import walk_shadow_plain
+    from snail_tpu_torch.render.fast import shadow_wavefront
+
+    pk = lambda a: a.reshape(-1, pt.PACKET_R).contiguous()
+    d, tm = shadow_wavefront(scene, *primary, lp)
+    orig, d, tm = lp.contiguous(), tuple(pk(c) for c in d), pk(tm)
+    rows = pt.shared_rows(scene.tri_rows, orig)
+    kern = pt.walk_shadow(orig, d, tm, rows, scene.nodes)
+    work = {}
+    plain, plain_ms = timed_plain(lambda: walk_shadow_plain(
+        orig, d, tm, rows, scene.nodes, work))
+    live = tm >= 0
+    frac = float(plain[live].mean())
+    n_diff = int((kern != plain).sum())
+    print(f"check {name} walk_shadow: {n_diff} verdicts differ, blocked "
+          f"share {frac} of {int(live.sum())} live rays", flush=True)
+    if (n_diff or bool(kern[~live].any()) or frac >= 0.98
+            or (need_blocked and frac <= 0.02)):
+        fail(f"{name} walk_shadow: {n_diff} verdicts differ, blocked share "
+             f"{frac}")
+    ms = cuda_ms(lambda: pt.walk_shadow(orig, d, tm, rows, scene.nodes),
+                 KERNEL_REPS)
+    ops, tree_bytes = walk_work("walk_shadow", scene.nodes, rows, work)
+    return entry(0.0, ms, plain_ms, nbytes(orig, *d, tm, kern) + tree_bytes,
+                 ops)
+
+
+def check_walk_closest(name, scene, o, d, tm):
+    """B9c against its plain version on the planes ``o``, ``d``, ``tm``:
+    the miss and masked conventions exactly, tri clamped at 0, the rest as
+    ``closest_equal``. Returns (its entry, hit share of the live rays)."""
+    from snail_tpu_torch.core.vecmath import BIG
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops.traverse_ref import walk_closest_g_plain
+
+    rows, nodes = scene.tri_rows, scene.nodes
+    kern = pt.walk_closest_g(o, d, tm, rows, nodes)
+    work = {}
+    plain, plain_ms = timed_plain(lambda: walk_closest_g_plain(
+        o, d, tm, rows, nodes, work))
+    live = tm >= 0
+    kd, kt = kern[0], kern[3]
+    if not (bool((kd[~live] == -BIG).all())
+            and bool((kt[kd.abs() >= BIG] == 0).all())):
+        fail(f"{name} walk_closest_g: masked or miss conventions differ")
+    err, share = closest_equal(f"{name} walk_closest_g", kern, plain, live)
+    ms = cuda_ms(lambda: pt.walk_closest_g(o, d, tm, rows, nodes),
+                 KERNEL_REPS)
+    ops, tree_bytes = walk_work("walk_closest_g", nodes, rows, work)
+    return entry(err, ms, plain_ms, nbytes(*o, *d, tm, *kern) + tree_bytes,
+                 ops), share
+
+
+def check_walk_seeded_shadows(name, scene, n_packets):
+    """B9d against its plain version on the seeded shadow rays of
+    ``check_seeded_shadows`` (the first seed whose blocked share lies in
+    0.02-0.98): verdicts identical, masked rays never blocked. Returns its
+    entry."""
+    import numpy as np
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops.traverse_ref import walk_shadow_g_plain
+
+    rows, nodes = scene.tri_rows, scene.nodes
+    for seed in range(5, 25):
+        o, d, tm = seeded_general(scene, n_packets, seed)
+        rng = np.random.default_rng(seed)
+        diag = float((scene.root_hi - scene.root_lo).norm())
+        frac = torch.from_numpy(rng.uniform(0.05, 0.6, tuple(tm.shape))
+                                .astype(np.float32)).cuda()
+        tm = torch.where(tm >= 0, frac * diag, tm)
+        kern = pt.walk_shadow_g(o, d, tm, rows, nodes)
+        live = tm >= 0
+        share = float(kern[live].mean())
+        if 0.02 < share < 0.98:
+            break
+    else:
+        fail(f"{name}: no seeded shadow wavefront blocks 0.02-0.98 of its "
+             "rays")
+    work = {}
+    plain, plain_ms = timed_plain(lambda: walk_shadow_g_plain(
+        o, d, tm, rows, nodes, work))
+    n_diff = int((kern != plain).sum())
+    print(f"check {name} seeded {seed} walk_shadow_g: {n_diff} verdicts "
+          f"differ, blocked share {share} of {int(live.sum())} live rays",
+          flush=True)
+    if n_diff or bool(kern[~live].any()):
+        fail(f"{name} walk_shadow_g: {n_diff} verdicts differ")
+    ms = cuda_ms(lambda: pt.walk_shadow_g(o, d, tm, rows, nodes),
+                 KERNEL_REPS)
+    ops, tree_bytes = walk_work("walk_shadow_g", nodes, rows, work)
+    return entry(0.0, ms, plain_ms, nbytes(*o, *d, tm, kern) + tree_bytes,
+                 ops)
+
+
+def run_walk_frame(name, path, opts, need, walk, scene, cam, small, card):
+    """Phase 6, one walk path through render_frame on the walk scene (see
+    run_path; walk kernels only), and its 1024 x 1024 frame against the
+    worklist frame of ``scene``, the same scene with leaf tables: within
+    2e-3 on >= 99.8 % of pixels. Returns the launch counts."""
+    from snail_tpu_torch.render.renderer import render_frame
+
+    launches = run_path(name, path, need,
+                        lambda s, c, w, h: render_frame(s, c, w, h, opts),
+                        walk, cam, small, card,
+                        WIDTH * HEIGHT * (1 + len(walk.lights)), only=WALK)
+    a = render_frame(walk, cam, WIDTH, HEIGHT, opts)
+    b = render_frame(scene, cam, WIDTH, HEIGHT, opts)
+    err = (a - b).abs().amax(-1)
+    off = float((err > 2e-3).float().mean())
+    print(f"frame {name} {path}: against the worklist frame, share of "
+          f"pixels off by > 2e-3: {off} (max {float(err.max())})",
+          flush=True)
+    if off > 2e-3:
+        fail(f"{name} {path}: the walk frame differs from the worklist frame "
+             f"on {off} of pixels")
+    return launches
+
+
+def run_walk_instanced(name, kind, walk, small, card):
+    """Phase 6, the instanced fwd frame on a grid of instances of the walk
+    scene (B9c + B9d through the dispatch seam), as run_instanced's.
+    Returns the launch counts."""
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.scene.bench_scenes import instanced_grid
+    from snail_tpu_torch.scene.instancing import render_instanced
+
+    grid, _ = INSTANCE_GRID[kind]
+    isc, icam = instanced_grid(kind, walk, grid)
+    opts = RenderOpts(reflections=False, transparency=False, textures=False)
+    return run_path(
+        f"{name} x{grid * grid}", "walk instanced fwd", WALK_INSTANCED,
+        lambda s, c, w, h: render_instanced(s, c, w, h, opts), isc, icam,
+        instanced_grid(kind, small[0], grid), card,
+        WIDTH * HEIGHT * (1 + len(isc.lights)), INSTANCED_FRAMES, only=WALK)
+
+
+def run_portable(name, path, opts, tables, scene, cam, small, card):
+    """Phase 6, the portable path: render_frame at PORTABLE_SIZE, which is
+    not a multiple of the tile, through the integrator and the dispatch
+    seam to the kernels of the scene's ``tables``, against the CPU path at
+    PORTABLE_SMALL (see run_path). Returns the launch counts."""
+    from snail_tpu_torch.render.renderer import render_frame
+
+    w, h = PORTABLE_SIZE
+    return run_path(name, path, PORTABLE[tables],
+                    lambda s, c, w, h: render_frame(s, c, w, h, opts),
+                    scene, cam, small, card, w * h * (1 + len(scene.lights)),
+                    PORTABLE_FRAMES, PORTABLE_SIZE, PORTABLE_SMALL)
+
+
+def portable_step(scene, cam, target, width, height):
+    """One fwd+bwd step of the portable fwd frame: the MSE of render_frame
+    (no bounces, shadows on) against ``target`` and its gradients with
+    respect to fresh copies of bench.py's 7 parameters (bench_scenes
+    GRAD_PARAMS). Returns (loss, {name: gradient})."""
+    import torch
+
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.render.renderer import render_frame
+    from snail_tpu_torch.scene.bench_scenes import grad_params, with_params
+
+    params = grad_params(scene, cam)
+    s, c = with_params(scene, cam, params)
+    img = render_frame(s, c, width, height, RenderOpts(
+        reflections=False, transparency=False, textures=False))
+    loss = ((img - target) ** 2).mean()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def run_portable_step(name, scene, cam, small, card):
+    """Phase 6, one fwd+bwd step of the portable fwd frame at
+    PORTABLE_SIZE: launch counts, a PORTABLE_STEP_SMALL step on the card
+    against the CPU path (its target lit at half the light colour), with
+    the tolerances of run_step, and ms/step. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from snail_tpu_torch.core.types import Light, RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.renderer import render_frame
+
+    w, h = PORTABLE_SIZE
+    fwd = RenderOpts(reflections=False, transparency=False, textures=False)
+    target = render_frame(scene, cam, w, h, fwd)
+    torch.cuda.synchronize()
+    pt.reset_launch_counts()
+    loss, grads = portable_step(scene, cam, target, w, h)
+    torch.cuda.synchronize()
+    launches = launched(name, "portable fwd_bwd", PORTABLE["leaves"])
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    if not np.isfinite(float(loss)) or bad:
+        fail(f"{name} portable fwd_bwd: loss {float(loss)}, non-finite "
+             f"grads {bad}")
+
+    sscene, scam = small
+    half = dataclasses.replace(sscene, lights=Light(
+        pos=sscene.lights.pos, color=sscene.lights.color * 0.5,
+        radius=sscene.lights.radius))
+    sw, sh = PORTABLE_STEP_SMALL
+    t = render_frame(half, scam, sw, sh, fwd)
+    lk, gk = portable_step(sscene, scam, t, sw, sh)
+    lc, gc = portable_step(sscene.to("cpu"), scam.to("cpu"), t.cpu(), sw, sh)
+    lk, lc = float(lk), float(lc)
+    ok = abs(lk - lc) < 3e-4 * max(1.0, abs(lc))
+    worst = {}
+    for k in gc:
+        a, b = gk[k].cpu().numpy(), gc[k].numpy()
+        denom = max(float(np.abs(b).max()), 1e-8)
+        q, m = (float(np.quantile(np.abs(a - b), 0.999)) / denom,
+                float(np.abs(a - b).mean()) / denom)
+        worst[k] = (q, m)
+        ok = ok and q < 5e-3 and m < 1e-3 and np.isfinite(a).all()
+    print(f"step {name} portable fwd_bwd: launches {launches}; {sw}x{sh} "
+          f"card vs CPU path, loss {lk} vs {lc}; grad |diff| q99.9 / mean "
+          "over max |g|: " + ", ".join(f"{k} {q:.2e}/{m:.2e}"
+                                       for k, (q, m) in worst.items()),
+          flush=True)
+    if not ok:
+        fail(f"{name} portable fwd_bwd: {sw}x{sh} card step differs from "
+             "the CPU path")
+    ms = cuda_ms(lambda: portable_step(scene, cam, target, w, h),
+                 PORTABLE_FRAMES)
+    rays = w * h * (1 + len(scene.lights))
+    print(f"step {name} portable fwd_bwd {w}x{h}: {ms:.3f} ms/step, "
+          f"{rays / ms / 1e3:.2f} MRays/s, on {card}", flush=True)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -917,12 +1326,13 @@ def main() -> None:
     for kind, n_small in (("city", BENCH_N["city"]), ("terrain", 64)):
         n = BENCH_N[kind]
         name = f"{kind}_{n}"
-        scene, cam = make_scene(kind, n)
-        small = (scene, cam) if n_small == n else make_scene(kind, n_small)
+        scene, cam, g, bvh = make_scene(kind, n)
+        sscene, scam, sg, sbvh = ((scene, cam, g, bvh) if n_small == n
+                                  else make_scene(kind, n_small))
         if kind in LOW_LIGHT:
-            small = (dataclasses.replace(small[0], lights=Light.make(
-                LOW_LIGHT[kind], (1.0, 1.0, 1.0), SCENES[kind][3])),
-                small[1])
+            sscene = dataclasses.replace(sscene, lights=Light.make(
+                LOW_LIGHT[kind], (1.0, 1.0, 1.0), SCENES[kind][3]))
+        small = (sscene, scam)
         stamp(f"{name} scenes")
         checks = check_kernels(name, kind, scene, cam)
         stamp(f"{name} kernel checks")
@@ -943,14 +1353,42 @@ def main() -> None:
                                                        small, card)
         launches.update(by_path)
         stamp(f"{name} instanced frames")
+
+        walk = walk_twin(name, scene, g, bvh)
+        wsmall = ((walk, cam) if n_small == n else
+                  (walk_twin(f"{kind}_{n_small}", sscene, sg, sbvh), scam))
+        checks.update(check_walk_kernels(name, kind, walk, cam))
+        stamp(f"{name} walk kernel checks")
+        launches["walk_fwd"] = run_walk_frame(name, "walk fwd", fwd,
+                                              WALK_FWD, walk, scene, cam,
+                                              wsmall, card)
+        launches["walk_bounce"] = run_walk_frame(
+            name, "walk bounce", RenderOpts(textures=False), WALK_BOUNCE,
+            walk, scene, cam, wsmall, card)
+        launches["walk_instanced_fwd"] = run_walk_instanced(name, kind, walk,
+                                                            wsmall, card)
+        stamp(f"{name} walk frames")
+        for path, opts in (("portable_fwd", fwd),
+                           ("portable_bounce", RenderOpts(textures=False))):
+            launches[path] = run_portable(name, path.replace("_", " "), opts,
+                                          "leaves", scene, cam, small, card)
+            if kind == "terrain":
+                launches[f"walk_{path}"] = run_portable(
+                    name, f"walk {path.replace('_', ' ')}", opts, "nodes",
+                    walk, cam, wsmall, card)
+        if kind == "city":
+            launches["portable_fwd_bwd"] = run_portable_step(
+                name, scene, cam, small, card)
+        stamp(f"{name} portable frames")
         for k, e in checks.items():
             kernels.append({
-                "name": f"{k}/{name}", "route": "cuda", "source": SRC,
+                "name": f"{k}/{name}", "route": "cuda",
+                "source": WALK_SRC if k in WALK else SRC,
                 "replaces": REPLACES[k], "launches": launches[PATH_OF[k]][k],
                 "path": PATH_OF[k],
                 "launches_by_path": {p: n[k] for p, n in launches.items()},
                 **e, "library_ms": None})
-        del scene, small
+        del scene, small, sscene, walk, wsmall
         torch.cuda.empty_cache()
 
     print(card)

@@ -1,0 +1,208 @@
+// Ray, warp and triangle helpers shared by the worklist kernels
+// (worklist.cu) and the walk kernels (walk.cu). Every function here is the
+// arithmetic that the plain PyTorch versions in snail_tpu_torch/ops repeat
+// operation for operation; the sources are compiled with --fmad=false, so
+// every product and sum is rounded on its own, as there.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kBig = 3.4e37f;
+constexpr float kInvEps = 1e-8f;
+constexpr int kTile = 64;
+constexpr int kPacketR = kTile * kTile;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Camera scalars (ops/traverse.py cam_vec): right 0:3, up 3:6,
+// front*plane_dist 6:9, pos 9:12, w/2 12, h/2 13, 1/h 14, tiles_x 15,
+// root lo 16:19, root hi 19:22.
+struct PrimaryRay {
+  float d[3];
+  float idir[3];
+  float t_exit;
+};
+
+// Slab test of the ray o + t d (idir = 1 / d) against the box [lo, hi]:
+// entry distance, and pass = the ray enters the box in front of it.
+__device__ __forceinline__ float slab_entry(const float lo[3],
+                                            const float hi[3],
+                                            const float o[3],
+                                            const float idir[3],
+                                            float& t_far, bool& pass) {
+  float t1[3], t2[3];
+  for (int k = 0; k < 3; ++k) {
+    t1[k] = (lo[k] - o[k]) * idir[k];
+    t2[k] = (hi[k] - o[k]) * idir[k];
+  }
+  const float tn = fmaxf(fmaxf(fminf(t1[0], t2[0]), fminf(t1[1], t2[1])),
+                         fminf(t1[2], t2[2]));
+  t_far = fminf(fminf(fmaxf(t1[0], t2[0]), fmaxf(t1[1], t2[1])),
+                fmaxf(t1[2], t2[2]));
+  pass = tn <= t_far && t_far > 0.0f;
+  return tn;
+}
+
+// Exit distance of the ray from the box [lo, hi], times 1.0001; 0 when the
+// ray misses the box or the box lies behind it.
+__device__ __forceinline__ float box_exit(const float* lo, const float* hi,
+                                          const float* o,
+                                          const float* idir) {
+  float tf;
+  bool pass;
+  slab_entry(lo, hi, o, idir, tf, pass);
+  return pass ? tf * 1.0001f : 0.0f;
+}
+
+__device__ __forceinline__ PrimaryRay camera_ray(const float* cam, int pid,
+                                                 int k) {
+  const int tiles_x = (int)cam[15];
+  const int tx = pid % tiles_x, ty = pid / tiles_x;
+  const int q = k >> 10, i = k & 1023;
+  const float px = (float)(tx * kTile + ((q & 1) << 5) + (i & 31));
+  const float py = (float)(ty * kTile + ((q >> 1) << 5) + (i >> 5));
+  const float x = (px + 0.5f - cam[12]) * cam[14];
+  const float y = (cam[13] - py - 0.5f) * cam[14];
+  PrimaryRay r;
+  float d[3];
+  for (int c = 0; c < 3; ++c) d[c] = cam[c] * x + cam[3 + c] * y + cam[6 + c];
+  const float inv_len = __frsqrt_rn(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+  for (int c = 0; c < 3; ++c) {
+    r.d[c] = d[c] * inv_len;
+    r.idir[c] = 1.0f / (r.d[c] + kInvEps);
+  }
+  r.t_exit = box_exit(cam + 16, cam + 19, cam + 9, r.idir);
+  return r;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int s = 16; s; s >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, s));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int s = 16; s; s >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, s));
+  return v;
+}
+
+// Triangle row of the shared-origin table: n, c1, c2, tmul, pad.
+struct TriRow {
+  float nx, ny, nz, c1x, c1y, c1z, c2x, c2y, c2z, tmul;
+};
+
+__device__ __forceinline__ TriRow load_row(const float* rows, int t) {
+  const float4* p = reinterpret_cast<const float4*>(rows) + (size_t)t * 4;
+  const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+  return TriRow{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y};
+}
+
+// Raw triangle row: a, ba, ca, n = ba x ca, pad.
+struct RawRow {
+  float ax, ay, az, bax, bay, baz, cax, cay, caz, nx, ny, nz;
+};
+
+__device__ __forceinline__ RawRow load_raw_row(const float* rows, int t) {
+  const float4* p = reinterpret_cast<const float4*>(rows) + (size_t)t * 4;
+  const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+  return RawRow{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w};
+}
+
+// The Moller terms of one ray against one triangle: det = d.n, u, v and
+// tmul = -(tv.n), tv = o - a.
+struct Moller {
+  float det, u, v, tmul;
+};
+
+// Shared-origin rows (ops/traverse.py shared_rows): the origin terms are
+// per-triangle constants, so a ray needs its direction only.
+__device__ __forceinline__ Moller moller_sh(const float d[3],
+                                            const TriRow& t) {
+  return Moller{d[0] * t.nx + d[1] * t.ny + d[2] * t.nz,
+                d[0] * t.c1x + d[1] * t.c1y + d[2] * t.c1z,
+                d[0] * t.c2x + d[1] * t.c2y + d[2] * t.c2z, t.tmul};
+}
+
+// Raw rows, the full Moller test in the order of _intersect4 (:431-458).
+__device__ __forceinline__ Moller moller_raw(const float o[3],
+                                             const float d[3],
+                                             const RawRow& t) {
+  const float tvx = o[0] - t.ax, tvy = o[1] - t.ay, tvz = o[2] - t.az;
+  Moller m;
+  m.det = d[0] * t.nx + d[1] * t.ny + d[2] * t.nz;
+  m.tmul = -(tvx * t.nx + tvy * t.ny + tvz * t.nz);
+  m.u = d[0] * (tvy * t.caz - tvz * t.cay) + d[1] * (tvz * t.cax - tvx * t.caz) +
+        d[2] * (tvx * t.cay - tvy * t.cax);
+  m.v = d[0] * (t.bay * tvz - t.baz * tvy) + d[1] * (t.baz * tvx - t.bax * tvz) +
+        d[2] * (t.bax * tvy - t.bay * tvx);
+  return m;
+}
+
+// Triangle t of ``rows`` against one ray: shared-origin rows, or raw rows
+// with the ray's origin ``o``.
+template <bool RAW>
+__device__ __forceinline__ Moller moller(const float* rows, int t,
+                                         const float o[3], const float d[3]) {
+  if constexpr (RAW)
+    return moller_raw(o, d, load_raw_row(rows, t));
+  else
+    return moller_sh(d, load_row(rows, t));
+}
+
+// The closest-hit rule, two-sided: u, v and det - u - v share a sign, the
+// hit lies in front and strictly nearer than ``best`` (the first hit found
+// keeps a tie). Gives the hit's distance and barycentrics.
+__device__ __forceinline__ bool closer_hit(const Moller& m, float best,
+                                           float& dist, float& u, float& v) {
+  const float duv = m.det - m.u - m.v;
+  const bool side = fmaxf(m.u, fmaxf(m.v, duv)) <= 0.0f ||
+                    fminf(m.u, fminf(m.v, duv)) >= 0.0f;
+  const float idet = 1.0f / (m.det == 0.0f ? 1e-30f : m.det);
+  dist = m.tmul * idet;
+  u = m.u * idet;
+  v = m.v * idet;
+  return side && m.det != 0.0f && dist > 0.0f && dist < best;
+}
+
+// The shadow rule, one-sided as the reference's (triangle.cpp:95-96): an
+// occluder in (0, limit).
+__device__ __forceinline__ bool occludes(const Moller& m, float limit) {
+  return fminf(m.u, m.v) >= 0.0f && m.u + m.v <= m.det && m.tmul > 0.0f &&
+         m.tmul < limit * m.det;
+}
+
+// Closest hit of one ray over the ``cnt`` triangles from ``first``.
+template <bool RAW>
+__device__ __forceinline__ void leaf_closest(const float* rows, int first,
+                                             int cnt, const float o[3],
+                                             const float d[3], float& best,
+                                             int& tri, float& bu, float& bv) {
+  for (int j = 0; j < cnt; ++j) {
+    float dist, u, v;
+    if (closer_hit(moller<RAW>(rows, first + j, o, d), best, dist, u, v)) {
+      best = dist;
+      tri = first + j;
+      bu = u;
+      bv = v;
+    }
+  }
+}
+
+// Whether one of the ``cnt`` triangles from ``first`` occludes the ray
+// before ``limit``; the ray stops at its first blocker. ``tested`` counts
+// the triangles it tested.
+template <bool RAW>
+__device__ __forceinline__ bool leaf_blocks(const float* rows, int first,
+                                            int cnt, const float o[3],
+                                            const float d[3], float limit,
+                                            int& tested) {
+  for (int j = 0; j < cnt; ++j) {
+    ++tested;
+    if (occludes(moller<RAW>(rows, first + j, o, d), limit)) return true;
+  }
+  return false;
+}
+
+}  // namespace

@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("worklist.cu",)
+SOURCES = ("worklist.cu", "walk.cu")
+HEADERS = ("rays.cuh",)  # included by the sources; part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # products and sums rounded one by one, as in the plain versions
@@ -42,6 +43,10 @@ _SIGNATURES = {
     "snail_words_general": [_P] * 8 + [_I] * 4 + [_P] * 4,
     "snail_closest_wl_g": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 5,
     "snail_shadow_wl_g": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 2,
+    "snail_walk_camera": [_P] * 3 + [_I] * 3 + [_P] * 8,
+    "snail_walk_shadow": [_P] * 7 + [_I] * 3 + [_P] * 2,
+    "snail_walk_closest_g": [_P] * 9 + [_I] * 3 + [_P] * 5,
+    "snail_walk_shadow_g": [_P] * 9 + [_I] * 3 + [_P] * 2,
 }
 
 
@@ -57,7 +62,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 

@@ -1,12 +1,15 @@
 """Traversal dispatch (``snail_tpu.ops.dispatch``): the seam through which
-callers that hold rays as (R, 3) arrays — instancing, and later the
-portable integrator — reach the worklist kernels.
+callers that hold rays as (R, 3) arrays — the portable integrator and
+instancing — reach the kernels.
 
-``closest_hit``, ``any_hit`` and ``any_hit_from`` route to the worklist
-wrappers of :mod:`.traverse`; as everywhere in the port, the device of the
-scene's tensors picks the CUDA kernels or their plain versions. The JAX
-package's other branch, the stack-walk traversal ``traverse_ref`` for
-scenes without packed tables, is not ported yet (ROADMAP queue A item 11).
+``closest_hit``, ``any_hit`` and ``any_hit_from`` route by what the scene
+holds, as the wavefront entry points of :mod:`.traverse` do: a scene with
+worklist leaf tables takes the worklist kernels (B5 + B6, B3 + B4, B5 +
+B7), a scene with node tables the walk kernels (B9c, B9b, B9d). As
+everywhere in the port, the device of the scene's tensors picks the CUDA
+kernels or their plain versions. Where the JAX package's seam sends a CPU
+run to its jnp oracle ``traverse_ref``, the port's plain versions are
+that oracle (:mod:`.traverse_ref` is the walk kernels' plain version).
 Visibility is boolean, so the any-hit entries run without gradients.
 """
 
@@ -19,18 +22,10 @@ from .traverse import (any_hit_aos, any_hit_shared, closest_hit_aos,
                        pad_flat, substitute_masked)
 
 
-def _worklist(scene):
-    if getattr(scene, "leaves", None) is None:
-        raise NotImplementedError(
-            "this scene has no worklist leaf tables; the stack-walk "
-            "traversal for it is not ported yet (ROADMAP queue A item 11)")
-    return scene
-
-
 def closest_hit(scene, orig, dirn, tmax):
     """(dist, tri, bary (R, 2)) of rays ``orig``/``dirn`` (R, 3): a miss
     has dist BIG, a masked ray (tmax < 0) -BIG."""
-    return closest_hit_aos(_worklist(scene), orig, dirn, tmax)
+    return closest_hit_aos(scene, orig, dirn, tmax)
 
 
 @torch.no_grad()
@@ -40,7 +35,6 @@ def any_hit_from(scene, origin, dirn, tmax):
     blocked bool (R,), never for a masked ray. Masked rays' directions
     are substituted by their packet's mean live direction first, so they
     cannot widen the packet's direction interval."""
-    _worklist(scene)
     n = dirn.shape[0]
     tm, _ = pad_flat(tmax, -BIG)
     d = substitute_masked(tuple(pad_flat(dirn[:, k], 1.0)[0]
@@ -52,4 +46,4 @@ def any_hit_from(scene, origin, dirn, tmax):
 def any_hit(scene, orig, dirn, tmax):
     """Any-hit of rays ``orig``/``dirn`` (R, 3): blocked bool (R,), never
     for a masked ray (tmax < 0)."""
-    return any_hit_aos(_worklist(scene), orig, dirn, tmax)
+    return any_hit_aos(scene, orig, dirn, tmax)

@@ -1,5 +1,9 @@
-"""Worklist traversal: primary closest hit, shadow any-hit and bounce
-closest hit (``snail_tpu.ops.traverse_pallas``, the ``SNAIL_WL=1`` path).
+"""Traversal: primary closest hit, shadow any-hit and bounce closest hit
+(``snail_tpu.ops.traverse_pallas``). A scene with leaf tables takes the
+worklist kernels (the JAX package's ``SNAIL_WL=1`` path, B1-B8, below); a
+scene with node tables takes the walk kernels (B9a-d, the ``SNAIL_WL=0``
+path, whose paged twins B10a-d they also cover: see ``NodeTables`` and the
+section "Walk kernels").
 
 A frame is traced in packets of TILE x TILE = 64 x 64 pixels (PACKET_R =
 4096 rays). Ray k of a packet is pixel ``(k & 31, k >> 5)`` of the
@@ -28,10 +32,11 @@ leaf 32*w + p; ``summ`` int32 (P, K, Lp/1024), bit j of word s = word
 32*s + j is nonzero; ``floors`` float32 (P, K), the least interval entry
 distance of band b (BIG when the band is empty).
 
-Every kernel has a plain PyTorch version here. The wrappers route by the
-device of their tensors: CUDA tensors launch the kernels of
-``snail_tpu_torch/csrc/worklist.cu``, CPU tensors take the plain version.
-Each wrapper counts its kernel launches in ``launches``.
+Every worklist kernel has a plain PyTorch version here, every walk kernel
+in :mod:`.traverse_ref`. The wrappers route by the device of their
+tensors: CUDA tensors launch the kernels of ``snail_tpu_torch/csrc``
+(``worklist.cu``, ``walk.cu``), CPU tensors take the plain version. Each
+wrapper counts its kernel launches in ``launches``.
 """
 
 from __future__ import annotations
@@ -125,6 +130,77 @@ def pack_leaf_tables(node_lo, node_hi, node_child,
     count[:n] = cnt
     return LeafTables(torch.from_numpy(box), torch.from_numpy(first),
                       torch.from_numpy(count), n)
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeTables:
+    """Node tables of the walk kernels (the port's ``pack_scene_arrays``,
+    in the spirit of the reference's 32-byte node, tree.h:60-72).
+
+    node  float32 (N, 8): per node lo.xyz, hi.xyz, then two int32 stored
+          as their bits: child (the left child, the right one is child +
+          1; a leaf's first triangle) and meta = count | axis << 16 |
+          first_node << 18 (count 0 for an inner node)
+    depth: the tree's depth, the root at 0, counted from the arrays; a
+          walk holds at most one far child per level, and the walks keep
+          ``stack_cap`` = depth + 2 entries (the reference's maxDepth + 2,
+          traverse.cpp:17), for any depth."""
+
+    node: torch.Tensor
+    depth: int
+
+    @property
+    def n_nodes(self) -> int:
+        return self.node.shape[0]
+
+    @property
+    def stack_cap(self) -> int:
+        return self.depth + 2
+
+    def columns(self):
+        """(lo (N, 3), hi (N, 3), child, count, axis, first) of every
+        node; the integers as int64."""
+        bits = self.node.view(torch.int32)
+        meta = bits[:, 7].long()
+        return (self.node[:, 0:3], self.node[:, 3:6], bits[:, 6].long(),
+                meta & 0xFFFF, (meta >> 16) & 3, (meta >> 18) & 1)
+
+    def to(self, device) -> "NodeTables":
+        return NodeTables(self.node.to(device), self.depth)
+
+
+def tree_depth(child: np.ndarray, count: np.ndarray) -> int:
+    """Depth of the BVH given by its child and count arrays, the root at
+    depth 0, level by level from the root."""
+    frontier, depth = np.zeros(1, np.int64), 0
+    while True:
+        inner = frontier[count[frontier] == 0]
+        if len(inner) == 0:
+            return depth
+        left = child[inner].astype(np.int64)
+        frontier = np.concatenate([left, left + 1])
+        depth += 1
+
+
+def pack_node_tables(node_lo, node_hi, node_child, node_count, node_axis,
+                     node_first) -> NodeTables:
+    """Node tables of a BVH given by its node arrays (``BVH`` fields
+    node_lo, node_hi, child, count, axis, first_node)."""
+    if int(node_count.max()) > IVAL_LEAF:
+        raise ValueError(
+            f"leaf of {int(node_count.max())} triangles > IVAL_LEAF "
+            f"({IVAL_LEAF}); build the BVH with leaf_size <= {IVAL_LEAF}")
+    rows = np.zeros((len(node_child), 8), np.float32)
+    rows[:, 0:3] = node_lo
+    rows[:, 3:6] = node_hi
+    bits = rows.view(np.int32)
+    bits[:, 6] = node_child
+    bits[:, 7] = (np.asarray(node_count, np.int32)
+                  | (np.asarray(node_axis, np.int32) & 3) << 16
+                  | (np.asarray(node_first, np.int32) & 1) << 18)
+    return NodeTables(torch.from_numpy(rows),
+                      tree_depth(np.asarray(node_child),
+                                 np.asarray(node_count)))
 
 
 def pack_tri_rows(a, ba, ca) -> np.ndarray:
@@ -1076,8 +1152,127 @@ def shadow_wl_g(o, d, tm, rows, tables: LeafTables, words, summ, floors):
     return blocked
 
 
+# --- Walk kernels (csrc/walk.cu): B9a-d, with no node cap, so that they
+# also compute what the paged B10a-d compute. Plain versions in
+# .traverse_ref. ---------------------------------------------------------
+
+
+def _check_nodes(nodes: NodeTables, dev):
+    _check(nodes.node, "nodes", torch.float32, (nodes.n_nodes, 8), dev)
+
+
+def walk_camera(cam, width: int, height: int, rows, nodes: NodeTables):
+    """B9a: raygen + closest hit of a width x height frame of primary rays
+    through the node tree on the shared-origin ``rows`` (replaces
+    ``_camera_ival_kernel`` and the paged ``_camera_ival_kernel_paged``).
+    Returns B2's outputs: (dist, u, v, tri, dx, dy, dz), each (P,
+    PACKET_R); a miss has dist BIG and tri -1."""
+    p = (width // TILE) * (height // TILE)
+    if not _on_cuda(cam):
+        from .traverse_ref import walk_camera_plain
+
+        return walk_camera_plain(cam, width, height, rows, nodes,
+                                 torch.arange(p))
+    from ._build import library
+
+    dev = cam.device
+    _check(cam, "cam", torch.float32, (22,), dev)
+    _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
+    _check_nodes(nodes, dev)
+    dist, u, v, dx, dy, dz = (torch.empty((p, PACKET_R), dtype=torch.float32,
+                                          device=dev) for _ in range(6))
+    tri = torch.empty((p, PACKET_R), dtype=torch.int32, device=dev)
+    _launched(library().snail_walk_camera(
+        _ptr(cam), _ptr(rows), _ptr(nodes.node), nodes.n_nodes,
+        nodes.stack_cap, p, _ptr(dist), _ptr(u), _ptr(v), _ptr(tri),
+        _ptr(dx), _ptr(dy), _ptr(dz), _stream()), "walk_camera")
+    walk_camera.launches += 1
+    return dist, u, v, tri, dx, dy, dz
+
+
+def walk_shadow(orig, d, tm, rows, nodes: NodeTables):
+    """B9b: any-hit from the shared origin ``orig`` through the node tree
+    on the shared-origin ``rows`` (replaces ``_shadow_ival_kernel`` and
+    ``_shadow_ival_kernel_paged``); ``d`` three and ``tm`` one (P,
+    PACKET_R) planes. Returns blocked float32 (P, PACKET_R)."""
+    if not _on_cuda(tm):
+        from .traverse_ref import walk_shadow_plain
+
+        return walk_shadow_plain(orig, d, tm, rows, nodes)
+    from ._build import library
+
+    dev = tm.device
+    p = tm.shape[0]
+    _check(orig, "origin", torch.float32, (3,), dev)
+    _check_planes((*d, tm), p, dev)
+    _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
+    _check_nodes(nodes, dev)
+    blocked = torch.empty((p, PACKET_R), dtype=torch.float32, device=dev)
+    _launched(library().snail_walk_shadow(
+        _ptr(orig), *(_ptr(t) for t in (*d, tm)), _ptr(rows),
+        _ptr(nodes.node), nodes.n_nodes, nodes.stack_cap, p, _ptr(blocked),
+        _stream()), "walk_shadow")
+    walk_shadow.launches += 1
+    return blocked
+
+
+def walk_closest_g(o, d, tm, rows, nodes: NodeTables):
+    """B9c: closest hit of rays with their own origins through the node
+    tree on the raw ``rows`` (replaces ``_closest_ival_kernel_g`` and
+    ``_closest_ival_kernel_g_paged``); ``o``/``d`` three and ``tm`` one
+    (P, PACKET_R) planes, masked rays substituted. Returns B6's outputs
+    (dist, u, v, tri): a miss has dist BIG, a masked ray -BIG, tri is
+    clamped at 0."""
+    if not _on_cuda(tm):
+        from .traverse_ref import walk_closest_g_plain
+
+        return walk_closest_g_plain(o, d, tm, rows, nodes)
+    from ._build import library
+
+    dev = tm.device
+    p = tm.shape[0]
+    _check_planes((*o, *d, tm), p, dev)
+    _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
+    _check_nodes(nodes, dev)
+    dist, u, v = (torch.empty((p, PACKET_R), dtype=torch.float32,
+                              device=dev) for _ in range(3))
+    tri = torch.empty((p, PACKET_R), dtype=torch.int32, device=dev)
+    _launched(library().snail_walk_closest_g(
+        *(_ptr(t) for t in (*o, *d, tm)), _ptr(rows), _ptr(nodes.node),
+        nodes.n_nodes, nodes.stack_cap, p, _ptr(dist), _ptr(u), _ptr(v),
+        _ptr(tri), _stream()), "walk_closest_g")
+    walk_closest_g.launches += 1
+    return dist, u, v, tri
+
+
+def walk_shadow_g(o, d, tm, rows, nodes: NodeTables):
+    """B9d: any-hit of rays with their own origins through the node tree
+    on the raw ``rows`` (replaces ``_shadow_ival_kernel_g`` and
+    ``_shadow_ival_kernel_g_paged``). Returns blocked float32 (P,
+    PACKET_R); a masked ray is never blocked."""
+    if not _on_cuda(tm):
+        from .traverse_ref import walk_shadow_g_plain
+
+        return walk_shadow_g_plain(o, d, tm, rows, nodes)
+    from ._build import library
+
+    dev = tm.device
+    p = tm.shape[0]
+    _check_planes((*o, *d, tm), p, dev)
+    _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
+    _check_nodes(nodes, dev)
+    blocked = torch.empty((p, PACKET_R), dtype=torch.float32, device=dev)
+    _launched(library().snail_walk_shadow_g(
+        *(_ptr(t) for t in (*o, *d, tm)), _ptr(rows), _ptr(nodes.node),
+        nodes.n_nodes, nodes.stack_cap, p, _ptr(blocked), _stream()),
+        "walk_shadow_g")
+    walk_shadow_g.launches += 1
+    return blocked
+
+
 KERNELS = (words_camera, camera_wl, words_shared, shadow_wl, words_general,
-           closest_wl_g, shadow_wl_g, camera_wl_stats, shadow_wl_stats)
+           closest_wl_g, shadow_wl_g, camera_wl_stats, shadow_wl_stats,
+           walk_camera, walk_shadow, walk_closest_g, walk_shadow_g)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -1117,35 +1312,66 @@ def _count_live(tmax: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _camera_words(scene, camera, width: int, height: int):
-    """B1 for a full frame of primary rays: (cam, rows, words, summ,
-    floors) for B2/B8a."""
+def walks(scene) -> bool:
+    """Whether ``scene`` is traced by the walk kernels: it has node tables
+    and no leaf tables (the JAX package's ``_wl_available`` the other way
+    round)."""
+    if getattr(scene, "leaves", None) is not None:
+        return False
+    if getattr(scene, "nodes", None) is not None:
+        return True
+    raise ValueError("the scene has neither leaf nor node tables")
+
+
+def _no_walk_counters(scene):
+    if walks(scene):
+        raise NotImplementedError(
+            "the walk counter frame (B9e/B9f) is not ported yet (ROADMAP "
+            "queue B): build the scene with leaf tables (walk=False)")
+
+
+def _camera_setup(scene, camera, width: int, height: int):
+    """The primary kernels' camera scalars and shared-origin rows."""
     if width % TILE or height % TILE:
         raise ValueError(f"frame {width}x{height} is not a multiple of "
                          f"the {TILE}-pixel tile")
     cam = cam_vec(camera, width, height, scene.root_lo, scene.root_hi)
+    return cam, shared_rows(scene.tri_rows, camera.pos)
+
+
+def _camera_words(scene, camera, width: int, height: int):
+    """B1 for a full frame of primary rays: (cam, rows, words, summ,
+    floors) for B2/B8a."""
+    cam, rows = _camera_setup(scene, camera, width, height)
     words, summ, floors = words_camera(cam, width, height, scene.leaves,
                                        WL_BANDS)
-    return cam, shared_rows(scene.tri_rows, camera.pos), words, summ, floors
+    return cam, rows, words, summ, floors
 
 
 def camera_trace(scene, camera, width: int, height: int):
-    """Fused raygen + closest hit for a full frame of primary rays.
+    """Fused raygen + closest hit for a full frame of primary rays: B1 +
+    B2 on a scene with leaf tables, B9a on one with node tables.
 
     Returns flat (R,) tensors dist, u, v, tri, dx, dy, dz in packet order
     (see :func:`kernel_ray_index`). Requires width and height to be
     multiples of TILE."""
-    cam, rows, words, summ, floors = _camera_words(scene, camera, width,
-                                                   height)
-    out = camera_wl(cam, width, height, rows, scene.leaves, words, summ,
-                    floors)
+    if walks(scene):
+        cam, rows = _camera_setup(scene, camera, width, height)
+        out = walk_camera(cam, width, height, rows, scene.nodes)
+    else:
+        cam, rows, words, summ, floors = _camera_words(scene, camera, width,
+                                                       height)
+        out = camera_wl(cam, width, height, rows, scene.leaves, words, summ,
+                        floors)
     _count_live(out[0])
     return tuple(a.reshape(-1) for a in out)
 
 
 def camera_trace_stats(scene, camera, width: int, height: int):
     """:func:`camera_trace` through B8a: its outputs, bit for bit, and the
-    per-packet counters int32 (P, 8) (see :func:`camera_wl_stats`)."""
+    per-packet counters int32 (P, 8) (see :func:`camera_wl_stats`). A
+    scene with node tables raises: B9e is not ported yet."""
+    _no_walk_counters(scene)
     cam, rows, words, summ, floors = _camera_words(scene, camera, width,
                                                    height)
     *out, stats = camera_wl_stats(cam, width, height, rows, scene.leaves,
@@ -1189,48 +1415,67 @@ def general_planes(o3, d3, tmax):
 
 def closest_hit_c(scene, o3, d3, tmax):
     """Closest hit of a wavefront of rays with their own origins (bounce
-    rays): ``o3``/``d3`` three flat (R,) components, ``tmax`` (R,), a
-    negative tmax masks the ray. Returns flat (R,) dist, u, v, tri: a miss
-    has dist BIG, a masked ray -BIG, and tri is clamped at 0."""
+    rays), B5 + B6 or B9c: ``o3``/``d3`` three flat (R,) components,
+    ``tmax`` (R,), a negative tmax masks the ray. Masked rays are
+    substituted first (``closest_hit_c`` :3820-3823, :3835-3837). Returns
+    flat (R,) dist, u, v, tri: a miss has dist BIG, a masked ray -BIG, and
+    tri is clamped at 0."""
     o, d, tm, n = general_planes(o3, d3, tmax)
     _count_live(tm)
-    words, summ, floors = words_general(o, d, tm, scene.leaves, WL_BANDS)
-    out = closest_wl_g(o, d, tm, scene.tri_rows, scene.leaves, words, summ,
-                       floors)
+    if walks(scene):
+        out = walk_closest_g(o, d, tm, scene.tri_rows, scene.nodes)
+    else:
+        words, summ, floors = words_general(o, d, tm, scene.leaves,
+                                            WL_BANDS)
+        out = closest_wl_g(o, d, tm, scene.tri_rows, scene.leaves, words,
+                           summ, floors)
     return tuple(a.reshape(-1)[:n] for a in out)
 
 
-def _shared_planes(scene, light_pos, d3, tmax):
-    """A shadow wavefront from one origin as B3/B4 take it, with B3's
-    words (one band: any-hit needs no order): (orig, d, tm, n, words,
-    summ, floors, rows)."""
+def _light_planes(scene, light_pos, d3, tmax):
+    """A shadow wavefront from one origin as B3/B4 and B9b take it: (orig,
+    d, tm, n, rows), the shared-origin rows of the light."""
     dx, n = pad_flat(d3[0], 1.0)
     dy, _ = pad_flat(d3[1], 1.0)
     dz, _ = pad_flat(d3[2], 1.0)
     tm, _ = pad_flat(tmax, -BIG)
     _count_live(tm)
     pk = lambda a: a.reshape(-1, PACKET_R)
-    d, tm = (pk(dx), pk(dy), pk(dz)), pk(tm)
     orig = light_pos.float().contiguous()
-    words, summ, floors = words_shared(orig, d, tm, scene.leaves, 1)
-    return (orig, d, tm, n, words, summ, floors,
+    return (orig, (pk(dx), pk(dy), pk(dz)), pk(tm), n,
             shared_rows(scene.tri_rows, orig))
 
 
+def _shared_planes(scene, light_pos, d3, tmax):
+    """:func:`_light_planes` with B3's words (one band: any-hit needs no
+    order): (orig, d, tm, n, words, summ, floors, rows)."""
+    orig, d, tm, n, rows = _light_planes(scene, light_pos, d3, tmax)
+    words, summ, floors = words_shared(orig, d, tm, scene.leaves, 1)
+    return orig, d, tm, n, words, summ, floors, rows
+
+
 def any_hit_shared(scene, light_pos, d3, tmax):
-    """Shadow any-hit from a shared origin. ``d3`` three flat (R,)
-    direction components, ``tmax`` (R,) (negative = masked ray). Returns
-    blocked bool (R,)."""
-    orig, d, tm, n, words, summ, floors, rows = _shared_planes(
-        scene, light_pos, d3, tmax)
-    out = shadow_wl(orig, d, tm, rows, scene.leaves, words, summ, floors)
+    """Shadow any-hit from a shared origin, B3 + B4 (B3's words in one
+    band: any-hit needs no order) or B9b. ``d3`` three flat (R,) direction
+    components, ``tmax`` (R,) (negative = masked ray). Returns blocked
+    bool (R,)."""
+    if walks(scene):
+        orig, d, tm, n, rows = _light_planes(scene, light_pos, d3, tmax)
+        out = walk_shadow(orig, d, tm, rows, scene.nodes)
+    else:
+        orig, d, tm, n, words, summ, floors, rows = _shared_planes(
+            scene, light_pos, d3, tmax)
+        out = shadow_wl(orig, d, tm, rows, scene.leaves, words, summ,
+                        floors)
     return out.reshape(-1)[:n] > 0.0
 
 
 def any_hit_shared_stats(scene, light_pos, d3, tmax):
     """:func:`any_hit_shared` through B8b: blocked bool (R,), bit for bit,
     and the per-packet counters int32 (P, 8) (see
-    :func:`shadow_wl_stats`)."""
+    :func:`shadow_wl_stats`). A scene with node tables raises: B9f is not
+    ported yet."""
+    _no_walk_counters(scene)
     orig, d, tm, n, words, summ, floors, rows = _shared_planes(
         scene, light_pos, d3, tmax)
     out, stats = shadow_wl_stats(orig, d, tm, rows, scene.leaves, words,
@@ -1240,15 +1485,17 @@ def any_hit_shared_stats(scene, light_pos, d3, tmax):
 
 def any_hit_c(scene, o3, d3, tmax):
     """Any-hit of a wavefront of rays with their own origins (``any_hit_c``
-    :3999, its worklist branch): ``o3``/``d3`` three flat (R,)
-    components, ``tmax`` (R,), a negative tmax masks the ray. Masked rays
-    are substituted before B5 (one band) and B7. Returns blocked bool
-    (R,)."""
+    :3999): ``o3``/``d3`` three flat (R,) components, ``tmax`` (R,), a
+    negative tmax masks the ray. Masked rays are substituted before B5
+    (one band) and B7, or B9d. Returns blocked bool (R,)."""
     o, d, tm, n = general_planes(o3, d3, tmax)
     _count_live(tm)
-    words, summ, floors = words_general(o, d, tm, scene.leaves, 1)
-    out = shadow_wl_g(o, d, tm, scene.tri_rows, scene.leaves, words, summ,
-                      floors)
+    if walks(scene):
+        out = walk_shadow_g(o, d, tm, scene.tri_rows, scene.nodes)
+    else:
+        words, summ, floors = words_general(o, d, tm, scene.leaves, 1)
+        out = shadow_wl_g(o, d, tm, scene.tri_rows, scene.leaves, words,
+                          summ, floors)
     return out.reshape(-1)[:n] > 0.0
 
 

@@ -2,16 +2,21 @@
 the share of the frame the device is busy.
 
     python -m snail_tpu_torch.profile_frame [--kind city|terrain]
-        [--path fwd|bounce|fwd_bwd|stats|instanced] [--trace out.json]
+        [--path fwd|bounce|fwd_bwd|stats|instanced|portable]
+        [--tables leaves|nodes] [--trace out.json]
 
 Traces five 1024 x 1024 frames on a benchmark scene at bench.py's size
 with ``torch.profiler``, after two warm-up frames: ``render_frame``
 without bounces (fwd), with reflections and transparency on the bounce
 material (bounce), bench.py's fwd+bwd step (fwd_bwd), the counter frame
-``render_frame_fast_stats`` (stats, fwd options) or the instanced frame
-of ``bench_scenes.instanced_grid`` (instanced: 4 x 4 instances, fwd
-options); prints the kernels by device time and the busy share (union of
-kernel intervals over the traced window). Needs a card.
+``render_frame_fast_stats`` (stats, fwd options), the instanced frame of
+``bench_scenes.instanced_grid`` (instanced: 4 x 4 instances, fwd
+options) or ``render_frame`` at 1280 x 720 (portable: the integrator and
+the dispatch seam, bounce options on the bounce material); on a scene
+with worklist leaf tables (``--tables leaves``) or node tables for the
+walk kernels (``--tables nodes``, which has no counter frame); prints the
+kernels by device time and the busy share (union of kernel intervals
+over the traced window). Needs a card.
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kind", default="city", choices=("city", "terrain"))
     ap.add_argument("--path", default="fwd",
                     choices=("fwd", "bounce", "fwd_bwd", "stats",
-                             "instanced"))
+                             "instanced", "portable"))
+    ap.add_argument("--tables", default="leaves",
+                    choices=("leaves", "nodes"))
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
     args = ap.parse_args(argv)
@@ -60,11 +67,13 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 1
     n = BENCH_N[args.kind]
-    scene, cam, g, _ = bench_scene(args.kind, n,
-                                   bounce=args.path in ("bounce", "fwd_bwd"))
-    opts = (RenderOpts(textures=False) if args.path == "bounce" else
-            RenderOpts(reflections=False, transparency=False,
-                       textures=False))
+    bounce = args.path in ("bounce", "fwd_bwd", "portable")
+    scene, cam, g, _ = bench_scene(args.kind, n, bounce=bounce,
+                                   walk=args.tables == "nodes")
+    opts = (RenderOpts(textures=False) if args.path in ("bounce", "portable")
+            else RenderOpts(reflections=False, transparency=False,
+                            textures=False))
+    size = (1280, 720) if args.path == "portable" else (SIZE, SIZE)
     if args.path == "fwd_bwd":
         target = render_frame(scene, cam, SIZE, SIZE, STEP_OPTS)
         frame = lambda: bench_step(scene, cam, target, SIZE, SIZE)
@@ -74,7 +83,7 @@ def main(argv=None) -> int:
         iscene, icam = instanced_grid(args.kind, scene, 4)
         frame = lambda: render_instanced(iscene, icam, SIZE, SIZE, opts)
     else:
-        frame = lambda: render_frame(scene, cam, SIZE, SIZE, opts)
+        frame = lambda: render_frame(scene, cam, *size, opts)
     for _ in range(2):
         frame()
     torch.cuda.synchronize()
@@ -99,8 +108,8 @@ def main(argv=None) -> int:
         spans.append((e.time_range.start, e.time_range.end))
     busy = _union_us(spans)
     dev = torch.cuda.get_device_name(0)
-    print(f"{args.kind}_{n} {args.path} ({g.num_tris} tris) {SIZE}^2 on "
-          f"{dev}: "
+    print(f"{args.kind}_{n} {args.path} ({g.num_tris} tris, {args.tables}) "
+          f"{size[0]}x{size[1]} on {dev}: "
           f"{wall_us / FRAMES / 1e3:.3f} ms/frame (host clock, "
           f"profiler on), device busy {busy / FRAMES / 1e3:.3f} "
           f"ms/frame = {busy / wall_us:.3f} of the window, "

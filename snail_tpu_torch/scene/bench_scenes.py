@@ -47,10 +47,13 @@ def bounce_materials() -> MaterialTable:
     return mats
 
 
-def bench_scene(kind: str, n: int, device="cuda", bounce: bool = False):
+def bench_scene(kind: str, n: int, device="cuda", bounce: bool = False,
+                walk: bool = False):
     """(scene, camera, geometry, bvh) of ``kind`` at size ``n`` on
     ``device`` (the card unless the caller asks for the CPU); with
-    ``bounce``, material 0 is :func:`bounce_materials`'."""
+    ``bounce``, material 0 is :func:`bounce_materials`'; with ``walk``,
+    the scene carries node tables for the walk kernels in place of leaf
+    tables."""
     make, leaf, light, radius, offset = SCENES[kind]
     g = make(n).flatten()
     lo, hi = g.bounds()
@@ -58,7 +61,7 @@ def bench_scene(kind: str, n: int, device="cuda", bounce: bool = False):
     scene = make_traced_scene(
         g, bvh, bounce_materials() if bounce else None,
         lights=Light.make(light, (1.0, 1.0, 1.0), radius, device=device),
-        device=device)
+        device=device, walk=walk)
     c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
     ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
     cam = Camera.look_at(pos=tuple(c + np.array(offset) * ext),

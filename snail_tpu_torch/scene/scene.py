@@ -1,7 +1,8 @@
 """The device scene (``snail_tpu.scene.scene.TracedScene``), with what the
-forward and differentiable frames read: triangle rows, leaf tables,
-shading rows, materials, the primal triangle and material arrays that
-gradients flow to, and lights, as tensors on one device.
+forward and differentiable frames read: triangle rows, the traversal's
+tables (worklist leaf tables, or with ``walk=True`` the node tree of the
+walk kernels), shading rows, materials, the primal triangle and material
+arrays that gradients flow to, and lights, as tensors on one device.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import numpy as np
 import torch
 
 from ..core.types import Light, resolve_device
-from ..ops.traverse import LeafTables, pack_leaf_tables, pack_tri_rows
+from ..ops.traverse import (LeafTables, NodeTables, pack_leaf_tables,
+                             pack_node_tables, pack_tri_rows, tree_depth)
 from .base_scene import FlatGeometry
 from .materials import MaterialTable
 
@@ -30,6 +32,12 @@ class TracedScene:
     mat_pack float32 (M, 16): kd, ks, reflect, dissolve, difftex, disstex,
     emissive, flags, pad.
 
+    The traversal's tables, one kind per scene: ``leaves``, the worklist
+    kernels' leaf tables, or ``nodes``, the walk kernels' node tree (a
+    scene built with ``walk=True``, the port's explicit form of the JAX
+    package's ``SNAIL_WL=0``); the entry points route by which one the
+    scene holds. ``depth``: the BVH's depth (root 0).
+
     The primal arrays, the parameters of ``render_frame_fast_diff``:
     tri_a, tri_ba, tri_ca float32 (T, 3) in the order and padding of
     tri_rows; sh_mat int32 (T,) the material id of each triangle;
@@ -38,7 +46,7 @@ class TracedScene:
     as the JAX package's pk_tris is not rebuilt either (ROADMAP C9)."""
 
     tri_rows: torch.Tensor
-    leaves: LeafTables
+    leaves: Optional[LeafTables]
     root_lo: torch.Tensor
     root_hi: torch.Tensor
     sh_pack: torch.Tensor
@@ -54,6 +62,8 @@ class TracedScene:
     has_transp: bool
     textured: bool = False  # texture atlases are a later slice
     num_tris: int = 0
+    nodes: Optional[NodeTables] = None
+    depth: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -62,7 +72,8 @@ class TracedScene:
     def to(self, device) -> "TracedScene":
         mv = lambda t: t.to(device)
         return dataclasses.replace(
-            self, leaves=self.leaves.to(device),
+            self, leaves=None if self.leaves is None else self.leaves.to(device),
+            nodes=None if self.nodes is None else self.nodes.to(device),
             lights=None if self.lights is None else self.lights.to(device),
             **{name: mv(getattr(self, name)) for name in _TENSORS})
 
@@ -98,24 +109,34 @@ def _sh_pack(g: FlatGeometry, mat_pack: np.ndarray) -> np.ndarray:
     return sh_pack
 
 
+def _tables(walk: bool, lo, hi, child, count, axis, first, device):
+    """(leaves, nodes): the traversal tables of one kind, on ``device``."""
+    if walk:
+        return None, pack_node_tables(lo, hi, child, count, axis,
+                                      first).to(device)
+    return pack_leaf_tables(lo, hi, child, count).to(device), None
+
+
 def make_traced_scene(geom: FlatGeometry, bvh,
                       materials: Optional[MaterialTable] = None,
                       lights: Optional[Light] = None,
-                      device="cuda") -> TracedScene:
+                      device="cuda", walk: bool = False) -> TracedScene:
     """Assemble the device scene from host-built pieces: ``geom`` as
     flattened, ``bvh`` from ``snail_tpu_torch.bvh.build_bvh`` (leaf size at
     most ``ops.traverse.IVAL_LEAF``), on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU); with ``walk``, node tables and no leaf
+    tables."""
     device = resolve_device(device)
     g = geom.permuted(bvh.order).padded(LEAF_PAD)
     if materials is None:
         materials = MaterialTable.build({"": 0})
     mat_pack = _mat_pack(materials)
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    leaves, nodes = _tables(walk, bvh.node_lo, bvh.node_hi, bvh.child,
+                            bvh.count, bvh.axis, bvh.first_node, device)
     return TracedScene(
         tri_rows=dev(pack_tri_rows(g.a, g.ba, g.ca)),
-        leaves=pack_leaf_tables(bvh.node_lo, bvh.node_hi, bvh.child,
-                                bvh.count).to(device),
+        leaves=leaves,
         root_lo=dev(bvh.node_lo[0].astype(np.float32)),
         root_hi=dev(bvh.node_hi[0].astype(np.float32)),
         sh_pack=dev(_sh_pack(g, mat_pack)),
@@ -130,19 +151,22 @@ def make_traced_scene(geom: FlatGeometry, bvh,
         has_refl=bool(np.any(materials.reflectivity > 0.0)),
         has_transp=bool(np.any(materials.dissolve < 1.0)),
         num_tris=geom.num_tris,
+        nodes=nodes,
+        depth=bvh.depth,
     )
 
 
 def traced_scene_from_numpy(arrays: Mapping[str, np.ndarray],
-                            device="cuda") -> TracedScene:
+                            device="cuda", walk: bool = False) -> TracedScene:
     """The port's scene from the JAX ``TracedScene``'s fields as NumPy
     arrays, keyed by their JAX names: node_lo, node_hi, node_child,
     node_count, tri_a, tri_ba, tri_ca, sh_mat, sh_pack, mat_pack,
     mat_diffuse, mat_specular, mat_reflect, mat_dissolve, optionally
     tex_atlas, and the lights as light_pos, light_color, light_radius
-    (absent: no lights). The triangle rows are packed from tri_a, tri_ba
-    and tri_ca as given. On ``device``: the card unless the caller asks
-    for the CPU."""
+    (absent: no lights); with ``walk``, also node_axis and node_first,
+    for node tables in place of the leaf tables. The triangle rows are
+    packed from tri_a, tri_ba and tri_ca as given. On ``device``: the card
+    unless the caller asks for the CPU."""
     device = resolve_device(device)
     a = {k: np.asarray(v) for k, v in arrays.items() if v is not None}
     dev = lambda x: torch.from_numpy(np.array(x, np.float32)).to(device)
@@ -150,10 +174,12 @@ def traced_scene_from_numpy(arrays: Mapping[str, np.ndarray],
     if "light_pos" in a:
         lights = Light.make(a["light_pos"], a["light_color"],
                             a["light_radius"], device=device)
+    leaves, nodes = _tables(
+        walk, a["node_lo"], a["node_hi"], a["node_child"], a["node_count"],
+        a.get("node_axis"), a.get("node_first"), device)
     return TracedScene(
         tri_rows=dev(pack_tri_rows(a["tri_a"], a["tri_ba"], a["tri_ca"])),
-        leaves=pack_leaf_tables(a["node_lo"], a["node_hi"], a["node_child"],
-                                a["node_count"]).to(device),
+        leaves=leaves,
         root_lo=dev(a["node_lo"][0]),
         root_hi=dev(a["node_hi"][0]),
         sh_pack=dev(a["sh_pack"]),
@@ -169,4 +195,6 @@ def traced_scene_from_numpy(arrays: Mapping[str, np.ndarray],
         has_transp=bool(np.any(a["mat_dissolve"] < 1.0)),
         textured="tex_atlas" in a,
         num_tris=len(a["tri_a"]) - LEAF_PAD,
+        nodes=nodes,
+        depth=tree_depth(a["node_child"], a["node_count"]),
     )

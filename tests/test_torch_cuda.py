@@ -17,6 +17,10 @@ from snail_tpu_torch.bvh import build_bvh
 from snail_tpu_torch.core.types import Camera, Light, RenderOpts
 from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
+from snail_tpu_torch.ops.traverse_ref import (walk_camera_plain,
+                                              walk_closest_g_plain,
+                                              walk_shadow_g_plain,
+                                              walk_shadow_plain)
 from snail_tpu_torch.render.fast import render_frame_fast_stats
 from snail_tpu_torch.render.renderer import render_frame
 from snail_tpu_torch.scene import instancing
@@ -35,9 +39,10 @@ def _need_cuda():
         pytest.skip("needs a CUDA device")
 
 
-def _scene(which: str, bounce: bool = False):
+def _scene(which: str, bounce: bool = False, walk: bool = False):
     """(scene on the card, camera, width, height, light position); with
-    ``bounce``, material 0 reflective and half transparent."""
+    ``bounce``, material 0 reflective and half transparent; with ``walk``,
+    node tables for the walk kernels in place of leaf tables."""
     if which == "city":
         g = city_scene(6).flatten()
         leaf, light, r, size = 4, (0.0, 30.0, 0.0), 120.0, (256, 128)
@@ -47,7 +52,8 @@ def _scene(which: str, bounce: bool = False):
     lo, hi = g.bounds()
     bvh = build_bvh(lo, hi, leaf_size=leaf)
     scene = make_traced_scene(g, bvh, bounce_materials() if bounce else None,
-                              lights=Light.make(light, (1, 1, 1), r))
+                              lights=Light.make(light, (1, 1, 1), r),
+                              walk=walk)
     c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
     ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
     cam = Camera.look_at(pos=tuple(c + np.array([0.45, 0.35, 0.9]) * ext),
@@ -407,3 +413,132 @@ def test_entry_points_default_to_the_card():
     assert scene.device.type == "cuda" and cam.pos.is_cuda
     assert scene.leaves.box.is_cuda and scene.lights.pos.is_cuda
     assert Light.make((0.0, 1.0, 0.0), (1.0, 1.0, 1.0), 5.0).pos.is_cuda
+
+
+# --- The walk kernels (B9a-d) on scenes with node tables ------------------
+
+WALK = ("walk_camera", "walk_shadow", "walk_closest_g", "walk_shadow_g")
+
+
+def _assert_closest_equal(kern, plain, live=None):
+    """A walk kernel's closest hits against its plain version's: the same
+    arithmetic in the same order, so equal bit for bit where the triangle
+    agrees, and a triangle may differ only on a distance tie."""
+    kd, ku, kv, kt = (a.cpu().numpy() for a in kern)
+    pd, pu, pv, ptri = (a.cpu().numpy() for a in plain)
+    live = np.ones(kd.shape, bool) if live is None else live
+    hit = live & (np.abs(pd) < np.float32(BIG))
+    assert hit.sum() / live.sum() > 0.02
+    same = kt == ptri
+    assert same[hit].mean() > 0.999
+    np.testing.assert_array_equal(kd[same], pd[same])
+    np.testing.assert_array_equal(ku[same], pu[same])
+    np.testing.assert_array_equal(kv[same], pv[same])
+    np.testing.assert_allclose(kd[~same], pd[~same], rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_walk_camera_kernel_matches_plain(which):
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which, walk=True)
+    cv = pt.cam_vec(cam, w, h, scene.root_lo, scene.root_hi)
+    rows = pt.shared_rows(scene.tri_rows, cam.pos)
+    kern = pt.walk_camera(cv, w, h, rows, scene.nodes)
+    torch.cuda.synchronize()
+    p = (w // pt.TILE) * (h // pt.TILE)
+    plain = walk_camera_plain(cv, w, h, rows, scene.nodes,
+                              torch.arange(p, device="cuda"))
+    _assert_closest_equal(kern[:4], plain[:4])
+    for a, b in zip(kern[4:], plain[4:]):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(kern[3].cpu().numpy()[
+        plain[0].cpu().numpy() >= BIG], -1)
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_walk_shadow_kernel_matches_plain(which):
+    _need_cuda()
+    scene, _, _, _, light = _scene(which, walk=True)
+    d, tm = _shadow_rays(scene, light, 6)
+    rows = pt.shared_rows(scene.tri_rows, light)
+    kern = pt.walk_shadow(light, d, tm, rows, scene.nodes)
+    torch.cuda.synchronize()
+    plain = walk_shadow_plain(light, d, tm, rows, scene.nodes)
+    live = tm >= 0
+    assert not kern[~live].any()
+    assert 0.02 < float(plain[live].mean()) < 0.98
+    assert torch.equal(kern, plain)
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_walk_closest_g_kernel_matches_plain(which):
+    _need_cuda()
+    scene, _, _, _, _ = _scene(which, walk=True)
+    o, d, tm = _bounce_rays(scene, 6)
+    kern = pt.walk_closest_g(o, d, tm, scene.tri_rows, scene.nodes)
+    torch.cuda.synchronize()
+    plain = walk_closest_g_plain(o, d, tm, scene.tri_rows, scene.nodes)
+    live = (tm >= 0).cpu().numpy()
+    kd, kt = kern[0].cpu().numpy(), kern[3].cpu().numpy()
+    np.testing.assert_array_equal(kd[~live], -np.float32(BIG))
+    np.testing.assert_array_equal(kt[kd >= np.float32(BIG)], 0)
+    _assert_closest_equal(kern, plain, live)
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_walk_shadow_g_kernel_matches_plain(which):
+    _need_cuda()
+    scene, _, _, _, _ = _scene(which, walk=True)
+    o, d, tm = _shadow_g_rays(scene, 6)
+    kern = pt.walk_shadow_g(o, d, tm, scene.tri_rows, scene.nodes)
+    torch.cuda.synchronize()
+    plain = walk_shadow_g_plain(o, d, tm, scene.tri_rows, scene.nodes)
+    live = tm >= 0
+    assert not kern[~live].any()
+    assert 0.02 < float(plain[live].mean()) < 0.98
+    assert torch.equal(kern, plain)
+
+
+@pytest.mark.parametrize("bounce", [False, True], ids=["fwd", "bounce"])
+@pytest.mark.parametrize("which", SCENES)
+def test_walk_frame_on_card(which, bounce):
+    """The walk frame launches the walk kernels and no worklist kernel,
+    matches the CPU path, and matches the same scene's worklist frame."""
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which, bounce=bounce, walk=True)
+    opts = RenderOpts(textures=False) if bounce else OPTS
+    pt.reset_launch_counts()
+    img = render_frame(scene, cam, w, h, opts)
+    torch.cuda.synchronize()
+    counts = pt.launch_counts()
+    need = WALK[:3] if bounce else WALK[:2]
+    assert all(counts[k] > 0 for k in need), counts
+    assert not any(n for k, n in counts.items() if k not in WALK), counts
+    ref = render_frame(scene.to("cpu"), cam.to("cpu"), w, h, opts)
+    err = (img.cpu() - ref).abs().amax(-1)
+    assert torch.isfinite(img).all() and img.abs().amax() > 0
+    assert (err > 2e-3).float().mean() < 1e-3, float(err.max())
+    wl, _, _, _, _ = _scene(which, bounce=bounce)
+    err = (img - render_frame(wl, cam, w, h, opts)).abs().amax(-1)
+    assert (err > 2e-3).float().mean() < 2e-3, float(err.max())
+
+
+@pytest.mark.parametrize("walk", [False, True], ids=["leaves", "nodes"])
+@pytest.mark.parametrize("which", SCENES)
+def test_portable_frame_on_card_matches_cpu(which, walk):
+    """render_frame at 80 x 48 (the portable integrator) reaches the
+    kernels of the scene's table kind through the dispatch seam."""
+    _need_cuda()
+    scene, cam, _, _, _ = _scene(which, bounce=True, walk=walk)
+    opts = RenderOpts(textures=False)
+    pt.reset_launch_counts()
+    img = render_frame(scene, cam, 80, 48, opts)
+    torch.cuda.synchronize()
+    counts = pt.launch_counts()
+    need = (("walk_closest_g", "walk_shadow") if walk else
+            ("words_general", "closest_wl_g", "words_shared", "shadow_wl"))
+    assert all(counts[k] > 0 for k in need), counts
+    ref = render_frame(scene.to("cpu"), cam.to("cpu"), 80, 48, opts)
+    err = (img.cpu() - ref).abs().amax(-1)
+    assert torch.isfinite(img).all() and img.abs().amax() > 0
+    assert (err > 2e-3).float().mean() < 2e-3, float(err.max())

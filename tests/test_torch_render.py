@@ -170,7 +170,9 @@ def test_port_renders_without_jax():
     """snail_tpu_torch imports neither JAX nor snail_tpu, directly or
     through another module: every module of the package and chip_smoke.py
     import without them, and the CPU renders a forward frame, a bounce
-    frame, a differentiable one, an instanced and a counter frame."""
+    frame, a differentiable one, an instanced and a counter frame, a
+    frame of a walk scene (node tables) and a 48 x 32 frame through the
+    portable integrator."""
     code = textwrap.dedent("""
         import dataclasses
         import importlib
@@ -221,6 +223,12 @@ def test_port_renders_without_jax():
         assert img.shape == (64, 64, 3) and float(img.max()) > 0.1
         img, stats = render_frame_fast_stats(scene, cam, 64, 64)
         assert float(img.max()) > 0.1 and stats["tri_blocks"] > 0
+        walk = make_traced_scene(g, bvh, lights=light, device="cpu",
+                                 walk=True)
+        img = render_frame(walk, cam, 64, 64, RenderOpts(textures=False))
+        assert img.shape == (64, 64, 3) and float(img.max()) > 0.1
+        img = render_frame(bounce, cam, 48, 32, RenderOpts(textures=False))
+        assert img.shape == (32, 48, 3) and float(img.max()) > 0.1
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "snail_tpu")
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

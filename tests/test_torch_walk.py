@@ -1,0 +1,351 @@
+"""The port's walk path (a scene built with node tables, ``walk=True``:
+B9a-d, plain versions in ``ops/traverse_ref.py``) against the JAX
+package's interval-walk kernels, run in interpret mode on the CPU: B9 on
+the flat scene and B10 on the two-level paged fixture of
+``tests/test_paged_kernel.py:15-52``, both with their worklist leaf
+tables cleared so that the JAX entry points take the walk
+(``_wl_available`` False, asserted). Also the walk frames against the
+JAX package's, a BVH deeper than the JAX oracle's 66-entry stack, the
+node tables and the counter frame, which the walk does not have yet.
+
+Scene: cornell at leaf 8 (34 triangles, 13 nodes; the paged fixture cuts
+it into pages of 4 nodes), 64 x 64, seeded shadow and bounce rays. Each
+JAX call runs once per module."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from snail_tpu.bvh import build_bvh
+from snail_tpu.bvh.pages import partition_pages
+from snail_tpu.core.types import Camera as JCamera
+from snail_tpu.core.types import Light as JLight
+from snail_tpu.core.types import RenderOpts as JRenderOpts
+from snail_tpu.ops import traverse_pallas as tp
+from snail_tpu.render.fast import render_frame_fast as j_render_frame_fast
+from snail_tpu.scene.materials import MaterialTable as JMaterialTable
+from snail_tpu.scene.procedural import cornell_scene
+from snail_tpu.scene.scene import make_traced_scene as j_make_traced_scene
+
+from snail_tpu_torch.bvh import BVH
+from snail_tpu_torch.bvh import build_bvh as p_build_bvh
+from snail_tpu_torch.core.types import Camera, RenderOpts
+from snail_tpu_torch.core.vecmath import BIG
+from snail_tpu_torch.ops import traverse as pt
+from snail_tpu_torch.ops.intersect import (intersect_any_brute_force,
+                                           intersect_brute_force)
+from snail_tpu_torch.ops.traverse_ref import walk_plain
+from snail_tpu_torch.render.fast import (render_frame_fast,
+                                         render_frame_fast_stats,
+                                         stats_path_available)
+from snail_tpu_torch.scene.base_scene import FlatGeometry
+from snail_tpu_torch.scene.scene import (make_traced_scene,
+                                         traced_scene_from_numpy)
+
+W = H = 64
+LIGHT = ((0.0, 3.5, 0.0), (1.0, 0.9, 0.8), 30.0)
+POS, TARGET = (0.0, 2.0, 6.0), (0.0, 1.5, 0.0)
+FIELDS = ("node_lo", "node_hi", "node_child", "node_count", "node_axis",
+          "node_first", "tri_a", "tri_ba", "tri_ca", "sh_mat", "sh_pack",
+          "mat_pack", "mat_diffuse", "mat_specular", "mat_reflect",
+          "mat_dissolve")
+NO_WL = dict(wl_boxrows=None, wl_lfc=None, lf_boxv=None)
+
+
+def _walk_only(js):
+    """The JAX scene with its worklist leaf tables cleared: its entry
+    points take the interval-walk kernels."""
+    js = dataclasses.replace(js, **NO_WL)
+    assert not tp._wl_available(js)
+    return js
+
+
+def _scenes(bounce: bool):
+    """(JAX flat walk scene, JAX paged walk scene, port walk scene, JAX
+    camera, port camera) on one BVH; with ``bounce``, material 0
+    reflective and half transparent."""
+    g = cornell_scene().flatten()
+    lo, hi = g.bounds()
+    bvh = build_bvh(lo, hi, leaf_size=8)
+    mats = None
+    if bounce:
+        mats = JMaterialTable.build({"": 0}, [])
+        mats.reflectivity[0] = 0.5
+        mats.dissolve[0] = 0.5
+    js = j_make_traced_scene(g, bvh, mats, lights=JLight.make(*LIGHT))
+    assert js.pg_meta is None
+    # the paged fixture of tests/test_paged_kernel.py:33-50
+    layout = partition_pages(bvh, page_cap=4)
+    assert layout.n_pages > 1
+    pm, pb = tp.page_kernel_layout(layout.pg_meta, layout.pg_box)
+    mk_boxv, mk_off = tp.build_mask_boxv(layout.top_box, pb, layout.page_cap)
+    paged = dataclasses.replace(
+        js, pk_meta=jnp.asarray(layout.top_meta),
+        pk_box=jnp.asarray(layout.top_box), pg_meta=jnp.asarray(pm),
+        pg_box=jnp.asarray(pb), mk_boxv=jnp.asarray(mk_boxv), mk_off=mk_off,
+        mk_cap=layout.page_cap)
+    fields = {k: np.asarray(getattr(js, k)) for k in FIELDS}
+    fields.update(light_pos=np.asarray(js.lights.pos),
+                  light_color=np.asarray(js.lights.color),
+                  light_radius=np.asarray(js.lights.radius))
+    ps = traced_scene_from_numpy(fields, device="cpu", walk=True)
+    assert ps.leaves is None and ps.nodes.n_nodes == bvh.num_nodes
+    jcam = JCamera.look_at(pos=POS, target=TARGET)
+    pcam = Camera(**{k: torch.from_numpy(np.array(getattr(jcam, k)))
+                     for k in ("pos", "right", "up", "front", "plane_dist")})
+    return _walk_only(js), _walk_only(paged), ps, jcam, pcam
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    return _scenes(bounce=False)
+
+
+@pytest.fixture(scope="module", params=["flat", "paged"])
+def jscene(request, scenes):
+    """The JAX walk scene: flat (B9) or paged (B10)."""
+    js, paged, _, _, _ = scenes
+    return paged if request.param == "paged" else js
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_node_tables_hold_the_bvh():
+    g = cornell_scene().flatten()
+    lo, hi = g.bounds()
+    bvh = p_build_bvh(lo, hi, leaf_size=8)
+    ps = make_traced_scene(g, bvh, device="cpu", walk=True)
+    assert ps.leaves is None and ps.depth == bvh.depth == ps.nodes.depth
+    assert ps.nodes.stack_cap == bvh.depth + 2
+    lo_, hi_, child, count, axis, first = ps.nodes.columns()
+    np.testing.assert_array_equal(lo_.numpy(), bvh.node_lo)
+    np.testing.assert_array_equal(hi_.numpy(), bvh.node_hi)
+    for a, b in ((child, bvh.child), (count, bvh.count),
+                 (first, bvh.first_node)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    inner = bvh.count == 0
+    np.testing.assert_array_equal(axis.numpy()[inner], bvh.axis[inner])
+    # a leaf scene is unchanged: leaf tables, no node tables
+    assert make_traced_scene(g, bvh, device="cpu").nodes is None
+
+
+def test_walk_camera_trace_matches_jax(scenes, jscene):
+    _, _, ps, jcam, pcam = scenes
+    jd, ju, jv, jt, jdx, jdy, jdz = (np.asarray(a) for a in
+                                     tp.camera_trace(jscene, jcam, W, H))
+    pt.reset_launch_counts()
+    pd, pu, pv, ptri, pdx, pdy, pdz = (a.numpy() for a in
+                                       pt.camera_trace(ps, pcam, W, H))
+    assert pt.launch_counts() == {k.__name__: 0 for k in pt.KERNELS}
+    # tests/test_pallas.py:130-153
+    np.testing.assert_allclose(pd, jd, rtol=2e-4, atol=2e-4)
+    for a, b in ((pdx, jdx), (pdy, jdy), (pdz, jdz)):
+        np.testing.assert_allclose(a, b, atol=1e-6)
+    hit = jd < BIG
+    assert hit.mean() > 0.3 and (~hit).any()
+    np.testing.assert_array_equal(ptri[~hit], -1)
+    assert (ptri[hit] == jt[hit]).mean() > 0.999
+    same = hit & (ptri == jt)
+    np.testing.assert_allclose(pu[same], ju[same], atol=2e-3)
+    np.testing.assert_allclose(pv[same], jv[same], atol=2e-3)
+
+
+@pytest.fixture(scope="module")
+def shadow_rays():
+    """One packet of rays from the light to seeded points of the room."""
+    rng = np.random.default_rng(3)
+    tgt = rng.uniform((-2.0, 0.0, -2.0), (2.0, 3.0, 2.0),
+                      (pt.PACKET_R, 3)).astype(np.float32)
+    d = tgt - np.float32(LIGHT[0])
+    ld = np.linalg.norm(d, axis=-1)
+    tm = (ld * 0.9999).astype(np.float32)
+    tm[::61] = -BIG
+    return (d / ld[:, None]).astype(np.float32), tm
+
+
+def test_walk_any_hit_shared_matches_jax(scenes, jscene, shadow_rays):
+    _, _, ps, _, _ = scenes
+    d, tm = shadow_rays
+    lp = np.float32(LIGHT[0])
+    jb = np.asarray(tp.any_hit_shared(
+        jscene, jnp.asarray(lp), tuple(jnp.asarray(d[:, k]) for k in range(3)),
+        jnp.asarray(tm)))
+    pb = pt.any_hit_shared(ps, _t(lp), tuple(_t(d[:, k]) for k in range(3)),
+                           _t(tm)).numpy()
+    live = tm >= 0
+    assert not pb[~live].any()
+    assert 0.05 < pb[live].mean() < 0.95
+    # tests/test_pallas.py:183-190
+    assert (pb[live] == jb[live]).mean() > 0.999
+
+
+@pytest.fixture(scope="module")
+def bounce_rays():
+    """500 seeded rays with their own origins in the room, every 20th
+    masked with a garbage origin, some with a finite tmax."""
+    rng = np.random.default_rng(7)
+    n = 500
+    o = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    o[:, 1] += 1.5
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    tm = np.full(n, BIG, np.float32)
+    tm[1::9] = rng.uniform(0.5, 3.0, len(tm[1::9]))
+    tm[::20] = -BIG
+    o[::20] = 1e30
+    return o, d, tm
+
+
+def test_walk_closest_hit_c_matches_jax(scenes, jscene, bounce_rays):
+    _, _, ps, _, _ = scenes
+    o, d, tm = bounce_rays
+    jd, ju, jv, jt = (np.asarray(a) for a in tp.closest_hit_c(
+        jscene, tuple(jnp.asarray(o[:, k]) for k in range(3)),
+        tuple(jnp.asarray(d[:, k]) for k in range(3)), jnp.asarray(tm)))
+    pd, pu, pv, ptri = (a.numpy() for a in pt.closest_hit_c(
+        ps, tuple(_t(o[:, k]) for k in range(3)),
+        tuple(_t(d[:, k]) for k in range(3)), _t(tm)))
+    big = np.float32(BIG)
+    live = tm >= 0
+    hit = live & (jd < big)
+    assert 0.3 < hit.sum() / live.sum() < 1.0
+    np.testing.assert_array_equal(pd[~live], -big)
+    np.testing.assert_array_equal(jd[~live], -big)
+    np.testing.assert_array_equal(pd[live & ~hit], big)
+    np.testing.assert_array_equal(ptri[~hit], 0)
+    np.testing.assert_allclose(pd[hit], jd[hit], rtol=2e-4, atol=2e-4)
+    assert (ptri[hit] == jt[hit]).mean() > 0.999
+    same = hit & (ptri == jt)
+    np.testing.assert_allclose(pu[same], ju[same], atol=2e-3)
+    np.testing.assert_allclose(pv[same], jv[same], atol=2e-3)
+    assert (pd[hit] < tm[hit] * (1 + 1e-6)).all()
+
+
+def test_walk_any_hit_c_matches_jax(scenes, jscene, bounce_rays):
+    _, _, ps, _, _ = scenes
+    o, d, _ = bounce_rays
+    rng = np.random.default_rng(11)
+    tm = rng.uniform(0.5, 4.0, len(o)).astype(np.float32)
+    tm[::20] = -BIG
+    jb = np.asarray(tp.any_hit_c(
+        jscene, tuple(jnp.asarray(o[:, k]) for k in range(3)),
+        tuple(jnp.asarray(d[:, k]) for k in range(3)), jnp.asarray(tm)))
+    pb = pt.any_hit_c(ps, tuple(_t(o[:, k]) for k in range(3)),
+                      tuple(_t(d[:, k]) for k in range(3)), _t(tm)).numpy()
+    live = tm >= 0
+    assert not pb[~live].any()
+    assert 0.05 < pb[live].mean() < 0.95
+    assert (pb[live] == jb[live]).mean() > 0.999
+
+
+@pytest.mark.parametrize("bounce", [False, True], ids=["fwd", "bounce"])
+def test_walk_frame_matches_jax(bounce):
+    """render_frame_fast on the port's walk scene against the JAX
+    package's on its walk scene (B9a, B9b and, with bounces, B9c)."""
+    js, _, ps, jcam, pcam = _scenes(bounce)
+    opts = dict(textures=False) if bounce else dict(
+        reflections=False, transparency=False, textures=False)
+    jimg = np.asarray(j_render_frame_fast(js, jcam, W, H,
+                                          JRenderOpts(**opts)))
+    pt.reset_launch_counts()
+    pimg = render_frame_fast(ps, pcam, W, H, RenderOpts(**opts)).numpy()
+    err = np.abs(pimg - jimg).max(-1)
+    assert (err > 2e-3).mean() <= 1e-3, err.max()
+    assert jimg.max() > 0.1
+
+
+def _chain_bvh(n: int) -> tuple:
+    """A BVH of depth n over n + 1 triangles on the z = 0 plane, one per
+    level: inner node i holds the leaf of triangle i and the inner node
+    of the rest, the inner child first for rays along +x, so that a walk
+    keeps one far leaf per level on its stack. Returns (geometry, BVH)."""
+    x = np.arange(n + 1, dtype=np.float32)
+    a = np.stack([x, np.zeros_like(x), np.zeros_like(x)], 1)
+    ba = np.tile(np.float32([0.9, 0.0, 0.0]), (n + 1, 1))
+    ca = np.tile(np.float32([0.0, 0.9, 0.0]), (n + 1, 1))
+    lo_t, hi_t = a, a + np.float32([0.9, 0.9, 0.0])
+    nn = 2 * n + 1
+    node_lo = np.zeros((nn, 3), np.float32)
+    node_hi = np.zeros((nn, 3), np.float32)
+    child = np.zeros(nn, np.int32)
+    count = np.zeros(nn, np.int32)
+    axis = np.zeros(nn, np.int32)
+    first = np.zeros(nn, np.int32)
+    inner = 0
+    for i in range(n):
+        left = 2 * i + 1  # the leaf of triangle i; right = left + 1
+        node_lo[inner], node_hi[inner] = lo_t[i:].min(0), hi_t[i:].max(0)
+        child[inner], first[inner] = left, 1  # near: the right, inner one
+        node_lo[left], node_hi[left] = lo_t[i], hi_t[i]
+        child[left], count[left] = i, 1
+        inner = left + 1
+    node_lo[inner], node_hi[inner] = lo_t[n], hi_t[n]
+    child[inner], count[inner] = n, 1
+    bvh = BVH(node_lo, node_hi, child, count, axis, first,
+              np.arange(n + 1, dtype=np.int32), n)
+    z = np.zeros((n + 1, 3), np.float32)
+    up = z + np.float32([0.0, 0.0, 1.0])
+    geom = FlatGeometry(
+        a=a, ba=ba, ca=ca, nrm=up, t0=np.full(n + 1, 0.81, np.float32),
+        uv0=z[:, :2], uv_e1=z[:, :2], uv_e2=z[:, :2], n0=up, n_e1=z, n_e2=z,
+        mat_id=np.zeros(n + 1, np.int32))
+    return geom, bvh
+
+
+def test_deep_bvh_walk_matches_brute_force():
+    """A BVH of depth 80 (> the JAX oracle's STACK_CAP of 66, ROADMAP C2):
+    the plain walk sizes its stack from the tree and finds every hit of
+    the brute force, closest and any-hit."""
+    geom, bvh = _chain_bvh(80)
+    ps = make_traced_scene(geom, bvh, device="cpu", walk=True)
+    assert ps.nodes.depth == 80 and ps.nodes.stack_cap == 82
+    rng = np.random.default_rng(5)
+    r = 4 * pt.WARP
+    tgt = np.stack([rng.uniform(0.0, 81.0, r), rng.uniform(0.05, 0.5, r),
+                    np.zeros(r)], 1).astype(np.float32)
+    # from below the plane: the one-sided shadow rule sees the triangles'
+    # front faces (n = ba x ca is +z)
+    o = np.float32([-5.0, 0.3, -3.0])
+    d = tgt - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    orig = np.broadcast_to(o, d.shape).copy()
+    bd, btri, _ = intersect_brute_force(_t(orig), _t(d), ps.tri_a, ps.tri_ba,
+                                        ps.tri_ca)
+    hit = bd < BIG
+    assert hit.float().mean() > 0.5
+    work = {}
+    best, tri, _, _ = walk_plain(
+        ps.nodes, [_t(orig[:, k]) for k in range(3)],
+        [_t(d[:, k]) for k in range(3)], torch.full((r,), BIG), ps.tri_rows,
+        True, True, work)
+    np.testing.assert_allclose(best[hit].numpy(), bd[hit].numpy(), rtol=1e-6)
+    np.testing.assert_array_equal(tri[hit].numpy(), btri[hit].numpy())
+    assert (tri[~hit] == -1).all()
+    assert work["entered"].sum() > 80
+    # any-hit toward the plane: blocked where the brute force says so
+    tm = torch.from_numpy(np.linalg.norm(tgt - o, axis=-1) * 1.01)
+    blocked = walk_plain(ps.nodes, [_t(orig[:, k]) for k in range(3)],
+                         [_t(d[:, k]) for k in range(3)], tm, ps.tri_rows,
+                         True, False)
+    ref = intersect_any_brute_force(_t(orig), _t(d), ps.tri_a, ps.tri_ba,
+                                    ps.tri_ca, tm)
+    assert torch.equal(blocked, ref) and ref.any()
+    # the stack is the tree's: a shorter one overflows, and the walk raises
+    small = dataclasses.replace(ps.nodes, depth=70)
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        walk_plain(small, [_t(orig[:, k]) for k in range(3)],
+                   [_t(d[:, k]) for k in range(3)], torch.full((r,), BIG),
+                   ps.tri_rows, True, True)
+
+
+def test_walk_counter_frame_raises(scenes):
+    _, _, ps, _, pcam = scenes
+    assert not stats_path_available(ps)
+    with pytest.raises(NotImplementedError, match="B9e"):
+        render_frame_fast_stats(ps, pcam, W, H)
