@@ -40,19 +40,35 @@ Phases, each printed on its own line:
    terrain's toward the low light), B9c on the frame's reflection rays and
    on a seeded wavefront, B9d on a seeded shadow wavefront with its own
    origins; closest hits equal bit for bit where the triangle agrees, the
-   triangle differing only on a distance tie, verdicts identical;
+   triangle differing only on a distance tie, verdicts identical; and the
+   walk's counting kernels B9e/B9f on B9a's and B9b's inputs: their
+   outputs B9a's and B9b's bit for bit, their counters on a few seeded
+   packets equal to the plain versions' simulation of every warp;
 6. the walk paths at 1024 x 1024: the fwd, bounce and instanced fwd
    frames of the walk scenes, launching walk kernels only, each checked
    against the CPU path at 64 x 64 and timed, the fwd and bounce frames
    also against the same scene's worklist frame (within 2e-3 on >= 99.8 %
-   of pixels); and the portable path: render_frame at 1280 x 720 (not a
-   multiple of the tile: the integrator and the dispatch seam), fwd and
-   bounce on both leaf-table scenes and the walk terrain, with launches,
-   a check against the CPU path at 80 x 48 and ms/frame, and on city_24
-   one fwd+bwd step of the portable fwd frame (ms/step, gradients on the
-   card against the CPU path at 48 x 32).
+   of pixels); the walk counter frame (B9e/B9f: as phase 4's, beside the
+   walk fwd frame); and the portable path: render_frame at 1280 x 720
+   (not a multiple of the tile: the integrator and the dispatch seam),
+   fwd and bounce on both leaf-table scenes and the walk terrain, with
+   launches, a check against the CPU path at 80 x 48 and ms/frame, and on
+   city_24 one fwd+bwd step of the portable fwd frame (ms/step, gradients
+   on the card against the CPU path at 48 x 32);
+7. the fat-leaf path on each kind's scene built at leaf 64 (node tables,
+   leaves of 33-64 triangles): city_scene(24) and terrain_scene(530),
+   ~0.56 Mtri, whose tree is the largest the TPU's B11 took (at most
+   24,576 nodes), each with material 0 reflective: B11a-d (csrc/fat.cu) against
+   their plain versions over whole wavefronts, as phase 5 (B11a on the
+   primary rays, B11c on the shadow rays, B11b on the reflection rays and
+   a seeded wavefront, B11d on seeded shadow rays, the rays as the caller
+   gave them); then the fat fwd, bounce, fwd_bwd, instanced fwd and
+   portable fwd frames, launching fat-leaf kernels only, each checked
+   against the CPU path at small size, against the same geometry's frame
+   on leaf tables (leaf 16 / 32; the step by its loss) and timed.
 
-The last two lines are a JSON object per kernel and the result line. Every
+The last two lines are a JSON object per kernel (all 19 of the port, per
+scene) and the result line. Every
 kernel's line gives its time beside its bound: the larger of the bytes it
 must move (each input read once, each output written once) over the card's
 memory rate and the float operations of the tests its wavefront needs over
@@ -78,6 +94,7 @@ KERNEL_REPS = 20
 SIM_PACKETS = 3  # seeded packets whose counters are simulated
 SRC = "snail_tpu_torch/csrc/worklist.cu"
 WALK_SRC = "snail_tpu_torch/csrc/walk.cu"
+FAT_SRC = "snail_tpu_torch/csrc/fat.cu"
 TPU = "snail_tpu/ops/traverse_pallas.py"
 REPLACES = {  # kernel -> line of the Pallas kernel it replaces
     "words_camera": f"{TPU}:2785",
@@ -94,19 +111,38 @@ REPLACES = {  # kernel -> line of the Pallas kernel it replaces
     "walk_shadow": f"{TPU}:1901, {TPU}:1918",
     "walk_closest_g": f"{TPU}:2178, {TPU}:2199",
     "walk_shadow_g": f"{TPU}:2255, {TPU}:2274",
+    "walk_camera_stats": f"{TPU}:1852",
+    "walk_shadow_stats": f"{TPU}:1940",
+    "fat_camera": f"{TPU}:588",
+    "fat_closest": f"{TPU}:643",
+    "fat_shadow": f"{TPU}:720",
+    "fat_shadow_g": f"{TPU}:731",
 }
 FORWARD = ("words_camera", "camera_wl", "words_shared", "shadow_wl")
 BOUNCE = FORWARD + ("words_general", "closest_wl_g")
 STATS = ("words_camera", "camera_wl_stats", "words_shared", "shadow_wl_stats")
 INSTANCED = ("words_general", "closest_wl_g", "shadow_wl_g")
-WALK = ("walk_camera", "walk_shadow", "walk_closest_g", "walk_shadow_g")
+WALK = ("walk_camera", "walk_shadow", "walk_closest_g", "walk_shadow_g",
+        "walk_camera_stats", "walk_shadow_stats")
 WALK_FWD = WALK[:2]
 WALK_BOUNCE = WALK[:3]
-WALK_INSTANCED = WALK[2:]
+WALK_INSTANCED = WALK[2:4]
+WALK_STATS = WALK[4:]
+FAT = ("fat_camera", "fat_closest", "fat_shadow", "fat_shadow_g")
+FAT_FWD = ("fat_camera", "fat_shadow")
+FAT_BOUNCE = FAT[:3]
+FAT_INSTANCED = ("fat_closest", "fat_shadow_g")
+# the fat-leaf scenes: kind -> size, built at leaf LEAF_PAD; the terrain's
+# tree is the largest the TPU's B11 took (SMEM_NODE_CAP, 24,576 nodes):
+# terrain_scene(530), 561,800 triangles, 24,399 nodes (531 and 532 have
+# 24,589 and 24,597); the small CPU-path check's scene, as the others'
+FAT_N = {"city": 24, "terrain": 530}
+FAT_SMALL_N = {"city": 24, "terrain": 64}
 # the kernels the portable frame reaches through the dispatch seam
 PORTABLE = {"leaves": ("words_general", "closest_wl_g", "words_shared",
                        "shadow_wl"),
-            "nodes": ("walk_closest_g", "walk_shadow")}
+            "nodes": ("walk_closest_g", "walk_shadow"),
+            "fat": ("fat_closest", "fat_shadow")}
 PORTABLE_SIZE = (1280, 720)
 PORTABLE_SMALL = (80, 48)
 PORTABLE_STEP_SMALL = (48, 32)
@@ -115,7 +151,10 @@ PORTABLE_FRAMES = 3
 PATH_OF = {**{k: "bounce" for k in BOUNCE}, "shadow_wl_g": "instanced_fwd",
            "camera_wl_stats": "stats", "shadow_wl_stats": "stats",
            **{k: "walk_bounce" for k in WALK_BOUNCE},
-           "walk_shadow_g": "walk_instanced_fwd"}
+           "walk_shadow_g": "walk_instanced_fwd",
+           **{k: "walk_stats" for k in WALK_STATS},
+           **{k: "fat_bounce" for k in FAT_BOUNCE},
+           "fat_shadow_g": "fat_instanced_fwd"}
 # kind -> a low light for the blocked-ray checks of B3/B4 and of the small
 # frame: the terrain's bench light is overhead and its hills cast no
 # shadow toward it (~20 % of the frame's shadow rays toward this light are
@@ -142,9 +181,11 @@ RAY_OPS = {"words_camera": 61, "words_shared": 14, "words_general": 20}
 SLAB_OPS = 25
 TRI_OPS = {"camera_wl": 29, "shadow_wl": 22, "closest_wl_g": 56,
            "shadow_wl_g": 49}
-# the walk kernels test triangles with the same device functions
+# the walk and fat-leaf kernels test triangles with the same device
+# functions; every fat-leaf kernel on the raw rows
 TRI_OPS.update(walk_camera=29, walk_shadow=22, walk_closest_g=56,
-               walk_shadow_g=49)
+               walk_shadow_g=49, walk_camera_stats=29, walk_shadow_stats=22,
+               fat_camera=56, fat_closest=56, fat_shadow=49, fat_shadow_g=49)
 
 
 def fail(msg: str) -> None:
@@ -516,12 +557,13 @@ def check_bounce(name, scene, primary):
     return out
 
 
-def seeded_general(scene, n_packets, seed=5):
+def seeded_general(scene, n_packets, seed=5, planes=None):
     """A wavefront of rays with their own origins, ``n_packets`` packets:
     each packet's rays start within 1 % of the scene box's extent of a
     seeded point in the box and run within a narrow cone around a seeded
     direction (down into the geometry or up out of it); every 7th ray
-    masked. Returns the (o, d, tm) planes of ``general_planes``."""
+    masked. Returns the (o, d, tm) planes of ``planes`` (default
+    ``general_planes``; the fat-leaf kernels take ``padded_planes``)."""
     import numpy as np
     import torch
 
@@ -541,9 +583,9 @@ def seeded_general(scene, n_packets, seed=5):
     tm[:, ::7] = -BIG
     flat = lambda a: torch.from_numpy(
         np.ascontiguousarray(a, np.float32).reshape(-1)).cuda()
-    o, d, tm, _ = pt.general_planes(tuple(flat(o[..., k]) for k in range(3)),
-                                    tuple(flat(d[..., k]) for k in range(3)),
-                                    flat(tm))
+    o, d, tm, _ = (planes or pt.general_planes)(
+        tuple(flat(o[..., k]) for k in range(3)),
+        tuple(flat(d[..., k]) for k in range(3)), flat(tm))
     return o, d, tm
 
 
@@ -759,10 +801,11 @@ def run_frame(name, path, opts, need, scene, cam, small, card):
 
 
 def run_stats(name, opts, scene, cam, small, card):
-    """Phase 4, the counter frame: B8a and B8b in place of B2 and B4, its
-    image bit-identical to render_frame's, its counters (and the 64 x 64
-    frame's on the card and the CPU path), and its ms/frame beside the
-    forward frame's, timed in turns. Returns the launch counts."""
+    """Phase 4, the counter frame: B8a and B8b in place of B2 and B4 (on a
+    walk scene, phase 6: B9e and B9f in place of B9a and B9b), its image
+    bit-identical to render_frame's, its counters (and the 64 x 64 frame's
+    on the card and the CPU path), and its ms/frame beside the forward
+    frame's, timed in turns. Returns the launch counts."""
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
@@ -777,16 +820,19 @@ def run_stats(name, opts, scene, cam, small, card):
         counters[w, img.device.type] = st
         return img
 
-    launches = run_path(name, "stats", STATS, frame, scene, cam, small,
-                        card, rays)
-    if launches["camera_wl"] or launches["shadow_wl"]:
-        fail(f"{name} stats: B2/B4 ran beside B8a/B8b: {launches}")
+    walk = pt.walks(scene)
+    path, need, twins = (("walk stats", WALK_STATS, WALK_FWD) if walk else
+                         ("stats", STATS, ("camera_wl", "shadow_wl")))
+    launches = run_path(name, path, need, frame, scene, cam, small, card,
+                        rays, only=WALK if walk else None)
+    if any(launches[k] for k in twins):
+        fail(f"{name} {path}: {twins} ran beside {need}: {launches}")
     img, st = render_frame_fast_stats(scene, cam, WIDTH, HEIGHT, opts)
     if not torch.equal(img, render_frame(scene, cam, WIDTH, HEIGHT, opts)):
-        fail(f"{name} stats: the counter frame's image is not the fwd "
+        fail(f"{name} {path}: the counter frame's image is not the fwd "
              "frame's")
     if st["rays"] != rays or min(st.values()) <= 0:
-        fail(f"{name} stats: counters {st}")
+        fail(f"{name} {path}: counters {st}")
     s64, c64 = counters[64, "cuda"], counters[64, "cpu"]
     packets = (WIDTH // pt.TILE) * (HEIGHT // pt.TILE) * (1 + len(
         scene.lights))
@@ -794,12 +840,12 @@ def run_stats(name, opts, scene, cam, small, card):
     stats = lambda: render_frame_fast_stats(scene, cam, WIDTH, HEIGHT, opts)
     f1, s1, s2, f2 = (cuda_ms(fn, TIMED_FRAMES)
                       for fn in (fwd, stats, stats, fwd))
-    print(f"frame {name} stats: counters {st}, "
-          f"{st['leaves'] / packets:.1f} leaves kept per packet (summed over "
-          f"its warps); 64x64 card {s64}, CPU path {c64}, equal: "
-          f"{s64 == c64}", flush=True)
-    print(f"frame {name} stats {WIDTH}x{HEIGHT}: {(s1 + s2) / 2:.3f} ms/frame "
-          f"(runs {s1:.3f}, {s2:.3f}) beside the fwd frame's "
+    print(f"frame {name} {path}: counters {st}, "
+          f"{st['leaves'] / packets:.1f} leaves {'loaded' if walk else 'kept'}"
+          f" per packet (summed over its warps); 64x64 card {s64}, CPU path "
+          f"{c64}, equal: {s64 == c64}", flush=True)
+    print(f"frame {name} {path} {WIDTH}x{HEIGHT}: {(s1 + s2) / 2:.3f} "
+          f"ms/frame (runs {s1:.3f}, {s2:.3f}) beside the fwd frame's "
           f"{(f1 + f2) / 2:.3f} ({f1:.3f}, {f2:.3f}), on {card}", flush=True)
     return launches
 
@@ -876,14 +922,16 @@ def check_instanced(name, isc, icam, need_window):
                                 d, tmi, need_window)
 
 
-def run_step(name, scene, cam, small, card):
+def run_step(name, scene, cam, small, card, path="fwd_bwd", need=BOUNCE,
+             against=None):
     """Phase 4, bench.py's fwd+bwd step (bench.py:236-247): the loss and
     gradients of its 7 parameters through render_frame_fast_diff with
     reflections and shadows, MSE against a forward render. Launch counts
-    of one step (the six kernels of the bounce path), a 64 x 64 step on
-    the card against the CPU path (its target lit at half the light
-    colour, so that the gradients are not ~0), ms/step. Returns the launch
-    counts."""
+    of one step (each kernel in ``need``: by default the six kernels of
+    the bounce path), a 64 x 64 step on the card against the CPU path (its
+    target lit at half the light colour, so that the gradients are not
+    ~0), with ``against`` (the same geometry with leaf tables) its loss
+    against that scene's, ms/step. Returns the launch counts."""
     import numpy as np
     import torch
 
@@ -898,13 +946,19 @@ def run_step(name, scene, cam, small, card):
     with pt.count_live_rays() as live:
         loss, grads = bench_step(scene, cam, target, WIDTH, HEIGHT)
     torch.cuda.synchronize()
-    launches = launched(name, "fwd_bwd", BOUNCE)
+    launches = launched(name, path, need)
     traced = sum(int(n) for n in live)
     bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
     loss = float(loss)
     if not np.isfinite(loss) or bad:
-        fail(f"{name} fwd_bwd: loss {loss}, non-finite grads {bad}")
-    print(f"step {name} fwd_bwd: launches {launches}, loss {loss}, "
+        fail(f"{name} {path}: loss {loss}, non-finite grads {bad}")
+    if against is not None:
+        ref = float(bench_step(against, cam, target, WIDTH, HEIGHT)[0])
+        print(f"step {name} {path}: loss {loss} against the worklist "
+              f"scene's {ref}", flush=True)
+        if not abs(loss - ref) < 3e-4 * max(1.0, abs(ref)):
+            fail(f"{name} {path}: loss {loss}, the worklist scene's {ref}")
+    print(f"step {name} {path}: launches {launches}, loss {loss}, "
           "grad max |g| " + ", ".join(
               f"{k} {float(g.abs().max()):.3e}" for k, g in grads.items()),
           flush=True)
@@ -927,19 +981,19 @@ def run_step(name, scene, cam, small, card):
                 float(np.abs(a - b).mean()) / denom)
         worst[k] = (q, m)
         ok = ok and q < 5e-3 and m < 1e-3
-    print(f"step {name} fwd_bwd: 64x64 card vs CPU path, loss {lk} vs {lc}; "
+    print(f"step {name} {path}: 64x64 card vs CPU path, loss {lk} vs {lc}; "
           "grad |diff| q99.9 / mean over max |g|: " + ", ".join(
               f"{k} {q:.2e}/{m:.2e}" for k, (q, m) in worst.items()),
           flush=True)
     if not ok:
-        fail(f"{name} fwd_bwd: 64x64 card step differs from the CPU path")
+        fail(f"{name} {path}: 64x64 card step differs from the CPU path")
 
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: bench_step(scene, cam, target, WIDTH, HEIGHT),
                  TIMED_STEPS)
     peak = torch.cuda.max_memory_allocated() / 2**20
     rays = WIDTH * HEIGHT * (1 + len(scene.lights))
-    print(f"step {name} fwd_bwd {WIDTH}x{HEIGHT}: {ms:.3f} ms/step, "
+    print(f"step {name} {path} {WIDTH}x{HEIGHT}: {ms:.3f} ms/step, "
           f"{rays / ms / 1e3:.2f} MRays/s ({rays} rays as bench.py counts; "
           f"{traced} live rays traced in {len(live)} wavefronts), peak "
           f"memory {peak:.1f} MiB, on {card}", flush=True)
@@ -995,143 +1049,263 @@ def closest_equal(name, kern, plain, live):
 
 
 def check_walk_kernels(name, kind, scene, cam):
-    """Phase 5 on a walk scene's wavefronts: B9a-d against their plain
-    versions on the card, each over its whole wavefront; returns {kernel:
-    entry}."""
+    """Phase 5 on a walk scene's wavefronts (phase 7 on a fat-leaf
+    scene's): B9a-d against their plain versions on the card, each over
+    its whole wavefront, and B9e/B9f against B9a/B9b and the simulation
+    of their warps (B11a-d against theirs); returns {kernel: entry}."""
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
-    from snail_tpu_torch.ops.traverse_ref import walk_camera_plain
+    from snail_tpu_torch.ops import traverse_ref as ref
     from snail_tpu_torch.render.fast import bounce_wavefront
 
+    fat = pt.is_fat(scene)
     w, h = WIDTH, HEIGHT
     p = (w // pt.TILE) * (h // pt.TILE)
+    pids = torch.arange(p, device="cuda")
     nodes = scene.nodes
     cv = pt.cam_vec(cam, w, h, scene.root_lo, scene.root_hi)
-    rows = pt.shared_rows(scene.tri_rows, cam.pos)
     out = {}
 
-    # B9a
-    kern = pt.walk_camera(cv, w, h, rows, nodes)
+    # B9a on the shared-origin rows, or B11a on the raw rows with the
+    # packets' ray-0 signs
+    if fat:
+        k = "fat_camera"
+        rows, signs = scene.tri_rows, pt.camera_signs(cam, w, h)
+        call = lambda: pt.fat_camera(cv, w, h, signs, rows, nodes)
+        plain_fn = lambda work: ref.fat_camera_plain(cv, w, h, signs, rows,
+                                                     nodes, pids, work)
+        ins = (cv, signs)
+    else:
+        k = "walk_camera"
+        rows = pt.shared_rows(scene.tri_rows, cam.pos)
+        call = lambda: pt.walk_camera(cv, w, h, rows, nodes)
+        plain_fn = lambda work: ref.walk_camera_plain(cv, w, h, rows, nodes,
+                                                      pids, work)
+        ins = (cv,)
+    kern = call()
     work = {}
-    plain, plain_ms = timed_plain(lambda: walk_camera_plain(
-        cv, w, h, rows, nodes, torch.arange(p, device="cuda"), work))
+    plain, plain_ms = timed_plain(lambda: plain_fn(work))
     if not all(torch.equal(a, b) for a, b in zip(kern[4:], plain[4:])):
-        fail(f"{name} walk_camera: directions differ from the plain version")
-    err, share = closest_equal(f"{name} walk_camera", kern[:4], plain[:4],
+        fail(f"{name} {k}: directions differ from the plain version")
+    miss = plain[0] >= pt.BIG
+    if not bool((kern[3][miss] == (0 if fat else -1)).all()):
+        fail(f"{name} {k}: the miss convention differs")
+    err, share = closest_equal(f"{name} {k}", kern[:4], plain[:4],
                                torch.ones_like(kern[0], dtype=torch.bool))
     if share <= 0.3:
-        fail(f"{name} walk_camera: hit share {share}")
-    ms = cuda_ms(lambda: pt.walk_camera(cv, w, h, rows, nodes), KERNEL_REPS)
-    ops, tree_bytes = walk_work("walk_camera", nodes, rows, work)
-    out["walk_camera"] = entry(err, ms, plain_ms,
-                               nbytes(cv, *kern) + tree_bytes, ops)
+        fail(f"{name} {k}: hit share {share}")
+    ms = cuda_ms(call, KERNEL_REPS)
+    ops, tree_bytes = walk_work(k, nodes, rows, work)
+    out[k] = entry(err, ms, plain_ms, nbytes(*ins, *kern) + tree_bytes, ops)
+    if not fat:
+        out["walk_camera_stats"] = check_walk_camera_stats(
+            name, cv, rows, nodes, kern, out[k])
     kd, ku, kv, kt, kdx, kdy, kdz = kern
 
-    # B9b on the frame's shadow rays, B9c on its reflection rays and on a
-    # seeded wavefront, B9d on a seeded shadow wavefront
+    # B9b/B11c on the frame's shadow rays, B9c/B11b on its reflection rays
+    # and on a seeded wavefront, B9d/B11d on a seeded shadow wavefront
     primary = ((cam.pos[0], cam.pos[1], cam.pos[2]),
                (kdx.reshape(-1), kdy.reshape(-1), kdz.reshape(-1)),
                kd.reshape(-1), ku.reshape(-1), kv.reshape(-1),
                kt.reshape(-1))
-    out["walk_shadow"] = check_walk_shadow(
-        f"{name} light 0", scene, primary, scene.lights.pos[0],
-        kind not in LOW_LIGHT)
+    shadow = check_walk_shadow(f"{name} light 0", scene, primary,
+                               scene.lights.pos[0], kind not in LOW_LIGHT)
+    out.update(shadow)
     if kind in LOW_LIGHT:
         check_walk_shadow(f"{name} low light", scene, primary,
                           torch.tensor(LOW_LIGHT[kind], device="cuda"), True)
-    o, d, tm, _ = pt.general_planes(*bounce_wavefront(scene, *primary))
-    out["walk_closest_g"], _ = check_walk_closest(f"{name} reflections",
-                                                  scene, o, d, tm)
-    seeded, share = check_walk_closest(f"{name} seeded", scene,
-                                       *seeded_general(scene, p))
+    planes = pt.padded_planes if fat else pt.general_planes
+    k = "fat_closest" if fat else "walk_closest_g"
+    o, d, tm, _ = planes(*bounce_wavefront(scene, *primary))
+    out[k], _ = check_walk_closest(f"{name} reflections", scene, o, d, tm)
+    seeded, share = check_walk_closest(
+        f"{name} seeded", scene, *seeded_general(scene, p, planes=planes))
     if not 0.02 < share < 0.98:
         fail(f"{name} seeded wavefront: hit share {share}")
-    print_checks(f"{name} seeded", {"walk_closest_g": seeded})
-    out["walk_shadow_g"] = check_walk_seeded_shadows(name, scene, p)
+    print_checks(f"{name} seeded", {k: seeded})
+    k = "fat_shadow_g" if fat else "walk_shadow_g"
+    out[k] = check_walk_seeded_shadows(name, scene, p)
     print_checks(name, out)
     return out
 
 
-def check_walk_shadow(name, scene, primary, lp, need_blocked):
-    """B9b against its plain version on the frame's shadow rays from the
-    ``primary`` hits toward the light at ``lp``: verdicts identical, some
-    rays unblocked and, with ``need_blocked``, some blocked. Returns its
-    entry."""
+def check_walk_camera_stats(name, cv, rows, nodes, b9a, b9a_entry):
+    """B9e on B9a's inputs: B9a's outputs bit for bit, and the counters of
+    a few seeded packets equal to the simulation of their warps. Returns
+    its entry (B9a's work, and the counters' bytes)."""
+    import torch
+
     from snail_tpu_torch.ops import traverse as pt
-    from snail_tpu_torch.ops.traverse_ref import walk_shadow_plain
+    from snail_tpu_torch.ops.traverse_ref import walk_camera_stats_plain
+
+    w, h = WIDTH, HEIGHT
+    *out, st = pt.walk_camera_stats(cv, w, h, rows, nodes)
+    if not all(torch.equal(a, b) for a, b in zip(out, b9a)):
+        fail(f"{name} walk_camera_stats: outputs differ from walk_camera's")
+    pk = sample_packets(st, 3)
+    (*sim_out, sim), plain_ms = timed_plain(
+        lambda: walk_camera_stats_plain(cv, w, h, rows, nodes, pk))
+    check_counters(f"{name} walk_camera_stats", st, pk, sim)
+    if not all(torch.equal(a[pk], b) for a, b in zip(out, sim_out)):
+        fail(f"{name} walk_camera_stats: the simulation's outputs differ")
+    ms = cuda_ms(lambda: pt.walk_camera_stats(cv, w, h, rows, nodes),
+                 KERNEL_REPS)
+    return stats_entry(b9a_entry, ms, plain_ms, st, len(pk))
+
+
+def stats_entry(base, ms, plain_ms, stats, n_packets):
+    """A counting kernel's entry: its twin's work and the counters it
+    writes; its plain version is the simulation of ``n_packets``."""
+    t_bytes = stats.numel() * stats.element_size() / HBM_BYTES_PER_MS
+    bound = base["bound_ms"] + (t_bytes if base["bound_by"] == "bytes"
+                                else 0.0)
+    return {**base, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "plain_packets": n_packets}
+
+
+def check_walk_shadow(name, scene, primary, lp, need_blocked):
+    """B9b (and B9f) against its plain version, or on a fat-leaf scene B11c
+    against its own, on the frame's shadow rays from the ``primary`` hits
+    toward the light at ``lp``: verdicts identical, some rays unblocked
+    and, with ``need_blocked``, some blocked; B9f's verdicts B9b's bit for
+    bit and its counters of a few seeded packets the simulation's. Returns
+    {kernel: entry}."""
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops import traverse_ref as ref
     from snail_tpu_torch.render.fast import shadow_wavefront
 
     pk = lambda a: a.reshape(-1, pt.PACKET_R).contiguous()
     d, tm = shadow_wavefront(scene, *primary, lp)
     orig, d, tm = lp.contiguous(), tuple(pk(c) for c in d), pk(tm)
-    rows = pt.shared_rows(scene.tri_rows, orig)
-    kern = pt.walk_shadow(orig, d, tm, rows, scene.nodes)
+    nodes = scene.nodes
+    if pt.is_fat(scene):
+        k, rows, signs = "fat_shadow", scene.tri_rows, pt.packet_signs(d)
+        call = lambda: pt.fat_shadow(orig, d, tm, signs, rows, nodes)
+        plain_fn = lambda work: ref.fat_shadow_plain(orig, d, tm, signs, rows,
+                                                     nodes, work)
+        ins = (orig, *d, tm, signs)
+    else:
+        k, rows = "walk_shadow", pt.shared_rows(scene.tri_rows, orig)
+        call = lambda: pt.walk_shadow(orig, d, tm, rows, nodes)
+        plain_fn = lambda work: ref.walk_shadow_plain(orig, d, tm, rows,
+                                                      nodes, work)
+        ins = (orig, *d, tm)
+    kern = call()
     work = {}
-    plain, plain_ms = timed_plain(lambda: walk_shadow_plain(
-        orig, d, tm, rows, scene.nodes, work))
+    plain, plain_ms = timed_plain(lambda: plain_fn(work))
     live = tm >= 0
     frac = float(plain[live].mean())
     n_diff = int((kern != plain).sum())
-    print(f"check {name} walk_shadow: {n_diff} verdicts differ, blocked "
-          f"share {frac} of {int(live.sum())} live rays", flush=True)
+    print(f"check {name} {k}: {n_diff} verdicts differ, blocked share "
+          f"{frac} of {int(live.sum())} live rays", flush=True)
     if (n_diff or bool(kern[~live].any()) or frac >= 0.98
             or (need_blocked and frac <= 0.02)):
-        fail(f"{name} walk_shadow: {n_diff} verdicts differ, blocked share "
-             f"{frac}")
-    ms = cuda_ms(lambda: pt.walk_shadow(orig, d, tm, rows, scene.nodes),
-                 KERNEL_REPS)
-    ops, tree_bytes = walk_work("walk_shadow", scene.nodes, rows, work)
-    return entry(0.0, ms, plain_ms, nbytes(orig, *d, tm, kern) + tree_bytes,
-                 ops)
+        fail(f"{name} {k}: {n_diff} verdicts differ, blocked share {frac}")
+    ms = cuda_ms(call, KERNEL_REPS)
+    ops, tree_bytes = walk_work(k, nodes, rows, work)
+    out = {k: entry(0.0, ms, plain_ms, nbytes(*ins, kern) + tree_bytes,
+                    ops)}
+    if k == "walk_shadow":
+        # B9f: B9b's verdicts bit for bit, and the simulated counters
+        blocked, st = pt.walk_shadow_stats(orig, d, tm, rows, nodes)
+        if not torch.equal(blocked, kern):
+            fail(f"{name} walk_shadow_stats: verdicts differ from "
+                 "walk_shadow's")
+        ps = sample_packets(st, 4)
+        (sim_blocked, sim), sim_ms = timed_plain(
+            lambda: ref.walk_shadow_stats_plain(
+                orig, tuple(c[ps] for c in d), tm[ps], rows, nodes))
+        check_counters(f"{name} walk_shadow_stats", st, ps, sim)
+        if not torch.equal(sim_blocked, kern[ps]):
+            fail(f"{name} walk_shadow_stats: the simulation's verdicts "
+                 "differ")
+        ms = cuda_ms(lambda: pt.walk_shadow_stats(orig, d, tm, rows, nodes),
+                     KERNEL_REPS)
+        out["walk_shadow_stats"] = stats_entry(out[k], ms, sim_ms, st,
+                                               len(ps))
+    return out
 
 
 def check_walk_closest(name, scene, o, d, tm):
-    """B9c against its plain version on the planes ``o``, ``d``, ``tm``:
-    the miss and masked conventions exactly, tri clamped at 0, the rest as
-    ``closest_equal``. Returns (its entry, hit share of the live rays)."""
+    """B9c, or on a fat-leaf scene B11b, against its plain version on the
+    planes ``o``, ``d``, ``tm``: the miss and masked conventions exactly
+    (B11b's live miss returns min(tmax, BIG)), tri 0 where nothing was
+    hit, the rest as ``closest_equal``. Returns (its entry, hit share of
+    the live rays)."""
+    import torch
+
     from snail_tpu_torch.core.vecmath import BIG
     from snail_tpu_torch.ops import traverse as pt
-    from snail_tpu_torch.ops.traverse_ref import walk_closest_g_plain
+    from snail_tpu_torch.ops import traverse_ref as ref
 
     rows, nodes = scene.tri_rows, scene.nodes
-    kern = pt.walk_closest_g(o, d, tm, rows, nodes)
+    if pt.is_fat(scene):
+        k, signs = "fat_closest", pt.packet_signs(d)
+        call = lambda: pt.fat_closest(o, d, tm, signs, rows, nodes)
+        plain_fn = lambda work: ref.fat_closest_plain(o, d, tm, signs, rows,
+                                                      nodes, work)
+        ins, miss_dist = (*o, *d, tm, signs), tm.clamp_max(BIG)
+    else:
+        k = "walk_closest_g"
+        call = lambda: pt.walk_closest_g(o, d, tm, rows, nodes)
+        plain_fn = lambda work: ref.walk_closest_g_plain(o, d, tm, rows,
+                                                         nodes, work)
+        ins, miss_dist = (*o, *d, tm), torch.full_like(tm, BIG)
+    kern = call()
     work = {}
-    plain, plain_ms = timed_plain(lambda: walk_closest_g_plain(
-        o, d, tm, rows, nodes, work))
+    plain, plain_ms = timed_plain(lambda: plain_fn(work))
     live = tm >= 0
     kd, kt = kern[0], kern[3]
+    miss = live & (plain[0] == miss_dist)
     if not (bool((kd[~live] == -BIG).all())
-            and bool((kt[kd.abs() >= BIG] == 0).all())):
-        fail(f"{name} walk_closest_g: masked or miss conventions differ")
-    err, share = closest_equal(f"{name} walk_closest_g", kern, plain, live)
-    ms = cuda_ms(lambda: pt.walk_closest_g(o, d, tm, rows, nodes),
-                 KERNEL_REPS)
-    ops, tree_bytes = walk_work("walk_closest_g", nodes, rows, work)
-    return entry(err, ms, plain_ms, nbytes(*o, *d, tm, *kern) + tree_bytes,
+            and bool((kd[miss] == miss_dist[miss]).all())
+            and bool((kt[miss | ~live] == 0).all())):
+        fail(f"{name} {k}: masked or miss conventions differ")
+    err, share = closest_equal(f"{name} {k}", kern, plain, live)
+    ms = cuda_ms(call, KERNEL_REPS)
+    ops, tree_bytes = walk_work(k, nodes, rows, work)
+    return entry(err, ms, plain_ms, nbytes(*ins, *kern) + tree_bytes,
                  ops), share
 
 
 def check_walk_seeded_shadows(name, scene, n_packets):
-    """B9d against its plain version on the seeded shadow rays of
-    ``check_seeded_shadows`` (the first seed whose blocked share lies in
-    0.02-0.98): verdicts identical, masked rays never blocked. Returns its
-    entry."""
+    """B9d, or on a fat-leaf scene B11d, against its plain version on the
+    seeded shadow rays of ``check_seeded_shadows`` (the first seed whose
+    blocked share lies in 0.02-0.98; for B11d the rays as given, masked
+    ones unsubstituted): verdicts identical, masked rays never blocked.
+    Returns its entry."""
     import numpy as np
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
-    from snail_tpu_torch.ops.traverse_ref import walk_shadow_g_plain
+    from snail_tpu_torch.ops import traverse_ref as ref
 
     rows, nodes = scene.tri_rows, scene.nodes
+    fat = pt.is_fat(scene)
+    k = "fat_shadow_g" if fat else "walk_shadow_g"
     for seed in range(5, 25):
-        o, d, tm = seeded_general(scene, n_packets, seed)
+        o, d, tm = seeded_general(scene, n_packets, seed, planes=(
+            pt.padded_planes if fat else pt.general_planes))
         rng = np.random.default_rng(seed)
         diag = float((scene.root_hi - scene.root_lo).norm())
         frac = torch.from_numpy(rng.uniform(0.05, 0.6, tuple(tm.shape))
                                 .astype(np.float32)).cuda()
         tm = torch.where(tm >= 0, frac * diag, tm)
-        kern = pt.walk_shadow_g(o, d, tm, rows, nodes)
+        if fat:
+            signs = pt.packet_signs(d)
+            call = lambda: pt.fat_shadow_g(o, d, tm, signs, rows, nodes)
+            plain_fn = lambda work: ref.fat_shadow_g_plain(
+                o, d, tm, signs, rows, nodes, work)
+            ins = (*o, *d, tm, signs)
+        else:
+            call = lambda: pt.walk_shadow_g(o, d, tm, rows, nodes)
+            plain_fn = lambda work: ref.walk_shadow_g_plain(o, d, tm, rows,
+                                                            nodes, work)
+            ins = (*o, *d, tm)
+        kern = call()
         live = tm >= 0
         share = float(kern[live].mean())
         if 0.02 < share < 0.98:
@@ -1140,75 +1314,105 @@ def check_walk_seeded_shadows(name, scene, n_packets):
         fail(f"{name}: no seeded shadow wavefront blocks 0.02-0.98 of its "
              "rays")
     work = {}
-    plain, plain_ms = timed_plain(lambda: walk_shadow_g_plain(
-        o, d, tm, rows, nodes, work))
+    plain, plain_ms = timed_plain(lambda: plain_fn(work))
     n_diff = int((kern != plain).sum())
-    print(f"check {name} seeded {seed} walk_shadow_g: {n_diff} verdicts "
-          f"differ, blocked share {share} of {int(live.sum())} live rays",
+    print(f"check {name} seeded {seed} {k}: {n_diff} verdicts differ, "
+          f"blocked share {share} of {int(live.sum())} live rays",
           flush=True)
     if n_diff or bool(kern[~live].any()):
-        fail(f"{name} walk_shadow_g: {n_diff} verdicts differ")
-    ms = cuda_ms(lambda: pt.walk_shadow_g(o, d, tm, rows, nodes),
-                 KERNEL_REPS)
-    ops, tree_bytes = walk_work("walk_shadow_g", nodes, rows, work)
-    return entry(0.0, ms, plain_ms, nbytes(*o, *d, tm, kern) + tree_bytes,
-                 ops)
+        fail(f"{name} {k}: {n_diff} verdicts differ")
+    ms = cuda_ms(call, KERNEL_REPS)
+    ops, tree_bytes = walk_work(k, nodes, rows, work)
+    return entry(0.0, ms, plain_ms, nbytes(*ins, kern) + tree_bytes, ops)
 
 
-def run_walk_frame(name, path, opts, need, walk, scene, cam, small, card):
-    """Phase 6, one walk path through render_frame on the walk scene (see
-    run_path; walk kernels only), and its 1024 x 1024 frame against the
-    worklist frame of ``scene``, the same scene with leaf tables: within
-    2e-3 on >= 99.8 % of pixels. Returns the launch counts."""
-    from snail_tpu_torch.render.renderer import render_frame
-
-    launches = run_path(name, path, need,
-                        lambda s, c, w, h: render_frame(s, c, w, h, opts),
-                        walk, cam, small, card,
-                        WIDTH * HEIGHT * (1 + len(walk.lights)), only=WALK)
-    a = render_frame(walk, cam, WIDTH, HEIGHT, opts)
-    b = render_frame(scene, cam, WIDTH, HEIGHT, opts)
+def against_frame(name, path, a, b):
+    """A frame ``a`` against ``b``, the same geometry's frame on worklist
+    leaf tables: within 2e-3 on >= 99.8 % of pixels."""
     err = (a - b).abs().amax(-1)
     off = float((err > 2e-3).float().mean())
     print(f"frame {name} {path}: against the worklist frame, share of "
           f"pixels off by > 2e-3: {off} (max {float(err.max())})",
           flush=True)
     if off > 2e-3:
-        fail(f"{name} {path}: the walk frame differs from the worklist frame "
-             f"on {off} of pixels")
+        fail(f"{name} {path}: the frame differs from the worklist frame on "
+             f"{off} of pixels")
+
+
+def only_kernels(scene):
+    """The kernels a node-table scene's frames may launch."""
+    from snail_tpu_torch.ops import traverse as pt
+
+    return FAT if pt.is_fat(scene) else WALK
+
+
+def run_walk_frame(name, path, opts, need, walk, scene, cam, small, card):
+    """Phase 6 (7), one walk (fat-leaf) path through render_frame on the
+    node-table scene ``walk`` (see run_path; its own kernels only), and its
+    1024 x 1024 frame against the worklist frame of ``scene``, the same
+    geometry with leaf tables. Returns the launch counts."""
+    from snail_tpu_torch.render.renderer import render_frame
+
+    launches = run_path(name, path, need,
+                        lambda s, c, w, h: render_frame(s, c, w, h, opts),
+                        walk, cam, small, card,
+                        WIDTH * HEIGHT * (1 + len(walk.lights)),
+                        only=only_kernels(walk))
+    against_frame(name, path, render_frame(walk, cam, WIDTH, HEIGHT, opts),
+                  render_frame(scene, cam, WIDTH, HEIGHT, opts))
     return launches
 
 
-def run_walk_instanced(name, kind, walk, small, card):
-    """Phase 6, the instanced fwd frame on a grid of instances of the walk
-    scene (B9c + B9d through the dispatch seam), as run_instanced's.
-    Returns the launch counts."""
+def run_walk_instanced(name, kind, walk, small, card, against=None):
+    """Phase 6 (7), the instanced fwd frame on a grid of instances of the
+    walk (fat-leaf) scene (B9c + B9d, or B11b + B11d, through the dispatch
+    seam), as run_instanced's; with ``against``, a base scene of the same
+    geometry with leaf tables, against its instanced frame. Returns the
+    launch counts."""
     from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
     from snail_tpu_torch.scene.bench_scenes import instanced_grid
     from snail_tpu_torch.scene.instancing import render_instanced
 
     grid, _ = INSTANCE_GRID[kind]
     isc, icam = instanced_grid(kind, walk, grid)
     opts = RenderOpts(reflections=False, transparency=False, textures=False)
-    return run_path(
-        f"{name} x{grid * grid}", "walk instanced fwd", WALK_INSTANCED,
+    fat = pt.is_fat(walk)
+    iname = f"{name} x{grid * grid}"
+    path = f"{'fat' if fat else 'walk'} instanced fwd"
+    launches = run_path(
+        iname, path, FAT_INSTANCED if fat else WALK_INSTANCED,
         lambda s, c, w, h: render_instanced(s, c, w, h, opts), isc, icam,
         instanced_grid(kind, small[0], grid), card,
-        WIDTH * HEIGHT * (1 + len(isc.lights)), INSTANCED_FRAMES, only=WALK)
+        WIDTH * HEIGHT * (1 + len(isc.lights)), INSTANCED_FRAMES,
+        only=only_kernels(walk))
+    if against is not None:
+        wl, _ = instanced_grid(kind, against, grid)
+        against_frame(iname, path,
+                      render_instanced(isc, icam, WIDTH, HEIGHT, opts),
+                      render_instanced(wl, icam, WIDTH, HEIGHT, opts))
+    return launches
 
 
-def run_portable(name, path, opts, tables, scene, cam, small, card):
-    """Phase 6, the portable path: render_frame at PORTABLE_SIZE, which is
-    not a multiple of the tile, through the integrator and the dispatch
+def run_portable(name, path, opts, tables, scene, cam, small, card,
+                 against=None):
+    """Phase 6 (7), the portable path: render_frame at PORTABLE_SIZE, which
+    is not a multiple of the tile, through the integrator and the dispatch
     seam to the kernels of the scene's ``tables``, against the CPU path at
-    PORTABLE_SMALL (see run_path). Returns the launch counts."""
+    PORTABLE_SMALL (see run_path); with ``against`` (the same geometry
+    with leaf tables), against its frame. Returns the launch counts."""
     from snail_tpu_torch.render.renderer import render_frame
 
     w, h = PORTABLE_SIZE
-    return run_path(name, path, PORTABLE[tables],
-                    lambda s, c, w, h: render_frame(s, c, w, h, opts),
-                    scene, cam, small, card, w * h * (1 + len(scene.lights)),
-                    PORTABLE_FRAMES, PORTABLE_SIZE, PORTABLE_SMALL)
+    launches = run_path(name, path, PORTABLE[tables],
+                        lambda s, c, w, h: render_frame(s, c, w, h, opts),
+                        scene, cam, small, card,
+                        w * h * (1 + len(scene.lights)), PORTABLE_FRAMES,
+                        PORTABLE_SIZE, PORTABLE_SMALL)
+    if against is not None:
+        against_frame(name, path, render_frame(scene, cam, w, h, opts),
+                      render_frame(against, cam, w, h, opts))
+    return launches
 
 
 def portable_step(scene, cam, target, width, height):
@@ -1290,6 +1494,75 @@ def run_portable_step(name, scene, cam, small, card):
     return launches
 
 
+def kernel_lines(name, checks, launches):
+    """The ``kernels`` line's entries of one scene's checks."""
+    source = lambda k: (FAT_SRC if k in FAT else WALK_SRC if k in WALK
+                        else SRC)
+    return [{"name": f"{k}/{name}", "route": "cuda", "source": source(k),
+             "replaces": REPLACES[k], "launches": launches[PATH_OF[k]][k],
+             "path": PATH_OF[k],
+             "launches_by_path": {p: n[k] for p, n in launches.items()},
+             **e, "library_ms": None} for k, e in checks.items()]
+
+
+def fat_scene(kind, n):
+    """A benchmark scene of ``kind`` at size ``n`` built at leaf LEAF_PAD:
+    node tables for the fat-leaf kernels. (scene, camera, geometry, BVH)."""
+    from snail_tpu_torch.ops.traverse import LEAF_PAD
+    from snail_tpu_torch.scene.bench_scenes import bench_scene
+
+    t0 = time.perf_counter()
+    scene, cam, g, bvh = bench_scene(kind, n, bounce=True, leaf=LEAF_PAD)
+    nodes = scene.nodes
+    print(f"scene {kind}_{n} leaf {LEAF_PAD}: {g.num_tris} tris, "
+          f"{nodes.n_nodes} nodes, depth {nodes.depth}, leaf_max "
+          f"{nodes.leaf_max}, host build {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return scene, cam, g, bvh
+
+
+def run_fat(kind, wl, card):
+    """Phase 7 on ``kind``'s fat-leaf scene (FAT_N, leaf LEAF_PAD): B11a-d
+    against their plain versions over whole wavefronts, then the fat fwd,
+    bounce, fwd_bwd, instanced fwd and portable fwd frames, each with its
+    launches, against the CPU path at small size and against the same
+    geometry's frame on leaf tables (``wl``, built here when None), and
+    timed. Returns (name, {kernel: entry}, {path: launch counts})."""
+    from snail_tpu_torch.core.types import Light, RenderOpts
+    from snail_tpu_torch.scene.bench_scenes import SCENES, bench_scene
+
+    n = FAT_N[kind]
+    name = f"{kind}_{n}_leaf64"
+    fat, cam, _, _ = fat_scene(kind, n)
+    if wl is None:
+        t0 = time.perf_counter()
+        wl = bench_scene(kind, n, bounce=True)[0]
+        print(f"scene {kind}_{n}: {wl.leaves.n_leaf} leaves (leaf "
+              f"{SCENES[kind][1]}), host build "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    small = ((fat, cam) if FAT_SMALL_N[kind] == n
+             else fat_scene(kind, FAT_SMALL_N[kind])[:2])
+    if kind in LOW_LIGHT:
+        small = (dataclasses.replace(small[0], lights=Light.make(
+            LOW_LIGHT[kind], (1.0, 1.0, 1.0), SCENES[kind][3])), small[1])
+    checks = check_walk_kernels(name, kind, fat, cam)
+    fwd = RenderOpts(reflections=False, transparency=False, textures=False)
+    launches = {
+        "fat_fwd": run_walk_frame(name, "fat fwd", fwd, FAT_FWD, fat, wl,
+                                  cam, small, card),
+        "fat_bounce": run_walk_frame(name, "fat bounce",
+                                     RenderOpts(textures=False), FAT_BOUNCE,
+                                     fat, wl, cam, small, card),
+        "fat_fwd_bwd": run_step(name, fat, cam, small, card, "fat fwd_bwd",
+                                FAT_BOUNCE, wl),
+        "fat_instanced_fwd": run_walk_instanced(name, kind, fat, small, card,
+                                                wl),
+        "fat_portable_fwd": run_portable(name, "fat portable fwd", fwd,
+                                         "fat", fat, cam, small, card, wl),
+    }
+    return name, checks, launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1367,6 +1640,7 @@ def main() -> None:
             walk, scene, cam, wsmall, card)
         launches["walk_instanced_fwd"] = run_walk_instanced(name, kind, walk,
                                                             wsmall, card)
+        launches["walk_stats"] = run_stats(name, fwd, walk, cam, wsmall, card)
         stamp(f"{name} walk frames")
         for path, opts in (("portable_fwd", fwd),
                            ("portable_bounce", RenderOpts(textures=False))):
@@ -1380,14 +1654,11 @@ def main() -> None:
             launches["portable_fwd_bwd"] = run_portable_step(
                 name, scene, cam, small, card)
         stamp(f"{name} portable frames")
-        for k, e in checks.items():
-            kernels.append({
-                "name": f"{k}/{name}", "route": "cuda",
-                "source": WALK_SRC if k in WALK else SRC,
-                "replaces": REPLACES[k], "launches": launches[PATH_OF[k]][k],
-                "path": PATH_OF[k],
-                "launches_by_path": {p: n[k] for p, n in launches.items()},
-                **e, "library_ms": None})
+        kernels += kernel_lines(name, checks, launches)
+        fat_name, checks, launches = run_fat(
+            kind, scene if FAT_N[kind] == n else None, card)
+        kernels += kernel_lines(fat_name, checks, launches)
+        stamp(f"{fat_name} fat-leaf phase")
         del scene, small, sscene, walk, wsmall
         torch.cuda.empty_cache()
 

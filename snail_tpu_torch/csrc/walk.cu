@@ -3,30 +3,31 @@
 // tables.
 //
 // Replaces, in snail_tpu/ops/traverse_pallas.py:
-//   walk_camera_kernel    <- _camera_ival_kernel      (B9a)
-//                            _camera_ival_kernel_paged (B10a)
-//   walk_shadow_kernel    <- _shadow_ival_kernel      (B9b)
-//                            _shadow_ival_kernel_paged (B10b)
-//   walk_closest_g_kernel <- _closest_ival_kernel_g   (B9c)
-//                            _closest_ival_kernel_g_paged (B10c)
-//   walk_shadow_g_kernel  <- _shadow_ival_kernel_g    (B9d)
-//                            _shadow_ival_kernel_g_paged (B10d)
+//   walk_camera_kernel<false> <- _camera_ival_kernel       (B9a)
+//                                _camera_ival_kernel_paged (B10a)
+//   walk_shadow_kernel<false> <- _shadow_ival_kernel       (B9b)
+//                                _shadow_ival_kernel_paged (B10b)
+//   walk_closest_g_kernel     <- _closest_ival_kernel_g    (B9c)
+//                                _closest_ival_kernel_g_paged (B10c)
+//   walk_shadow_g_kernel      <- _shadow_ival_kernel_g     (B9d)
+//                                _shadow_ival_kernel_g_paged (B10d)
+//   walk_camera_kernel<true>  <- _camera_ival_kernel_stats (B9e)
+//   walk_shadow_kernel<true>  <- _shadow_ival_kernel_stats (B9f)
 // The plain PyTorch versions are in snail_tpu_torch/ops/traverse_ref.py,
 // the node layout in snail_tpu_torch/ops/traverse.py (NodeTables). Plain C
 // interface at the bottom, loaded with ctypes, compiled with --fmad=false.
 //
-// Design: the reference's packet walk at warp size. One warp walks the tree
-// for its 32 rays with warp-uniform control flow: it pops a node, each
-// lane slab-tests the node against its own ray and current bound, and the
-// warp descends if __any_sync says some lane enters it, near child first
-// by the warp's direction signs (the sign of the midpoint of its live
-// lanes' inverse directions, as _ival_bounds takes the packet's), the far
-// child on a stack in shared memory of depth + 2 entries per warp (the
-// host sizes it from the tree; a walk holds at most one far child per
-// level). At a leaf, the lanes that enter it test its triangles with the
-// device functions of the worklist kernels (rays.cuh): shared-origin rows
-// for B9a/B9b, raw rows for B9c/B9d. Any-hit warps stop once every live
-// lane is blocked (_shadow_ival_drain's exit, :1698).
+// Design: the reference's packet walk at warp size (walk.cuh), near child
+// first by the warp's direction signs (the sign of the midpoint of its live
+// lanes' inverse directions, as _ival_bounds takes the packet's). At a
+// leaf, the lanes that enter it test its triangles with the device
+// functions of the worklist kernels (rays.cuh): shared-origin rows for
+// B9a/B9b, raw rows for B9c/B9d. Any-hit warps stop once every live lane is
+// blocked (_shadow_ival_drain's exit, :1698). B9e/B9f are B9a/B9b with
+// STATS: the walk counts what each warp did (walk.cuh WalkCounts) and lane
+// 0 adds it to the packet's (P, 8) int32 row with integer atomics, so the
+// counts do not depend on the order the warps run in; with STATS false the
+// counting compiles away.
 //
 // What the TPU kernels needed and these do not: the node tables staged in
 // SMEM once per launch (_stage_tables), capped at SMEM_NODE_CAP nodes and
@@ -43,89 +44,18 @@
 // by load latency and by divergence in the leaf tests, not by device
 // memory or float rate; the card hides the latency with many warps (8 per
 // block, blocks limited by registers). The shared-memory stack costs a few
-// hundred bytes per warp.
+// hundred bytes per warp; the counters five registers and five atomics per
+// warp.
 
-#include "rays.cuh"
+#include "walk.cuh"
 
 namespace {
 
-constexpr int kWalkThreads = 256;
-constexpr int kWalkWarps = kWalkThreads / 32;
-
-// One 32-byte node row: lo.xyz, hi.x | hi.yz, child, meta, where child
-// (the left child, or a leaf's first triangle) and meta = count | axis << 16
-// | first_node << 18 are int32 bits.
-struct Node {
-  float lo[3], hi[3];
-  int child, count, axis, first;
-};
-
-__device__ __forceinline__ Node load_node(const float4* nodes, int n) {
-  const float4 a = __ldg(nodes + 2 * n), b = __ldg(nodes + 2 * n + 1);
-  const int meta = __float_as_int(b.w);
-  return Node{{a.x, a.y, a.z},   {a.w, b.x, b.y}, __float_as_int(b.z),
-              meta & 0xffff,     (meta >> 16) & 3, (meta >> 18) & 1};
-}
-
-// The warp's near-child signs: 1 on an axis whose inverse directions, over
-// its live lanes, have a negative midpoint.
-struct Signs {
-  int s[3];
-};
-
-__device__ __forceinline__ Signs warp_signs(const float idir[3], bool live) {
-  Signs w;
-  for (int k = 0; k < 3; ++k)
-    w.s[k] = warp_min(live ? idir[k] : kBig) +
-                     warp_max(live ? idir[k] : -kBig) <
-             0.0f;
-  return w;
-}
-
-// The walk of one warp. ``bound()`` is this lane's distance limit for a
-// node test (its best, or its shadow limit; <= 0 once it needs nothing);
-// ``leaf(enter, first, count)`` runs at every leaf some lane enters (enter:
-// this lane does) and returns true to end the warp's walk. ``stack``: the
-// warp's stack_cap ints of shared memory, written by lane 0.
-template <typename BoundFn, typename LeafFn>
-__device__ __forceinline__ void walk(const float4* nodes, int* stack,
-                                     const float o[3], const float idir[3],
-                                     const Signs& sg, BoundFn bound,
-                                     LeafFn leaf) {
-  const int lane = threadIdx.x & 31;
-  int sp = 0, node = 0;
-  for (;;) {
-    const Node nd = load_node(nodes, node);
-    float tf;
-    bool enter;
-    const float tn = slab_entry(nd.lo, nd.hi, o, idir, tf, enter);
-    enter = enter && tn < bound();
-    if (__any_sync(kFull, enter)) {
-      if (nd.count > 0) {
-        if (leaf(enter, nd.child, nd.count)) return;
-      } else {
-        const int s = nd.axis == 0 ? sg.s[0] : nd.axis == 1 ? sg.s[1] : sg.s[2];
-        const int bit = nd.first ^ s;
-        if (lane == 0) stack[sp] = nd.child + 1 - bit;  // far
-        ++sp;
-        node = nd.child + bit;  // near
-        continue;
-      }
-    }
-    if (sp == 0) return;
-    __syncwarp();  // lane 0's pushes are visible to every lane
-    node = stack[--sp];
-  }
-}
-
-__device__ __forceinline__ int* warp_stack(int stack_cap) {
-  extern __shared__ int s_stack[];
-  return s_stack + (threadIdx.x >> 5) * stack_cap;
-}
-
 // B9a / B10a: camera raygen + closest hit on the shared-origin rows. A
 // ray's bound starts at its root-box exit (0 when it misses the box);
-// outputs as camera_wl_kernel's: a miss has dist BIG and tri -1.
+// outputs as camera_wl_kernel's: a miss has dist BIG and tri -1. B9e with
+// STATS, counting into ``stats`` (P, 8).
+template <bool STATS>
 __global__ void __launch_bounds__(kWalkThreads)
 walk_camera_kernel(const float* __restrict__ cam,
                    const float* __restrict__ rows,
@@ -133,20 +63,26 @@ walk_camera_kernel(const float* __restrict__ cam,
                    float* __restrict__ out_dist, float* __restrict__ out_u,
                    float* __restrict__ out_v, int32_t* __restrict__ out_tri,
                    float* __restrict__ out_dx, float* __restrict__ out_dy,
-                   float* __restrict__ out_dz) {
+                   float* __restrict__ out_dz, int32_t* __restrict__ stats) {
   const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int pid = (int)(g / kPacketR), k = (int)(g % kPacketR);
   const PrimaryRay r = camera_ray(cam, pid, k);
   const float o[3] = {cam[9], cam[10], cam[11]};
   float best = r.t_exit, bu = 0.0f, bv = 0.0f;
   int tri = -1;
-  walk(nodes, warp_stack(stack_cap), o, r.idir, warp_signs(r.idir, best > 0.0f),
-       [&] { return best; },
-       [&](bool enter, int first, int count) {
-         if (enter) leaf_closest<false>(rows, first, count, o, r.d, best, tri,
-                                        bu, bv);
-         return false;
-       });
+  WalkCounts wc;
+  walk<STATS>(nodes, warp_stack(stack_cap), o, r.idir,
+              warp_signs(r.idir, best > 0.0f), [&] { return best; },
+              [&](bool enter, int first, int count, int& tested) {
+                if (enter) {
+                  leaf_closest<false>(rows, first, count, o, r.d, best, tri,
+                                      bu, bv);
+                  tested = count;
+                }
+                return false;
+              },
+              wc);
+  if constexpr (STATS) wc.add_to(stats + 8 * pid);
   out_dist[g] = tri >= 0 ? best : kBig;
   out_u[g] = bu;
   out_v[g] = bv;
@@ -157,14 +93,16 @@ walk_camera_kernel(const float* __restrict__ cam,
 }
 
 // B9b / B10b: any-hit from a shared origin on the shared-origin rows;
-// blocked as 1.0f, a masked ray (tmax < 0) never blocked.
+// blocked as 1.0f, a masked ray (tmax < 0) never blocked. B9f with STATS.
+template <bool STATS>
 __global__ void __launch_bounds__(kWalkThreads)
 walk_shadow_kernel(const float* __restrict__ orig,
                    const float* __restrict__ dx, const float* __restrict__ dy,
                    const float* __restrict__ dz, const float* __restrict__ tm,
                    const float* __restrict__ rows,
                    const float4* __restrict__ nodes, int stack_cap,
-                   float* __restrict__ out_blocked) {
+                   float* __restrict__ out_blocked,
+                   int32_t* __restrict__ stats) {
   const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const float o[3] = {orig[0], orig[1], orig[2]};
   const float d[3] = {dx[g], dy[g], dz[g]};
@@ -172,15 +110,18 @@ walk_shadow_kernel(const float* __restrict__ orig,
                          1.0f / (d[2] + kInvEps)};
   const float limit = tm[g] >= 0.0f ? tm[g] : -kBig;
   bool blocked = false;
-  walk(nodes, warp_stack(stack_cap), o, idir, warp_signs(idir, limit > 0.0f),
-       [&] { return blocked ? -kBig : limit; },
-       [&](bool enter, int first, int count) {
-         int tested = 0;
-         if (enter)
-           blocked = leaf_blocks<false>(rows, first, count, o, d, limit,
-                                        tested);
-         return __all_sync(kFull, blocked || !(limit > 0.0f));
-       });
+  WalkCounts wc;
+  walk<STATS>(nodes, warp_stack(stack_cap), o, idir,
+              warp_signs(idir, limit > 0.0f),
+              [&] { return blocked ? -kBig : limit; },
+              [&](bool enter, int first, int count, int& tested) {
+                if (enter)
+                  blocked = leaf_blocks<false>(rows, first, count, o, d,
+                                               limit, tested);
+                return __all_sync(kFull, blocked || !(limit > 0.0f));
+              },
+              wc);
+  if constexpr (STATS) wc.add_to(stats + 8 * (int)(g / kPacketR));
   out_blocked[g] = blocked ? 1.0f : 0.0f;
 }
 
@@ -209,13 +150,16 @@ walk_closest_g_kernel(const float* __restrict__ ox,
   const bool active = tm[g] >= 0.0f;
   float best = active ? fminf(tm[g], kBig) : -kBig, bu = 0.0f, bv = 0.0f;
   int tri = -1;
-  walk(nodes, warp_stack(stack_cap), o, idir, warp_signs(idir, best > 0.0f),
-       [&] { return best; },
-       [&](bool enter, int first, int count) {
-         if (enter) leaf_closest<true>(rows, first, count, o, d, best, tri,
-                                       bu, bv);
-         return false;
-       });
+  WalkCounts wc;
+  walk<false>(nodes, warp_stack(stack_cap), o, idir,
+              warp_signs(idir, best > 0.0f), [&] { return best; },
+              [&](bool enter, int first, int count, int&) {
+                if (enter)
+                  leaf_closest<true>(rows, first, count, o, d, best, tri, bu,
+                                     bv);
+                return false;
+              },
+              wc);
   out_dist[g] = tri >= 0 ? best : (active ? kBig : -kBig);
   out_u[g] = bu;
   out_v[g] = bv;
@@ -241,59 +185,53 @@ walk_shadow_g_kernel(const float* __restrict__ ox,
                          1.0f / (d[2] + kInvEps)};
   const float limit = tm[g] >= 0.0f ? tm[g] : -kBig;
   bool blocked = false;
-  walk(nodes, warp_stack(stack_cap), o, idir, warp_signs(idir, limit > 0.0f),
-       [&] { return blocked ? -kBig : limit; },
-       [&](bool enter, int first, int count) {
-         int tested = 0;
-         if (enter)
-           blocked = leaf_blocks<true>(rows, first, count, o, d, limit,
-                                       tested);
-         return __all_sync(kFull, blocked || !(limit > 0.0f));
-       });
+  WalkCounts wc;
+  walk<false>(nodes, warp_stack(stack_cap), o, idir,
+              warp_signs(idir, limit > 0.0f),
+              [&] { return blocked ? -kBig : limit; },
+              [&](bool enter, int first, int count, int& tested) {
+                if (enter)
+                  blocked = leaf_blocks<true>(rows, first, count, o, d, limit,
+                                              tested);
+                return __all_sync(kFull, blocked || !(limit > 0.0f));
+              },
+              wc);
   out_blocked[g] = blocked ? 1.0f : 0.0f;
-}
-
-// Launch geometry: one thread per ray, kWalkThreads per block; the rays
-// are whole packets. Returns cudaErrorInvalidValue for arguments the
-// kernels do not take.
-bool walk_args_ok(int n_nodes, int stack_cap, int n_packets) {
-  return n_nodes > 0 && stack_cap >= 2 && n_packets > 0 &&
-         kWalkWarps * stack_cap * (int)sizeof(int) <= 48 * 1024;
-}
-
-int walk_blocks(int n_packets) { return n_packets * (kPacketR / kWalkThreads); }
-
-size_t walk_smem(int stack_cap) {
-  return (size_t)kWalkWarps * stack_cap * sizeof(int);
 }
 
 }  // namespace
 
 extern "C" {
 
+// ``stats``: null for B9a, a zeroed (P, 8) int32 row per packet for B9e.
 int snail_walk_camera(const float* cam, const float* rows, const float* nodes,
                       int n_nodes, int stack_cap, int n_packets, float* dist,
                       float* u, float* v, int32_t* tri, float* dx, float* dy,
-                      float* dz, void* stream) {
+                      float* dz, int32_t* stats, void* stream) {
   if (!walk_args_ok(n_nodes, stack_cap, n_packets))
     return (int)cudaErrorInvalidValue;
-  walk_camera_kernel<<<walk_blocks(n_packets), kWalkThreads,
-                       walk_smem(stack_cap), (cudaStream_t)stream>>>(
-      cam, rows, reinterpret_cast<const float4*>(nodes), stack_cap, dist, u,
-      v, tri, dx, dy, dz);
+  auto kernel = stats ? walk_camera_kernel<true> : walk_camera_kernel<false>;
+  kernel<<<walk_blocks(n_packets), kWalkThreads, walk_smem(stack_cap),
+           (cudaStream_t)stream>>>(cam, rows,
+                                   reinterpret_cast<const float4*>(nodes),
+                                   stack_cap, dist, u, v, tri, dx, dy, dz,
+                                   stats);
   return (int)cudaGetLastError();
 }
 
+// ``stats``: null for B9b, a zeroed (P, 8) int32 row per packet for B9f.
 int snail_walk_shadow(const float* orig, const float* dx, const float* dy,
                       const float* dz, const float* tm, const float* rows,
                       const float* nodes, int n_nodes, int stack_cap,
-                      int n_packets, float* blocked, void* stream) {
+                      int n_packets, float* blocked, int32_t* stats,
+                      void* stream) {
   if (!walk_args_ok(n_nodes, stack_cap, n_packets))
     return (int)cudaErrorInvalidValue;
-  walk_shadow_kernel<<<walk_blocks(n_packets), kWalkThreads,
-                       walk_smem(stack_cap), (cudaStream_t)stream>>>(
-      orig, dx, dy, dz, tm, rows, reinterpret_cast<const float4*>(nodes),
-      stack_cap, blocked);
+  auto kernel = stats ? walk_shadow_kernel<true> : walk_shadow_kernel<false>;
+  kernel<<<walk_blocks(n_packets), kWalkThreads, walk_smem(stack_cap),
+           (cudaStream_t)stream>>>(orig, dx, dy, dz, tm, rows,
+                                   reinterpret_cast<const float4*>(nodes),
+                                   stack_cap, blocked, stats);
   return (int)cudaGetLastError();
 }
 

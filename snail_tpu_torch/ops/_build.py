@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels of ``snail_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``. The build goes
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+source, all started together, and linked into a shared library with a
+plain C interface, loaded with ``ctypes``. The build goes
 to ``snail_tpu_torch/build/`` (listed in ``.gitignore``) at first use, named
 by a hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing is built when the package is
@@ -23,13 +24,14 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("worklist.cu", "walk.cu")
-HEADERS = ("rays.cuh",)  # included by the sources; part of the build's hash
+SOURCES = ("worklist.cu", "walk.cu", "fat.cu")
+# included by the sources; part of the build's hash
+HEADERS = ("rays.cuh", "walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # products and sums rounded one by one, as in the plain versions
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,10 +45,14 @@ _SIGNATURES = {
     "snail_words_general": [_P] * 8 + [_I] * 4 + [_P] * 4,
     "snail_closest_wl_g": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 5,
     "snail_shadow_wl_g": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 2,
-    "snail_walk_camera": [_P] * 3 + [_I] * 3 + [_P] * 8,
-    "snail_walk_shadow": [_P] * 7 + [_I] * 3 + [_P] * 2,
+    "snail_walk_camera": [_P] * 3 + [_I] * 3 + [_P] * 9,
+    "snail_walk_shadow": [_P] * 7 + [_I] * 3 + [_P] * 3,
     "snail_walk_closest_g": [_P] * 9 + [_I] * 3 + [_P] * 5,
     "snail_walk_shadow_g": [_P] * 9 + [_I] * 3 + [_P] * 2,
+    "snail_fat_camera": [_P] * 4 + [_I] * 3 + [_P] * 8,
+    "snail_fat_closest": [_P] * 10 + [_I] * 3 + [_P] * 5,
+    "snail_fat_shadow": [_P] * 8 + [_I] * 3 + [_P] * 2,
+    "snail_fat_shadow_g": [_P] * 10 + [_I] * 3 + [_P] * 2,
 }
 
 
@@ -72,28 +78,39 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the kernels if their library is missing. Returns (path,
-    seconds spent compiling). The compiler output, with ptxas's register
-    and shared-memory report, is kept beside the library as ``.log``."""
+    """Compile the kernels if their library is missing: every source at
+    once, each by its own ``nvcc``, then one link. Returns (path, seconds
+    spent compiling). The compiler output, with ptxas's register and
+    shared-memory report, is kept beside the library as ``.log``."""
     out = library_path()
     log = out.with_suffix(".log")
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(CSRC / name) for name in SOURCES]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    text = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{text}")
-    log.write_text(text)
-    os.replace(tmp, out)
-    return out, secs
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{name}.o" for name in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(SOURCES, objs)]
+        texts = [f"== {name}\n{proc.communicate()[0]}"
+                 for name, proc in zip(SOURCES, procs)]
+        failed = [proc.returncode for proc in procs if proc.returncode]
+        if not failed:
+            so = Path(tmp) / "lib.so"
+            res = subprocess.run([nvcc, "-shared", "-o", str(so),
+                                  *map(str, objs)],
+                                 capture_output=True, text=True)
+            texts.append(f"== link\n{res.stdout}{res.stderr}")
+            failed = [res.returncode] if res.returncode else []
+        text = "".join(texts)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{text}")
+        log.write_text(text)
+        os.replace(so, out)
+    return out, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)

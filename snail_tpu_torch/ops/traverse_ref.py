@@ -1,6 +1,8 @@
 """Plain BVH walk (``snail_tpu.ops.traverse_ref``): a lockstep per-ray
 stack walk over the node tree on tensors, and the plain versions of the
-walk kernels B9a-d (``csrc/walk.cu``) built on it.
+walk kernels B9a-d (``csrc/walk.cu``) and of the fat-leaf kernels B11a-d
+(``csrc/fat.cu``) built on it; and a simulation of every warp's walk, the
+plain versions of the counting walk kernels B9e/B9f.
 
 Each ray keeps its own stack of ``NodeTables.stack_cap`` = depth + 2
 entries, sized from the tree (the JAX oracle clamps at 66 entries,
@@ -8,15 +10,17 @@ ROADMAP C2; a push past the cap raises here). Every step pops one node
 per live ray, slab-tests it against the ray's current bound (its best, or
 its shadow limit), tests the triangles of an entered leaf, and at an
 entered inner node pushes the far child and goes on with the near one.
-Near is decided as the kernels decide it: by the near-child sign of the
-ray's warp (32 consecutive rays), the sign of the midpoint of its live
-rays' inverse directions, so that a ray meets its leaves in the kernel's
-order and closest-hit ties resolve alike. The intersection arithmetic is
-each kernel's, operation for operation: shared-origin rows
-(``traverse.shared_rows``) for B9a/B9b, the full Moller test on raw rows
-for B9c/B9d (as ``traverse._moller_sh`` / ``_moller_g``); the closest-hit
-rule is two-sided and keeps the first strictly nearer hit, the any-hit
-rule one-sided, and a blocked ray stops.
+Near is decided as the kernels decide it: for B9, by the near-child sign
+of the ray's warp (32 consecutive rays), the sign of the midpoint of its
+live rays' inverse directions; for B11, by the signs of its packet's ray
+0 (``traverse.camera_signs`` / ``packet_signs``), so that a ray meets its
+leaves in the kernel's order and closest-hit ties resolve alike. The
+intersection arithmetic is each kernel's, operation for operation:
+shared-origin rows (``traverse.shared_rows``) for B9a/B9b, the full
+Moller test on raw rows for B9c/B9d and B11a-d (as
+``traverse._moller_sh`` / ``_moller_g``); the closest-hit rule is
+two-sided and keeps the first strictly nearer hit, the any-hit rule
+one-sided, and a blocked ray stops.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from ..core.vecmath import BIG, INV_EPS
-from .traverse import WARP, NodeTables, _camera_rays, _slab
+from .traverse import (PACKET_R, WARP, WARPS, NodeTables, _camera_rays,
+                       _slab, _stats_row)
 
 LEAF_RAYS = 65536  # rays per step of the leaf tests
 
@@ -43,7 +48,8 @@ def _warp_signs(idir, live):
 def _terms(rows, o, d, raw: bool):
     """Moller terms (det, u, v, tmul), (n, J) each, of rays ``d`` (three
     (n,)) against their own triangle rows ``rows`` (n, J, 16): shared-
-    origin rows, or raw rows with the rays' origins ``o`` (three (n,))."""
+    origin rows, or raw rows with the rays' origins ``o`` (three (n,), or
+    three 0-d: one origin)."""
     col = lambda j: rows[:, :, j]
     dx, dy, dz = (c[:, None] for c in d)
     if not raw:
@@ -55,7 +61,9 @@ def _terms(rows, o, d, raw: bool):
     bax, bay, baz = col(3), col(4), col(5)
     cax, cay, caz = col(6), col(7), col(8)
     nx, ny, nz = col(9), col(10), col(11)
-    tvx, tvy, tvz = o[0][:, None] - ax, o[1][:, None] - ay, o[2][:, None] - az
+    # a shared origin (three 0-d tensors) broadcasts as it is
+    ox, oy, oz = (c if c.dim() == 0 else c[:, None] for c in o)
+    tvx, tvy, tvz = ox - ax, oy - ay, oz - az
     det = dx * nx + dy * ny + dz * nz
     tmul = -(tvx * nx + tvy * ny + tvz * nz)
     u = (dx * (tvy * caz - tvz * cay) + dy * (tvz * cax - tvx * caz)
@@ -65,11 +73,17 @@ def _terms(rows, o, d, raw: bool):
     return det, u, v, tmul
 
 
+def _ray_signs(signs, per: int):
+    """(R, 3) int64: per-packet (or per-warp) signs (n, 3) repeated over
+    the ``per`` rays of each."""
+    return signs.long().repeat_interleave(per, 0)
+
+
 class _Walk:
     """State of one lockstep walk (see :func:`walk_plain`)."""
 
     def __init__(self, nodes: NodeTables, o, d, bound0, rows, raw: bool,
-                 closest: bool, work):
+                 closest: bool, work, signs=None):
         dev = d[0].device
         r = d[0].shape[0]
         self.lo, self.hi, self.child, self.count, self.axis, self.first = (
@@ -79,7 +93,8 @@ class _Walk:
         self.raw, self.closest, self.work = raw, closest, work
         self.shared = o[0].dim() == 0
         self.idir = [1.0 / (c + INV_EPS) for c in d]
-        self.signs = _warp_signs(self.idir, bound0 > 0.0)
+        self.signs = (_warp_signs(self.idir, bound0 > 0.0) if signs is None
+                      else signs)
         self.stack = torch.zeros((r, self.cap), dtype=torch.int64, device=dev)
         self.sp = torch.zeros(r, dtype=torch.int64, device=dev)
         self.node = torch.zeros(r, dtype=torch.int64, device=dev)
@@ -139,8 +154,10 @@ class _Walk:
         return True
 
     def _leaves(self, li, first, cnt):
-        """The triangle tests of rays ``li`` in the leaves they entered."""
+        """The triangle tests of rays ``li`` in the leaves they entered.
+        Returns the triangles each ray tested (up to its blocker)."""
         j = torch.arange(int(cnt.max()), device=li.device)
+        tested = []
         for s in range(0, li.numel(), LEAF_RAYS):
             ri, f, c = (a[s:s + LEAF_RAYS] for a in (li, first, cnt))
             valid = j[None, :] < c[:, None]
@@ -149,8 +166,13 @@ class _Walk:
             det, u, v, tmul = _terms(self.rows[t], o, d, self.raw)
             if self.closest:
                 self._closest(ri, t, valid, det, u, v, tmul)
+                tested.append(c)
             else:
-                self._any(ri, c, valid, det, u, v, tmul)
+                tested.append(self._any(ri, c, valid, det, u, v, tmul))
+        tested = torch.cat(tested)
+        if self.work is not None:
+            self.work["tri"] += int(tested.sum())
+        return tested
 
     def _closest(self, ri, t, valid, det, u, v, tmul):
         duv = det - u - v
@@ -172,34 +194,33 @@ class _Walk:
         self.tri[ri] = torch.where(upd, pick(t), self.tri[ri])
         self.bu[ri] = torch.where(upd, pick(u * idet), self.bu[ri])
         self.bv[ri] = torch.where(upd, pick(v * idet), self.bv[ri])
-        if self.work is not None:
-            self.work["tri"] += int(valid.sum())
 
     def _any(self, ri, cnt, valid, det, u, v, tmul):
+        """Blocks rays ``ri``; returns the triangles each tested: a ray
+        stops at its first blocker."""
         lim = self.bound[ri][:, None]
         occ = ((torch.minimum(u, v) >= 0.0) & (u + v <= det) & (tmul > 0.0)
                & (tmul < lim * det) & valid)
         hit = occ.any(1)
         self.blocked[ri] |= hit
-        if self.work is not None:
-            # a ray stops at its first blocker
-            self.work["tri"] += int(torch.where(
-                hit, occ.int().argmax(1) + 1, cnt).sum())
+        return torch.where(hit, occ.int().argmax(1) + 1, cnt)
 
 
 def walk_plain(nodes: NodeTables, o, d, bound0, rows, raw: bool,
-               closest: bool, work=None):
+               closest: bool, work=None, signs=None):
     """The lockstep walk of rays from ``o`` (three 0-d tensors, one origin,
     or three (R,)) along ``d`` (three (R,), R a multiple of 32) with
     initial bounds ``bound0`` (R,): the closest hit's starting best, or
     the any-hit's limit (a ray with bound0 <= 0 finds nothing). ``rows``:
-    shared-origin rows, or with ``raw`` the raw rows. Returns, closest,
+    shared-origin rows, or with ``raw`` the raw rows. ``signs``: each
+    ray's near-child signs, (R, 3) int64, or None for its warp's (B9).
+    Returns, closest,
     (best, tri, u, v) with tri int64 -1 where nothing was hit, else
     blocked bool (R,). ``work``, a dict, gets what the walk needed:
     ``slab`` (node boxes the rays entered, summed over rays), ``tri``
     (ray-triangle tests in the leaves they entered, up to a blocker) and
     ``entered`` (bool per node: some ray entered it)."""
-    w = _Walk(nodes, o, d, bound0, rows, raw, closest, work)
+    w = _Walk(nodes, o, d, bound0, rows, raw, closest, work, signs)
     while w.step():
         pass
     if closest:
@@ -260,3 +281,174 @@ def walk_shadow_g_plain(o, d, tm, rows, nodes: NodeTables, work=None):
                          work)
     return blocked.float().reshape(tm.shape)
 
+
+# --- The fat-leaf kernels' plain versions (B11a-d): the walk with each
+# packet's ray-0 signs, on raw rows, leaves of up to LEAF_PAD triangles ---
+
+
+def fat_camera_plain(cam, width: int, height: int, signs, rows,
+                     nodes: NodeTables, pids: torch.Tensor, work=None):
+    """Plain B11a: closest hit of the primary rays of packets ``pids`` on
+    the raw ``rows``, near children by their packets' ``signs`` (P, 3),
+    each ray's best starting at BIG (no root-box clip). Returns (dist, u,
+    v, tri, dx, dy, dz), each (len(pids), PACKET_R): a miss has dist BIG,
+    tri 0."""
+    d, _, t_exit = _camera_rays(cam, width, height, pids)
+    flat = [c.reshape(-1) for c in d]
+    best, tri, u, v = walk_plain(
+        nodes, cam[9:12].unbind(), flat, torch.full_like(flat[0], BIG), rows,
+        True, True, work, _ray_signs(signs[pids.to(signs.device)], PACKET_R))
+    shape = t_exit.shape
+    return (best.reshape(shape), u.reshape(shape), v.reshape(shape),
+            tri.clamp_min(0).to(torch.int32).reshape(shape), *d)
+
+
+def fat_closest_plain(o, d, tm, signs, rows, nodes: NodeTables, work=None):
+    """Plain B11b: closest hit of rays with their own origins on the raw
+    rows; ``o``/``d`` three and ``tm`` one (P, PACKET_R) planes, near
+    children by ``signs`` (P, 3). Returns (dist, u, v, tri): each ray's
+    best, starting at min(tmax, BIG), or -BIG when masked; tri 0 where
+    nothing was hit."""
+    best0 = torch.where(tm >= 0.0, tm.clamp_max(BIG), -BIG).reshape(-1)
+    best, tri, u, v = walk_plain(nodes, [c.reshape(-1) for c in o],
+                                 [c.reshape(-1) for c in d], best0, rows,
+                                 True, True, work,
+                                 _ray_signs(signs, PACKET_R))
+    shape = tm.shape
+    return (best.reshape(shape), u.reshape(shape), v.reshape(shape),
+            tri.clamp_min(0).to(torch.int32).reshape(shape))
+
+
+def fat_shadow_plain(orig, d, tm, signs, rows, nodes: NodeTables,
+                     work=None):
+    """Plain B11c: any-hit from ``orig`` (3,) on the raw rows, near
+    children by ``signs`` (P, 3). Returns blocked float32 (P, PACKET_R)."""
+    limit = torch.where(tm >= 0.0, tm, -BIG).reshape(-1)
+    blocked = walk_plain(nodes, orig.unbind(), [c.reshape(-1) for c in d],
+                         limit, rows, True, False, work,
+                         _ray_signs(signs, PACKET_R))
+    return blocked.float().reshape(tm.shape)
+
+
+def fat_shadow_g_plain(o, d, tm, signs, rows, nodes: NodeTables, work=None):
+    """Plain B11d: any-hit of rays with their own origins on the raw rows,
+    near children by ``signs`` (P, 3). Returns blocked float32 (P,
+    PACKET_R); a masked ray is never blocked."""
+    limit = torch.where(tm >= 0.0, tm, -BIG).reshape(-1)
+    blocked = walk_plain(nodes, [c.reshape(-1) for c in o],
+                         [c.reshape(-1) for c in d], limit, rows, True,
+                         False, work, _ray_signs(signs, PACKET_R))
+    return blocked.float().reshape(tm.shape)
+
+
+# --- The counters of B9e/B9f: a simulation of every warp's walk ---------
+
+
+class _WarpWalk(_Walk):
+    """Every warp's walk as the kernels run it (``csrc/walk.cuh`` ``walk``),
+    with the counters of ``WalkCounts``: a warp loads a node, each lane
+    slab-tests it against its own bound, and the warp descends where some
+    lane enters it; at a leaf the lanes that enter it test its triangles;
+    an any-hit warp stops after a leaf once every live lane is blocked.
+    Warps are a batch dimension, lanes the rays of the per-ray state."""
+
+    def __init__(self, nodes: NodeTables, o, d, bound0, rows, raw: bool,
+                 closest: bool):
+        super().__init__(nodes, o, d, bound0, rows, raw, closest, None)
+        dev = bound0.device
+        nw = bound0.shape[0] // WARP
+        self.live0 = bound0 > 0.0
+        self.wsigns = self.signs[::WARP]
+        self.wnode = torch.zeros(nw, dtype=torch.int64, device=dev)
+        self.wsp = torch.zeros(nw, dtype=torch.int64, device=dev)
+        self.wstack = torch.zeros((nw, self.cap), dtype=torch.int64,
+                                  device=dev)
+        self.wactive = torch.ones(nw, dtype=torch.bool, device=dev)
+        # nodes, leaves, quarters, tri_blocks, chunks per warp
+        self.counts = torch.zeros((5, nw), dtype=torch.int64, device=dev)
+
+    def step(self) -> bool:
+        """One node per walking warp; False once no warp walks."""
+        idx = torch.nonzero(self.wactive).flatten()
+        if idx.numel() == 0:
+            return False
+        n = self.wnode[idx]
+        cnt = self.count[n]
+        self.counts[0, idx] += 1
+        self.counts[1, idx] += cnt > 0
+        lanes = (idx[:, None] * WARP
+                 + torch.arange(WARP, device=idx.device)[None, :])
+        rl = lanes.reshape(-1)
+        o, _, idir = self._ray(rl)
+        nl = n.repeat_interleave(WARP)
+        t1 = [(self.lo[nl, k] - o[k]) * idir[k] for k in range(3)]
+        t2 = [(self.hi[nl, k] - o[k]) * idir[k] for k in range(3)]
+        tn, tf = _slab(t1, t2)
+        bound = (self.bound[rl] if self.closest else
+                 torch.where(self.blocked[rl], -BIG, self.bound[rl]))
+        enter = ((tn <= tf) & (tf > 0.0) & (tn < bound)).reshape(-1, WARP)
+        some = enter.any(1)
+        at_leaf, inner = some & (cnt > 0), some & (cnt == 0)
+        stop = torch.zeros_like(some)
+        if bool(at_leaf.any()):
+            wi, _ = torch.nonzero(enter & at_leaf[:, None], as_tuple=True)
+            tested = self._leaves(lanes[enter & at_leaf[:, None]],
+                                  self.child[n[wi]], cnt[wi])
+            most = torch.zeros_like(n).scatter_reduce(0, wi, tested, "amax")
+            self.counts[2, idx] += at_leaf
+            self.counts[3, idx] += most
+            if not self.closest:
+                done = (self.blocked | ~self.live0).reshape(-1, WARP)[idx]
+                stop = at_leaf & done.all(1)
+        wi, ni = idx[inner], n[inner]
+        if wi.numel():
+            if int(self.wsp[wi].max()) >= self.cap:
+                raise RuntimeError(
+                    f"walk stack overflow: the tree is deeper than its "
+                    f"depth {self.cap - 2}")
+            bit = self.first[ni] ^ self.wsigns[wi, self.axis[ni]]
+            self.wstack[wi, self.wsp[wi]] = self.child[ni] + 1 - bit
+            self.wsp[wi] += 1
+            self.wnode[wi] = self.child[ni] + bit
+        rest = idx[~inner & ~stop]
+        has = self.wsp[rest] > 0
+        pop = rest[has]
+        self.counts[4, pop] += 1
+        self.wsp[pop] -= 1
+        self.wnode[pop] = self.wstack[pop, self.wsp[pop]]
+        self.wactive[rest[~has]] = False
+        self.wactive[idx[stop]] = False
+        return True
+
+    def run(self):
+        """Walks every warp; returns the counters, int32 (P, 8) per packet
+        of PACKET_R rays."""
+        while self.step():
+            pass
+        per = self.counts.reshape(5, -1, WARPS).sum(2)
+        return torch.stack([_stats_row(c) for c in per.T])
+
+
+def walk_camera_stats_plain(cam, width: int, height: int, rows,
+                            nodes: NodeTables, pids: torch.Tensor):
+    """Plain B9e: :func:`walk_camera_plain`'s outputs for packets ``pids``
+    and their counters, int32 (len(pids), 8), from a simulation of every
+    warp's walk."""
+    d, _, t_exit = _camera_rays(cam, width, height, pids)
+    w = _WarpWalk(nodes, cam[9:12].unbind(), [c.reshape(-1) for c in d],
+                  t_exit.reshape(-1), rows, False, True)
+    stats = w.run()
+    shape = t_exit.shape
+    dist = torch.where(w.tri >= 0, w.bound, BIG).reshape(shape)
+    return (dist, w.bu.reshape(shape), w.bv.reshape(shape),
+            w.tri.to(torch.int32).reshape(shape), *d, stats)
+
+
+def walk_shadow_stats_plain(orig, d, tm, rows, nodes: NodeTables):
+    """Plain B9f: :func:`walk_shadow_plain`'s blocked planes and their
+    counters, int32 (P, 8), from a simulation of every warp's walk."""
+    limit = torch.where(tm >= 0.0, tm, -BIG).reshape(-1)
+    w = _WarpWalk(nodes, orig.unbind(), [c.reshape(-1) for c in d], limit,
+                  rows, False, False)
+    stats = w.run()
+    return w.blocked.float().reshape(tm.shape), stats

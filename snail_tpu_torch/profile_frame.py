@@ -1,22 +1,24 @@
 """Profile a frame on a CUDA card: device time per kernel, per frame, and
 the share of the frame the device is busy.
 
-    python -m snail_tpu_torch.profile_frame [--kind city|terrain]
+    python -m snail_tpu_torch.profile_frame [--kind city|terrain] [--n N]
         [--path fwd|bounce|fwd_bwd|stats|instanced|portable]
-        [--tables leaves|nodes] [--trace out.json]
+        [--tables leaves|nodes] [--leaf L] [--trace out.json]
 
 Traces five 1024 x 1024 frames on a benchmark scene at bench.py's size
-with ``torch.profiler``, after two warm-up frames: ``render_frame``
-without bounces (fwd), with reflections and transparency on the bounce
-material (bounce), bench.py's fwd+bwd step (fwd_bwd), the counter frame
-``render_frame_fast_stats`` (stats, fwd options), the instanced frame of
-``bench_scenes.instanced_grid`` (instanced: 4 x 4 instances, fwd
-options) or ``render_frame`` at 1280 x 720 (portable: the integrator and
-the dispatch seam, bounce options on the bounce material); on a scene
-with worklist leaf tables (``--tables leaves``) or node tables for the
-walk kernels (``--tables nodes``, which has no counter frame); prints the
-kernels by device time and the busy share (union of kernel intervals
-over the traced window). Needs a card.
+(or ``--n``) with ``torch.profiler``, after two warm-up frames:
+``render_frame`` without bounces (fwd), with reflections and
+transparency on the bounce material (bounce), bench.py's fwd+bwd step
+(fwd_bwd), the counter frame ``render_frame_fast_stats`` (stats, fwd
+options), the instanced frame of ``bench_scenes.instanced_grid``
+(instanced: 4 x 4 instances, fwd options) or ``render_frame`` at 1280 x
+720 (portable: the integrator and the dispatch seam, bounce options on
+the bounce material); on a scene with worklist leaf tables (``--tables
+leaves``) or node tables for the walk kernels (``--tables nodes``), its
+BVH built at the kind's leaf size or ``--leaf`` (33-64: a fat-leaf
+scene, node tables for the fat-leaf kernels B11a-d, which has no counter
+frame); prints the kernels by device time and the busy share (union of
+kernel intervals over the traced window). Needs a card.
 """
 
 from __future__ import annotations
@@ -43,11 +45,15 @@ def _union_us(intervals) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", default="city", choices=("city", "terrain"))
+    ap.add_argument("--n", type=int, default=None,
+                    help="scene size in place of bench.py's")
     ap.add_argument("--path", default="fwd",
                     choices=("fwd", "bounce", "fwd_bwd", "stats",
                              "instanced", "portable"))
     ap.add_argument("--tables", default="leaves",
                     choices=("leaves", "nodes"))
+    ap.add_argument("--leaf", type=int, default=None,
+                    help="BVH leaf size in place of the kind's")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
     args = ap.parse_args(argv)
@@ -66,10 +72,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    n = BENCH_N[args.kind]
+    n = BENCH_N[args.kind] if args.n is None else args.n
     bounce = args.path in ("bounce", "fwd_bwd", "portable")
-    scene, cam, g, _ = bench_scene(args.kind, n, bounce=bounce,
-                                   walk=args.tables == "nodes")
+    scene, cam, g, bvh = bench_scene(args.kind, n, bounce=bounce,
+                                     walk=args.tables == "nodes",
+                                     leaf=args.leaf)
     opts = (RenderOpts(textures=False) if args.path in ("bounce", "portable")
             else RenderOpts(reflections=False, transparency=False,
                             textures=False))
@@ -108,7 +115,10 @@ def main(argv=None) -> int:
         spans.append((e.time_range.start, e.time_range.end))
     busy = _union_us(spans)
     dev = torch.cuda.get_device_name(0)
-    print(f"{args.kind}_{n} {args.path} ({g.num_tris} tris, {args.tables}) "
+    tables = ("leaves" if scene.leaves is not None else
+              f"nodes, {bvh.num_nodes} of them, leaf_max "
+              f"{scene.nodes.leaf_max}")
+    print(f"{args.kind}_{n} {args.path} ({g.num_tris} tris, {tables}) "
           f"{size[0]}x{size[1]} on {dev}: "
           f"{wall_us / FRAMES / 1e3:.3f} ms/frame (host clock, "
           f"profiler on), device busy {busy / FRAMES / 1e3:.3f} "

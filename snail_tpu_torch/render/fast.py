@@ -17,9 +17,10 @@ in closed form from the primal triangle arrays, so gradients flow to the
 vertices, the material colours, the lights and the camera position.
 
 The counter frame (``render_frame_fast_stats``) is the forward frame
-through the counting kernels (B8a/B8b) on its primary and shadow
-wavefronts. Other tracers plug into the same shading through the
-``normals``/``any_hit``/``bounce`` hooks of ``_shade_and_light``
+through the counting kernels (B8a/B8b, or B9e/B9f on a scene with node
+tables) on its primary and shadow wavefronts. Other tracers plug into
+the same shading through the ``normals``/``any_hit``/``bounce`` hooks of
+``_shade_and_light``
 (instanced scenes, ``scene.instancing``).
 
 Textures and photon radiance are later slices of the port: options that
@@ -37,7 +38,7 @@ from ..core.vecmath import BIG
 from ..ops.traverse import (QX, STATS, TILE, _pixel_xy, _rsqrt_rn,
                             any_hit_shared, any_hit_shared_stats,
                             camera_trace, camera_trace_stats, closest_hit_c,
-                            substitute_masked)
+                            is_fat, substitute_masked)
 
 DIFF_ROWS = 42  # sh_pack (32) | tri_a | tri_ba | tri_ca (9) | mat id
 
@@ -354,22 +355,25 @@ def render_frame_fast(scene, camera: Camera, width: int, height: int,
 
 
 def stats_path_available(scene) -> bool:
-    """Whether the counter frame can render ``scene``: it needs the
-    worklist leaf tables, which every port scene has (the JAX package's
-    counters also cover its walk kernels, not ported yet)."""
-    return getattr(scene, "leaves", None) is not None
+    """Whether the counter frame can render ``scene``: it needs leaves of
+    at most IVAL_LEAF triangles, traced by the worklist kernels (B8a/B8b)
+    or the walk kernels (B9e/B9f); a fat-leaf scene has no counters (JAX
+    fast.py:531-541)."""
+    return not is_fat(scene)
 
 
 def render_frame_fast_stats(scene, camera: Camera, width: int, height: int,
                             opts: RenderOpts = RenderOpts()):
     """:func:`render_frame_fast` through the counting kernels (B8a for
     the primary wavefront, B8b for each light's shadow wavefront from the
-    primary hits; bounce wavefronts run uncounted, as in the JAX
-    package). Returns (image, the same as render_frame_fast's bit for
-    bit, and a dict of real in-kernel counts summed over the frame's
-    packets: ``nodes``, ``leaves``, ``quarters``, ``tri_blocks``,
-    ``chunks`` (see ``ops.traverse.camera_wl_stats``) and ``rays`` =
-    width * height * (1 + lights with shadows on))."""
+    primary hits; B9e and B9f on a scene with node tables; bounce
+    wavefronts run uncounted, as in the JAX package). Returns (image, the
+    same as render_frame_fast's bit for bit, and a dict of real in-kernel
+    counts summed over the frame's packets: ``nodes``, ``leaves``,
+    ``quarters``, ``tri_blocks``, ``chunks`` (see
+    ``ops.traverse.camera_wl_stats``, ``walk_camera_stats``) and ``rays``
+    = width * height * (1 + lights with shadows on)). A fat-leaf scene
+    raises ValueError (:func:`stats_path_available`)."""
     dist, u, v, tri, dx, dy, dz, pstats = camera_trace_stats(
         scene, camera, width, height)
     stats_out = [pstats]

@@ -5,6 +5,7 @@ copies and BVH builder, with their light and camera, the parameters of
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,16 +49,17 @@ def bounce_materials() -> MaterialTable:
 
 
 def bench_scene(kind: str, n: int, device="cuda", bounce: bool = False,
-                walk: bool = False):
+                walk: bool = False, leaf: Optional[int] = None):
     """(scene, camera, geometry, bvh) of ``kind`` at size ``n`` on
     ``device`` (the card unless the caller asks for the CPU); with
     ``bounce``, material 0 is :func:`bounce_materials`'; with ``walk``,
     the scene carries node tables for the walk kernels in place of leaf
-    tables."""
-    make, leaf, light, radius, offset = SCENES[kind]
+    tables; ``leaf``, the BVH's leaf size in place of the kind's (33-64:
+    a fat-leaf scene, node tables for the fat-leaf kernels)."""
+    make, kind_leaf, light, radius, offset = SCENES[kind]
     g = make(n).flatten()
     lo, hi = g.bounds()
-    bvh = build_bvh(lo, hi, leaf_size=leaf)
+    bvh = build_bvh(lo, hi, leaf_size=kind_leaf if leaf is None else leaf)
     scene = make_traced_scene(
         g, bvh, bounce_materials() if bounce else None,
         lights=Light.make(light, (1.0, 1.0, 1.0), radius, device=device),

@@ -1,8 +1,10 @@
 """The device scene (``snail_tpu.scene.scene.TracedScene``), with what the
 forward and differentiable frames read: triangle rows, the traversal's
 tables (worklist leaf tables, or with ``walk=True`` the node tree of the
-walk kernels), shading rows, materials, the primal triangle and material
-arrays that gradients flow to, and lights, as tensors on one device.
+walk kernels; a BVH whose leaves hold more than IVAL_LEAF triangles
+always gets the node tree, for the fat-leaf kernels), shading rows,
+materials, the primal triangle and material arrays that gradients flow
+to, and lights, as tensors on one device.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ import numpy as np
 import torch
 
 from ..core.types import Light, resolve_device
-from ..ops.traverse import (LeafTables, NodeTables, pack_leaf_tables,
-                             pack_node_tables, pack_tri_rows, tree_depth)
+from ..ops.traverse import (IVAL_LEAF, LeafTables, NodeTables,
+                             pack_leaf_tables, pack_node_tables,
+                             pack_tri_rows, tree_depth)
 from .base_scene import FlatGeometry
 from .materials import MaterialTable
 
@@ -33,10 +36,13 @@ class TracedScene:
     emissive, flags, pad.
 
     The traversal's tables, one kind per scene: ``leaves``, the worklist
-    kernels' leaf tables, or ``nodes``, the walk kernels' node tree (a
-    scene built with ``walk=True``, the port's explicit form of the JAX
-    package's ``SNAIL_WL=0``); the entry points route by which one the
-    scene holds. ``depth``: the BVH's depth (root 0).
+    kernels' leaf tables, or ``nodes``, the node tree (a scene built with
+    ``walk=True``, the port's explicit form of the JAX package's
+    ``SNAIL_WL=0``, or one whose leaves hold more than IVAL_LEAF
+    triangles, which the JAX package gives no leaf tables); the entry
+    points route by which one the scene holds, and a node tree by its
+    ``leaf_max`` (walk or fat-leaf kernels). ``depth``: the BVH's depth
+    (root 0).
 
     The primal arrays, the parameters of ``render_frame_fast_diff``:
     tri_a, tri_ba, tri_ca float32 (T, 3) in the order and padding of
@@ -110,8 +116,11 @@ def _sh_pack(g: FlatGeometry, mat_pack: np.ndarray) -> np.ndarray:
 
 
 def _tables(walk: bool, lo, hi, child, count, axis, first, device):
-    """(leaves, nodes): the traversal tables of one kind, on ``device``."""
-    if walk:
+    """(leaves, nodes): the traversal tables of one kind, on ``device``:
+    node tables with ``walk`` or for leaves over IVAL_LEAF triangles (as
+    ``make_traced_scene``'s ``_pack_wl`` :187-194 packs no leaf tables
+    there), else leaf tables."""
+    if walk or int(np.max(count)) > IVAL_LEAF:
         return None, pack_node_tables(lo, hi, child, count, axis,
                                       first).to(device)
     return pack_leaf_tables(lo, hi, child, count).to(device), None
@@ -123,8 +132,9 @@ def make_traced_scene(geom: FlatGeometry, bvh,
                       device="cuda", walk: bool = False) -> TracedScene:
     """Assemble the device scene from host-built pieces: ``geom`` as
     flattened, ``bvh`` from ``snail_tpu_torch.bvh.build_bvh`` (leaf size at
-    most ``ops.traverse.IVAL_LEAF``), on ``device`` (the card unless the
-    caller asks for the CPU); with ``walk``, node tables and no leaf
+    most ``ops.traverse.LEAF_PAD``), on ``device`` (the card unless the
+    caller asks for the CPU); with ``walk``, or leaves over
+    ``ops.traverse.IVAL_LEAF`` triangles, node tables and no leaf
     tables."""
     device = resolve_device(device)
     g = geom.permuted(bvh.order).padded(LEAF_PAD)
@@ -163,8 +173,9 @@ def traced_scene_from_numpy(arrays: Mapping[str, np.ndarray],
     node_count, tri_a, tri_ba, tri_ca, sh_mat, sh_pack, mat_pack,
     mat_diffuse, mat_specular, mat_reflect, mat_dissolve, optionally
     tex_atlas, and the lights as light_pos, light_color, light_radius
-    (absent: no lights); with ``walk``, also node_axis and node_first,
-    for node tables in place of the leaf tables. The triangle rows are
+    (absent: no lights); with ``walk``, or leaves over IVAL_LEAF
+    triangles, also node_axis and node_first, for node tables in place of
+    the leaf tables. The triangle rows are
     packed from tri_a, tri_ba and tri_ca as given. On ``device``: the card
     unless the caller asks for the CPU."""
     device = resolve_device(device)

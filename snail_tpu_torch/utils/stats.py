@@ -3,9 +3,21 @@ reference's TreeStats, src/tree_stats.h:36-130: counters for
 intersections, loop iterations and rays, and timer sums, shown on the HUD
 by GenInfo "in:.. it:.. ms:..").
 
-The counters come from the counting kernels (B8a/B8b) through
-``render.fast.render_frame_fast_stats``; :func:`tree_stats_from_counters`
-turns its dict into a :class:`TreeStats` as the render server does.
+The counters come from the counting kernels through
+``render.fast.render_frame_fast_stats``, under the JAX package's names:
+on a scene with leaf tables B8a/B8b (``csrc/worklist.cu`` ``Counters``),
+on one with node tables the walk's B9e/B9f (``csrc/walk.cuh``
+``WalkCounts``), summed over each packet's warps:
+
+  name        worklist (B8a/B8b)              walk (B9e/B9f)
+  nodes       populated words a warp tests    node rows a warp loads
+  leaves      leaves a warp keeps             leaf rows among them
+  quarters    (leaf, warp) pairs intersected  (leaf, warp) pairs intersected
+  tri_blocks  triangles tested per pair       triangles tested per pair
+  chunks      bands a warp enters             stack pops
+
+:func:`tree_stats_from_counters` turns the dict into a :class:`TreeStats`
+as the render server does.
 """
 
 from __future__ import annotations
@@ -50,8 +62,9 @@ def tree_stats_from_counters(kstats: dict, n_lights: int) -> TreeStats:
     """A frame's :class:`TreeStats` from the counter dict of
     ``render_frame_fast_stats`` (the conversion of the JAX package's
     server, apps/server.py:111-121): ray-triangle tests are tri_blocks
-    times the rays of one (RAYS_PER_TRI_BLOCK), loop iterations the bit
-    words scanned, runs the primary wavefront and one per light."""
+    times the rays of one (RAYS_PER_TRI_BLOCK), loop iterations ``nodes``
+    (the bit words scanned, or the node rows walked), runs the primary
+    wavefront and one per light."""
     return TreeStats(intersects=kstats["tri_blocks"] * RAYS_PER_TRI_BLOCK,
                      loop_iters=kstats["nodes"], rays=kstats["rays"],
                      runs=1 + n_lights)

@@ -17,10 +17,16 @@ from snail_tpu_torch.bvh import build_bvh
 from snail_tpu_torch.core.types import Camera, Light, RenderOpts
 from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
-from snail_tpu_torch.ops.traverse_ref import (walk_camera_plain,
+from snail_tpu_torch.ops.traverse_ref import (fat_camera_plain,
+                                              fat_closest_plain,
+                                              fat_shadow_g_plain,
+                                              fat_shadow_plain,
+                                              walk_camera_plain,
+                                              walk_camera_stats_plain,
                                               walk_closest_g_plain,
                                               walk_shadow_g_plain,
-                                              walk_shadow_plain)
+                                              walk_shadow_plain,
+                                              walk_shadow_stats_plain)
 from snail_tpu_torch.render.fast import render_frame_fast_stats
 from snail_tpu_torch.render.renderer import render_frame
 from snail_tpu_torch.scene import instancing
@@ -39,16 +45,18 @@ def _need_cuda():
         pytest.skip("needs a CUDA device")
 
 
-def _scene(which: str, bounce: bool = False, walk: bool = False):
+def _scene(which: str, bounce: bool = False, walk: bool = False,
+           leaf: int = 4):
     """(scene on the card, camera, width, height, light position); with
     ``bounce``, material 0 reflective and half transparent; with ``walk``,
-    node tables for the walk kernels in place of leaf tables."""
+    node tables for the walk kernels in place of leaf tables; ``leaf``,
+    the BVH's leaf size (64: a fat-leaf scene)."""
     if which == "city":
         g = city_scene(6).flatten()
-        leaf, light, r, size = 4, (0.0, 30.0, 0.0), 120.0, (256, 128)
-    else:  # > 1024 leaves: several summary words per band
+        light, r, size = (0.0, 30.0, 0.0), 120.0, (256, 128)
+    else:  # > 1024 leaves at leaf 4: several summary words per band
         g = terrain_scene(48).flatten()
-        leaf, light, r, size = 4, (0.0, 60.0, 0.0), 200.0, (256, 256)
+        light, r, size = (0.0, 60.0, 0.0), 200.0, (256, 256)
     lo, hi = g.bounds()
     bvh = build_bvh(lo, hi, leaf_size=leaf)
     scene = make_traced_scene(g, bvh, bounce_materials() if bounce else None,
@@ -160,12 +168,13 @@ def test_shadow_wl_kernel_matches_plain(which):
     assert (kb[live] == pb[live]).mean() > 0.999
 
 
-def _bounce_rays(scene, n_packets, seed=7):
+def _bounce_rays(scene, n_packets, seed=7, planes=pt.general_planes):
     """Seeded rays with their own origins, the last packet 1000 rays
     short: each packet's rays start near a point of the scene box and run
     in a narrow cone (down into the geometry or up out of it); every 7th
-    ray masked, with a garbage origin as a miss point carries. Returns the
-    planes of ``general_planes``."""
+    ray masked, with a garbage origin as a miss point carries, and every
+    3rd live one with a finite tmax. Returns the planes of ``planes``
+    (``general_planes``, or the fat-leaf kernels' ``padded_planes``)."""
     rng = np.random.default_rng(seed)
     lo, hi = scene.root_lo.cpu().numpy(), scene.root_hi.cpu().numpy()
     shape = (n_packets, pt.PACKET_R, 3)
@@ -176,14 +185,16 @@ def _bounce_rays(scene, n_packets, seed=7):
     d = d + rng.uniform(-0.05, 0.05, shape)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     tm = np.full(shape[:2], BIG)
+    if planes is pt.padded_planes:
+        diag = np.linalg.norm(hi - lo)
+        tm[:, 1::3] = rng.uniform(0.05, 0.5, tm[:, 1::3].shape) * diag
     tm[:, ::7] = -BIG
     o[:, ::7] = 1e30
     n = n_packets * pt.PACKET_R - 1000
     flat = lambda a: torch.from_numpy(
         np.ascontiguousarray(a, np.float32).reshape(-1)[:n]).cuda()
-    o, d, tm, _ = pt.general_planes(tuple(flat(o[..., k]) for k in range(3)),
-                                    tuple(flat(d[..., k]) for k in range(3)),
-                                    flat(tm))
+    o, d, tm, _ = planes(tuple(flat(o[..., k]) for k in range(3)),
+                         tuple(flat(d[..., k]) for k in range(3)), flat(tm))
     return o, d, tm
 
 
@@ -297,10 +308,10 @@ def test_wrappers_check_inputs():
         pt.words_camera(cv, w, h, scene.leaves.to("cpu"))
 
 
-def _shadow_g_rays(scene, n_packets, seed=11):
+def _shadow_g_rays(scene, n_packets, seed=11, planes=pt.general_planes):
     """The rays of ``_bounce_rays`` as shadow rays: each live ray looks
     0.05-0.6 of the scene box's diagonal far."""
-    o, d, tm = _bounce_rays(scene, n_packets, seed)
+    o, d, tm = _bounce_rays(scene, n_packets, seed, planes)
     rng = np.random.default_rng(seed)
     diag = float((scene.root_hi - scene.root_lo).norm())
     frac = torch.from_numpy(rng.uniform(0.05, 0.6, tuple(tm.shape))
@@ -539,6 +550,194 @@ def test_portable_frame_on_card_matches_cpu(which, walk):
             ("words_general", "closest_wl_g", "words_shared", "shadow_wl"))
     assert all(counts[k] > 0 for k in need), counts
     ref = render_frame(scene.to("cpu"), cam.to("cpu"), 80, 48, opts)
+    err = (img.cpu() - ref).abs().amax(-1)
+    assert torch.isfinite(img).all() and img.abs().amax() > 0
+    assert (err > 2e-3).float().mean() < 2e-3, float(err.max())
+
+
+# --- The walk's counters (B9e/B9f) and the fat-leaf kernels (B11a-d) ------
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_walk_camera_stats_kernel_matches_b9a_and_simulation(which):
+    """B9e: B9a's outputs bit for bit, and every packet's counters equal to
+    the plain version's simulation of its warps."""
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which, walk=True)
+    cv = pt.cam_vec(cam, w, h, scene.root_lo, scene.root_hi)
+    rows = pt.shared_rows(scene.tri_rows, cam.pos)
+    *out, stats = pt.walk_camera_stats(cv, w, h, rows, scene.nodes)
+    ref = pt.walk_camera(cv, w, h, rows, scene.nodes)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    *plain, sim = walk_camera_stats_plain(
+        cv, w, h, rows, scene.nodes,
+        torch.arange(stats.shape[0], device="cuda"))
+    assert torch.equal(stats, sim), (stats, sim)
+    _assert_closest_equal(out[:4], plain[:4])
+    assert (stats[:, 3] > 0).sum() > 1 and (stats[:, 5:] == 0).all()
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_walk_shadow_stats_kernel_matches_b9b_and_simulation(which):
+    _need_cuda()
+    scene, _, _, _, light = _scene(which, walk=True)
+    d, tm = _shadow_rays(scene, light, 3)
+    rows = pt.shared_rows(scene.tri_rows, light)
+    blocked, stats = pt.walk_shadow_stats(light, d, tm, rows, scene.nodes)
+    ref = pt.walk_shadow(light, d, tm, rows, scene.nodes)
+    torch.cuda.synchronize()
+    assert torch.equal(blocked, ref)
+    plain, sim = walk_shadow_stats_plain(light, d, tm, rows, scene.nodes)
+    assert torch.equal(stats, sim), (stats, sim)
+    assert torch.equal(plain, blocked)
+    assert (stats[:, 3] > 0).sum() > 1
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_walk_stats_frame_on_card_matches_cpu(which):
+    """The walk's counter frame runs B9e once and B9f once per light,
+    gives the walk fwd frame's image, and the CPU path's image and
+    counters."""
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which, walk=True)
+    pt.reset_launch_counts()
+    img, st = render_frame_fast_stats(scene, cam, w, h, OPTS)
+    counts = pt.launch_counts()
+    assert counts["walk_camera_stats"] == 1, counts
+    assert counts["walk_shadow_stats"] == len(scene.lights), counts
+    assert counts["walk_camera"] == counts["walk_shadow"] == 0, counts
+    assert torch.equal(img, render_frame(scene, cam, w, h, OPTS))
+    ref, st_cpu = render_frame_fast_stats(scene.to("cpu"), cam.to("cpu"), w,
+                                          h, OPTS)
+    err = (img.cpu() - ref).abs().amax(-1)
+    assert (err > 2e-3).float().mean() < 1e-3, float(err.max())
+    assert st == st_cpu
+
+
+FAT = ("fat_camera", "fat_closest", "fat_shadow", "fat_shadow_g")
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_fat_camera_kernel_matches_plain(which):
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which, leaf=64)
+    assert pt.is_fat(scene)
+    cv = pt.cam_vec(cam, w, h, scene.root_lo, scene.root_hi)
+    signs = pt.camera_signs(cam, w, h)
+    kern = pt.fat_camera(cv, w, h, signs, scene.tri_rows, scene.nodes)
+    torch.cuda.synchronize()
+    p = (w // pt.TILE) * (h // pt.TILE)
+    plain = fat_camera_plain(cv, w, h, signs, scene.tri_rows, scene.nodes,
+                             torch.arange(p, device="cuda"))
+    _assert_closest_equal(kern[:4], plain[:4])
+    for a, b in zip(kern[4:], plain[4:]):
+        assert torch.equal(a, b)
+    miss = plain[0] >= BIG
+    assert bool((kern[3][miss] == 0).all() and (kern[0][miss] == BIG).all())
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_fat_closest_kernel_matches_plain(which):
+    """B11b on rays as the caller gave them: masked rays with garbage
+    origins, a finite tmax on some live rays, whose miss returns it."""
+    _need_cuda()
+    scene, _, _, _, _ = _scene(which, leaf=64)
+    o, d, tm = _bounce_rays(scene, 6, planes=pt.padded_planes)
+    signs = pt.packet_signs(d)
+    kern = pt.fat_closest(o, d, tm, signs, scene.tri_rows, scene.nodes)
+    torch.cuda.synchronize()
+    plain = fat_closest_plain(o, d, tm, signs, scene.tri_rows, scene.nodes)
+    live = tm >= 0
+    kd = kern[0]
+    assert bool((kd[~live] == -BIG).all())
+    miss = live & (kern[3] == 0) & (kd == tm.clamp_max(BIG))
+    assert bool((tm[miss] < BIG).any())
+    hit = live & (kd < tm.clamp_max(BIG))
+    _assert_closest_equal(kern, plain, (hit | miss).cpu().numpy())
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_fat_shadow_kernel_matches_plain(which):
+    _need_cuda()
+    scene, _, _, _, light = _scene(which, leaf=64)
+    d, tm = _shadow_rays(scene, light, 6)
+    signs = pt.packet_signs(d)
+    kern = pt.fat_shadow(light, d, tm, signs, scene.tri_rows, scene.nodes)
+    torch.cuda.synchronize()
+    plain = fat_shadow_plain(light, d, tm, signs, scene.tri_rows,
+                             scene.nodes)
+    live = tm >= 0
+    assert not kern[~live].any()
+    assert 0.02 < float(plain[live].mean()) < 0.98
+    assert torch.equal(kern, plain)
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_fat_shadow_g_kernel_matches_plain(which):
+    _need_cuda()
+    scene, _, _, _, _ = _scene(which, leaf=64)
+    o, d, tm = _shadow_g_rays(scene, 6, planes=pt.padded_planes)
+    signs = pt.packet_signs(d)
+    kern = pt.fat_shadow_g(o, d, tm, signs, scene.tri_rows, scene.nodes)
+    torch.cuda.synchronize()
+    plain = fat_shadow_g_plain(o, d, tm, signs, scene.tri_rows, scene.nodes)
+    live = tm >= 0
+    assert not kern[~live].any()
+    assert 0.02 < float(plain[live].mean()) < 0.98
+    assert torch.equal(kern, plain)
+
+
+@pytest.mark.parametrize("bounce", [False, True], ids=["fwd", "bounce"])
+@pytest.mark.parametrize("which", SCENES)
+def test_fat_frame_on_card(which, bounce):
+    """The fat frame launches the fat-leaf kernels and no other, matches
+    the CPU path, and matches the same geometry's worklist frame."""
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which, bounce=bounce, leaf=64)
+    opts = RenderOpts(textures=False) if bounce else OPTS
+    pt.reset_launch_counts()
+    img = render_frame(scene, cam, w, h, opts)
+    torch.cuda.synchronize()
+    counts = pt.launch_counts()
+    need = FAT[:3] if bounce else (FAT[0], FAT[2])
+    assert all(counts[k] > 0 for k in need), counts
+    assert not any(n for k, n in counts.items() if k not in FAT), counts
+    ref = render_frame(scene.to("cpu"), cam.to("cpu"), w, h, opts)
+    err = (img.cpu() - ref).abs().amax(-1)
+    assert torch.isfinite(img).all() and img.abs().amax() > 0
+    assert (err > 2e-3).float().mean() < 1e-3, float(err.max())
+    wl, _, _, _, _ = _scene(which, bounce=bounce)
+    err = (img - render_frame(wl, cam, w, h, opts)).abs().amax(-1)
+    assert (err > 2e-3).float().mean() < 2e-3, float(err.max())
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_fat_portable_and_instanced_frames_on_card(which):
+    """render_frame at 80 x 48 and two instances of the fat scene, through
+    the dispatch seam to B11b, B11c and B11d, against the CPU path."""
+    _need_cuda()
+    scene, cam, _, _, _ = _scene(which, bounce=True, leaf=64)
+    opts = RenderOpts(textures=False)
+    pt.reset_launch_counts()
+    img = render_frame(scene, cam, 80, 48, opts)
+    torch.cuda.synchronize()
+    counts = pt.launch_counts()
+    assert all(counts[k] > 0 for k in ("fat_closest", "fat_shadow")), counts
+    ref = render_frame(scene.to("cpu"), cam.to("cpu"), 80, 48, opts)
+    err = (img.cpu() - ref).abs().amax(-1)
+    assert (err > 2e-3).float().mean() < 2e-3, float(err.max())
+    ext = float((scene.root_hi - scene.root_lo).max())
+    isc = instancing.make_instances(
+        scene, torch.stack([torch.eye(3), instancing.rotation_y(0.7)]),
+        [[0.0, 0.0, 0.0], [1.2 * ext, 0.0, -0.8 * ext]])
+    pt.reset_launch_counts()
+    img = instancing.render_instanced(isc, cam, 128, 64, OPTS)
+    torch.cuda.synchronize()
+    counts = pt.launch_counts()
+    assert counts["fat_closest"] > 0 and counts["fat_shadow_g"] > 0, counts
+    ref = instancing.render_instanced(isc.to("cpu"), cam.to("cpu"), 128, 64,
+                                      OPTS)
     err = (img.cpu() - ref).abs().amax(-1)
     assert torch.isfinite(img).all() and img.abs().amax() > 0
     assert (err > 2e-3).float().mean() < 2e-3, float(err.max())

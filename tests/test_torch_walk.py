@@ -6,7 +6,9 @@ the flat scene and B10 on the two-level paged fixture of
 tables cleared so that the JAX entry points take the walk
 (``_wl_available`` False, asserted). Also the walk frames against the
 JAX package's, a BVH deeper than the JAX oracle's 66-entry stack, the
-node tables and the counter frame, which the walk does not have yet.
+node tables, and the walk's counter frame (B9e/B9f against JAX's
+``camera_trace_stats`` / ``any_hit_shared_stats`` on the flat scene, the
+counters against the simulation of every warp).
 
 Scene: cornell at leaf 8 (34 triangles, 13 nodes; the paged fixture cuts
 it into pages of 4 nodes), 64 x 64, seeded shadow and bounce rays. Each
@@ -38,7 +40,9 @@ from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
 from snail_tpu_torch.ops.intersect import (intersect_any_brute_force,
                                            intersect_brute_force)
-from snail_tpu_torch.ops.traverse_ref import walk_plain
+from snail_tpu_torch.ops.traverse_ref import (walk_camera_stats_plain,
+                                              walk_plain,
+                                              walk_shadow_stats_plain)
 from snail_tpu_torch.render.fast import (render_frame_fast,
                                          render_frame_fast_stats,
                                          stats_path_available)
@@ -344,8 +348,107 @@ def test_deep_bvh_walk_matches_brute_force():
                    ps.tri_rows, True, True)
 
 
-def test_walk_counter_frame_raises(scenes):
-    _, _, ps, _, pcam = scenes
+def test_walk_counter_frame_raises():
+    """The counter frame needs leaves of at most IVAL_LEAF triangles: on a
+    fat-leaf node tree (cornell at leaf 64, one leaf of 34) it raises, as
+    the JAX package asserts (camera_trace_stats :3655)."""
+    g = cornell_scene().flatten()
+    lo, hi = g.bounds()
+    ps = make_traced_scene(g, p_build_bvh(lo, hi, leaf_size=64),
+                           device="cpu", walk=True)
+    assert ps.nodes.leaf_max > pt.IVAL_LEAF
     assert not stats_path_available(ps)
-    with pytest.raises(NotImplementedError, match="B9e"):
+    pcam = Camera.look_at(pos=POS, target=TARGET, device="cpu")
+    with pytest.raises(ValueError, match="IVAL_LEAF"):
         render_frame_fast_stats(ps, pcam, W, H)
+
+
+def _assert_counters_hold(stats, work, closest):
+    """Invariants of the walk's counters (csrc/walk.cuh WalkCounts) summed
+    over packets, against the per-ray walk's ``work`` on the same rays:
+    each (leaf, warp) pair holds between 1 and WARP of the (ray, leaf)
+    tests, every leaf a warp enters was loaded, every pop loaded a node,
+    and slots 5-7 stay 0."""
+    tot = stats.sum(0, dtype=torch.int64)
+    nodes, leaves, quarters, tri_blocks, chunks = (int(c) for c in tot[:5])
+    assert (stats[:, 5:] == 0).all()
+    assert nodes >= leaves >= quarters > 0 and nodes > chunks > 0
+    assert tri_blocks <= work["tri"] <= pt.WARP * tri_blocks
+    if closest:
+        # every lane that enters a leaf tests all its triangles
+        assert work["tri"] >= tri_blocks >= quarters
+
+
+def test_walk_camera_trace_stats_matches_jax(scenes):
+    """B9e: the outputs of JAX's ``camera_trace_stats`` on the flat walk
+    scene (``_camera_ival_kernel_stats``), B9a's bit for bit, and counters
+    equal to the simulation of every warp."""
+    js, _, ps, jcam, pcam = scenes
+    *jout, _ = tp.camera_trace_stats(js, jcam, W, H)
+    jd, ju, jv, jt = (np.asarray(a) for a in jout[:4])
+    *out, stats = pt.camera_trace_stats(ps, pcam, W, H)
+    ref = pt.camera_trace(ps, pcam, W, H)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    pd, pu, pv, ptri = (a.numpy() for a in out[:4])
+    np.testing.assert_allclose(pd, jd, rtol=2e-4, atol=2e-4)
+    hit = jd < BIG
+    assert hit.mean() > 0.3
+    assert (ptri[hit] == jt[hit]).mean() > 0.999
+    same = hit & (ptri == jt)
+    np.testing.assert_allclose(pu[same], ju[same], atol=2e-3)
+    assert stats.shape == (1, 8) and stats.dtype == torch.int32
+    cam, rows = pt._camera_setup(ps, pcam, W, H)
+    *_, sim = walk_camera_stats_plain(cam, W, H, rows, ps.nodes,
+                                      torch.arange(1))
+    assert torch.equal(stats, sim)
+    d, _, t_exit = pt._camera_rays(cam, W, H, torch.arange(1))
+    work = {}
+    walk_plain(ps.nodes, cam[9:12].unbind(), [c.reshape(-1) for c in d],
+               t_exit.reshape(-1), rows, False, True, work)
+    _assert_counters_hold(stats, work, True)
+
+
+def test_walk_any_hit_shared_stats_matches_jax(scenes, shadow_rays):
+    """B9f: JAX's ``any_hit_shared_stats`` verdicts on the flat walk scene,
+    B9b's bit for bit, and counters equal to the simulation."""
+    js, _, ps, _, _ = scenes
+    d, tm = shadow_rays
+    lp = np.float32(LIGHT[0])
+    jb, _ = tp.any_hit_shared_stats(
+        js, jnp.asarray(lp), tuple(jnp.asarray(d[:, k]) for k in range(3)),
+        jnp.asarray(tm))
+    jb = np.asarray(jb)
+    args = (_t(lp), tuple(_t(d[:, k]) for k in range(3)), _t(tm))
+    pb, stats = pt.any_hit_shared_stats(ps, *args)
+    assert torch.equal(pb, pt.any_hit_shared(ps, *args))
+    pb = pb.numpy()
+    live = tm >= 0
+    assert not pb[~live].any() and 0.05 < pb[live].mean() < 0.95
+    assert (pb[live] == jb[live]).mean() > 0.999
+    rows = pt.shared_rows(ps.tri_rows, _t(lp))
+    pk = lambda a: _t(a).reshape(-1, pt.PACKET_R)
+    blocked, sim = walk_shadow_stats_plain(
+        _t(lp), tuple(pk(d[:, k]) for k in range(3)), pk(tm), rows, ps.nodes)
+    assert torch.equal(stats, sim)
+    np.testing.assert_array_equal(blocked.numpy().reshape(-1) > 0, pb)
+    work = {}
+    walk_plain(ps.nodes, _t(lp).unbind(), [_t(d[:, k]) for k in range(3)],
+               torch.where(_t(tm) >= 0, _t(tm), -BIG), rows, False, False,
+               work)
+    _assert_counters_hold(stats, work, False)
+
+
+def test_walk_counter_frame_matches_fwd_frame(scenes):
+    """The walk's counter frame: the walk fwd frame's image bit for bit,
+    the counters of its primary wavefront and its light's shadow
+    wavefront (B9e + B9f), and every ray counted."""
+    _, _, ps, _, pcam = scenes
+    assert stats_path_available(ps)
+    opts = RenderOpts(reflections=False, transparency=False, textures=False)
+    img, st = render_frame_fast_stats(ps, pcam, W, H, opts)
+    assert torch.equal(img, render_frame_fast(ps, pcam, W, H, opts))
+    assert st["rays"] == W * H * 2
+    assert st["nodes"] >= st["leaves"] >= st["quarters"] > 0
+    assert st["tri_blocks"] >= st["quarters"] and st["chunks"] > 0
+    *_, primary = pt.camera_trace_stats(ps, pcam, W, H)
+    assert st["nodes"] > int(primary[:, 0].sum())  # the shadow rays count
