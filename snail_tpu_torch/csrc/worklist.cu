@@ -31,9 +31,19 @@
 //   surviving leaf box against each ray and runs the Moller test only in
 //   lanes whose ray passed; triangle rows are 64 B, read as three float4
 //   broadcast loads. Bound by the serial per-leaf loop (latency of
-//   dependent loads) and divergence; no shared memory and no block
-//   barriers. The TPU's grid ran in order and kept a leaf ring and the
-//   leaf table staged across grid steps; here all state is per warp.
+//   dependent loads) and divergence; no block barriers. The TPU's grid
+//   ran in order and kept a leaf ring and the leaf table staged across
+//   grid steps; here all state is per warp.
+// - B4 and B6 (and B8b) scan with scan_boxes: ahead of the leaf level a
+//   warp skips each 1024-leaf block and each 32-leaf word whose box
+//   (LeafTables bbox/wbox, built once per scene) no lane's ray enters
+//   before its current limit, so it works in proportion to the words its
+//   rays enter, not to its packet's word list (B6's wide reflection
+//   packets keep ~760 words a warp, of which its rays enter ~20). B6
+//   reads a word's leaf boxes from shared memory, where cp.async brought
+//   them during the previous word. The slab and Moller tests are float32
+//   compares and sums of products of a ray with one box or triangle at a
+//   time: no matrix product the tensor cores could take.
 // - bounce rays (B5, B6) have an origin per ray: the packet and warp
 //   intervals carry origin bounds too, and the leaf test takes the four
 //   corner products of origin and inverse-direction bounds per slab. B6
@@ -343,7 +353,9 @@ __device__ __forceinline__ bool warp_keeps(const float* box, int lp, int l,
 
 // Traversal counters of one warp (B8), the slots of its packet's (P, 8)
 // int32 row; every lane holds the same values:
-//   [0] nodes      populated bit words the warp tests against its cull
+//   [0] nodes      populated bit words the warp tests against its cull at
+//                  the leaf level (B8b: those left after scan_boxes' block
+//                  and word skips)
 //   [1] leaves     leaves the warp keeps after its cull (ballot survivors)
 //   [2] quarters   (leaf, warp) pairs in which some lane passes its slab
 //                  test and intersects the leaf's triangles
@@ -422,6 +434,149 @@ __device__ __forceinline__ void scan_words(const int32_t* words,
   }
 }
 
+// Whether some lane's ray enters column c of the planar box table t (6, n)
+// before its limit ``lim``: each lane's slab test (ray_slab), then
+// __any_sync. A ``wild`` lane always passes.
+__device__ __forceinline__ bool warp_enters(const float* t, int n, int c,
+                                            const float o[3],
+                                            const float idir[3], float lim,
+                                            bool wild) {
+  bool pass;
+  const float tn = ray_slab(t, n, c, o, idir, pass);
+  return __any_sync(kFull, wild || (pass && tn < lim));
+}
+
+// cp.async of 4 bytes from global to shared memory, and its group fences.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+constexpr int kSlot = 6 * 32;  // the planar boxes of one word's leaves
+
+// Starts the copy of word w's 32 leaf boxes into ``slot``, one leaf a lane.
+__device__ __forceinline__ void fetch_word(float* slot, const float* box,
+                                           int lp, int w, int lane) {
+  for (int k = 0; k < 6; ++k)
+    cp_async4(slot + k * 32 + lane, box + (size_t)k * lp + w * 32 + lane);
+  cp_async_commit();
+}
+
+// Scan of one packet's words for B4/B6 (B8b with STATS): the visit order
+// and leaf level of scan_words, with two skip levels ahead of the leaf
+// level, so that a warp works in proportion to the words its rays enter,
+// not to its packet's word list. Per band, per summary word s:
+// 1. block: unless some lane's ray enters bbox[:, s] (the box around
+//    leaves 1024s..1024s+1023) before its limit lim_fn(), all of s's
+//    words are skipped;
+// 2. word: lane j tests the box of word 32s+j, if it is populated in the
+//    band, against the warp's cull (warp_keeps on wbox); for each
+//    survivor in order, unless some lane's ray enters its box before its
+//    limit, the word is skipped;
+// 3. leaf: as scan_words: the warp cull of the word's 32 leaf boxes, a
+//    ballot, then leaf_fn(l, tn, pass) for each survivor in order with the
+//    lane's slab test of leaf l (ray_slab); true ends the scan.
+// The outputs are scan_words' bit for bit: a leaf box lies inside its
+// word's and block's box, and every step of slab_entry (a difference, a
+// product with a fixed idir, min, max) is monotone under rounding, so a
+// ray that enters a leaf before its limit enters the word and the block
+// no later; the warp cull is monotone in the box in the same way; limits
+// and bounds only fall during a scan, so an early skip stays right. That
+// fails only where a product is 0 x inf = NaN, which fminf/fmaxf drop: a
+// lane whose idir is not finite (``wild``) passes every box test, and a
+// cull with a bound that is not finite keeps every word. With STATS,
+// ``nodes`` counts the words that reach the leaf level. With PREFETCH the
+// leaf level reads its 32 leaf boxes from ``buf``, the warp's two slots
+// of shared memory: while it works on one word, cp.async brings the next
+// survivor of the word ballot into the other slot (the caller waits for
+// the last copy after the scan).
+template <bool GEN, bool STATS, bool PREFETCH, typename BoundFn,
+          typename LimFn, typename LeafFn>
+__device__ __forceinline__ void scan_boxes(
+    const int32_t* words, const int32_t* summ, const float* floors,
+    int k_bands, int nw, int ns, const float* box, const float* wbox,
+    const float* bbox, int lp, WarpCull& wc, const float o[3],
+    const float idir[3], Counters& st, float* buf, BoundFn bound_fn,
+    LimFn lim_fn, LeafFn leaf_fn) {
+  const int lane = threadIdx.x & 31;
+  int pre_w = -1, pre = 0;  // the word in flight to slot ``pre``
+  const bool wild =
+      !(isfinite(idir[0]) && isfinite(idir[1]) && isfinite(idir[2]));
+  bool tame = true;  // warp-uniform
+  for (int k = 0; k < 3; ++k)
+    tame = tame && isfinite(wc.iv.om[k]) && isfinite(wc.iv.oM[k]) &&
+           isfinite(wc.iv.im[k]) && isfinite(wc.iv.iM[k]);
+  for (int b = 0; b < k_bands; ++b) {
+    const float bound = bound_fn();
+    if (!(bound > 0.0f)) return;
+    if (floors[b] >= bound) continue;
+    if constexpr (STATS) ++st.chunks;
+    for (int s = 0; s < ns; ++s) {
+      const unsigned sw = (unsigned)summ[b * ns + s];
+      if (!sw || !warp_enters(bbox, ns, s, o, idir, lim_fn(), wild))
+        continue;
+      wc.iv.mb = bound_fn();
+      if (!(wc.iv.mb > 0.0f)) return;
+      unsigned ws = __ballot_sync(
+          kFull, ((sw >> lane) & 1u) &&
+                     (!tame || warp_keeps<GEN>(wbox, nw, s * 32 + lane, wc)));
+      while (ws) {
+        const int w = s * 32 + __ffs(ws) - 1;
+        ws &= ws - 1;
+        if (!warp_enters(wbox, nw, w, o, idir, lim_fn(), wild)) continue;
+        wc.iv.mb = bound_fn();
+        if (!(wc.iv.mb > 0.0f)) return;
+        if constexpr (STATS) ++st.nodes;
+        // the word's leaf boxes: column c0 + j of the planar table t (6, n)
+        const float* t = box;
+        int n = lp, c0 = w * 32;
+        if constexpr (PREFETCH) {
+          if (pre_w != w) {
+            cp_async_wait_all();
+            fetch_word(buf + pre * kSlot, box, lp, w, lane);
+          }
+          cp_async_wait_all();
+          __syncwarp();  // every lane's copies landed; the other slot is free
+          t = buf + pre * kSlot;
+          n = 32;
+          c0 = 0;
+          pre ^= 1;
+          pre_w = ws ? s * 32 + __ffs(ws) - 1 : -1;
+          if (pre_w >= 0) fetch_word(buf + pre * kSlot, box, lp, pre_w, lane);
+        }
+        unsigned word = (unsigned)words[b * nw + w];
+        const bool ok = ((word >> lane) & 1u) &&
+                        warp_keeps<GEN>(t, n, c0 + lane, wc);
+        word = __ballot_sync(kFull, ok);
+        if constexpr (STATS) st.leaves += __popc(word);
+        while (word) {
+          const int j = __ffs(word) - 1;
+          word &= word - 1;
+          bool pass;
+          float tn;
+          if constexpr (PREFETCH) {
+            const float lo[3] = {t[j], t[32 + j], t[64 + j]};
+            const float hi[3] = {t[96 + j], t[128 + j], t[160 + j]};
+            float tf;
+            tn = slab_entry(lo, hi, o, idir, tf, pass);
+          } else {
+            tn = ray_slab(box, lp, w * 32 + j, o, idir, pass);
+          }
+          if (leaf_fn(w * 32 + j, tn, pass)) return;
+        }
+      }
+    }
+  }
+}
+
 // B2 (B8a with STATS): camera raygen + closest hit, one thread per ray;
 // STATS adds the packet's counters to ``out_stats`` (P, 8).
 template <bool STATS>
@@ -473,14 +628,16 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
   if constexpr (STATS) add_counters(st, out_stats + pid * 8);
 }
 
-// B4 (B8b with STATS): any-hit from a shared origin, one thread per ray;
-// a warp stops once every live ray in it is blocked.
+// B4 (B8b with STATS): any-hit from a shared origin, one thread per ray,
+// over scan_boxes; a warp stops once every live ray in it is blocked.
 template <bool STATS>
 __global__ void __launch_bounds__(kTraceThreads)
 shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
                  const float* __restrict__ dy, const float* __restrict__ dz,
                  const float* __restrict__ tm, const float* __restrict__ rows,
                  const float* __restrict__ box,
+                 const float* __restrict__ wbox,
+                 const float* __restrict__ bbox,
                  const int32_t* __restrict__ lfirst,
                  const int32_t* __restrict__ lcount, int lp,
                  const int32_t* __restrict__ words,
@@ -501,15 +658,14 @@ shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
   WarpCull wc = warp_cull<false>(o, d, idir, limit);
   Counters st;
 
-  scan_words<false, STATS>(
+  scan_boxes<false, STATS, false>(
       words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
-      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc, st,
+      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, wbox, bbox, lp,
+      wc, o, idir, st, nullptr,
       [&] { return warp_max(fmaxf(blocked ? -kBig : limit, 0.0f)); },
-      [&](int l) {
-        const float lim = blocked ? -kBig : limit;
-        bool pass;
-        const float tn = ray_slab(box, lp, l, o, idir, pass);
-        const bool go = pass && tn < lim;
+      [&] { return blocked ? -kBig : limit; },
+      [&](int l, float tn, bool pass) {
+        const bool go = pass && tn < (blocked ? -kBig : limit);
         int tested = 0;
         if (go)
           blocked = leaf_blocks<false>(rows, __ldg(lfirst + l),
@@ -527,7 +683,10 @@ shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
 // a miss returns BIG, a masked ray -BIG, and tri is clamped at 0
 // (_closest_wl_kernel_g :3247-3269). A bounce ray's tmax is BIG, so the
 // culls look no further than where it leaves the scene's root box, as
-// B2's camera rays do: a segment box as long as BIG culls nothing.
+// B2's camera rays do: a segment box as long as BIG culls nothing. The
+// scan is scan_boxes, each lane's limit its current best, with the
+// prefetch of leaf boxes (faster on terrain_724's reflections on an H100;
+// B4's shadow rays were not faster with it: PERF.md).
 __global__ void __launch_bounds__(kTraceThreads)
 closest_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                     const float* __restrict__ oz, const float* __restrict__ dx,
@@ -535,6 +694,8 @@ closest_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                     const float* __restrict__ tm,
                     const float* __restrict__ rows,
                     const float* __restrict__ box,
+                    const float* __restrict__ wbox,
+                    const float* __restrict__ bbox,
                     const float* __restrict__ root,
                     const int32_t* __restrict__ lfirst,
                     const int32_t* __restrict__ lcount, int lp,
@@ -556,19 +717,21 @@ closest_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   const float t_root = box_exit(root, root + 3, o, idir);
   WarpCull wc = warp_cull<true>(o, d, idir, fminf(best, t_root));
   Counters none;
+  __shared__ float s_buf[kTraceThreads / 32 * 2 * kSlot];
 
-  scan_words<true>(
+  scan_boxes<true, false, true>(
       words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
-      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc, none,
+      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, wbox, bbox, lp,
+      wc, o, idir, none, s_buf + (threadIdx.x >> 5) * 2 * kSlot,
       [&] { return warp_max(fmaxf(fminf(best, t_root), 0.0f)); },
-      [&](int l) {
-        bool pass;
-        const float tn = ray_slab(box, lp, l, o, idir, pass);
+      [&] { return best; },
+      [&](int l, float tn, bool pass) {
         if (pass && tn < best)
           leaf_closest<true>(rows, __ldg(lfirst + l), __ldg(lcount + l), o, d,
                              best, tri, bu, bv);
         return false;
       });
+  cp_async_wait_all();
 
   out_dist[g] = tri >= 0 ? best : (active ? kBig : -kBig);
   out_u[g] = bu;
@@ -707,31 +870,33 @@ int snail_camera_wl(const float* cam, const float* rows, const float* box,
 }
 
 // B4, or B8b when ``stats`` (P, 8) int32, zeroed by the caller, is given.
+// ``wbox``/``bbox``: the word and block boxes (ops/traverse.py LeafTables).
 int snail_shadow_wl(const float* orig, const float* dx, const float* dy,
                     const float* dz, const float* tm, const float* rows,
-                    const float* box, const int32_t* lfirst,
-                    const int32_t* lcount, int lp, const int32_t* words,
-                    const int32_t* summ, const float* floors, int k_bands,
-                    int n_packets, float* blocked, int32_t* stats,
-                    void* stream) {
+                    const float* box, const float* wbox, const float* bbox,
+                    const int32_t* lfirst, const int32_t* lcount, int lp,
+                    const int32_t* words, const int32_t* summ,
+                    const float* floors, int k_bands, int n_packets,
+                    float* blocked, int32_t* stats, void* stream) {
   if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = n_packets * (kPacketR / kTraceThreads);
   if (stats)
     shadow_wl_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(
-        orig, dx, dy, dz, tm, rows, box, lfirst, lcount, lp, words, summ,
-        floors, k_bands, blocked, stats);
+        orig, dx, dy, dz, tm, rows, box, wbox, bbox, lfirst, lcount, lp,
+        words, summ, floors, k_bands, blocked, stats);
   else
     shadow_wl_kernel<false><<<blocks, kTraceThreads, 0,
                               (cudaStream_t)stream>>>(
-        orig, dx, dy, dz, tm, rows, box, lfirst, lcount, lp, words, summ,
-        floors, k_bands, blocked, nullptr);
+        orig, dx, dy, dz, tm, rows, box, wbox, bbox, lfirst, lcount, lp,
+        words, summ, floors, k_bands, blocked, nullptr);
   return (int)cudaGetLastError();
 }
 
 int snail_closest_wl_g(const float* ox, const float* oy, const float* oz,
                        const float* dx, const float* dy, const float* dz,
                        const float* tm, const float* rows, const float* box,
+                       const float* wbox, const float* bbox,
                        const float* root, const int32_t* lfirst,
                        const int32_t* lcount, int lp, const int32_t* words,
                        const int32_t* summ,
@@ -742,8 +907,8 @@ int snail_closest_wl_g(const float* ox, const float* oy, const float* oz,
     return (int)cudaErrorInvalidValue;
   closest_wl_g_kernel<<<n_packets * (kPacketR / kTraceThreads), kTraceThreads,
                         0, (cudaStream_t)stream>>>(
-      ox, oy, oz, dx, dy, dz, tm, rows, box, root, lfirst, lcount, lp, words,
-      summ, floors, k_bands, dist, u, v, tri);
+      ox, oy, oz, dx, dy, dz, tm, rows, box, wbox, bbox, root, lfirst, lcount,
+      lp, words, summ, floors, k_bands, dist, u, v, tri);
   return (int)cudaGetLastError();
 }
 

@@ -88,11 +88,23 @@ class LeafTables:
     box   float32 (6, Lp): lo.xyz, hi.xyz, planar; padding slots inverted
     first int32 (Lp,): first triangle of the leaf
     count int32 (Lp,): triangles in the leaf (<= IVAL_LEAF)
-    n_leaf: real leaf count; Lp = n_leaf rounded up to LEAF_BLOCK."""
+    wbox  float32 (6, Lp/32): the box around the real leaves of each bit
+          word (leaves 32w..32w+31), as ``box``; a word without a real
+          leaf is inverted (1e30 / -1e30)
+    bbox  float32 (6, Lp/LEAF_BLOCK): the same for each block of a summary
+          word (leaves 1024s..1024s+1023)
+    n_leaf: real leaf count; Lp = n_leaf rounded up to LEAF_BLOCK.
+
+    Min and max do not round, so ``wbox`` and ``bbox`` hold the leaf
+    boxes' own floats and contain every leaf box of their word or block:
+    the skip tests of B4 and B6 (csrc/worklist.cu ``scan_boxes``) rest on
+    that."""
 
     box: torch.Tensor
     first: torch.Tensor
     count: torch.Tensor
+    wbox: torch.Tensor
+    bbox: torch.Tensor
     n_leaf: int
 
     @property
@@ -106,7 +118,15 @@ class LeafTables:
 
     def to(self, device) -> "LeafTables":
         return LeafTables(self.box.to(device), self.first.to(device),
-                          self.count.to(device), self.n_leaf)
+                          self.count.to(device), self.wbox.to(device),
+                          self.bbox.to(device), self.n_leaf)
+
+
+def _group_boxes(box: np.ndarray, n: int) -> np.ndarray:
+    """float32 (6, Lp/n): the box around each run of ``n`` leaves of the
+    planar leaf ``box`` (6, Lp); padding slots, inverted, drop out."""
+    g = box.reshape(6, -1, n)
+    return np.concatenate([g[:3].min(-1), g[3:].max(-1)])
 
 
 def pack_leaf_tables(node_lo, node_hi, node_child,
@@ -133,7 +153,9 @@ def pack_leaf_tables(node_lo, node_hi, node_child,
     count = np.zeros(lp, np.int32)
     count[:n] = cnt
     return LeafTables(torch.from_numpy(box), torch.from_numpy(first),
-                      torch.from_numpy(count), n)
+                      torch.from_numpy(count),
+                      torch.from_numpy(_group_boxes(box, WARP)),
+                      torch.from_numpy(_group_boxes(box, LEAF_BLOCK)), n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -680,63 +702,110 @@ def shadow_wl_g_plain(o, d, tm, rows, tables: LeafTables, words):
 
 
 def _warp_cull_sim(o, d, idir, limit):
-    """The kernels' warp cull (``warp_cull<false>``) of each warp of a
-    packet of rays from the shared origin ``o`` (three 0-d): ``d``/``idir``
-    three and ``limit`` one (WARPS, WARP). Returns (im, iM, lo, hi), three
-    (WARPS,) each: the inverse-direction bounds of the warp's live rays
-    and the padded box around their segments."""
+    """The kernels' warp cull (``warp_cull``) of each warp of a packet:
+    ``o`` the shared origin (three 0-d; ``warp_cull<false>``) or three
+    (WARPS, WARP) origins (``warp_cull<true>``), ``d``/``idir`` three and
+    ``limit`` one (WARPS, WARP). Returns (om, oM, im, iM, lo, hi), three
+    each: the origin bounds of the warp's live rays (``o`` itself for a
+    shared origin; else (WARPS, 1)), their inverse-direction bounds and
+    the padded box around their segments ((WARPS, 1))."""
     live = limit > 0.0
-    im, iM, lo, hi = [], [], [], []
+    om, oM, im, iM, lo, hi = [], [], [], [], [], []
     for k in range(3):
-        a, b = _widen(torch.where(live, idir[k], BIG).amin(1),
-                      torch.where(live, idir[k], -BIG).amax(1))
+        if o[k].dim() == 0:
+            om.append(o[k])
+            oM.append(o[k])
+        else:
+            a, b = _widen(torch.where(live, o[k], BIG).amin(1, True),
+                          torch.where(live, o[k], -BIG).amax(1, True))
+            om.append(a)
+            oM.append(b)
+        a, b = _widen(torch.where(live, idir[k], BIG).amin(1, True),
+                      torch.where(live, idir[k], -BIG).amax(1, True))
         end = o[k] + d[k] * limit
-        l = torch.where(live, torch.minimum(o[k], end), BIG).amin(1)
-        h = torch.where(live, torch.maximum(o[k], end), -BIG).amax(1)
+        l = torch.where(live, torch.minimum(o[k], end), BIG).amin(1, True)
+        h = torch.where(live, torch.maximum(o[k], end), -BIG).amax(1, True)
         pad = 1e-4 * torch.maximum(l.abs(), h.abs()) + 1e-4
         im.append(a)
         iM.append(b)
         lo.append(l - pad)
         hi.append(h + pad)
-    return im, iM, lo, hi
+    return om, oM, im, iM, lo, hi
 
 
-def _warp_keeps_sim(box, ls, o, cull, mb):
-    """(WARPS, len(ls)) bool: each warp's cull (``warp_keeps<false>``) of
-    leaves ``ls`` at the warp bounds ``mb`` (WARPS,)."""
-    im, iM, lo, hi = cull
+def _warp_keeps_sim(box, ls, cull, mb):
+    """(WARPS, len(ls)) bool: each warp's cull (``warp_keeps``) of the
+    boxes ``ls`` of the planar ``box`` (6, n) at the warp bounds ``mb``
+    (WARPS,)."""
+    om, oM, im, iM, lo, hi = cull
     tn = torch.zeros((mb.shape[0], len(ls)), dtype=torch.float32,
                      device=box.device)
     tf = mb[:, None].expand_as(tn)
     for k in range(3):
-        a = box[k, ls][None, :] - o[k]
-        c = box[3 + k, ls][None, :] - o[k]
-        a1, a2 = a * im[k][:, None], a * iM[k][:, None]
-        c1, c2 = c * im[k][:, None], c * iM[k][:, None]
-        tn = torch.maximum(tn, torch.minimum(torch.minimum(a1, a2),
-                                             torch.minimum(c1, c2)))
-        tf = torch.minimum(tf, torch.maximum(torch.maximum(a1, a2),
-                                             torch.maximum(c1, c2)))
+        lo_min, lo_max = _corner_range(box[k, ls][None, :], om[k], oM[k],
+                                       im[k], iM[k])
+        hi_min, hi_max = _corner_range(box[3 + k, ls][None, :], om[k],
+                                       oM[k], im[k], iM[k])
+        tn = torch.maximum(tn, torch.minimum(lo_min, hi_min))
+        tf = torch.minimum(tf, torch.maximum(lo_max, hi_max))
     ok = (tn <= tf) & (tf > 0.0)
     for k in range(3):
-        ok &= ((box[k, ls][None, :] <= hi[k][:, None])
-               & (box[3 + k, ls][None, :] >= lo[k][:, None]))
+        ok &= (box[k, ls][None, :] <= hi[k]) & (box[3 + k, ls][None, :]
+                                                >= lo[k])
     return ok
 
 
 def _scan_sim(tables: LeafTables, words_p, floors_p, o, cull, bound_fn,
-              leaf_fn):
+              leaf_fn, lanes_fn=None):
     """One packet's counters (int64 (5,), the order of :data:`STATS`):
     every warp walks the packet's words ``words_p`` (K, Lp/32) in band
     order as ``scan_words`` does. ``bound_fn()`` gives the warps' bounds
     (WARPS,); ``leaf_fn(l, proc)`` runs leaf l for the warps in ``proc``
     and returns, per warp, whether some lane intersected, the triangles
-    tested and whether the warp ends its scan (or None)."""
+    tested and whether the warp ends its scan (or None). With
+    ``lanes_fn`` the walk is ``scan_boxes``'s: ``lanes_fn()`` gives each
+    lane's inverse directions (three (WARPS, WARP)) and current limit
+    (WARPS, WARP), and a warp skips the blocks and words whose box none of
+    its lanes enters before its limit, and the words its cull drops."""
     words_cpu = words_p.cpu()
     dev = words_p.device
     lanes = torch.arange(WARP, device=dev)
     done = torch.zeros(WARPS, dtype=torch.bool, device=dev)
     cnt = torch.zeros((5, WARPS), dtype=torch.int64, device=dev)
+    # a warp whose cull has a bound that is not finite keeps every word
+    tame = torch.ones(WARPS, dtype=torch.bool, device=dev)
+    for bounds in cull[:4]:
+        for x in bounds:
+            tame &= torch.isfinite(x).reshape(-1)
+
+    def enters(box, c):
+        # (WARPS,): some lane's slab test of box c passes before its limit
+        idir, lim = lanes_fn()
+        tn, pas = _box_slab(box, c, o, idir)
+        wild = ~(torch.isfinite(idir[0]) & torch.isfinite(idir[1])
+                 & torch.isfinite(idir[2]))
+        return (wild | (pas & (tn < lim))).any(1)
+
+    def leaf_level(b, w, active):
+        # one word's leaves, for the warps in ``active``
+        nonlocal done
+        mb = bound_fn()
+        done |= active & ~(mb > 0.0)
+        active &= ~done
+        cnt[0] += active
+        ls = w * WARP + lanes
+        bits = ((words_p[b, w] >> lanes.to(torch.int32)) & 1).bool()
+        keep = (active[:, None] & bits[None, :]
+                & _warp_keeps_sim(tables.box, ls, cull, mb))
+        cnt[1] += keep.sum(1)
+        for j in torch.nonzero(keep.any(0)).flatten().tolist():
+            proc = keep[:, j] & ~done
+            go, tested, fin = leaf_fn(w * WARP + j, proc)
+            cnt[2] += go
+            cnt[3] += tested
+            if fin is not None:
+                done |= proc & fin
+
     for b in range(words_p.shape[0]):
         bound = bound_fn()
         done |= ~(bound > 0.0)
@@ -744,34 +813,44 @@ def _scan_sim(tables: LeafTables, words_p, floors_p, o, cull, bound_fn,
         cnt[4] += enter
         if not bool(enter.any()):
             continue
-        for w in torch.nonzero(words_cpu[b]).flatten().tolist():
+        populated = torch.nonzero(words_cpu[b]).flatten()
+        if lanes_fn is None:
+            for w in populated.tolist():
+                active = enter & ~done
+                if not bool(active.any()):
+                    break
+                leaf_level(b, w, active)
+            continue
+        for s in torch.unique(populated // WARP).tolist():
             active = enter & ~done
             if not bool(active.any()):
                 break
+            active &= enters(tables.bbox, s)
+            if not bool(active.any()):
+                continue
             mb = bound_fn()
             done |= active & ~(mb > 0.0)
             active &= ~done
-            cnt[0] += active
-            ls = w * WARP + lanes
-            bits = ((words_p[b, w] >> lanes.to(torch.int32)) & 1).bool()
-            keep = (active[:, None] & bits[None, :]
-                    & _warp_keeps_sim(tables.box, ls, o, cull, mb))
-            cnt[1] += keep.sum(1)
-            for j in torch.nonzero(keep.any(0)).flatten().tolist():
-                proc = keep[:, j] & ~done
-                go, tested, fin = leaf_fn(w * WARP + j, proc)
-                cnt[2] += go
-                cnt[3] += tested
-                if fin is not None:
-                    done |= proc & fin
+            ws = populated[populated // WARP == s].to(dev)
+            kept = ~tame[:, None] | _warp_keeps_sim(tables.wbox, ws, cull,
+                                                    mb)
+            for j, w in enumerate(ws.tolist()):
+                act = active & ~done & kept[:, j]
+                if not bool(act.any()):
+                    continue
+                act &= enters(tables.wbox, w)
+                if bool(act.any()):
+                    leaf_level(b, w, act)
     return cnt.sum(1)
 
 
-def _lane_slab(tables: LeafTables, o, idir, l):
-    """Each lane's slab test of leaf l (``ray_slab``): entry and pass,
-    (WARPS, WARP) each; ``o`` three 0-d, ``idir`` three (WARPS, WARP)."""
-    t1 = [(tables.box[k, l] - o[k]) * idir[k] for k in range(3)]
-    t2 = [(tables.box[3 + k, l] - o[k]) * idir[k] for k in range(3)]
+def _box_slab(box, c, o, idir):
+    """Each lane's slab test of column c of the planar ``box`` (6, n)
+    (``ray_slab``): entry and pass, (WARPS, WARP) each; ``o`` three 0-d
+    or (WARPS, WARP), ``idir`` three (WARPS, WARP). Columns ``c`` and
+    operands with a trailing axis broadcast as torch does."""
+    t1 = [(box[k, c] - o[k]) * idir[k] for k in range(3)]
+    t2 = [(box[3 + k, c] - o[k]) * idir[k] for k in range(3)]
     tn, tf = _slab(t1, t2)
     return tn, (tn <= tf) & (tf > 0.0)
 
@@ -804,7 +883,7 @@ def camera_wl_stats_plain(cam, width: int, height: int, rows,
         cull = _warp_cull_sim(o, wd, wi, best)
 
         def leaf(l, proc):
-            tn, pas = _lane_slab(tables, o, wi, l)
+            tn, pas = _box_slab(tables.box, l, o, wi)
             go = proc[:, None] & pas & (tn < best)
             t, cnt = _leaf_rows(tables, rows, l)
             det, u, v, tmul = _moller_sh(t, [c.reshape(-1) for c in wd])
@@ -841,7 +920,7 @@ def shadow_wl_stats_plain(orig, d, tm, rows, tables: LeafTables, words,
 
         def leaf(l, proc):
             lim = torch.where(blk, -BIG, limit)
-            tn, pas = _lane_slab(tables, orig, wi, l)
+            tn, pas = _box_slab(tables.box, l, orig, wi)
             go = proc[:, None] & pas & (tn < lim)
             t, cnt = _leaf_rows(tables, rows, l)
             det, u, v, tmul = _moller_sh(t, [c.reshape(-1) for c in wd])
@@ -857,7 +936,7 @@ def shadow_wl_stats_plain(orig, d, tm, rows, tables: LeafTables, words,
         stats.append(_stats_row(_scan_sim(
             tables, words[i], floors[i], orig, cull,
             lambda: torch.where(blk, 0.0, torch.clamp_min(limit, 0.0))
-            .amax(1), leaf)))
+            .amax(1), leaf, lambda: (wi, torch.where(blk, -BIG, limit)))))
     return blocked, torch.stack(stats)
 
 
@@ -915,6 +994,9 @@ def _check_tables(tables: LeafTables, dev):
     _check(tables.box, "leaf box", torch.float32, (6, lp), dev)
     _check(tables.first, "leaf first", torch.int32, (lp,), dev)
     _check(tables.count, "leaf count", torch.int32, (lp,), dev)
+    _check(tables.wbox, "word box", torch.float32, (6, lp // WARP), dev)
+    _check(tables.bbox, "block box", torch.float32, (6, lp // LEAF_BLOCK),
+           dev)
 
 
 def _words_out(p, k_bands, lp, dev):
@@ -1049,9 +1131,9 @@ def _shadow_wl_launch(orig, d, tm, rows, tables, words, summ, floors,
     blocked = torch.empty((p, PACKET_R), dtype=torch.float32, device=dev)
     _launched(library().snail_shadow_wl(
         _ptr(orig), _ptr(d[0]), _ptr(d[1]), _ptr(d[2]), _ptr(tm),
-        _ptr(rows), _ptr(tables.box), _ptr(tables.first),
-        _ptr(tables.count), tables.lp, _ptr(words), _ptr(summ),
-        _ptr(floors), words.shape[1], p, _ptr(blocked),
+        _ptr(rows), _ptr(tables.box), _ptr(tables.wbox), _ptr(tables.bbox),
+        _ptr(tables.first), _ptr(tables.count), tables.lp, _ptr(words),
+        _ptr(summ), _ptr(floors), words.shape[1], p, _ptr(blocked),
         None if stats is None else _ptr(stats), _stream()), "shadow_wl")
     return blocked
 
@@ -1072,8 +1154,9 @@ def shadow_wl_stats(orig, d, tm, rows, tables: LeafTables, words, summ,
     """B8b: :func:`shadow_wl` with counters (replaces
     ``_shadow_wl_kernel_stats``). Returns B4's blocked planes, bit for
     bit, and the counters of :func:`camera_wl_stats`, int32 (P, 8);
-    ``tri_blocks`` counts, per (leaf, warp) pair, the most triangles a
-    lane tested before its first blocker."""
+    ``nodes`` and ``leaves`` count the words left after B4's block and
+    word skips, and ``tri_blocks`` counts, per (leaf, warp) pair, the
+    most triangles a lane tested before its first blocker."""
     if not _on_cuda(tm):
         return shadow_wl_stats_plain(orig, d, tm, rows, tables, words,
                                      floors)
@@ -1129,7 +1212,8 @@ def closest_wl_g(o, d, tm, rows, tables: LeafTables, words, summ, floors):
     lib = library()
     _launched(lib.snail_closest_wl_g(
         *(_ptr(t) for t in (*o, *d, tm)), _ptr(rows), _ptr(tables.box),
-        _ptr(tables.root), _ptr(tables.first), _ptr(tables.count), tables.lp,
+        _ptr(tables.wbox), _ptr(tables.bbox), _ptr(tables.root),
+        _ptr(tables.first), _ptr(tables.count), tables.lp,
         _ptr(words), _ptr(summ), _ptr(floors), words.shape[1], p, _ptr(dist),
         _ptr(u), _ptr(v), _ptr(tri), _stream()), "closest_wl_g")
     closest_wl_g.launches += 1

@@ -11,6 +11,8 @@ on one with node tables the walk's B9e/B9f (``csrc/walk.cuh``
 
   name        worklist (B8a/B8b)              walk (B9e/B9f)
   nodes       populated words a warp tests    node rows a warp loads
+              at the leaf level (B8b: after
+              its block and word skips)
   leaves      leaves a warp keeps             leaf rows among them
   quarters    (leaf, warp) pairs intersected  (leaf, warp) pairs intersected
   tri_blocks  triangles tested per pair       triangles tested per pair

@@ -375,6 +375,80 @@ def test_shadow_wl_stats_kernel_matches_b4_and_simulation(which):
     assert (stats[:, 3] > 0).sum() > 1
 
 
+def _skipped_blocks(lt, summ, o, d, lim):
+    """(warp, block) pairs of the populated blocks of a warp's packet whose
+    box none of its lanes enters before its limit ``lim`` (P, PACKET_R):
+    blocks that B4/B6 skip whole. ``o``: three 0-d or three (P, PACKET_R)."""
+    n = 0
+    for i in range(lim.shape[0]):
+        lanes = lambda x: x[i].reshape(pt.WARPS, pt.WARP)
+        oi = [c if c.dim() == 0 else lanes(c) for c in o]
+        idir = [lanes(1.0 / (c + pt.INV_EPS)) for c in d]
+        for s in torch.nonzero(summ[i].ne(0).any(0)).flatten().tolist():
+            tn, pas = pt._box_slab(lt.bbox, s, oi, idir)
+            n += int((~(pas & (tn < lanes(lim))).any(1)).sum())
+    return n
+
+
+def _warp_shadow_rays(scene, light, n_packets, seed=5):
+    """Rays from ``light`` to seeded points in the upper half of the scene
+    box, each warp's 32 within 5 % of the box's extent of a point of its
+    own, the packet's warps spread over the box (~20 % blocked); every
+    89th masked."""
+    rng = np.random.default_rng(seed)
+    lo, hi = scene.root_lo.cpu().numpy(), scene.root_hi.cpu().numpy()
+    shape = (n_packets * pt.WARPS, pt.WARP, 3)
+    tgt = (rng.uniform(lo, hi, (shape[0], 1, 3))
+           + rng.uniform(-0.05, 0.05, shape) * (hi - lo))
+    tgt[..., 1] = rng.uniform(lo[1] + 0.5 * (hi[1] - lo[1]), hi[1],
+                              shape[:2])
+    d = tgt.reshape(-1, 3) - light.cpu().numpy()
+    ld = np.linalg.norm(d, axis=-1)
+    tm = (ld * 0.9999).astype(np.float32)
+    tm[::89] = -BIG
+    pk = lambda a: torch.from_numpy(
+        np.ascontiguousarray(a, np.float32).reshape(-1, pt.PACKET_R)).cuda()
+    return tuple(pk(d[:, k] / ld) for k in range(3)), pk(tm)
+
+
+@pytest.mark.parametrize("rays", ["shadow", "bounce"])
+def test_wl_kernels_skip_whole_blocks_exactly(rays):
+    """B4 (and B8b) on shadow rays, B6 on bounce rays, on a scene of three
+    leaf blocks whose warps skip whole blocks: outputs identical to the
+    plain versions, B8b's counters the simulation's."""
+    _need_cuda()
+    g = terrain_scene(96).flatten()
+    lo, hi = g.bounds()
+    scene = make_traced_scene(g, build_bvh(lo, hi, leaf_size=8))
+    lt = scene.leaves
+    assert lt.lp // pt.LEAF_BLOCK >= 3
+    if rays == "shadow":
+        light = torch.tensor((-40.0, 10.0, 0.0), device="cuda")
+        d, tm = _warp_shadow_rays(scene, light, 6)
+        words, summ, floors = pt.words_shared(light, d, tm, lt, 1)
+        rows = pt.shared_rows(scene.tri_rows, light)
+        kern = pt.shadow_wl(light, d, tm, rows, lt, words, summ, floors)
+        blocked, stats = pt.shadow_wl_stats(light, d, tm, rows, lt, words,
+                                            summ, floors)
+        plain, sim = pt.shadow_wl_stats_plain(light, d, tm, rows, lt, words,
+                                              floors)
+        assert torch.equal(kern, plain) and torch.equal(blocked, kern)
+        assert torch.equal(stats, sim), (stats, sim)
+        assert 0.02 < float(plain[tm >= 0].mean()) < 0.98
+        o, lim = light.unbind(), torch.where(tm >= 0, tm, -BIG)
+    else:
+        o, d, tm = _bounce_rays(scene, 6)
+        words, summ, floors = pt.words_general(o, d, tm, lt)
+        kern = pt.closest_wl_g(o, d, tm, scene.tri_rows, lt, words, summ,
+                               floors)
+        plain = pt.closest_wl_g_plain(o, d, tm, scene.tri_rows, lt, words)
+        assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+        live = tm >= 0
+        assert 0.02 < float((plain[0] < BIG)[live].float().mean()) < 0.98
+        lim = torch.where(live, tm.clamp_max(BIG), -BIG)
+    assert _skipped_blocks(lt, summ, o, d, lim) > 0
+
+
 @pytest.mark.parametrize("which", SCENES)
 def test_stats_frame_on_card_matches_cpu(which):
     """The counter frame runs B8a once and B8b once per light, gives the
