@@ -17,10 +17,13 @@ Phases, each printed on its own line:
    where too few of those do; B7 on a seeded wavefront of shadow rays with
    their own origins, and on the instanced frame's own shadow wavefront
    (phase 4). B4 and B6 must equal their plain versions bit for bit
-   (verdicts; dist, u, v and tri), and print what their warps are given
-   to scan (``scan_counts``: populated words, the words and blocks some
-   lane enters, the leaves a warp cull keeps); B8a and B8b must give B2's
-   and B4's outputs bit for bit, and their counters must equal the plain
+   (verdicts; dist, u, v and tri), B2 in dist, u and v wherever the
+   triangle agrees, which may differ only on a distance tie, and B5 in
+   its words, summaries and floors (and set no bit in a word whose box
+   its pre-test drops); B2, B4 and B6 print what their warps are given to
+   scan (``scan_counts``: populated words, the words and blocks some lane
+   enters, the leaves a warp cull keeps); B8a and B8b must give B2's and
+   B4's outputs bit for bit, and their counters must equal the plain
    versions' simulation of every warp on a few seeded packets;
 4. the paths at 1024 x 1024 on both scenes, each with the launch count of
    every kernel during one run, a check against the CPU path at 64 x 64
@@ -47,7 +50,8 @@ Phases, each printed on its own line:
    walk's counting kernels B9e/B9f on B9a's and B9b's inputs: their
    outputs B9a's and B9b's bit for bit, their counters on a few seeded
    packets equal to the plain versions' simulation of every warp; then the
-   ratios B6/B9c and B4/B9b of kernel times on the same wavefronts;
+   ratios B2/B9a, B6/B9c and B4/B9b of kernel times on the same
+   wavefronts, and B5's time beside its bound;
 6. the walk paths at 1024 x 1024: the fwd, bounce and instanced fwd
    frames of the walk scenes, launching walk kernels only, each checked
    against the CPU path at 64 x 64 and timed, the fwd and bounce frames
@@ -77,7 +81,8 @@ kernel's line gives its time beside its bound: the larger of the bytes it
 must move (each input read once, each output written once) over the card's
 memory rate and the float operations of the tests its wavefront needs over
 the card's float32 rate (``needed_work``; a trace kernel's bytes count
-only the leaves its rays enter). Each phase prints the seconds since the
+only the leaves its rays enter, B5's work only the leaves of the words
+whose box passes its packet's test). Each phase prints the seconds since the
 start. Any failed phase ends the run with a non-zero exit and no result
 line; so does a machine without a CUDA device or a directory without the
 package.
@@ -275,14 +280,35 @@ def entry(err, ms, plain_ms, n_bytes, ops, **extra):
             **extra}
 
 
-def words_entry(kernel, err, ms, plain_ms, lt, planes, out):
-    """The entry of a words pass: one interval test of every leaf per
-    packet, and its set-up per ray."""
-    from snail_tpu_torch.ops.traverse import PACKET_R
+def words_entry(kernel, err, ms, plain_ms, lt, planes, out, tested=None):
+    """The entry of a words pass: its set-up per ray and, per packet, one
+    interval test of every leaf; or, given ``tested`` (B5: bool (P,
+    Lp/32), the words whose box passes the packet's test,
+    ``general_word_tests``), one test of every word box and one of each
+    leaf of a word that passes, with the boxes of the leaves some packet
+    tests read once. B5's entry also keeps the bound of the first count as
+    ``bound_every_leaf_ms``."""
+    import torch
+
+    from snail_tpu_torch.ops.traverse import PACKET_R, WARP
 
     p = out[0].shape[0]
-    ops = p * (lt.n_leaf * LEAF_OPS[kernel] + PACKET_R * RAY_OPS[kernel])
-    return entry(err, ms, plain_ms, nbytes(*planes, lt.box, *out), ops)
+    ray_ops = p * PACKET_R * RAY_OPS[kernel]
+    every = entry(err, ms, plain_ms, nbytes(*planes, lt.box, *out),
+                  p * lt.n_leaf * LEAF_OPS[kernel] + ray_ops)
+    if tested is None:
+        return every
+    n_words = -(-lt.n_leaf // WARP)
+    per_word = (lt.n_leaf - WARP * torch.arange(n_words, device=lt.box.device)
+                ).clamp(0, WARP)
+    tested = tested[:, :n_words]
+    leaves = int((tested * per_word).sum())
+    read = int((tested.any(0) * per_word).sum())
+    ops = (p * n_words + leaves) * LEAF_OPS[kernel] + ray_ops
+    n_bytes = (nbytes(*planes, *out) + n_words * nbytes(lt.wbox[:, 0])
+               + read * nbytes(lt.box[:, 0]))
+    return entry(err, ms, plain_ms, n_bytes, ops,
+                 bound_every_leaf_ms=every["bound_ms"])
 
 
 def root_exit(lt, o, idir):
@@ -345,7 +371,8 @@ def needed_work(kernel, lt, rows, words, o, idir, reach, n_blocked=0,
 def scan_counts(lt, words, summ, o, d, idir, lim, reach):
     """What the word lists of a trace wavefront give its warps to scan, in
     plain torch from the wavefront and the tables, at each warp's starting
-    limits (B4 and B6 as csrc/worklist.cu ``scan_boxes`` describes them):
+    limits (B4 and B6 as csrc/worklist.cu ``scan_boxes`` describes them;
+    B2 keeps the word scan, whose leaf-level cull drops what they skip):
     per warp, the packet's populated (band, word) pairs (the words every
     warp of the packet scans band by band); its populated words and
     blocks, and those whose word or block box some lane enters before its
@@ -401,8 +428,9 @@ def print_scan(name, kernel, tally):
                       if k != "warps"), flush=True)
 
 
-def words_err(kern, plain, name):
-    """Words must be identical; floors are compared as floats."""
+def words_err(kern, plain, name, exact=False):
+    """Words must be identical; floors are compared as floats, or with
+    ``exact`` must be identical too."""
     import torch
 
     kw, ks, kf = kern
@@ -410,6 +438,9 @@ def words_err(kern, plain, name):
     bad = int((kw != pw).sum()) + int((ks != ps).sum())
     if bad:
         fail(f"{name}: {bad} words differ from the plain version")
+    if exact and not torch.equal(kf, pf):
+        fail(f"{name}: {int((kf != pf).sum())} band floors differ from the "
+             "plain version")
     both = (kf < 1e37) & (pf < 1e37)
     if not bool(((kf < 1e37) == (pf < 1e37)).all()):
         fail(f"{name}: empty bands differ from the plain version")
@@ -476,33 +507,28 @@ def check_kernels(name, kind, scene, cam):
     plain, plain_ms = timed_plain(
         lambda: pt.camera_wl_plain(cv, w, h, rows, lt, words, pids))
     kd, ku, kv, kt, kdx, kdy, kdz = kern
-    pd, pu, pv, ptri, pdx, pdy, pdz = plain
-    hit = pd < BIG
+    hit = plain[0] < BIG
     if not bool((kt[~hit] == -1).all() and (kd[~hit] == BIG).all()):
         fail(f"{name} camera_wl: misses differ from the plain version")
-    derr = float((kd - pd)[hit].abs().max())
-    same = hit & (kt == ptri)
-    checks = {
-        "dist": bool(torch.allclose(kd, pd, rtol=2e-4, atol=2e-4)),
-        "tri": float((kt[hit] == ptri[hit]).float().mean()) > 0.999,
-        # barycentrics where both found the same triangle: at a tie the
-        # other triangle's (u, v) are right for it
-        "u": float((ku - pu)[same].abs().max()) <= 2e-3,
-        "v": float((kv - pv)[same].abs().max()) <= 2e-3,
-        "dirs": max(float((a - b).abs().max()) for a, b in
-                    ((kdx, pdx), (kdy, pdy), (kdz, pdz))) <= 1e-6,
-        "hits": float(hit.float().mean()) > 0.3,
-    }
-    if not all(checks.values()):
-        fail(f"{name} camera_wl: {checks}, max dist err {derr}")
+    if not all(torch.equal(a, b) for a, b in zip(kern[4:], plain[4:])):
+        fail(f"{name} camera_wl: directions differ from the plain version")
+    # dist, u, v bit for bit where the triangle agrees; it differs only on a
+    # distance tie (the walk checks' rule)
+    derr, share = closest_equal(f"{name} camera_wl", kern[:4], plain[:4],
+                                torch.ones_like(hit))
+    if share <= 0.3:
+        fail(f"{name} camera_wl: hit share {share}")
     ms = cuda_ms(lambda: pt.camera_wl(cv, w, h, rows, lt, words, summ,
                                       floors), KERNEL_REPS)
-    _, idir, t_exit = pt._camera_rays(cv, w, h, pids)
-    ops, leaf_bytes = needed_work("camera_wl", lt, rows, words,
-                                  cv[9:12].unbind(), idir,
-                                  torch.where(kt >= 0, kd, t_exit))
+    d, idir, t_exit = pt._camera_rays(cv, w, h, pids)
+    o = cv[9:12].unbind()
+    tally = scan_counts(lt, words, summ, o, d, idir, t_exit, t_exit)
+    ops, leaf_bytes = needed_work("camera_wl", lt, rows, words, o, idir,
+                                  torch.where(kt >= 0, kd, t_exit),
+                                  tally=tally)
+    print_scan(name, "camera_wl", tally)
     b2_bytes = nbytes(cv, words, summ, floors, *kern) + leaf_bytes
-    out["camera_wl"] = entry(derr, ms, plain_ms, b2_bytes, ops)
+    out["camera_wl"] = entry(derr, ms, plain_ms, b2_bytes, ops, scan=tally)
 
     # B8a on the same inputs: B2's outputs bit for bit, and the counters of
     # a few seeded packets equal to the simulation of their warps
@@ -515,8 +541,9 @@ def check_kernels(name, kind, scene, cam):
     check_counters(f"{name} camera_wl_stats", st, pk, sim)
     ms = cuda_ms(lambda: pt.camera_wl_stats(cv, w, h, rows, lt, words, summ,
                                             floors), KERNEL_REPS)
-    out["camera_wl_stats"] = entry(0.0, ms, plain_ms, b2_bytes + nbytes(st),
-                                   ops, plain_packets=len(pk))
+    out["camera_wl_stats"] = entry(derr, ms, plain_ms,
+                                   b2_bytes + nbytes(st), ops,
+                                   plain_packets=len(pk))
 
     # B3, B4 and B8b on the shadow rays the frame casts from these hits
     # toward its light 0, and toward the scene's low light where it has one
@@ -682,12 +709,20 @@ def check_general(name, scene, o, d, tm):
     kern = pt.words_general(o, d, tm, lt)
     plain, plain_ms = timed_plain(
         lambda: pt.words_general_plain(o, d, tm, lt, pt.WL_BANDS))
-    err = words_err(kern, plain, f"{name} words_general")
+    err = words_err(kern, plain, f"{name} words_general", exact=True)
     ms = cuda_ms(lambda: pt.words_general(o, d, tm, lt), KERNEL_REPS)
-    out["words_general"] = words_entry("words_general", err, ms, plain_ms, lt,
-                                       (*o, *d, tm), kern)
+    tested = pt.general_word_tests(o, d, tm, lt)
     words, summ, floors = kern
+    if bool((words.ne(0).any(1) & ~tested).any()):
+        fail(f"{name} words_general: a bit set in a word whose box fails")
+    out["words_general"] = words_entry("words_general", err, ms, plain_ms, lt,
+                                       (*o, *d, tm), kern, tested)
     kept = pt.unpack_bits(words).any(1).sum(1).float()
+    print(f"check {name} words_general: words, summaries and floors equal "
+          f"the plain version's; words whose box passes per packet: mean "
+          f"{float(tested.sum(1).float().mean()):.1f} of {tested.shape[1]}, "
+          f"populated {float(words.ne(0).any(1).sum(1).float().mean()):.1f}",
+          flush=True)
 
     kern = pt.closest_wl_g(o, d, tm, rows, lt, words, summ, floors)
     plain, plain_ms = timed_plain(
@@ -1717,10 +1752,15 @@ def main() -> None:
         checks.update(check_walk_kernels(name, kind, walk, cam))
         # the worklist kernels against the walk kernels that compute the
         # same function on the same wavefront, in this call
+        b5 = checks["words_general"]
         print(f"ratio {name}: " + ", ".join(
             f"{a} / {b} = {checks[a]['ms'] / checks[b]['ms']:.3f}"
-            for a, b in (("closest_wl_g", "walk_closest_g"),
-                         ("shadow_wl", "walk_shadow"))), flush=True)
+            for a, b in (("camera_wl", "walk_camera"),
+                         ("closest_wl_g", "walk_closest_g"),
+                         ("shadow_wl", "walk_shadow")))
+            + f"; words_general {b5['ms']:.4f} ms beside its bound "
+            f"{b5['bound_ms']:.4f} ms ({b5['bound_by']}; every leaf "
+            f"{b5['bound_every_leaf_ms']:.4f})", flush=True)
         stamp(f"{name} walk kernel checks")
         launches["walk_fwd"] = run_walk_frame(name, "walk fwd", fwd,
                                               WALK_FWD, walk, scene, cam,

@@ -4,7 +4,7 @@
 // Replaces, in snail_tpu/ops/traverse_pallas.py:
 //   words_kernel<CAMERA>  <- _words_camera_kernel  (B1)
 //   words_kernel<SHARED>  <- _words_shared_kernel  (B3)
-//   words_kernel<GENERAL> <- _words_general_kernel (B5)
+//   words_general_kernel  <- _words_general_kernel (B5)
 //   camera_wl_kernel      <- _camera_wl_kernel     (B2)
 //   shadow_wl_kernel      <- _shadow_wl_kernel     (B4)
 //   closest_wl_g_kernel   <- _closest_wl_kernel_g  (B6)
@@ -18,12 +18,20 @@
 // helpers it shares with the walk kernels (walk.cu) are in rays.cuh.
 //
 // What bounds these kernels on this card:
-// - words: one block per 64x64-pixel packet streams the planar leaf boxes
-//   (24 B per leaf) three times and does ~40 flops per leaf and pass. The
-//   boxes of a whole scene (1 MB at 44k leaves) stay in the 50 MB L2, so
-//   the pass is bound by issue rate, not by device memory. Verdicts become
-//   bit words by __ballot_sync, band membership by a 32-bin shared-memory
-//   histogram (the TPU packed bits on its matrix unit instead).
+// - words (B1, B3): one block per 64x64-pixel packet streams the planar
+//   leaf boxes (24 B per leaf) three times and does ~40 flops per leaf and
+//   pass. The boxes of a whole scene (1 MB at 44k leaves) stay in the 50 MB
+//   L2, so the pass is bound by issue rate, not by device memory. Verdicts
+//   become bit words by __ballot_sync, band membership by a 32-bin
+//   shared-memory histogram (the TPU packed bits on its matrix unit
+//   instead).
+// - B5 (words with an origin per ray, ~2x the flops per leaf) splits each
+//   packet over a thread block cluster of kWordsCluster blocks, which
+//   share their partial results through distributed shared memory: 8x the
+//   blocks of one per packet (the terrain's reflections have 256 packets,
+//   2 blocks per SM at one per packet), each leaf's entry computed once
+//   into shared memory in place of three times, and no leaf tested in a
+//   word whose box (LeafTables wbox) the packet interval misses.
 // - trace: one thread per ray, warps independent. Each warp scans its
 //   packet's bit words in band order (uniform control flow: every lane
 //   reads the same word), tests a word's 32 leaves in parallel against
@@ -41,7 +49,10 @@
 //   rays enter, not to its packet's word list (B6's wide reflection
 //   packets keep ~760 words a warp, of which its rays enter ~20). B6
 //   reads a word's leaf boxes from shared memory, where cp.async brought
-//   them during the previous word. The slab and Moller tests are float32
+//   them during the previous word. B2's coherent primary warps scan ~15
+//   words, and its leaf-level cull already drops the words the boxes
+//   would skip: on scan_boxes it was slower, so it keeps scan_words. The
+//   slab and Moller tests are float32
 //   compares and sums of products of a ray with one box or triangle at a
 //   time: no matrix product the tensor cores could take.
 // - bounce rays (B5, B6) have an origin per ray: the packet and warp
@@ -60,6 +71,8 @@
 //   counter and warp at the end: order-free, so deterministic. Their cost
 //   is a few warp votes per word and leaf.
 
+#include <cooperative_groups.h>
+
 #include "rays.cuh"
 
 namespace {
@@ -69,8 +82,12 @@ constexpr int kBins = 32;
 constexpr int kMaxBands = 8;
 constexpr int kWordsThreads = 256;
 constexpr int kTraceThreads = 256;
+constexpr int kWordsCluster = 8;  // B5: blocks per packet, one cluster
+// B5's dynamic shared memory at most: the 227 KB a block may hold on this
+// card, less room for its static shared memory
+constexpr int kGeneralSmemMax = 227 * 1024 - 4096;
 
-enum Origin { CAMERA = 0, SHARED = 1, GENERAL = 2 };
+enum Origin { CAMERA = 0, SHARED = 1 };
 
 // Block-wide min or max of one value per thread; every thread gets it.
 template <bool MAX>
@@ -144,8 +161,9 @@ __device__ __forceinline__ float leaf_entry(const float* box, int lp, int l,
   return tn;
 }
 
-// B1 / B3 / B5. One block per packet. Dynamic shared memory: K * NS
-// summary words.
+// B1 / B3. One block per packet. Dynamic shared memory: K * NS summary
+// words. ``ox``/``oy``/``oz`` are unused (B5, which has an origin per ray,
+// is words_general_kernel below); the parameter list is B5's old one.
 template <int MODE>
 __global__ void __launch_bounds__(kWordsThreads)
 words_kernel(const float* __restrict__ cam_or_orig,
@@ -163,11 +181,9 @@ words_kernel(const float* __restrict__ cam_or_orig,
 
   const int pid = blockIdx.x;
   const int nw = lp / 32, ns = lp / kLeafBlock;
-  constexpr bool kGen = MODE == GENERAL;
 
   // 1. ray interval bounds of the packet
   float imn[3] = {kBig, kBig, kBig}, imx[3] = {-kBig, -kBig, -kBig};
-  float omn[3] = {kBig, kBig, kBig}, omx[3] = {-kBig, -kBig, -kBig};
   float mb_local = -kBig;
   for (int k = threadIdx.x; k < kPacketR; k += blockDim.x) {
     float idir[3];
@@ -181,16 +197,7 @@ words_kernel(const float* __restrict__ cam_or_orig,
       idir[1] = 1.0f / (dy[g] + kInvEps);
       idir[2] = 1.0f / (dz[g] + kInvEps);
       const float t = tm[g];
-      if (kGen) {
-        mb_local = fmaxf(mb_local, t >= 0.0f ? fminf(t, kBig) : -kBig);
-        const float o[3] = {ox[g], oy[g], oz[g]};
-        for (int c = 0; c < 3; ++c) {
-          omn[c] = fminf(omn[c], o[c]);
-          omx[c] = fmaxf(omx[c], o[c]);
-        }
-      } else {
-        mb_local = fmaxf(mb_local, t >= 0.0f ? t : -kBig);
-      }
+      mb_local = fmaxf(mb_local, t >= 0.0f ? t : -kBig);
     }
     for (int c = 0; c < 3; ++c) {
       imn[c] = fminf(imn[c], idir[c]);
@@ -199,12 +206,7 @@ words_kernel(const float* __restrict__ cam_or_orig,
   }
   Interval iv;
   for (int c = 0; c < 3; ++c) {
-    if (kGen) {
-      iv.om[c] = widen_lo(block_reduce<false>(omn[c], s_red));
-      iv.oM[c] = widen_hi(block_reduce<true>(omx[c], s_red));
-    } else {
-      iv.om[c] = iv.oM[c] = cam_or_orig[MODE == CAMERA ? 9 + c : c];
-    }
+    iv.om[c] = iv.oM[c] = cam_or_orig[MODE == CAMERA ? 9 + c : c];
     iv.im[c] = widen_lo(block_reduce<false>(imn[c], s_red));
     iv.iM[c] = widen_hi(block_reduce<true>(imx[c], s_red));
   }
@@ -217,7 +219,7 @@ words_kernel(const float* __restrict__ cam_or_orig,
   float tmin = kBig;
   for (int l = threadIdx.x; l < lp; l += blockDim.x) {
     bool ok;
-    const float tn = leaf_entry<kGen>(box, lp, l, n_leaf, iv, ok);
+    const float tn = leaf_entry<false>(box, lp, l, n_leaf, iv, ok);
     if (ok) tmin = fminf(tmin, tn);
   }
   const float t0 = fminf(block_reduce<false>(tmin, s_red), iv.mb);
@@ -228,7 +230,7 @@ words_kernel(const float* __restrict__ cam_or_orig,
     const float scale = (float)kBins / span;
     for (int l = threadIdx.x; l < lp; l += blockDim.x) {
       bool ok;
-      const float tn = leaf_entry<kGen>(box, lp, l, n_leaf, iv, ok);
+      const float tn = leaf_entry<false>(box, lp, l, n_leaf, iv, ok);
       if (ok) {
         const float f = fminf((tn - t0) * scale, (float)kBins);
         const int b = min(max((int)f, 0), kBins - 1);
@@ -260,8 +262,8 @@ words_kernel(const float* __restrict__ cam_or_orig,
   int32_t* wout = words + (size_t)pid * k_bands * nw;
   for (int g = warp; g < nw; g += nwarps) {
     bool ok;
-    const float tn = leaf_entry<kGen>(box, lp, g * 32 + lane, n_leaf, iv,
-                                      ok);
+    const float tn = leaf_entry<false>(box, lp, g * 32 + lane, n_leaf, iv,
+                                       ok);
     int band = 0;
     for (int b = 1; b < k_bands; ++b) band += tn >= s_los[b];
     unsigned mine = 0;
@@ -285,6 +287,245 @@ words_kernel(const float* __restrict__ cam_or_orig,
     for (int s = 0; s < ns; ++s) any |= s_summ[b * ns + s];
     floors[pid * k_bands + b] = any ? s_los[b] : kBig;
   }
+}
+
+// B5's words per cluster rank: whole 32-leaf words, contiguous.
+__host__ __device__ inline int general_per_rank(int lp) {
+  return (lp / 32 + kWordsCluster - 1) / kWordsCluster;
+}
+
+// B5's dynamic shared memory: the entries of a rank's leaves, the summary
+// words of every band and one pre-test bit per word of the rank.
+int general_smem(int k_bands, int lp) {
+  const int per = general_per_rank(lp);
+  return (per * 32 + k_bands * (lp / kLeafBlock) + (per + 31) / 32) * 4;
+}
+
+// B5: the leaf pass of rays with their own origins, one cluster of
+// kWordsCluster blocks per packet (blocks pid * kWordsCluster + rank).
+// Rank r reduces the bounds of rays [r, r + 1) * kPacketR / kWordsCluster
+// and owns the words [r, r + 1) * general_per_rank(lp). The ranks combine
+// their interval bounds, their nearest entries and their 32-bin histograms
+// through distributed shared memory, so that every rank holds the
+// packet's interval, t0 and band edges; rank 0 ORs the summary words of
+// the cluster and writes them and the floors. Each leaf's entry is
+// computed once, into ``s_tn`` (+inf where the leaf fails), which the
+// histogram and the verdicts read. Ahead of the leaves, each word's box
+// (LeafTables wbox) gets the same interval test: a word whose box fails
+// holds no leaf that passes, as each corner product (x - o) * i is
+// monotone in x under rounding for a fixed o and i and a leaf box lies in
+// its word's, so the leaf's entry is at or above the word's and its exit
+// at or below (scan_boxes' argument); its leaves are not tested. Where a
+// bound of the interval is not finite, 0 x inf = NaN would break that, and
+// every word is tested. Min, max and integer sums do not depend on order:
+// words, summaries and floors are words_kernel's, and the plain
+// version's, bit for bit.
+__global__ void __cluster_dims__(kWordsCluster, 1, 1)
+__launch_bounds__(kWordsThreads)
+words_general_kernel(const float* __restrict__ ox,
+                     const float* __restrict__ oy,
+                     const float* __restrict__ oz,
+                     const float* __restrict__ dx,
+                     const float* __restrict__ dy,
+                     const float* __restrict__ dz,
+                     const float* __restrict__ tm,
+                     const float* __restrict__ box,
+                     const float* __restrict__ wbox, int lp, int n_leaf,
+                     int k_bands, int32_t* __restrict__ words,
+                     int32_t* __restrict__ summ,
+                     float* __restrict__ floors) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  // bounds of the packet interval, reduced by min (the first kMins) or max:
+  // origin lo.xyz, inverse-direction lo.xyz, origin hi.xyz,
+  // inverse-direction hi.xyz, distance bound; then the nearest entry
+  constexpr int kMins = 6, kBounds = 13, kWarps = kWordsThreads / 32;
+  extern __shared__ float s_tn[];
+  __shared__ float s_warp[kWarps][kBounds];
+  __shared__ float s_part[kBounds + 1];  // this rank's
+  __shared__ float s_all[kBounds + 1];   // the cluster's
+  __shared__ float s_red[32];
+  __shared__ int s_hist[kBins];
+  __shared__ int s_count[kBins];
+  __shared__ float s_los[kMaxBands];
+
+  const int rank = (int)cluster.block_rank();
+  const int pid = blockIdx.x / kWordsCluster;
+  const int nw = lp / 32, ns = lp / kLeafBlock;
+  const int per = general_per_rank(lp);
+  const int w0 = min(rank * per, nw), n_own = min(per, nw - w0);
+  unsigned* s_summ = reinterpret_cast<unsigned*>(s_tn + per * 32);
+  unsigned* s_wok = s_summ + k_bands * ns;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float kNone = __int_as_float(0x7f800000);  // +inf: the leaf fails
+
+  // 1. the packet interval: this rank's rays, then the cluster's
+  float v[kBounds];
+  for (int i = 0; i < kBounds; ++i) v[i] = i < kMins ? kBig : -kBig;
+  constexpr int kRays = kPacketR / kWordsCluster;
+  for (int k = rank * kRays + threadIdx.x; k < (rank + 1) * kRays;
+       k += kWordsThreads) {
+    const size_t g = (size_t)pid * kPacketR + k;
+    const float o[3] = {ox[g], oy[g], oz[g]};
+    const float idir[3] = {1.0f / (dx[g] + kInvEps), 1.0f / (dy[g] + kInvEps),
+                           1.0f / (dz[g] + kInvEps)};
+    for (int c = 0; c < 3; ++c) {
+      v[c] = fminf(v[c], o[c]);
+      v[3 + c] = fminf(v[3 + c], idir[c]);
+      v[6 + c] = fmaxf(v[6 + c], o[c]);
+      v[9 + c] = fmaxf(v[9 + c], idir[c]);
+    }
+    const float t = tm[g];
+    v[12] = fmaxf(v[12], t >= 0.0f ? fminf(t, kBig) : -kBig);
+  }
+  for (int i = 0; i < kBounds; ++i) {
+    const float r = i < kMins ? warp_min(v[i]) : warp_max(v[i]);
+    if (lane == 0) s_warp[warp][i] = r;
+  }
+  for (int i = threadIdx.x; i < k_bands * ns; i += kWordsThreads)
+    s_summ[i] = 0;
+  if (threadIdx.x < kBins) s_hist[threadIdx.x] = 0;
+  __syncthreads();
+  if (threadIdx.x < kBounds) {
+    const int i = threadIdx.x;
+    float a = s_warp[0][i];
+    for (int w = 1; w < kWarps; ++w)
+      a = i < kMins ? fminf(a, s_warp[w][i]) : fmaxf(a, s_warp[w][i]);
+    s_part[i] = a;
+  }
+  cluster.sync();
+  if (threadIdx.x < kBounds) {
+    const int i = threadIdx.x;
+    float a = s_part[i];
+    for (int r = 0; r < kWordsCluster; ++r) {
+      const float b = cluster.map_shared_rank(&s_part[0], r)[i];
+      a = i < kMins ? fminf(a, b) : fmaxf(a, b);
+    }
+    s_all[i] = a;
+  }
+  __syncthreads();
+  Interval iv;
+  bool tame = true;  // every bound finite: the word-box pre-test is exact
+  for (int c = 0; c < 3; ++c) {
+    iv.om[c] = widen_lo(s_all[c]);
+    iv.im[c] = widen_lo(s_all[3 + c]);
+    iv.oM[c] = widen_hi(s_all[6 + c]);
+    iv.iM[c] = widen_hi(s_all[9 + c]);
+    tame = tame && isfinite(iv.om[c]) && isfinite(iv.oM[c]) &&
+           isfinite(iv.im[c]) && isfinite(iv.iM[c]);
+  }
+  iv.mb = s_all[12] * 1.0001f + 1e-30f;
+
+  // 2. the word-box pre-test, one word a thread, and each leaf's entry in
+  // the words that pass, one warp a word; the nearest over the cluster
+  for (int i0 = warp * 32; i0 < n_own; i0 += kWordsThreads) {
+    bool ok = i0 + lane < n_own;
+    if (ok && tame) leaf_entry<true>(wbox, nw, w0 + i0 + lane, nw, iv, ok);
+    const unsigned m = __ballot_sync(kFull, ok);
+    if (lane == 0) s_wok[i0 >> 5] = m;
+  }
+  __syncthreads();
+  float tmin = kBig;
+  for (int i = warp; i < n_own; i += kWarps) {
+    float tn = kNone;
+    if ((s_wok[i >> 5] >> (i & 31)) & 1u) {
+      bool ok;
+      const float t = leaf_entry<true>(box, lp, (w0 + i) * 32 + lane, n_leaf,
+                                       iv, ok);
+      if (ok) {
+        tn = t;
+        tmin = fminf(tmin, t);
+      }
+    }
+    s_tn[i * 32 + lane] = tn;
+  }
+  tmin = block_reduce<false>(tmin, s_red);
+  if (threadIdx.x == 0) s_part[kBounds] = tmin;
+  cluster.sync();
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < kWordsCluster; ++r)
+      tmin = fminf(tmin, cluster.map_shared_rank(&s_part[0], r)[kBounds]);
+    s_all[kBounds] = tmin;
+  }
+  __syncthreads();
+  const float t0 = fminf(s_all[kBounds], iv.mb);
+  const float span = fmaxf(iv.mb - t0, 1e-6f);
+
+  // 3. equal-count band edges from the cluster's 32-bin histogram
+  if (k_bands > 1) {
+    const float scale = (float)kBins / span;
+    for (int j = threadIdx.x; j < n_own * 32; j += kWordsThreads) {
+      const float tn = s_tn[j];
+      int b = kBins;  // the leaf fails
+      if (tn != kNone) {
+        const float f = fminf((tn - t0) * scale, (float)kBins);
+        b = min(max((int)f, 0), kBins - 1);
+      }
+      if (b < kBins) atomicAdd(&s_hist[b], 1);
+    }
+    cluster.sync();
+    if (threadIdx.x < kBins) {
+      int n = 0;
+      for (int r = 0; r < kWordsCluster; ++r)
+        n += cluster.map_shared_rank(&s_hist[0], r)[threadIdx.x];
+      s_count[threadIdx.x] = n;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int c[kBins];
+      int run = 0;
+      for (int j = 0; j < kBins; ++j) c[j] = (run += s_count[j]);
+      const int total = max(c[kBins - 1], 1);
+      s_los[0] = t0;
+      for (int b = 1; b < k_bands; ++b) {
+        const int tgt = (total * b + k_bands - 1) / k_bands;
+        int e = 0;
+        for (int j = 0; j < kBins; ++j) e += c[j] < tgt;
+        s_los[b] = t0 + (float)e * (span / (float)kBins);
+      }
+    }
+  } else if (threadIdx.x == 0) {
+    s_los[0] = t0;
+  }
+  __syncthreads();
+
+  // 4. verdict bits of this rank's words by ballot, one warp a word
+  int32_t* wout = words + (size_t)pid * k_bands * nw;
+  for (int i = warp; i < n_own; i += kWarps) {
+    const int g = w0 + i;
+    const float tn = s_tn[i * 32 + lane];
+    const bool ok = tn != kNone;
+    int band = 0;
+    for (int b = 1; b < k_bands; ++b) band += tn >= s_los[b];
+    unsigned mine = 0;
+    for (int b = 0; b < k_bands; ++b) {
+      const unsigned m = __ballot_sync(kFull, ok && band == b);
+      if (lane == b) mine = m;
+    }
+    if (lane < k_bands) {
+      wout[lane * nw + g] = (int32_t)mine;
+      if (mine) atomicOr(&s_summ[lane * ns + (g >> 5)], 1u << (g & 31));
+    }
+  }
+  cluster.sync();
+  if (rank == 0) {
+    int32_t* sout = summ + (size_t)pid * k_bands * ns;
+    for (int i = threadIdx.x; i < k_bands * ns; i += kWordsThreads) {
+      unsigned m = 0;
+      for (int r = 0; r < kWordsCluster; ++r)
+        m |= cluster.map_shared_rank(s_summ, r)[i];
+      s_summ[i] = m;
+      sout[i] = (int32_t)m;
+    }
+    __syncthreads();
+    if (threadIdx.x < k_bands) {
+      const int b = threadIdx.x;
+      unsigned any = 0;
+      for (int s = 0; s < ns; ++s) any |= s_summ[b * ns + s];
+      floors[pid * k_bands + b] = any ? s_los[b] : kBig;
+    }
+  }
+  cluster.sync();  // no rank leaves while rank 0 reads its shared memory
 }
 
 // Per-ray slab test of leaf l: entry distance, and pass = the ray enters
@@ -833,17 +1074,30 @@ int snail_words_shared(const float* orig, const float* dx, const float* dy,
   return (int)cudaGetLastError();
 }
 
+// B5. ``wbox``: the word boxes (ops/traverse.py LeafTables). A scene whose
+// words per cluster rank need more shared memory than kGeneralSmemMax
+// (general_smem: Lp above 429,056 leaves at 8 bands, ops/traverse.py
+// WL_MAX_LP, where scenes that large get node tables) is refused.
 int snail_words_general(const float* ox, const float* oy, const float* oz,
                         const float* dx, const float* dy, const float* dz,
-                        const float* tm, const float* box, int lp, int n_leaf,
-                        int k_bands, int n_packets, int32_t* words,
-                        int32_t* summ, float* floors, void* stream) {
-  if (!words_args_ok(lp, n_leaf, k_bands, n_packets))
+                        const float* tm, const float* box, const float* wbox,
+                        int lp, int n_leaf, int k_bands, int n_packets,
+                        int32_t* words, int32_t* summ, float* floors,
+                        void* stream) {
+  if (!words_args_ok(lp, n_leaf, k_bands, n_packets) ||
+      general_smem(k_bands, lp) > kGeneralSmemMax)
     return (int)cudaErrorInvalidValue;
-  words_kernel<GENERAL>
-      <<<n_packets, kWordsThreads, words_smem(k_bands, lp),
-         (cudaStream_t)stream>>>(nullptr, ox, oy, oz, dx, dy, dz, tm, box, lp,
-                                 n_leaf, k_bands, words, summ, floors);
+  const int smem = general_smem(k_bands, lp);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        words_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  words_general_kernel<<<n_packets * kWordsCluster, kWordsThreads, smem,
+                         (cudaStream_t)stream>>>(
+      ox, oy, oz, dx, dy, dz, tm, box, wbox, lp, n_leaf, k_bands, words, summ,
+      floors);
   return (int)cudaGetLastError();
 }
 

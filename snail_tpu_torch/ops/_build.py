@@ -42,7 +42,7 @@ _SIGNATURES = {
                            _P, _P],
     "snail_camera_wl": [_P] * 5 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 9,
     "snail_shadow_wl": [_P] * 11 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 3,
-    "snail_words_general": [_P] * 8 + [_I] * 4 + [_P] * 4,
+    "snail_words_general": [_P] * 9 + [_I] * 4 + [_P] * 4,
     "snail_closest_wl_g": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 5,
     "snail_shadow_wl_g": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 2,
     "snail_walk_camera": [_P] * 3 + [_I] * 3 + [_P] * 9,

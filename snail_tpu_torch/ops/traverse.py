@@ -65,6 +65,10 @@ TRI_ROW = 16  # floats per 64-B triangle row
 _HIST_BINS = 32  # histogram bins of the equal-count band edges
 WARP = 32  # rays per warp: one thread per ray
 WARPS = PACKET_R // WARP  # warps per packet
+# The most leaf slots of leaf tables: one block of B5's cluster keeps the
+# entries of its share of them in shared memory (csrc/worklist.cu
+# general_smem, at WL_BANDS bands); a scene with more gets node tables.
+WL_MAX_LP = 429_056
 # The counters of B8a/B8b and B9e/B9f, per packet: the slots of its (P, 8)
 # int32 row (the JAX package's names and slots; slots 5-7 stay 0). What
 # each counts is in csrc/worklist.cu (struct Counters) and csrc/walk.cuh
@@ -97,8 +101,8 @@ class LeafTables:
 
     Min and max do not round, so ``wbox`` and ``bbox`` hold the leaf
     boxes' own floats and contain every leaf box of their word or block:
-    the skip tests of B4 and B6 (csrc/worklist.cu ``scan_boxes``) rest on
-    that."""
+    the skip tests of B4 and B6 (csrc/worklist.cu ``scan_boxes``) and B5's
+    word pre-test rest on that."""
 
     box: torch.Tensor
     first: torch.Tensor
@@ -384,16 +388,15 @@ def _corner_range(x, om, oM, lm, lM):
     return lo, hi
 
 
-def _leaf_pass(tables: LeafTables, om, oM, idir, mb, k_bands: int):
-    """Interval test of every leaf against each packet's bounds, banding
-    and bit packing. ``om``/``oM``: the origin bounds, three scalars each
-    (a shared origin: the same tensors) or three (P, 1); ``idir``: three
-    (P, PACKET_R) inverse dirs; ``mb``: (P,) packet distance bound."""
-    im, iM = zip(*[_widen(c.amin(1), c.amax(1)) for c in idir])
-    box = tables.box
-    p, lp = mb.shape[0], tables.lp
-    tn = torch.zeros((p, lp), dtype=torch.float32, device=box.device)
-    tf = mb[:, None].expand(p, lp)
+def _interval_test(box, om, oM, im, iM, mb):
+    """Each packet's interval entry and exit of every column of the planar
+    ``box`` (6, n), the kernels' ``leaf_entry``: tn and tf, (P, n) each.
+    ``om``/``oM``: the origin bounds, three scalars each (a shared origin:
+    the same tensors) or three (P, 1); ``im``/``iM``: the inverse-direction
+    bounds, three (P,) each; ``mb``: (P,) packet distance bound."""
+    p, n = mb.shape[0], box.shape[1]
+    tn = torch.zeros((p, n), dtype=torch.float32, device=box.device)
+    tf = mb[:, None].expand(p, n)
     for k in range(3):
         lm, lM = im[k][:, None], iM[k][:, None]
         o_lo = om[k]
@@ -403,6 +406,18 @@ def _leaf_pass(tables: LeafTables, om, oM, idir, mb, k_bands: int):
                                        lm, lM)
         tn = torch.maximum(tn, torch.minimum(lo_min, hi_min))
         tf = torch.minimum(tf, torch.maximum(lo_max, hi_max))
+    return tn, tf
+
+
+def _leaf_pass(tables: LeafTables, om, oM, idir, mb, k_bands: int):
+    """Interval test of every leaf against each packet's bounds, banding
+    and bit packing. ``om``/``oM``: the origin bounds, three scalars each
+    (a shared origin: the same tensors) or three (P, 1); ``idir``: three
+    (P, PACKET_R) inverse dirs; ``mb``: (P,) packet distance bound."""
+    im, iM = zip(*[_widen(c.amin(1), c.amax(1)) for c in idir])
+    box = tables.box
+    p, lp = mb.shape[0], tables.lp
+    tn, tf = _interval_test(box, om, oM, im, iM, mb)
     # padding slots must never pass: with a direction interval spanning 0
     # the inverted +-1e30 boxes alone would pass the test
     real = torch.arange(lp, device=box.device)[None, :] < tables.n_leaf
@@ -456,16 +471,38 @@ def words_shared_plain(orig, d, tm, tables: LeafTables, k_bands: int):
     return _leaf_pass(tables, orig, orig, idir, mb, k_bands)
 
 
-def words_general_plain(o, d, tm, tables: LeafTables, k_bands: int):
-    """Plain B5: the leaf pass of rays with their own origins; ``o`` and
-    ``d`` three and ``tm`` one (P, PACKET_R) float32 planes, masked rays
-    already substituted (:func:`substitute_masked`)."""
+def _general_bounds(o, d, tm):
+    """B5's packet bounds of the planes ``o``, ``d``, ``tm``: the widened
+    origin bounds (three (P, 1) each), the inverse directions (three (P,
+    PACKET_R)) and the distance bound (P,)."""
     idir = [1.0 / (c + INV_EPS) for c in d]
     limit = torch.where(tm >= 0.0, tm.clamp_max(BIG), -BIG)
     mb = limit.amax(1) * 1.0001 + 1e-30
     om, oM = zip(*[_widen(c.amin(1, keepdim=True), c.amax(1, keepdim=True))
                    for c in o])
-    return _leaf_pass(tables, om, oM, idir, mb, k_bands)
+    return om, oM, idir, mb
+
+
+def words_general_plain(o, d, tm, tables: LeafTables, k_bands: int):
+    """Plain B5: the leaf pass of rays with their own origins; ``o`` and
+    ``d`` three and ``tm`` one (P, PACKET_R) float32 planes, masked rays
+    already substituted (:func:`substitute_masked`)."""
+    return _leaf_pass(tables, *_general_bounds(o, d, tm), k_bands)
+
+
+def general_word_tests(o, d, tm, tables: LeafTables):
+    """The words whose leaves B5's kernel tests on the planes ``o``, ``d``,
+    ``tm``: bool (P, Lp/32), the word's box (``tables.wbox``) passes the
+    packet's interval test, or a bound of the interval is not finite (the
+    kernel then tests every word). A word whose box fails has no leaf that
+    passes (csrc/worklist.cu ``words_general_kernel``)."""
+    om, oM, idir, mb = _general_bounds(o, d, tm)
+    im, iM = zip(*[_widen(c.amin(1), c.amax(1)) for c in idir])
+    tn, tf = _interval_test(tables.wbox, om, oM, im, iM, mb)
+    tame = torch.ones_like(mb, dtype=torch.bool)
+    for x in (*om, *oM, *im, *iM):
+        tame &= torch.isfinite(x).reshape(mb.shape[0], -1).all(1)
+    return ((tn <= tf) & (tf > 0.0)) | ~tame[:, None]
 
 
 def _packet_leaves(tables: LeafTables, words_p):
@@ -1172,7 +1209,8 @@ def words_general(o, d, tm, tables: LeafTables, k_bands: int = WL_BANDS):
     """B5: leaf pass of rays with their own origins (replaces
     ``_words_general_kernel``). ``o`` and ``d`` three and ``tm`` one (P,
     PACKET_R) float32 planes, masked rays substituted. Returns (words,
-    summ, floors)."""
+    summ, floors). On the card, leaf tables of more than :data:`WL_MAX_LP`
+    slots are refused (scenes that large get node tables)."""
     if not _on_cuda(tm):
         return words_general_plain(o, d, tm, tables, k_bands)
     from ._build import library
@@ -1181,12 +1219,16 @@ def words_general(o, d, tm, tables: LeafTables, k_bands: int = WL_BANDS):
     p = tm.shape[0]
     _check_planes((*o, *d, tm), p, dev)
     _check_tables(tables, dev)
+    if tables.lp > WL_MAX_LP:
+        raise ValueError(
+            f"words_general: {tables.lp} leaf slots, more than B5 keeps in "
+            f"shared memory ({WL_MAX_LP})")
     words, summ, floors = _words_out(p, k_bands, tables.lp, dev)
     lib = library()
     _launched(lib.snail_words_general(
-        *(_ptr(t) for t in (*o, *d, tm)), _ptr(tables.box), tables.lp,
-        tables.n_leaf, k_bands, p, _ptr(words), _ptr(summ), _ptr(floors),
-        _stream()), "words_general")
+        *(_ptr(t) for t in (*o, *d, tm)), _ptr(tables.box),
+        _ptr(tables.wbox), tables.lp, tables.n_leaf, k_bands, p, _ptr(words),
+        _ptr(summ), _ptr(floors), _stream()), "words_general")
     words_general.launches += 1
     return words, summ, floors
 

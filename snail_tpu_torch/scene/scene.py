@@ -2,7 +2,8 @@
 forward and differentiable frames read: triangle rows, the traversal's
 tables (worklist leaf tables, or with ``walk=True`` the node tree of the
 walk kernels; a BVH whose leaves hold more than IVAL_LEAF triangles
-always gets the node tree, for the fat-leaf kernels), shading rows,
+always gets the node tree, for the fat-leaf kernels, and so does one of
+more leaves than leaf tables hold, WL_MAX_LP), shading rows,
 materials, the primal triangle and material arrays that gradients flow
 to, and lights, as tensors on one device.
 """
@@ -16,8 +17,8 @@ import numpy as np
 import torch
 
 from ..core.types import Light, resolve_device
-from ..ops.traverse import (IVAL_LEAF, LeafTables, NodeTables,
-                             pack_leaf_tables, pack_node_tables,
+from ..ops.traverse import (IVAL_LEAF, LEAF_BLOCK, WL_MAX_LP, LeafTables,
+                             NodeTables, pack_leaf_tables, pack_node_tables,
                              pack_tri_rows, tree_depth)
 from .base_scene import FlatGeometry
 from .materials import MaterialTable
@@ -39,7 +40,8 @@ class TracedScene:
     kernels' leaf tables, or ``nodes``, the node tree (a scene built with
     ``walk=True``, the port's explicit form of the JAX package's
     ``SNAIL_WL=0``, or one whose leaves hold more than IVAL_LEAF
-    triangles, which the JAX package gives no leaf tables); the entry
+    triangles, which the JAX package gives no leaf tables, or more than
+    WL_MAX_LP leaves, more than B5 keeps in shared memory); the entry
     points route by which one the scene holds, and a node tree by its
     ``leaf_max`` (walk or fat-leaf kernels). ``depth``: the BVH's depth
     (root 0).
@@ -117,10 +119,12 @@ def _sh_pack(g: FlatGeometry, mat_pack: np.ndarray) -> np.ndarray:
 
 def _tables(walk: bool, lo, hi, child, count, axis, first, device):
     """(leaves, nodes): the traversal tables of one kind, on ``device``:
-    node tables with ``walk`` or for leaves over IVAL_LEAF triangles (as
+    node tables with ``walk``, for leaves over IVAL_LEAF triangles (as
     ``make_traced_scene``'s ``_pack_wl`` :187-194 packs no leaf tables
-    there), else leaf tables."""
-    if walk or int(np.max(count)) > IVAL_LEAF:
+    there) or for more leaves than leaf tables hold (WL_MAX_LP slots),
+    else leaf tables."""
+    lp = -(-int(np.count_nonzero(count)) // LEAF_BLOCK) * LEAF_BLOCK
+    if walk or int(np.max(count)) > IVAL_LEAF or lp > WL_MAX_LP:
         return None, pack_node_tables(lo, hi, child, count, axis,
                                       first).to(device)
     return pack_leaf_tables(lo, hi, child, count).to(device), None
@@ -133,9 +137,9 @@ def make_traced_scene(geom: FlatGeometry, bvh,
     """Assemble the device scene from host-built pieces: ``geom`` as
     flattened, ``bvh`` from ``snail_tpu_torch.bvh.build_bvh`` (leaf size at
     most ``ops.traverse.LEAF_PAD``), on ``device`` (the card unless the
-    caller asks for the CPU); with ``walk``, or leaves over
-    ``ops.traverse.IVAL_LEAF`` triangles, node tables and no leaf
-    tables."""
+    caller asks for the CPU); with ``walk``, leaves over
+    ``ops.traverse.IVAL_LEAF`` triangles or more than
+    ``ops.traverse.WL_MAX_LP`` leaves, node tables and no leaf tables."""
     device = resolve_device(device)
     g = geom.permuted(bvh.order).padded(LEAF_PAD)
     if materials is None:
@@ -173,11 +177,11 @@ def traced_scene_from_numpy(arrays: Mapping[str, np.ndarray],
     node_count, tri_a, tri_ba, tri_ca, sh_mat, sh_pack, mat_pack,
     mat_diffuse, mat_specular, mat_reflect, mat_dissolve, optionally
     tex_atlas, and the lights as light_pos, light_color, light_radius
-    (absent: no lights); with ``walk``, or leaves over IVAL_LEAF
-    triangles, also node_axis and node_first, for node tables in place of
-    the leaf tables. The triangle rows are
-    packed from tri_a, tri_ba and tri_ca as given. On ``device``: the card
-    unless the caller asks for the CPU."""
+    (absent: no lights); with ``walk``, leaves over IVAL_LEAF triangles
+    or more than WL_MAX_LP leaves, also node_axis and node_first, for node
+    tables in place of the leaf tables. The triangle rows are packed from
+    tri_a, tri_ba and tri_ca as given. On ``device``: the card unless the
+    caller asks for the CPU."""
     device = resolve_device(device)
     a = {k: np.asarray(v) for k, v in arrays.items() if v is not None}
     dev = lambda x: torch.from_numpy(np.array(x, np.float32)).to(device)

@@ -411,18 +411,40 @@ def _warp_shadow_rays(scene, light, n_packets, seed=5):
     return tuple(pk(d[:, k] / ld) for k in range(3)), pk(tm)
 
 
-@pytest.mark.parametrize("rays", ["shadow", "bounce"])
+@pytest.mark.parametrize("rays", ["camera", "shadow", "bounce"])
 def test_wl_kernels_skip_whole_blocks_exactly(rays):
     """B4 (and B8b) on shadow rays, B6 on bounce rays, on a scene of three
-    leaf blocks whose warps skip whole blocks: outputs identical to the
-    plain versions, B8b's counters the simulation's."""
+    leaf blocks whose warps skip whole blocks, and B2 (and B8a), which keep
+    the word scan, on its primary rays: outputs identical to the plain
+    versions (B2's triangle may differ on a distance tie), B8a's and B8b's
+    counters the simulation's."""
     _need_cuda()
     g = terrain_scene(96).flatten()
     lo, hi = g.bounds()
-    scene = make_traced_scene(g, build_bvh(lo, hi, leaf_size=8))
+    bvh = build_bvh(lo, hi, leaf_size=8)
+    scene = make_traced_scene(g, bvh)
     lt = scene.leaves
     assert lt.lp // pt.LEAF_BLOCK >= 3
-    if rays == "shadow":
+    if rays == "camera":
+        c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
+        ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
+        cam = Camera.look_at(pos=tuple(c + np.array([0.45, 0.35, 0.9]) * ext),
+                             target=tuple(c))
+        w = h = 256
+        cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h)
+        kern = pt.camera_wl(cv, w, h, rows, lt, words, summ, floors)
+        *out, stats = pt.camera_wl_stats(cv, w, h, rows, lt, words, summ,
+                                         floors)
+        pids = torch.arange(words.shape[0], device="cuda")
+        *plain, sim = pt.camera_wl_stats_plain(cv, w, h, rows, lt, words,
+                                               floors, pids)
+        assert all(torch.equal(a, b) for a, b in zip(out, kern))
+        assert all(torch.equal(a, b) for a, b in zip(kern[4:], plain[4:]))
+        _assert_closest_equal(kern[:4], plain[:4])
+        assert torch.equal(stats, sim), (stats, sim)
+        d, _, lim = pt._camera_rays(cv, w, h, pids)
+        o = cv[9:12].unbind()
+    elif rays == "shadow":
         light = torch.tensor((-40.0, 10.0, 0.0), device="cuda")
         d, tm = _warp_shadow_rays(scene, light, 6)
         words, summ, floors = pt.words_shared(light, d, tm, lt, 1)
@@ -490,6 +512,101 @@ def test_instanced_frame_on_card_matches_cpu():
     err = (img.cpu() - ref).abs().amax(-1)
     assert torch.isfinite(img).all() and img.abs().amax() > 0
     assert (err > 2e-3).float().mean() < 1e-3, float(err.max())
+
+
+def _padded_scene(which):
+    """A scene whose last real word of leaves ends in padding slots (its
+    leaf count is not a multiple of 32): city_scene(6) at leaf 4, one
+    block of 1,024 slots, 105 leaves, so that all but the first rank of
+    B5's cluster hold padding words only; terrain_scene(96) at leaf 8,
+    three blocks, 2,879 leaves. (scene, camera, width, height)."""
+    g = (city_scene(6) if which == "city" else terrain_scene(96)).flatten()
+    lo, hi = g.bounds()
+    bvh = build_bvh(lo, hi, leaf_size=4 if which == "city" else 8)
+    scene = make_traced_scene(g, bvh, bounce_materials(),
+                              lights=Light.make((0.0, 30.0, 0.0), (1, 1, 1),
+                                                120.0))
+    c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
+    ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
+    cam = Camera.look_at(pos=tuple(c + np.array([0.45, 0.35, 0.9]) * ext),
+                         target=tuple(c))
+    return scene, cam, 256, 256
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_words_general_cluster_matches_plain(which):
+    """B5, a cluster of blocks per packet, on scenes whose ranks hold
+    padding slots: words, summaries and floors identical to the plain
+    version's at 8 bands and at one, on the frame's own reflection
+    wavefront and on seeded bounce rays; no bit in a word whose box the
+    pre-test drops."""
+    _need_cuda()
+    from snail_tpu_torch.render.fast import bounce_wavefront
+
+    scene, cam, w, h = _padded_scene(which)
+    lt = scene.leaves
+    assert lt.n_leaf % 32 and (lt.lp // pt.LEAF_BLOCK == 1) == (
+        which == "city")
+    dist, u, v, tri, dx, dy, dz = pt.camera_trace(scene, cam, w, h)
+    primary = ((cam.pos[0], cam.pos[1], cam.pos[2]),
+               (dx.reshape(-1), dy.reshape(-1), dz.reshape(-1)),
+               dist.reshape(-1), u.reshape(-1), v.reshape(-1),
+               tri.reshape(-1))
+    own = pt.general_planes(*bounce_wavefront(scene, *primary))[:3]
+    for o, d, tm in (own, _bounce_rays(scene, 6)):
+        for k_bands in (pt.WL_BANDS, 1):
+            kern = pt.words_general(o, d, tm, lt, k_bands)
+            torch.cuda.synchronize()
+            plain = pt.words_general_plain(o, d, tm, lt, k_bands)
+            _assert_words_equal(kern, plain)
+            assert torch.equal(kern[2], plain[2])
+            tested = pt.general_word_tests(o, d, tm, lt)
+            assert not bool((kern[0].ne(0).any(1) & ~tested).any())
+
+
+def _one_leaf_tables(lp):
+    """Leaf tables of ``lp`` slots on the card with one real leaf, the unit
+    box (triangles none), the rest padding."""
+    box = np.empty((6, lp), np.float32)
+    box[:3], box[3:] = 1e30, -1e30
+    box[:, 0] = (0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
+    zeros = torch.zeros(lp, dtype=torch.int32, device="cuda")
+    return pt.LeafTables(
+        torch.from_numpy(box).cuda(), zeros, zeros,
+        torch.from_numpy(pt._group_boxes(box, pt.WARP)).cuda(),
+        torch.from_numpy(pt._group_boxes(box, pt.LEAF_BLOCK)).cuda(), 1)
+
+
+def test_words_general_refuses_tables_beyond_its_shared_memory():
+    """B5 keeps one rank's leaf entries in shared memory: it takes leaf
+    tables of WL_MAX_LP (429,056) slots at 8 bands, equal to the plain
+    version there, and the wrapper and the kernel's entry point both
+    refuse one block more, so WL_MAX_LP is the kernel's own limit."""
+    _need_cuda()
+    from snail_tpu_torch.ops._build import library
+
+    rng = np.random.default_rng(2)
+    o = tuple(torch.full((1, pt.PACKET_R), -1.0, device="cuda")
+              for _ in range(3))
+    d = rng.uniform(0.5, 1.0, (3, pt.PACKET_R))
+    d /= np.linalg.norm(d, axis=0)
+    d = tuple(torch.from_numpy(c[None].astype(np.float32)).cuda() for c in d)
+    tm = torch.full((1, pt.PACKET_R), BIG, device="cuda")
+    lt = _one_leaf_tables(pt.WL_MAX_LP)
+    kern = pt.words_general(o, d, tm, lt)
+    torch.cuda.synchronize()
+    _assert_words_equal(kern, pt.words_general_plain(o, d, tm, lt,
+                                                     pt.WL_BANDS))
+    big = _one_leaf_tables(pt.WL_MAX_LP + pt.LEAF_BLOCK)
+    with pytest.raises(ValueError, match="shared memory"):
+        pt.words_general(o, d, tm, big)
+    words, summ, floors = kern
+    ptr = lambda t: t.data_ptr()
+    rc = library().snail_words_general(
+        *(ptr(t) for t in (*o, *d, tm, big.box, big.wbox)), big.lp,
+        big.n_leaf, pt.WL_BANDS, 1, ptr(words), ptr(summ), ptr(floors),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
 
 
 def test_entry_points_default_to_the_card():

@@ -1,10 +1,13 @@
 """The word and block boxes of the leaf tables (``LeafTables.wbox`` and
-``bbox``) and the skips of B4/B6 that rest on them, in plain torch on the
-CPU: the boxes are the min/max of their real leaves, every ray that enters
-a leaf before its limit enters the leaf's word and block no later (with
-the kernels' float32 arithmetic), and the counter simulation of B8b
-(``shadow_wl_stats_plain``, which follows ``scan_boxes``) counts what
-the word scan counted, less the skipped words."""
+``bbox``) and the skips of B4/B6 and B5's word pre-test that rest on
+them, in plain torch on the CPU: the boxes are the min/max of their real
+leaves, every ray that enters a leaf before its limit enters the leaf's
+word and block no later (with the kernels' float32 arithmetic), a leaf
+that passes a packet's interval test lies in a word that passes it, the
+counter simulation of B8b (``shadow_wl_stats_plain``, which follows
+``scan_boxes``), and B8a's walked the same way, count what the word scan
+counted, less the skipped words, and scenes with more leaves than B5
+takes get node tables."""
 
 import numpy as np
 import pytest
@@ -241,3 +244,133 @@ def test_hand_counted_quad_under_a_light():
     # 0/0/0/0/128
     assert st == {"nodes": 128, "leaves": 128, "quarters": 128,
                   "tri_blocks": 256, "chunks": 256, "rays": 2 * 64 * 64}
+
+
+def _camera_stats(scene, cam, w):
+    """B8a's plain version on a w x w frame's primary rays: (outputs,
+    counters, words, its arguments)."""
+    cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, w)
+    args = (cv, w, w, rows, scene.leaves, words, floors,
+            torch.arange(words.shape[0]))
+    *out, stats = pt.camera_wl_stats_plain(*args)
+    return out, stats, words, args
+
+
+@pytest.mark.parametrize("which", ["city4", "terrain"])
+def test_camera_counters_with_skips(monkeypatch, city4, which):
+    """B2/B8a scan with ``scan_words`` (on ``scan_boxes`` they were
+    slower). B8a's simulation walked as B8b's is, with the block and word
+    skips of ``scan_boxes`` on the primary rays (each lane's limit its
+    current best): the invariants of both counters; ``nodes`` and
+    ``leaves`` no larger than the word scan's (on the terrain's three
+    blocks, fewer), and the same leaves intersected, the same triangles
+    tested and the same bands entered, so the skips are exact on primary
+    rays too."""
+    sc, cam = city4 if which == "city4" else _build("terrain", 96)
+    out, stats, words, args = _camera_stats(sc, cam,
+                                            128 if which == "city4" else 64)
+    _check_invariants(stats, words)
+    sim = pt._scan_sim
+
+    def with_skips(tables, words_p, floors_p, o, cull, bound_fn, leaf_fn):
+        # the lanes' inverse directions and bests that the leaf function
+        # of camera_wl_stats_plain reads and updates
+        env = dict(zip(leaf_fn.__code__.co_freevars,
+                       (c.cell_contents for c in leaf_fn.__closure__)))
+        return sim(tables, words_p, floors_p, o, cull, bound_fn, leaf_fn,
+                   lambda: (env["wi"], env["best"]))
+
+    with monkeypatch.context() as m:
+        m.setattr(pt, "_scan_sim", with_skips)
+        # the outputs do not depend on the scan: only the counters are new
+        m.setattr(pt, "camera_wl_plain", lambda *a: out)
+        *_, skip = pt.camera_wl_stats_plain(*args)
+    _check_invariants(skip, words)
+    new, old = skip[:, :5].sum(0), stats[:, :5].sum(0)
+    assert new[0] <= old[0] and new[1] <= old[1]
+    assert torch.equal(new[2:], old[2:])
+    if which == "terrain":
+        assert new[0] < old[0]
+
+
+def _bounce_packets(sc, seeds=(3, 4, 5, 6)):
+    """Seeded packets of bounce rays, one per seed: from within 5 % of the
+    scene box's extent of a point in it, in a cone of half-width ~0.2 about
+    a seeded axis, tmax BIG; in the packets of odd seeds every 5th ray runs
+    along the axis's largest component, so that two of its inverse
+    directions are 1/INV_EPS. Returns the (o, d, tm) planes, (len(seeds),
+    PACKET_R)."""
+    lo, hi = sc.root_lo.numpy(), sc.root_hi.numpy()
+    o, d = [], []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        o.append(rng.uniform(lo, hi, (1, 3)) + rng.uniform(
+            -0.05, 0.05, (pt.PACKET_R, 3)) * (hi - lo))
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        dirs = axis + rng.uniform(-0.2, 0.2, (pt.PACKET_R, 3))
+        if seed % 2:
+            j = int(np.abs(axis).argmax())
+            dirs[::5] = 0.0
+            dirs[::5, j] = np.sign(axis[j])
+        d.append(dirs / np.linalg.norm(dirs, axis=-1, keepdims=True))
+    plane = lambda a, k: torch.from_numpy(
+        np.stack(a)[..., k].astype(np.float32))
+    return (tuple(plane(o, k) for k in range(3)),
+            tuple(plane(d, k) for k in range(3)),
+            torch.full((len(seeds), pt.PACKET_R), BIG))
+
+
+def test_a_leaf_that_passes_b5s_interval_test_has_a_word_that_passes(
+        scene):
+    """The property that makes B5's word-box pre-test exact: on seeded
+    bounce packets (every 5th ray axis-aligned, so that an inverse
+    direction is 1/INV_EPS), every leaf that passes its packet's interval
+    test with the four corner products per slab lies in a word whose box
+    passes it too, with an entry no larger and an exit no smaller; so the
+    plain words set no bit in a word that the pre-test drops."""
+    sc, _ = scene
+    lt = sc.leaves
+    o, d, tm = _bounce_packets(sc)
+    om, oM, idir, mb = pt._general_bounds(o, d, tm)
+    im, iM = zip(*[pt._widen(c.amin(1), c.amax(1)) for c in idir])
+    n = lt.n_leaf
+    tn, tf = pt._interval_test(lt.box[:, :n], om, oM, im, iM, mb)
+    ok = (tn <= tf) & (tf > 0.0)
+    assert 100 < int(ok.sum()) < ok.numel()
+    wtn, wtf = pt._interval_test(lt.wbox, om, oM, im, iM, mb)
+    of = torch.arange(n) // pt.WARP
+    assert bool((wtn[:, of] <= tn)[ok].all())
+    assert bool((wtf[:, of] >= tf)[ok].all())
+    tested = pt.general_word_tests(o, d, tm, lt)
+    assert bool(tested[:, of][ok].all())
+    assert not bool(tested.all())
+    words = pt.words_general_plain(o, d, tm, lt, pt.WL_BANDS)[0]
+    assert not bool((words.ne(0).any(1) & ~tested).any())
+
+
+def test_b5s_shared_memory_bounds_its_leaf_tables(monkeypatch):
+    """B5 keeps one cluster block's leaf entries in shared memory, so leaf
+    tables hold at most WL_MAX_LP slots: a scene with more leaves gets node
+    tables when it is built (here with the limit lowered below the 3,072
+    slots of terrain_scene(96) at leaf 8), one with as many keeps its leaf
+    tables, and both render the forward frame within 2e-3 on all but
+    0.1 % of the pixels (the walk frames' rule)."""
+    from snail_tpu_torch.scene import scene as scene_mod
+
+    assert pt.WL_MAX_LP == 419 * pt.LEAF_BLOCK
+    fwd = RenderOpts(reflections=False, transparency=False, textures=False)
+    imgs = []
+    for limit, leaves in ((3 * pt.LEAF_BLOCK, True),
+                          (2 * pt.LEAF_BLOCK, False)):
+        with monkeypatch.context() as m:
+            m.setattr(scene_mod, "WL_MAX_LP", limit)
+            sc, cam = _build("terrain", 96)
+        assert (sc.leaves is not None) == leaves
+        assert (sc.nodes is None) == leaves
+        if leaves:
+            assert sc.leaves.lp == limit
+        imgs.append(render_frame_fast_stats(sc, cam, 64, 64, fwd)[0])
+    err = (imgs[0] - imgs[1]).abs()
+    assert float((err > 2e-3).float().mean()) <= 1e-3, float(err.max())
+    assert float(imgs[0].max()) > 0.1
