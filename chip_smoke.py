@@ -18,13 +18,18 @@ Phases, each printed on its own line:
    their own origins, and on the instanced frame's own shadow wavefront
    (phase 4). B4 and B6 must equal their plain versions bit for bit
    (verdicts; dist, u, v and tri), B2 in dist, u and v wherever the
-   triangle agrees, which may differ only on a distance tie, and B5 in
-   its words, summaries and floors (and set no bit in a word whose box
-   its pre-test drops); B2, B4 and B6 print what their warps are given to
-   scan (``scan_counts``: populated words, the words and blocks some lane
-   enters, the leaves a warp cull keeps); B8a and B8b must give B2's and
-   B4's outputs bit for bit, and their counters must equal the plain
-   versions' simulation of every warp on a few seeded packets;
+   triangle agrees, which may differ only on a distance tie, and B1, B3
+   and B5 in their words, summaries and floors (and set no bit in a word
+   whose box the pre-test drops; the ``passing`` lines give the word
+   boxes that pass per packet); B1 on the primary rays, B3 on the shadow
+   rays toward light 0 and B5 on the reflection rays also run on
+   clusters of 1, 2, 4 and 8 blocks per packet, each equal to the plain
+   version and timed (the ``cluster`` lines); B2, B4 and B6 print what
+   their warps are given to scan (``scan_counts``: populated words, the
+   words and blocks some lane enters, the leaves a warp cull keeps); B8a
+   and B8b must give B2's and B4's outputs bit for bit, and their
+   counters must equal the plain versions' simulation of every warp on a
+   few seeded packets;
 4. the paths at 1024 x 1024 on both scenes, each with the launch count of
    every kernel during one run, a check against the CPU path at 64 x 64
    (the terrain's lit by the low light), and its time: render_frame
@@ -51,7 +56,7 @@ Phases, each printed on its own line:
    outputs B9a's and B9b's bit for bit, their counters on a few seeded
    packets equal to the plain versions' simulation of every warp; then the
    ratios B2/B9a, B6/B9c and B4/B9b of kernel times on the same
-   wavefronts, and B5's time beside its bound;
+   wavefronts, and B1's, B3's and B5's times beside their bounds;
 6. the walk paths at 1024 x 1024: the fwd, bounce and instanced fwd
    frames of the walk scenes, launching walk kernels only, each checked
    against the CPU path at 64 x 64 and timed, the fwd and bounce frames
@@ -76,16 +81,16 @@ Phases, each printed on its own line:
    on leaf tables (leaf 16 / 32; the step by its loss) and timed.
 
 The last two lines are a JSON object per kernel (all 19 of the port, per
-scene) and the result line. Every
-kernel's line gives its time beside its bound: the larger of the bytes it
-must move (each input read once, each output written once) over the card's
-memory rate and the float operations of the tests its wavefront needs over
-the card's float32 rate (``needed_work``; a trace kernel's bytes count
-only the leaves its rays enter, B5's work only the leaves of the words
-whose box passes its packet's test). Each phase prints the seconds since the
-start. Any failed phase ends the run with a non-zero exit and no result
-line; so does a machine without a CUDA device or a directory without the
-package.
+scene) and the result line. Every kernel's line gives its time beside its
+bound: the larger of the bytes it must move (each input read once, each
+output written once) over the card's memory rate and the float operations
+of the tests its wavefront needs over the card's float32 rate
+(``needed_work``; a trace kernel's bytes count only the leaves its rays
+enter, a words pass's work only the word boxes and the leaves of the
+words whose box passes its packet's test). Each phase prints the seconds
+since the start. Any failed phase ends the run with a non-zero exit and
+no result line; so does a machine without a CUDA device or a directory
+without the package.
 """
 
 import dataclasses
@@ -100,6 +105,7 @@ TIMED_FRAMES = 10
 INSTANCED_FRAMES = 3  # an instanced bounce frame takes ~0.2 s
 TIMED_STEPS = 5
 KERNEL_REPS = 20
+CLUSTERS = (1, 2, 4, 8)  # blocks per packet of the words passes, timed
 SIM_PACKETS = 3  # seeded packets whose counters are simulated
 SRC = "snail_tpu_torch/csrc/worklist.cu"
 WALK_SRC = "snail_tpu_torch/csrc/walk.cu"
@@ -227,6 +233,16 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def words_ms(fn):
+    """A words pass's ms: its mean device time over KERNEL_REPS launches
+    queued behind a spin (time_words.py ``device_ms``: the host's time
+    between launches, longer than the kernel's, does not count), and
+    beside it the CUDA events' ms of ``cuda_ms``, which it does."""
+    from time_words import device_ms
+
+    return device_ms(fn, KERNEL_REPS), cuda_ms(fn, KERNEL_REPS)
+
+
 def make_scene(kind: str, n: int):
     """A benchmark scene of bench.py on the card (scene/bench_scenes.py):
     (scene, camera, geometry, BVH)."""
@@ -280,14 +296,17 @@ def entry(err, ms, plain_ms, n_bytes, ops, **extra):
             **extra}
 
 
-def words_entry(kernel, err, ms, plain_ms, lt, planes, out, tested=None):
-    """The entry of a words pass: its set-up per ray and, per packet, one
-    interval test of every leaf; or, given ``tested`` (B5: bool (P,
-    Lp/32), the words whose box passes the packet's test,
-    ``general_word_tests``), one test of every word box and one of each
-    leaf of a word that passes, with the boxes of the leaves some packet
-    tests read once. B5's entry also keeps the bound of the first count as
-    ``bound_every_leaf_ms``."""
+def words_entry(kernel, err, ms, plain_ms, lt, planes, out, tested,
+                event_ms):
+    """The entry of a words pass (``ms`` its device time, ``event_ms`` its
+    CUDA events' time): its work is its set-up per ray and, per packet,
+    one test of every word box and one of each leaf of a word that passes
+    (``tested``: bool (P, Lp/32), the words whose box passes the packet's
+    test: ``camera_word_tests``, ``shared_word_tests``,
+    ``general_word_tests``), with the boxes of the leaves some packet
+    tests read once; ``bound_every_leaf_ms`` is the bound of one interval
+    test of every leaf per packet, the work of a pass without the
+    pre-test."""
     import torch
 
     from snail_tpu_torch.ops.traverse import PACKET_R, WARP
@@ -296,8 +315,6 @@ def words_entry(kernel, err, ms, plain_ms, lt, planes, out, tested=None):
     ray_ops = p * PACKET_R * RAY_OPS[kernel]
     every = entry(err, ms, plain_ms, nbytes(*planes, lt.box, *out),
                   p * lt.n_leaf * LEAF_OPS[kernel] + ray_ops)
-    if tested is None:
-        return every
     n_words = -(-lt.n_leaf // WARP)
     per_word = (lt.n_leaf - WARP * torch.arange(n_words, device=lt.box.device)
                 ).clamp(0, WARP)
@@ -307,7 +324,7 @@ def words_entry(kernel, err, ms, plain_ms, lt, planes, out, tested=None):
     ops = (p * n_words + leaves) * LEAF_OPS[kernel] + ray_ops
     n_bytes = (nbytes(*planes, *out) + n_words * nbytes(lt.wbox[:, 0])
                + read * nbytes(lt.box[:, 0]))
-    return entry(err, ms, plain_ms, n_bytes, ops,
+    return entry(err, ms, plain_ms, n_bytes, ops, event_ms=event_ms,
                  bound_every_leaf_ms=every["bound_ms"])
 
 
@@ -428,9 +445,9 @@ def print_scan(name, kernel, tally):
                       if k != "warps"), flush=True)
 
 
-def words_err(kern, plain, name, exact=False):
-    """Words must be identical; floors are compared as floats, or with
-    ``exact`` must be identical too."""
+def words_err(kern, plain, name):
+    """A words pass's words, summaries and floors must be identical to
+    the plain version's; returns the floors' max abs error, 0."""
     import torch
 
     kw, ks, kf = kern
@@ -438,16 +455,45 @@ def words_err(kern, plain, name, exact=False):
     bad = int((kw != pw).sum()) + int((ks != ps).sum())
     if bad:
         fail(f"{name}: {bad} words differ from the plain version")
-    if exact and not torch.equal(kf, pf):
+    if not torch.equal(kf, pf):
         fail(f"{name}: {int((kf != pf).sum())} band floors differ from the "
              "plain version")
-    both = (kf < 1e37) & (pf < 1e37)
-    if not bool(((kf < 1e37) == (pf < 1e37)).all()):
-        fail(f"{name}: empty bands differ from the plain version")
-    err = float((kf - pf)[both].abs().max()) if bool(both.any()) else 0.0
-    if not torch.allclose(kf[both], pf[both], rtol=1e-6, atol=0.0):
-        fail(f"{name}: band floors differ by {err}")
-    return err
+    return 0.0
+
+
+def print_passing(name, kernel, tested):
+    """The word boxes that pass per packet (``tested``: bool (P, Lp/32)):
+    median, p99 and max."""
+    import torch
+
+    n = tested.sum(1).float()
+    q = torch.quantile(n, torch.tensor([0.5, 0.99], device=n.device))
+    print(f"passing {name} {kernel}: word boxes passing per packet: mean "
+          f"{float(n.mean()):.1f}, median {float(q[0]):.1f}, p99 "
+          f"{float(q[1]):.1f}, max {int(n.max())} of {tested.shape[1]} "
+          f"words, over {tested.shape[0]} packets", flush=True)
+
+
+def sweep_clusters(name, kernel, run, plain):
+    """The words pass ``kernel`` over clusters of each size in CLUSTERS
+    (``run(cluster)``): outputs identical to the plain version's
+    (``plain``) at each, and its device ms, timed in turns (1, 2, 4, 8, 8,
+    4, 2, 1); prints a ``cluster`` line. Returns {size: mean ms}."""
+    from snail_tpu_torch.ops import traverse as pt
+
+    from time_words import device_ms
+
+    for c in CLUSTERS:
+        words_err(run(c), plain, f"{name} {kernel} cluster {c}")
+    times = {c: [] for c in CLUSTERS}
+    for c in CLUSTERS + CLUSTERS[::-1]:
+        times[c].append(device_ms(lambda: run(c), KERNEL_REPS))
+    print(f"cluster {name} {kernel}: outputs identical at every size; "
+          + ", ".join(f"{c} blocks {sum(t) / 2:.4f} ms ("
+                      + " / ".join(f"{x:.4f}" for x in t) + ")"
+                      for c, t in times.items())
+          + f"; kept {pt.WORDS_CLUSTER[kernel]}", flush=True)
+    return {c: sum(t) / 2 for c, t in times.items()}
 
 
 def sample_packets(stats, seed):
@@ -496,9 +542,16 @@ def check_kernels(name, kind, scene, cam):
     plain, plain_ms = timed_plain(
         lambda: pt.words_camera_plain(cv, w, h, lt, pt.WL_BANDS, pids))
     err = words_err(kern, plain, f"{name} words_camera")
-    ms = cuda_ms(lambda: pt.words_camera(cv, w, h, lt), KERNEL_REPS)
+    ms, event_ms = words_ms(lambda: pt.words_camera(cv, w, h, lt))
+    tested = pt.camera_word_tests(cv, w, h, lt, pids)
+    if bool((kern[0].ne(0).any(1) & ~tested).any()):
+        fail(f"{name} words_camera: a bit set in a word whose box fails")
+    print_passing(name, "words_camera", tested)
     out["words_camera"] = words_entry("words_camera", err, ms, plain_ms, lt,
-                                      (cv,), kern)
+                                      (cv,), kern, tested, event_ms)
+    out["words_camera"]["cluster_ms"] = sweep_clusters(
+        name, "words_camera",
+        lambda c: pt.words_camera(cv, w, h, lt, cluster=c), plain)
     words, summ, floors = kern
 
     # B2
@@ -552,7 +605,8 @@ def check_kernels(name, kind, scene, cam):
                kd.reshape(-1), ku.reshape(-1), kv.reshape(-1),
                kt.reshape(-1))
     out.update(check_shadow(f"{name} light 0", scene, primary,
-                            scene.lights.pos[0], kind not in LOW_LIGHT))
+                            scene.lights.pos[0], kind not in LOW_LIGHT,
+                            sweep=True))
     if kind in LOW_LIGHT:
         check_shadow(f"{name} low light", scene, primary,
                      torch.tensor(LOW_LIGHT[kind], device="cuda"), True)
@@ -569,12 +623,13 @@ def print_checks(name, out):
               f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})", flush=True)
 
 
-def check_shadow(name, scene, primary, lp, need_blocked):
+def check_shadow(name, scene, primary, lp, need_blocked, sweep=False):
     """B3, B4 and B8b against their plain versions on the frame's shadow
-    rays from the ``primary`` hits toward the light at ``lp``, B4's
-    verdicts identical, and B4's ``scan_counts``. Every wavefront must
-    leave some rays unblocked; with ``need_blocked`` it must also block
-    some. Returns {kernel: entry}."""
+    rays from the ``primary`` hits toward the light at ``lp``, B3's
+    words, summaries and floors and B4's verdicts identical, and B4's
+    ``scan_counts``; with ``sweep``, B3 at every cluster size. Every
+    wavefront must leave some rays unblocked; with ``need_blocked`` it
+    must also block some. Returns {kernel: entry}."""
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
@@ -589,9 +644,17 @@ def check_shadow(name, scene, primary, lp, need_blocked):
     plain, plain_ms = timed_plain(
         lambda: pt.words_shared_plain(orig, d, tm, lt, 1))
     err = words_err(kern, plain, f"{name} words_shared")
-    ms = cuda_ms(lambda: pt.words_shared(orig, d, tm, lt, 1), KERNEL_REPS)
+    ms, event_ms = words_ms(lambda: pt.words_shared(orig, d, tm, lt, 1))
+    tested = pt.shared_word_tests(orig, d, tm, lt)
+    if bool((kern[0].ne(0).any(1) & ~tested).any()):
+        fail(f"{name} words_shared: a bit set in a word whose box fails")
+    print_passing(name, "words_shared", tested)
     out["words_shared"] = words_entry("words_shared", err, ms, plain_ms, lt,
-                                      (orig, *d, tm), kern)
+                                      (orig, *d, tm), kern, tested, event_ms)
+    if sweep:
+        out["words_shared"]["cluster_ms"] = sweep_clusters(
+            name, "words_shared",
+            lambda c: pt.words_shared(orig, d, tm, lt, 1, c), plain)
     words, summ, floors = kern
 
     srows = pt.shared_rows(scene.tri_rows, orig)
@@ -651,7 +714,8 @@ def check_bounce(name, scene, primary):
     from snail_tpu_torch.render.fast import bounce_wavefront
 
     o, d, tm, _ = pt.general_planes(*bounce_wavefront(scene, *primary))
-    out, share = check_general(f"{name} reflections", scene, o, d, tm)
+    out, share = check_general(f"{name} reflections", scene, o, d, tm,
+                               sweep=True)
     if not 0.02 < share < 0.98:
         o, d, tm = seeded_general(scene, tm.shape[0])
         seeded, share = check_general(f"{name} seeded", scene, o, d, tm)
@@ -693,12 +757,13 @@ def seeded_general(scene, n_packets, seed=5, planes=None):
     return o, d, tm
 
 
-def check_general(name, scene, o, d, tm):
-    """B5 (words identical, floors to rtol 1e-6) and B6 (dist, u, v and
+def check_general(name, scene, o, d, tm, sweep=False):
+    """B5 (words, summaries and floors identical) and B6 (dist, u, v and
     tri bit for bit, which includes the miss and masked conventions and
     tri clamped at 0) against their plain versions on the planes ``o``,
-    ``d``, ``tm``, and B6's ``scan_counts``. Returns ({kernel: entry},
-    hit share of the live rays)."""
+    ``d``, ``tm``, and B6's ``scan_counts``; with ``sweep``, B5 at every
+    cluster size. Returns ({kernel: entry}, hit share of the live
+    rays)."""
     import torch
 
     from snail_tpu_torch.core.vecmath import BIG
@@ -709,14 +774,18 @@ def check_general(name, scene, o, d, tm):
     kern = pt.words_general(o, d, tm, lt)
     plain, plain_ms = timed_plain(
         lambda: pt.words_general_plain(o, d, tm, lt, pt.WL_BANDS))
-    err = words_err(kern, plain, f"{name} words_general", exact=True)
-    ms = cuda_ms(lambda: pt.words_general(o, d, tm, lt), KERNEL_REPS)
+    err = words_err(kern, plain, f"{name} words_general")
+    ms, event_ms = words_ms(lambda: pt.words_general(o, d, tm, lt))
     tested = pt.general_word_tests(o, d, tm, lt)
     words, summ, floors = kern
     if bool((words.ne(0).any(1) & ~tested).any()):
         fail(f"{name} words_general: a bit set in a word whose box fails")
     out["words_general"] = words_entry("words_general", err, ms, plain_ms, lt,
-                                       (*o, *d, tm), kern, tested)
+                                       (*o, *d, tm), kern, tested, event_ms)
+    if sweep:
+        out["words_general"]["cluster_ms"] = sweep_clusters(
+            name, "words_general",
+            lambda c: pt.words_general(o, d, tm, lt, cluster=c), plain)
     kept = pt.unpack_bits(words).any(1).sum(1).float()
     print(f"check {name} words_general: words, summaries and floors equal "
           f"the plain version's; words whose box passes per packet: mean "
@@ -1752,15 +1821,16 @@ def main() -> None:
         checks.update(check_walk_kernels(name, kind, walk, cam))
         # the worklist kernels against the walk kernels that compute the
         # same function on the same wavefront, in this call
-        b5 = checks["words_general"]
         print(f"ratio {name}: " + ", ".join(
             f"{a} / {b} = {checks[a]['ms'] / checks[b]['ms']:.3f}"
             for a, b in (("camera_wl", "walk_camera"),
                          ("closest_wl_g", "walk_closest_g"),
-                         ("shadow_wl", "walk_shadow")))
-            + f"; words_general {b5['ms']:.4f} ms beside its bound "
-            f"{b5['bound_ms']:.4f} ms ({b5['bound_by']}; every leaf "
-            f"{b5['bound_every_leaf_ms']:.4f})", flush=True)
+                         ("shadow_wl", "walk_shadow"))) + "; " + ", ".join(
+            f"{k} {e['ms']:.4f} ms beside its bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}; every leaf {e['bound_every_leaf_ms']:.4f})"
+            for k, e in ((k, checks[k]) for k in (
+                "words_camera", "words_shared", "words_general"))),
+            flush=True)
         stamp(f"{name} walk kernel checks")
         launches["walk_fwd"] = run_walk_frame(name, "walk fwd", fwd,
                                               WALK_FWD, walk, scene, cam,

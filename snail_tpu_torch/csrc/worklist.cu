@@ -2,9 +2,9 @@
 // bounce wavefronts of the frame.
 //
 // Replaces, in snail_tpu/ops/traverse_pallas.py:
-//   words_kernel<CAMERA>  <- _words_camera_kernel  (B1)
-//   words_kernel<SHARED>  <- _words_shared_kernel  (B3)
-//   words_general_kernel  <- _words_general_kernel (B5)
+//   words_cluster_kernel<CAMERA>  <- _words_camera_kernel  (B1)
+//   words_cluster_kernel<SHARED>  <- _words_shared_kernel  (B3)
+//   words_cluster_kernel<GENERAL> <- _words_general_kernel (B5)
 //   camera_wl_kernel      <- _camera_wl_kernel     (B2)
 //   shadow_wl_kernel      <- _shadow_wl_kernel     (B4)
 //   closest_wl_g_kernel   <- _closest_wl_kernel_g  (B6)
@@ -18,20 +18,27 @@
 // helpers it shares with the walk kernels (walk.cu) are in rays.cuh.
 //
 // What bounds these kernels on this card:
-// - words (B1, B3): one block per 64x64-pixel packet streams the planar
-//   leaf boxes (24 B per leaf) three times and does ~40 flops per leaf and
-//   pass. The boxes of a whole scene (1 MB at 44k leaves) stay in the 50 MB
-//   L2, so the pass is bound by issue rate, not by device memory. Verdicts
-//   become bit words by __ballot_sync, band membership by a 32-bin
-//   shared-memory histogram (the TPU packed bits on its matrix unit
-//   instead).
-// - B5 (words with an origin per ray, ~2x the flops per leaf) splits each
-//   packet over a thread block cluster of kWordsCluster blocks, which
-//   share their partial results through distributed shared memory: 8x the
-//   blocks of one per packet (the terrain's reflections have 256 packets,
-//   2 blocks per SM at one per packet), each leaf's entry computed once
-//   into shared memory in place of three times, and no leaf tested in a
-//   word whose box (LeafTables wbox) the packet interval misses.
+// - words (B1, B3, B5): per 64x64-pixel packet, the ray interval's bounds
+//   (B1 generates its 4,096 camera rays; B3 and B5 read 4 or 7 planes of
+//   4,096 floats), then ~45 flops (B5 ~87: an origin interval) of interval
+//   test per leaf. The TPU tested every leaf; here a packet tests each
+//   32-leaf word's box first (LeafTables wbox, 1/32 of the leaf boxes)
+//   and only the leaves of the words that pass (of terrain_724's 1,408
+//   words a primary packet passes ~54, a shadow packet ~80 and at most
+//   all, a reflection packet ~780), each once, kept in shared memory for
+//   the histogram and the verdicts. A packet is split over a thread block
+//   cluster (B1 2 blocks, B3 and B5 4: ops/traverse.py WORDS_CLUSTER),
+//   whose blocks store their partial results into each other's shared
+//   memory: the ray reduction, the pre-test and the leaf entries are
+//   spread over the cluster's SMs. A block's chain of dependent steps and
+//   cluster barriers, not its arithmetic, sets the time: at 64 registers
+//   four blocks fit an SM, and a cluster size past one wave of blocks
+//   (two per packet at 256 packets) pays that chain once more per wave.
+//   Verdicts become bit words by __ballot_sync, band membership by a
+//   32-bin shared-memory histogram (the TPU packed bits on its matrix
+//   unit instead). The boxes of a whole scene (1 MB at 44k leaves) stay
+//   in the 50 MB L2: the words passes are bound by latency and issue
+//   rate, not by device memory.
 // - trace: one thread per ray, warps independent. Each warp scans its
 //   packet's bit words in band order (uniform control flow: every lane
 //   reads the same word), tests a word's 32 leaves in parallel against
@@ -82,29 +89,22 @@ constexpr int kBins = 32;
 constexpr int kMaxBands = 8;
 constexpr int kWordsThreads = 256;
 constexpr int kTraceThreads = 256;
-constexpr int kWordsCluster = 8;  // B5: blocks per packet, one cluster
-// B5's dynamic shared memory at most: the 227 KB a block may hold on this
-// card, less room for its static shared memory
-constexpr int kGeneralSmemMax = 227 * 1024 - 4096;
+// The words passes' dynamic shared memory at most: the 48 KB a block may
+// hold without opting in, less room for its static shared memory.
+constexpr int kWordsSmem = 44 * 1024;
+// The most leaf slots the words passes take (ops/traverse.py WL_MAX_LP):
+// at 8 bands and one block a packet their list and summary words take
+// 40,224 B of kWordsSmem's 45,056, so every cluster size keeps some
+// entries.
+constexpr int kMaxLp = 419 * kLeafBlock;
+constexpr int kMaxRanks = 8;  // the most blocks a words pass's packet takes
+// Blocks of the words passes an SM holds at once (their registers): four
+// of 256 threads, at most 64 registers a thread.
+constexpr int kWordsBlocks = 4;
 
-enum Origin { CAMERA = 0, SHARED = 1 };
-
-// Block-wide min or max of one value per thread; every thread gets it.
-template <bool MAX>
-__device__ float block_reduce(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = MAX ? warp_max(v) : warp_min(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? scratch[lane] : (MAX ? -kBig : kBig);
-    v = MAX ? warp_max(v) : warp_min(v);
-    if (lane == 0) scratch[0] = v;
-  }
-  __syncthreads();
-  return scratch[0];
-}
+// The origin of a words pass's rays: the camera's, one shared origin, or
+// one per ray.
+enum Origin { CAMERA = 0, SHARED = 1, GENERAL = 2 };
 
 // Conservative widening of a reduced bound pair (traverse.py _widen).
 __device__ __forceinline__ float widen_lo(float lo) {
@@ -161,168 +161,76 @@ __device__ __forceinline__ float leaf_entry(const float* box, int lp, int l,
   return tn;
 }
 
-// B1 / B3. One block per packet. Dynamic shared memory: K * NS summary
-// words. ``ox``/``oy``/``oz`` are unused (B5, which has an origin per ray,
-// is words_general_kernel below); the parameter list is B5's old one.
-template <int MODE>
-__global__ void __launch_bounds__(kWordsThreads)
-words_kernel(const float* __restrict__ cam_or_orig,
-             const float* __restrict__ ox, const float* __restrict__ oy,
-             const float* __restrict__ oz,
-             const float* __restrict__ dx, const float* __restrict__ dy,
-             const float* __restrict__ dz, const float* __restrict__ tm,
-             const float* __restrict__ box, int lp, int n_leaf, int k_bands,
-             int32_t* __restrict__ words, int32_t* __restrict__ summ,
-             float* __restrict__ floors) {
-  extern __shared__ unsigned s_summ[];
-  __shared__ float s_red[32];
-  __shared__ int s_hist[kBins];
-  __shared__ float s_los[kMaxBands];
+// The words passes' shared memory of one cluster rank (words_layout): the
+// entries of up to ``cap`` passing words (32 floats each), the summary
+// words of every band, and the list of the rank's words that pass the
+// pre-test (one 16-bit index each). ``cap`` is as many words as fit in
+// kWordsSmem, at most the rank's share; at one band the verdicts need no
+// entries, and ``cap`` is 0.
+struct WordsLayout {
+  int per;    // words per rank: whole 32-leaf words, contiguous
+  int cap;    // words per rank whose entries shared memory holds
+  int bytes;  // dynamic shared memory
+};
 
-  const int pid = blockIdx.x;
+__host__ __device__ inline WordsLayout words_layout(int lp, int k_bands,
+                                                    int n_ranks) {
   const int nw = lp / 32, ns = lp / kLeafBlock;
-
-  // 1. ray interval bounds of the packet
-  float imn[3] = {kBig, kBig, kBig}, imx[3] = {-kBig, -kBig, -kBig};
-  float mb_local = -kBig;
-  for (int k = threadIdx.x; k < kPacketR; k += blockDim.x) {
-    float idir[3];
-    if (MODE == CAMERA) {
-      const PrimaryRay r = camera_ray(cam_or_orig, pid, k);
-      for (int c = 0; c < 3; ++c) idir[c] = r.idir[c];
-      mb_local = fmaxf(mb_local, r.t_exit);
-    } else {
-      const size_t g = (size_t)pid * kPacketR + k;
-      idir[0] = 1.0f / (dx[g] + kInvEps);
-      idir[1] = 1.0f / (dy[g] + kInvEps);
-      idir[2] = 1.0f / (dz[g] + kInvEps);
-      const float t = tm[g];
-      mb_local = fmaxf(mb_local, t >= 0.0f ? t : -kBig);
-    }
-    for (int c = 0; c < 3; ++c) {
-      imn[c] = fminf(imn[c], idir[c]);
-      imx[c] = fmaxf(imx[c], idir[c]);
-    }
-  }
-  Interval iv;
-  for (int c = 0; c < 3; ++c) {
-    iv.om[c] = iv.oM[c] = cam_or_orig[MODE == CAMERA ? 9 + c : c];
-    iv.im[c] = widen_lo(block_reduce<false>(imn[c], s_red));
-    iv.iM[c] = widen_hi(block_reduce<true>(imx[c], s_red));
-  }
-  iv.mb = block_reduce<true>(mb_local, s_red) * 1.0001f + 1e-30f;
-
-  for (int i = threadIdx.x; i < k_bands * ns; i += blockDim.x) s_summ[i] = 0;
-  if (threadIdx.x < kBins) s_hist[threadIdx.x] = 0;
-
-  // 2. nearest passing entry -> band range
-  float tmin = kBig;
-  for (int l = threadIdx.x; l < lp; l += blockDim.x) {
-    bool ok;
-    const float tn = leaf_entry<false>(box, lp, l, n_leaf, iv, ok);
-    if (ok) tmin = fminf(tmin, tn);
-  }
-  const float t0 = fminf(block_reduce<false>(tmin, s_red), iv.mb);
-  const float span = fmaxf(iv.mb - t0, 1e-6f);
-
-  // 3. equal-count band edges from a 32-bin histogram of entry distances
-  if (k_bands > 1) {
-    const float scale = (float)kBins / span;
-    for (int l = threadIdx.x; l < lp; l += blockDim.x) {
-      bool ok;
-      const float tn = leaf_entry<false>(box, lp, l, n_leaf, iv, ok);
-      if (ok) {
-        const float f = fminf((tn - t0) * scale, (float)kBins);
-        const int b = min(max((int)f, 0), kBins - 1);
-        atomicAdd(&s_hist[b], 1);
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int c[kBins];
-      int run = 0;
-      for (int j = 0; j < kBins; ++j) c[j] = (run += s_hist[j]);
-      const int total = max(c[kBins - 1], 1);
-      s_los[0] = t0;
-      for (int b = 1; b < k_bands; ++b) {
-        const int tgt = (total * b + k_bands - 1) / k_bands;
-        int e = 0;
-        for (int j = 0; j < kBins; ++j) e += c[j] < tgt;
-        s_los[b] = t0 + (float)e * (span / (float)kBins);
-      }
-    }
-  } else if (threadIdx.x == 0) {
-    s_los[0] = t0;
-  }
-  __syncthreads();
-
-  // 4. verdict bits by ballot, one warp per 32 leaves
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int32_t* wout = words + (size_t)pid * k_bands * nw;
-  for (int g = warp; g < nw; g += nwarps) {
-    bool ok;
-    const float tn = leaf_entry<false>(box, lp, g * 32 + lane, n_leaf, iv,
-                                       ok);
-    int band = 0;
-    for (int b = 1; b < k_bands; ++b) band += tn >= s_los[b];
-    unsigned mine = 0;
-    for (int b = 0; b < k_bands; ++b) {
-      const unsigned m = __ballot_sync(kFull, ok && band == b);
-      if (lane == b) mine = m;
-    }
-    if (lane < k_bands) {
-      wout[lane * nw + g] = (int32_t)mine;
-      if (mine) atomicOr(&s_summ[lane * ns + (g >> 5)], 1u << (g & 31));
-    }
-  }
-  __syncthreads();
-
-  int32_t* sout = summ + (size_t)pid * k_bands * ns;
-  for (int i = threadIdx.x; i < k_bands * ns; i += blockDim.x)
-    sout[i] = (int32_t)s_summ[i];
-  if (threadIdx.x < k_bands) {
-    const int b = threadIdx.x;
-    unsigned any = 0;
-    for (int s = 0; s < ns; ++s) any |= s_summ[b * ns + s];
-    floors[pid * k_bands + b] = any ? s_los[b] : kBig;
-  }
+  WordsLayout w;
+  w.per = (nw + n_ranks - 1) / n_ranks;
+  const int fixed = k_bands * ns * 4 + (w.per * 2 + 3) / 4 * 4;
+  const int room = (kWordsSmem - fixed) / (32 * 4);
+  w.cap = k_bands == 1 || room < 0 ? 0 : room < w.per ? room : w.per;
+  w.bytes = w.cap * 32 * 4 + fixed;
+  return w;
 }
 
-// B5's words per cluster rank: whole 32-leaf words, contiguous.
-__host__ __device__ inline int general_per_rank(int lp) {
-  return (lp / 32 + kWordsCluster - 1) / kWordsCluster;
+// The split cluster barrier: every thread arrives early and waits before
+// its block first stores into another block's shared memory, which is
+// safe once every block of the cluster has started.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// B5's dynamic shared memory: the entries of a rank's leaves, the summary
-// words of every band and one pre-test bit per word of the rank.
-int general_smem(int k_bands, int lp) {
-  const int per = general_per_rank(lp);
-  return (per * 32 + k_bands * (lp / kLeafBlock) + (per + 31) / 32) * 4;
-}
-
-// B5: the leaf pass of rays with their own origins, one cluster of
-// kWordsCluster blocks per packet (blocks pid * kWordsCluster + rank).
-// Rank r reduces the bounds of rays [r, r + 1) * kPacketR / kWordsCluster
-// and owns the words [r, r + 1) * general_per_rank(lp). The ranks combine
-// their interval bounds, their nearest entries and their 32-bin histograms
-// through distributed shared memory, so that every rank holds the
-// packet's interval, t0 and band edges; rank 0 ORs the summary words of
-// the cluster and writes them and the floors. Each leaf's entry is
-// computed once, into ``s_tn`` (+inf where the leaf fails), which the
-// histogram and the verdicts read. Ahead of the leaves, each word's box
-// (LeafTables wbox) gets the same interval test: a word whose box fails
-// holds no leaf that passes, as each corner product (x - o) * i is
-// monotone in x under rounding for a fixed o and i and a leaf box lies in
-// its word's, so the leaf's entry is at or above the word's and its exit
-// at or below (scan_boxes' argument); its leaves are not tested. Where a
-// bound of the interval is not finite, 0 x inf = NaN would break that, and
-// every word is tested. Min, max and integer sums do not depend on order:
-// words, summaries and floors are words_kernel's, and the plain
-// version's, bit for bit.
-__global__ void __cluster_dims__(kWordsCluster, 1, 1)
-__launch_bounds__(kWordsThreads)
-words_general_kernel(const float* __restrict__ ox,
+// B1, B3 and B5: the leaf pass of one packet over a thread block cluster
+// (blocks pid * n_ranks + rank; the cluster size is the launch's: 1, 2, 4
+// or 8). MODE: CAMERA, the primary rays of the camera vector ``origin``
+// (B1, raygen in the kernel); SHARED, rays from the one origin ``origin``
+// with the planes dx, dy, dz, tm (B3); GENERAL, rays with their own
+// origins, the planes ox, oy, oz too (B5). The ranks exchange partial
+// results by storing them into each other's shared memory (a store does
+// not wait for the other SM, a load would), then one cluster barrier.
+// 1. Rank r reduces the bounds of rays [r, r + 1) * kPacketR / n_ranks;
+//    with the other ranks' partials every rank holds the packet interval.
+// 2. Rank r owns the words [r, r + 1) * per. One thread a word tests the
+//    word's box (LeafTables wbox) against the interval with the leaves'
+//    own test (leaf_entry); a word whose box fails gets 0 in every band,
+//    and its leaves are not tested: a leaf box lies in its word's, and each
+//    corner product (x - o) * i is monotone in x under rounding for a
+//    fixed o and i, so the leaf's entry is at or above the word's and its
+//    exit at or below (scan_boxes' argument). Where a bound of the
+//    interval is not finite, 0 x inf = NaN would break that, and every
+//    word passes. The words that pass go to a list in shared memory.
+// 3. One warp a listed word computes each leaf's entry once (NaN where the
+//    leaf fails: a passing entry is never NaN), keeps it in shared memory
+//    if the word is among the first ``cap`` of the list (the rest are
+//    recomputed where read), and the rank's nearest entry. At one band
+//    the ballot of the passing leaves is the word, and nothing is kept.
+// 4. At more bands the ranks' nearest entries, then their 32-bin
+//    histograms of the kept entries, give every rank the same band edges;
+//    then one warp a listed word ballots its verdicts.
+// Every rank ORs its summary words into rank 0's; after the last barrier
+// rank 0 writes them and the floors. Min, max and integer sums do not
+// depend on order, nor on which listed words keep their entries: words,
+// summaries and floors are the plain version's bit for bit, at every
+// cluster size.
+template <int MODE>
+__global__ void __launch_bounds__(kWordsThreads, kWordsBlocks)
+words_cluster_kernel(const float* __restrict__ origin,
+                     const float* __restrict__ ox,
                      const float* __restrict__ oy,
                      const float* __restrict__ oz,
                      const float* __restrict__ dx,
@@ -335,197 +243,249 @@ words_general_kernel(const float* __restrict__ ox,
                      int32_t* __restrict__ summ,
                      float* __restrict__ floors) {
   namespace cg = cooperative_groups;
+  constexpr bool GEN = MODE == GENERAL;
   cg::cluster_group cluster = cg::this_cluster();
   // bounds of the packet interval, reduced by min (the first kMins) or max:
   // origin lo.xyz, inverse-direction lo.xyz, origin hi.xyz,
-  // inverse-direction hi.xyz, distance bound; then the nearest entry
+  // inverse-direction hi.xyz, distance bound. A shared origin reduces no
+  // origin bounds.
   constexpr int kMins = 6, kBounds = 13, kWarps = kWordsThreads / 32;
+  auto used = [](int i) { return GEN || i == 12 || i % 6 >= 3; };
   extern __shared__ float s_tn[];
   __shared__ float s_warp[kWarps][kBounds];
-  __shared__ float s_part[kBounds + 1];  // this rank's
-  __shared__ float s_all[kBounds + 1];   // the cluster's
-  __shared__ float s_red[32];
+  // what each rank stored here: its bounds, nearest entry and histogram
+  __shared__ float s_bounds[kMaxRanks][kBounds];
+  __shared__ float s_tmin[kMaxRanks];
+  __shared__ int s_hists[kMaxRanks][kBins];
+  __shared__ float s_all[kBounds];  // the cluster's bounds
   __shared__ int s_hist[kBins];
-  __shared__ int s_count[kBins];
   __shared__ float s_los[kMaxBands];
+  __shared__ int s_n;  // the rank's words that pass the pre-test
 
+  const int n_ranks = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int pid = blockIdx.x / kWordsCluster;
+  const int pid = blockIdx.x / n_ranks;
   const int nw = lp / 32, ns = lp / kLeafBlock;
-  const int per = general_per_rank(lp);
-  const int w0 = min(rank * per, nw), n_own = min(per, nw - w0);
-  unsigned* s_summ = reinterpret_cast<unsigned*>(s_tn + per * 32);
-  unsigned* s_wok = s_summ + k_bands * ns;
+  const WordsLayout lay = words_layout(lp, k_bands, n_ranks);
+  const int w0 = min(rank * lay.per, nw), n_own = min(lay.per, nw - w0);
+  unsigned* s_summ = reinterpret_cast<unsigned*>(s_tn + lay.cap * 32);
+  unsigned short* s_list =
+      reinterpret_cast<unsigned short*>(s_summ + k_bands * ns);
+  unsigned* r0_summ = cluster.map_shared_rank(s_summ, 0);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float kNone = __int_as_float(0x7f800000);  // +inf: the leaf fails
+  const float kNone = __int_as_float(0x7fffffff);  // NaN: the leaf fails
+  cluster_arrive();
 
   // 1. the packet interval: this rank's rays, then the cluster's
   float v[kBounds];
   for (int i = 0; i < kBounds; ++i) v[i] = i < kMins ? kBig : -kBig;
-  constexpr int kRays = kPacketR / kWordsCluster;
-  for (int k = rank * kRays + threadIdx.x; k < (rank + 1) * kRays;
+  const int share = kPacketR / n_ranks;
+  for (int k = rank * share + threadIdx.x; k < (rank + 1) * share;
        k += kWordsThreads) {
-    const size_t g = (size_t)pid * kPacketR + k;
-    const float o[3] = {ox[g], oy[g], oz[g]};
-    const float idir[3] = {1.0f / (dx[g] + kInvEps), 1.0f / (dy[g] + kInvEps),
-                           1.0f / (dz[g] + kInvEps)};
+    float idir[3], t;
+    if constexpr (MODE == CAMERA) {
+      const PrimaryRay r = camera_ray(origin, pid, k);
+      for (int c = 0; c < 3; ++c) idir[c] = r.idir[c];
+      t = r.t_exit;
+    } else {
+      const size_t g = (size_t)pid * kPacketR + k;
+      idir[0] = 1.0f / (dx[g] + kInvEps);
+      idir[1] = 1.0f / (dy[g] + kInvEps);
+      idir[2] = 1.0f / (dz[g] + kInvEps);
+      const float tg = tm[g];
+      t = tg >= 0.0f ? (GEN ? fminf(tg, kBig) : tg) : -kBig;
+      if constexpr (GEN) {
+        const float o[3] = {ox[g], oy[g], oz[g]};
+        for (int c = 0; c < 3; ++c) {
+          v[c] = fminf(v[c], o[c]);
+          v[6 + c] = fmaxf(v[6 + c], o[c]);
+        }
+      }
+    }
     for (int c = 0; c < 3; ++c) {
-      v[c] = fminf(v[c], o[c]);
       v[3 + c] = fminf(v[3 + c], idir[c]);
-      v[6 + c] = fmaxf(v[6 + c], o[c]);
       v[9 + c] = fmaxf(v[9 + c], idir[c]);
     }
-    const float t = tm[g];
-    v[12] = fmaxf(v[12], t >= 0.0f ? fminf(t, kBig) : -kBig);
+    v[12] = fmaxf(v[12], t);
   }
   for (int i = 0; i < kBounds; ++i) {
+    if (!used(i)) continue;
     const float r = i < kMins ? warp_min(v[i]) : warp_max(v[i]);
     if (lane == 0) s_warp[warp][i] = r;
   }
   for (int i = threadIdx.x; i < k_bands * ns; i += kWordsThreads)
     s_summ[i] = 0;
   if (threadIdx.x < kBins) s_hist[threadIdx.x] = 0;
+  if (threadIdx.x == 0) s_n = 0;
   __syncthreads();
-  if (threadIdx.x < kBounds) {
+  cluster_wait();
+  if (threadIdx.x < kBounds && used(threadIdx.x)) {
     const int i = threadIdx.x;
     float a = s_warp[0][i];
     for (int w = 1; w < kWarps; ++w)
       a = i < kMins ? fminf(a, s_warp[w][i]) : fmaxf(a, s_warp[w][i]);
-    s_part[i] = a;
+    for (int r = 0; r < n_ranks; ++r)
+      cluster.map_shared_rank(&s_bounds[rank][i], r)[0] = a;
   }
   cluster.sync();
-  if (threadIdx.x < kBounds) {
+  if (threadIdx.x < kBounds && used(threadIdx.x)) {
     const int i = threadIdx.x;
-    float a = s_part[i];
-    for (int r = 0; r < kWordsCluster; ++r) {
-      const float b = cluster.map_shared_rank(&s_part[0], r)[i];
-      a = i < kMins ? fminf(a, b) : fmaxf(a, b);
-    }
+    float a = s_bounds[0][i];
+    for (int r = 1; r < n_ranks; ++r)
+      a = i < kMins ? fminf(a, s_bounds[r][i]) : fmaxf(a, s_bounds[r][i]);
     s_all[i] = a;
   }
   __syncthreads();
   Interval iv;
   bool tame = true;  // every bound finite: the word-box pre-test is exact
   for (int c = 0; c < 3; ++c) {
-    iv.om[c] = widen_lo(s_all[c]);
+    if constexpr (GEN) {
+      iv.om[c] = widen_lo(s_all[c]);
+      iv.oM[c] = widen_hi(s_all[6 + c]);
+    } else {
+      iv.om[c] = iv.oM[c] = origin[MODE == CAMERA ? 9 + c : c];
+    }
     iv.im[c] = widen_lo(s_all[3 + c]);
-    iv.oM[c] = widen_hi(s_all[6 + c]);
     iv.iM[c] = widen_hi(s_all[9 + c]);
     tame = tame && isfinite(iv.om[c]) && isfinite(iv.oM[c]) &&
            isfinite(iv.im[c]) && isfinite(iv.iM[c]);
   }
   iv.mb = s_all[12] * 1.0001f + 1e-30f;
 
-  // 2. the word-box pre-test, one word a thread, and each leaf's entry in
-  // the words that pass, one warp a word; the nearest over the cluster
+  // 2. the word-box pre-test, one word a thread: a word that fails is 0 in
+  // every band, one that passes goes to the list
+  int32_t* wout = words + (size_t)pid * k_bands * nw;
   for (int i0 = warp * 32; i0 < n_own; i0 += kWordsThreads) {
-    bool ok = i0 + lane < n_own;
-    if (ok && tame) leaf_entry<true>(wbox, nw, w0 + i0 + lane, nw, iv, ok);
+    const int i = i0 + lane;
+    bool ok = i < n_own;
+    if (ok && tame) leaf_entry<GEN>(wbox, nw, w0 + i, nw, iv, ok);
     const unsigned m = __ballot_sync(kFull, ok);
-    if (lane == 0) s_wok[i0 >> 5] = m;
+    int base = 0;
+    if (lane == 0 && m) base = atomicAdd(&s_n, __popc(m));
+    base = __shfl_sync(kFull, base, 0);
+    if (ok)
+      s_list[base + __popc(m & ((1u << lane) - 1u))] = (unsigned short)i;
+    else if (i < n_own)
+      for (int b = 0; b < k_bands; ++b) wout[b * nw + w0 + i] = 0;
   }
   __syncthreads();
-  float tmin = kBig;
-  for (int i = warp; i < n_own; i += kWarps) {
-    float tn = kNone;
-    if ((s_wok[i >> 5] >> (i & 31)) & 1u) {
-      bool ok;
-      const float t = leaf_entry<true>(box, lp, (w0 + i) * 32 + lane, n_leaf,
-                                       iv, ok);
-      if (ok) {
-        tn = t;
-        tmin = fminf(tmin, t);
-      }
-    }
-    s_tn[i * 32 + lane] = tn;
-  }
-  tmin = block_reduce<false>(tmin, s_red);
-  if (threadIdx.x == 0) s_part[kBounds] = tmin;
-  cluster.sync();
-  if (threadIdx.x == 0) {
-    for (int r = 0; r < kWordsCluster; ++r)
-      tmin = fminf(tmin, cluster.map_shared_rank(&s_part[0], r)[kBounds]);
-    s_all[kBounds] = tmin;
-  }
-  __syncthreads();
-  const float t0 = fminf(s_all[kBounds], iv.mb);
-  const float span = fmaxf(iv.mb - t0, 1e-6f);
+  const int n_pass = s_n;
 
-  // 3. equal-count band edges from the cluster's 32-bin histogram
-  if (k_bands > 1) {
-    const float scale = (float)kBins / span;
-    for (int j = threadIdx.x; j < n_own * 32; j += kWordsThreads) {
-      const float tn = s_tn[j];
-      int b = kBins;  // the leaf fails
-      if (tn != kNone) {
-        const float f = fminf((tn - t0) * scale, (float)kBins);
-        b = min(max((int)f, 0), kBins - 1);
+  // 3. each leaf's entry in the listed words, one warp a word; at one band
+  // the verdicts too
+  float tmin = kBig;
+  for (int j = warp; j < n_pass; j += kWarps) {
+    const int g = w0 + s_list[j];
+    bool ok;
+    const float t = leaf_entry<GEN>(box, lp, g * 32 + lane, n_leaf, iv, ok);
+    if (ok) tmin = fminf(tmin, t);
+    if (k_bands == 1) {
+      const unsigned m = __ballot_sync(kFull, ok);
+      if (lane == 0) {
+        wout[g] = (int32_t)m;
+        if (m) atomicOr(&r0_summ[g >> 5], 1u << (g & 31));
       }
-      if (b < kBins) atomicAdd(&s_hist[b], 1);
+    } else if (j < lay.cap) {
+      s_tn[j * 32 + lane] = ok ? t : kNone;
     }
+  }
+  tmin = warp_min(tmin);
+  if (lane == 0) s_warp[warp][0] = tmin;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w) tmin = fminf(tmin, s_warp[w][0]);
+    // at one band only rank 0 needs the cluster's nearest entry
+    for (int r = 0; r < (k_bands == 1 ? 1 : n_ranks); ++r)
+      cluster.map_shared_rank(&s_tmin[rank], r)[0] = tmin;
+  }
+
+  if (k_bands > 1) {
+    // the entry of leaf ``lane`` of listed word j: kept, or recomputed
+    auto entry = [&](int j) {
+      if (j < lay.cap) return s_tn[j * 32 + lane];
+      bool ok;
+      const float t = leaf_entry<GEN>(box, lp, (w0 + s_list[j]) * 32 + lane,
+                                      n_leaf, iv, ok);
+      return ok ? t : kNone;
+    };
     cluster.sync();
-    if (threadIdx.x < kBins) {
-      int n = 0;
-      for (int r = 0; r < kWordsCluster; ++r)
-        n += cluster.map_shared_rank(&s_hist[0], r)[threadIdx.x];
-      s_count[threadIdx.x] = n;
+    float t0 = s_tmin[0];
+    for (int r = 1; r < n_ranks; ++r) t0 = fminf(t0, s_tmin[r]);
+    t0 = fminf(t0, iv.mb);
+    const float span = fmaxf(iv.mb - t0, 1e-6f);
+
+    // 4. equal-count band edges from the cluster's 32-bin histogram
+    const float scale = (float)kBins / span;
+    for (int j = warp; j < n_pass; j += kWarps) {
+      const float tn = entry(j);
+      if (!isnan(tn)) {
+        const float f = fminf((tn - t0) * scale, (float)kBins);
+        atomicAdd(&s_hist[min(max((int)f, 0), kBins - 1)], 1);
+      }
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      int c[kBins];
-      int run = 0;
-      for (int j = 0; j < kBins; ++j) c[j] = (run += s_count[j]);
-      const int total = max(c[kBins - 1], 1);
-      s_los[0] = t0;
+    if (threadIdx.x < kBins)
+      for (int r = 0; r < n_ranks; ++r)
+        cluster.map_shared_rank(&s_hists[rank][threadIdx.x], r)[0] =
+            s_hist[threadIdx.x];
+    cluster.sync();
+    if (warp == 0) {
+      // lane j: the passing leaves in bins 0..j; the edge of band b is the
+      // first bin whose count reaches b/K of them
+      int c = 0;
+      for (int r = 0; r < n_ranks; ++r) c += s_hists[r][lane];
+      for (int o = 1; o < 32; o <<= 1) {
+        const int n = __shfl_up_sync(kFull, c, o);
+        if (lane >= o) c += n;
+      }
+      const int total = max(__shfl_sync(kFull, c, kBins - 1), 1);
       for (int b = 1; b < k_bands; ++b) {
         const int tgt = (total * b + k_bands - 1) / k_bands;
-        int e = 0;
-        for (int j = 0; j < kBins; ++j) e += c[j] < tgt;
-        s_los[b] = t0 + (float)e * (span / (float)kBins);
+        const int e = __popc(__ballot_sync(kFull, c < tgt));
+        if (lane == 0) s_los[b] = t0 + (float)e * (span / (float)kBins);
       }
-    }
-  } else if (threadIdx.x == 0) {
-    s_los[0] = t0;
-  }
-  __syncthreads();
-
-  // 4. verdict bits of this rank's words by ballot, one warp a word
-  int32_t* wout = words + (size_t)pid * k_bands * nw;
-  for (int i = warp; i < n_own; i += kWarps) {
-    const int g = w0 + i;
-    const float tn = s_tn[i * 32 + lane];
-    const bool ok = tn != kNone;
-    int band = 0;
-    for (int b = 1; b < k_bands; ++b) band += tn >= s_los[b];
-    unsigned mine = 0;
-    for (int b = 0; b < k_bands; ++b) {
-      const unsigned m = __ballot_sync(kFull, ok && band == b);
-      if (lane == b) mine = m;
-    }
-    if (lane < k_bands) {
-      wout[lane * nw + g] = (int32_t)mine;
-      if (mine) atomicOr(&s_summ[lane * ns + (g >> 5)], 1u << (g & 31));
-    }
-  }
-  cluster.sync();
-  if (rank == 0) {
-    int32_t* sout = summ + (size_t)pid * k_bands * ns;
-    for (int i = threadIdx.x; i < k_bands * ns; i += kWordsThreads) {
-      unsigned m = 0;
-      for (int r = 0; r < kWordsCluster; ++r)
-        m |= cluster.map_shared_rank(s_summ, r)[i];
-      s_summ[i] = m;
-      sout[i] = (int32_t)m;
+      if (lane == 0) s_los[0] = t0;
     }
     __syncthreads();
-    if (threadIdx.x < k_bands) {
-      const int b = threadIdx.x;
-      unsigned any = 0;
-      for (int s = 0; s < ns; ++s) any |= s_summ[b * ns + s];
-      floors[pid * k_bands + b] = any ? s_los[b] : kBig;
+
+    // verdict bits of the listed words by ballot, one warp a word
+    for (int j = warp; j < n_pass; j += kWarps) {
+      const int g = w0 + s_list[j];
+      const float tn = entry(j);
+      const bool ok = !isnan(tn);
+      int band = 0;
+      for (int b = 1; b < k_bands; ++b) band += tn >= s_los[b];
+      unsigned mine = 0;
+      for (int b = 0; b < k_bands; ++b) {
+        const unsigned m = __ballot_sync(kFull, ok && band == b);
+        if (lane == b) mine = m;
+      }
+      if (lane < k_bands) {
+        wout[lane * nw + g] = (int32_t)mine;
+        if (mine) atomicOr(&r0_summ[lane * ns + (g >> 5)], 1u << (g & 31));
+      }
     }
   }
-  cluster.sync();  // no rank leaves while rank 0 reads its shared memory
+
+  // 5. rank 0, once every rank's summary words are in: the summaries and
+  // the floors
+  cluster.sync();
+  if (rank != 0) return;
+  if (k_bands == 1 && threadIdx.x == 0) {
+    float t0 = s_tmin[0];
+    for (int r = 1; r < n_ranks; ++r) t0 = fminf(t0, s_tmin[r]);
+    s_los[0] = fminf(t0, iv.mb);
+  }
+  int32_t* sout = summ + (size_t)pid * k_bands * ns;
+  for (int i = threadIdx.x; i < k_bands * ns; i += kWordsThreads)
+    sout[i] = (int32_t)s_summ[i];
+  __syncthreads();
+  if (threadIdx.x < k_bands) {
+    const int b = threadIdx.x;
+    unsigned any = 0;
+    for (int s = 0; s < ns; ++s) any |= s_summ[b * ns + s];
+    floors[pid * k_bands + b] = any ? s_los[b] : kBig;
+  }
 }
 
 // Per-ray slab test of leaf l: entry distance, and pass = the ray enters
@@ -1032,73 +992,81 @@ shadow_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   out_blocked[g] = blocked ? 1.0f : 0.0f;
 }
 
-int words_smem(int k_bands, int lp) {
-  return k_bands * (lp / kLeafBlock) * (int)sizeof(unsigned);
+bool words_args_ok(int lp, int n_leaf, int k_bands, int n_packets,
+                   int n_ranks) {
+  return lp > 0 && lp % kLeafBlock == 0 && lp <= kMaxLp && n_leaf <= lp &&
+         k_bands >= 1 && k_bands <= kMaxBands && n_packets > 0 &&
+         (n_ranks == 1 || n_ranks == 2 || n_ranks == 4 ||
+          n_ranks == kMaxRanks) &&
+         words_layout(lp, k_bands, n_ranks).bytes <= kWordsSmem;
 }
 
-bool words_args_ok(int lp, int n_leaf, int k_bands, int n_packets) {
-  return lp > 0 && lp % kLeafBlock == 0 && n_leaf <= lp && k_bands >= 1 &&
-         k_bands <= kMaxBands && n_packets > 0 &&
-         words_smem(k_bands, lp) <= 48 * 1024;
+// Launches words_cluster_kernel<MODE> with clusters of ``n_ranks`` blocks
+// per packet.
+template <int MODE>
+int launch_words(const float* origin, const float* ox, const float* oy,
+                 const float* oz, const float* dx, const float* dy,
+                 const float* dz, const float* tm, const float* box,
+                 const float* wbox, int lp, int n_leaf, int k_bands,
+                 int n_packets, int n_ranks, int32_t* words, int32_t* summ,
+                 float* floors, void* stream) {
+  if (!words_args_ok(lp, n_leaf, k_bands, n_packets, n_ranks))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_packets * n_ranks);
+  cfg.blockDim = dim3(kWordsThreads);
+  cfg.dynamicSmemBytes = words_layout(lp, k_bands, n_ranks).bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, words_cluster_kernel<MODE>, origin, ox, oy, oz, dx, dy, dz, tm,
+      box, wbox, lp, n_leaf, k_bands, words, summ, floors);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-int snail_words_camera(const float* cam, const float* box, int lp, int n_leaf,
-                       int k_bands, int n_packets, int32_t* words,
-                       int32_t* summ, float* floors, void* stream) {
-  if (!words_args_ok(lp, n_leaf, k_bands, n_packets))
-    return (int)cudaErrorInvalidValue;
-  words_kernel<CAMERA>
-      <<<n_packets, kWordsThreads, words_smem(k_bands, lp),
-         (cudaStream_t)stream>>>(cam, nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, nullptr, nullptr, box, lp, n_leaf,
-                                 k_bands, words, summ, floors);
-  return (int)cudaGetLastError();
+// B1, B3 and B5: the words passes, each packet over a cluster of
+// ``n_ranks`` blocks (1, 2, 4 or 8). ``wbox``: the word boxes
+// (ops/traverse.py LeafTables). Leaf tables of more than kMaxLp slots
+// (scenes that large get node tables) are refused.
+int snail_words_camera(const float* cam, const float* box, const float* wbox,
+                       int lp, int n_leaf, int k_bands, int n_packets,
+                       int n_ranks, int32_t* words, int32_t* summ,
+                       float* floors, void* stream) {
+  return launch_words<CAMERA>(cam, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, nullptr, box, wbox, lp,
+                              n_leaf, k_bands, n_packets, n_ranks, words,
+                              summ, floors, stream);
 }
 
 int snail_words_shared(const float* orig, const float* dx, const float* dy,
                        const float* dz, const float* tm, const float* box,
-                       int lp, int n_leaf, int k_bands, int n_packets,
-                       int32_t* words, int32_t* summ, float* floors,
-                       void* stream) {
-  if (!words_args_ok(lp, n_leaf, k_bands, n_packets))
-    return (int)cudaErrorInvalidValue;
-  words_kernel<SHARED>
-      <<<n_packets, kWordsThreads, words_smem(k_bands, lp),
-         (cudaStream_t)stream>>>(orig, nullptr, nullptr, nullptr, dx, dy, dz,
-                                 tm, box, lp, n_leaf, k_bands, words, summ,
-                                 floors);
-  return (int)cudaGetLastError();
+                       const float* wbox, int lp, int n_leaf, int k_bands,
+                       int n_packets, int n_ranks, int32_t* words,
+                       int32_t* summ, float* floors, void* stream) {
+  return launch_words<SHARED>(orig, nullptr, nullptr, nullptr, dx, dy, dz,
+                              tm, box, wbox, lp, n_leaf, k_bands, n_packets,
+                              n_ranks, words, summ, floors, stream);
 }
 
-// B5. ``wbox``: the word boxes (ops/traverse.py LeafTables). A scene whose
-// words per cluster rank need more shared memory than kGeneralSmemMax
-// (general_smem: Lp above 429,056 leaves at 8 bands, ops/traverse.py
-// WL_MAX_LP, where scenes that large get node tables) is refused.
 int snail_words_general(const float* ox, const float* oy, const float* oz,
                         const float* dx, const float* dy, const float* dz,
                         const float* tm, const float* box, const float* wbox,
                         int lp, int n_leaf, int k_bands, int n_packets,
-                        int32_t* words, int32_t* summ, float* floors,
-                        void* stream) {
-  if (!words_args_ok(lp, n_leaf, k_bands, n_packets) ||
-      general_smem(k_bands, lp) > kGeneralSmemMax)
-    return (int)cudaErrorInvalidValue;
-  const int smem = general_smem(k_bands, lp);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        words_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  words_general_kernel<<<n_packets * kWordsCluster, kWordsThreads, smem,
-                         (cudaStream_t)stream>>>(
-      ox, oy, oz, dx, dy, dz, tm, box, wbox, lp, n_leaf, k_bands, words, summ,
-      floors);
-  return (int)cudaGetLastError();
+                        int n_ranks, int32_t* words, int32_t* summ,
+                        float* floors, void* stream) {
+  return launch_words<GENERAL>(nullptr, ox, oy, oz, dx, dy, dz, tm, box,
+                               wbox, lp, n_leaf, k_bands, n_packets, n_ranks,
+                               words, summ, floors, stream);
 }
 
 // B2, or B8a when ``stats`` (P, 8) int32, zeroed by the caller, is given.

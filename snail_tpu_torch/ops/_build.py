@@ -37,12 +37,11 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "snail_words_camera": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "snail_words_shared": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                           _P, _P],
+    "snail_words_camera": [_P] * 3 + [_I] * 5 + [_P] * 4,
+    "snail_words_shared": [_P] * 7 + [_I] * 5 + [_P] * 4,
     "snail_camera_wl": [_P] * 5 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 9,
     "snail_shadow_wl": [_P] * 11 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 3,
-    "snail_words_general": [_P] * 9 + [_I] * 4 + [_P] * 4,
+    "snail_words_general": [_P] * 9 + [_I] * 5 + [_P] * 4,
     "snail_closest_wl_g": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 5,
     "snail_shadow_wl_g": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 2,
     "snail_walk_camera": [_P] * 3 + [_I] * 3 + [_P] * 9,

@@ -17,10 +17,11 @@ Each wavefront runs two kernels:
 
 1. a *words* pass (B1 camera, B3 shared origin, B5 per-ray origins): per
    packet, the ray interval bounds (inverse directions, and origins for
-   B5) are tested against every leaf box of the BVH; passing leaves are
-   sorted into ``k_bands`` equal-count near-to-far distance bands and
-   emitted as bit words, one summary word per 1024 leaves and one
-   distance floor per band;
+   B5) are tested against every leaf box of the BVH (the kernels test
+   each 32-leaf word's box first, and the leaves of the words that pass);
+   passing leaves are sorted into ``k_bands`` equal-count near-to-far
+   distance bands and emitted as bit words, one summary word per 1024
+   leaves and one distance floor per band;
 2. a *trace* pass (B2 closest hit from the camera, B4 any-hit from a
    light, B6 closest hit and B7 any-hit from per-ray origins): the
    surviving leaf bits are scanned band by band; each ray culls the leaf
@@ -65,10 +66,15 @@ TRI_ROW = 16  # floats per 64-B triangle row
 _HIST_BINS = 32  # histogram bins of the equal-count band edges
 WARP = 32  # rays per warp: one thread per ray
 WARPS = PACKET_R // WARP  # warps per packet
-# The most leaf slots of leaf tables: one block of B5's cluster keeps the
-# entries of its share of them in shared memory (csrc/worklist.cu
-# general_smem, at WL_BANDS bands); a scene with more gets node tables.
+# The most leaf slots of leaf tables; a scene with more gets node tables,
+# and the words passes (csrc/worklist.cu kMaxLp) refuse larger tables.
 WL_MAX_LP = 429_056
+# Blocks per packet of the words passes B1, B3 and B5, one thread block
+# cluster (1, 2, 4 or 8): the fastest of the four on terrain_724's frame
+# wavefronts at 1024 x 1024 on an H100 (time_words.py, PERF.md). More
+# blocks split a packet's work, but past one wave of blocks each adds its
+# chain of barriers; B1's primary packets pass few words.
+WORDS_CLUSTER = {"words_camera": 2, "words_shared": 4, "words_general": 4}
 # The counters of B8a/B8b and B9e/B9f, per packet: the slots of its (P, 8)
 # int32 row (the JAX package's names and slots; slots 5-7 stay 0). What
 # each counts is in csrc/worklist.cu (struct Counters) and csrc/walk.cuh
@@ -453,22 +459,34 @@ def _leaf_pass(tables: LeafTables, om, oM, idir, mb, k_bands: int):
     return words, summ, floors
 
 
+def _camera_bounds(cam, width: int, height: int, pids):
+    """B1's packet bounds of the primary rays of packets ``pids``: the
+    camera position as both origin bounds, the inverse directions (three
+    (P, PACKET_R)) and the distance bound (P,)."""
+    _, idir, t_exit = _camera_rays(cam, width, height, pids)
+    o = cam[9:12]
+    return o, o, idir, t_exit.amax(1) * 1.0001 + 1e-30
+
+
+def _shared_bounds(orig, d, tm):
+    """B3's packet bounds of rays from the one origin ``orig``: as
+    :func:`_camera_bounds`, of the planes ``d`` and ``tm``."""
+    idir = [1.0 / (c + INV_EPS) for c in d]
+    limit = torch.where(tm >= 0.0, tm, -BIG)
+    return orig, orig, idir, limit.amax(1) * 1.0001 + 1e-30
+
+
 def words_camera_plain(cam, width: int, height: int, tables: LeafTables,
                        k_bands: int, pids: torch.Tensor):
     """Plain B1: the primary leaf pass of packets ``pids``."""
-    _, idir, t_exit = _camera_rays(cam, width, height, pids)
-    mb = t_exit.amax(1) * 1.0001 + 1e-30
-    o = cam[9:12]
-    return _leaf_pass(tables, o, o, idir, mb, k_bands)
+    return _leaf_pass(tables, *_camera_bounds(cam, width, height, pids),
+                      k_bands)
 
 
 def words_shared_plain(orig, d, tm, tables: LeafTables, k_bands: int):
     """Plain B3: the leaf pass of rays from one origin; ``d`` three and
     ``tm`` one (P, PACKET_R) float32 planes."""
-    idir = [1.0 / (c + INV_EPS) for c in d]
-    limit = torch.where(tm >= 0.0, tm, -BIG)
-    mb = limit.amax(1) * 1.0001 + 1e-30
-    return _leaf_pass(tables, orig, orig, idir, mb, k_bands)
+    return _leaf_pass(tables, *_shared_bounds(orig, d, tm), k_bands)
 
 
 def _general_bounds(o, d, tm):
@@ -490,19 +508,39 @@ def words_general_plain(o, d, tm, tables: LeafTables, k_bands: int):
     return _leaf_pass(tables, *_general_bounds(o, d, tm), k_bands)
 
 
-def general_word_tests(o, d, tm, tables: LeafTables):
-    """The words whose leaves B5's kernel tests on the planes ``o``, ``d``,
-    ``tm``: bool (P, Lp/32), the word's box (``tables.wbox``) passes the
-    packet's interval test, or a bound of the interval is not finite (the
-    kernel then tests every word). A word whose box fails has no leaf that
-    passes (csrc/worklist.cu ``words_general_kernel``)."""
-    om, oM, idir, mb = _general_bounds(o, d, tm)
+def _word_tests(tables: LeafTables, om, oM, idir, mb):
+    """bool (P, Lp/32): the word's box (``tables.wbox``) passes the
+    packet's interval test (the bounds of :func:`_leaf_pass`), or a bound
+    of the interval is not finite."""
     im, iM = zip(*[_widen(c.amin(1), c.amax(1)) for c in idir])
     tn, tf = _interval_test(tables.wbox, om, oM, im, iM, mb)
     tame = torch.ones_like(mb, dtype=torch.bool)
     for x in (*om, *oM, *im, *iM):
-        tame &= torch.isfinite(x).reshape(mb.shape[0], -1).all(1)
+        f = torch.isfinite(x)
+        tame &= f.reshape(f.shape[0] if f.dim() else 1, -1).all(1)
     return ((tn <= tf) & (tf > 0.0)) | ~tame[:, None]
+
+
+def camera_word_tests(cam, width: int, height: int, tables: LeafTables,
+                      pids: torch.Tensor):
+    """The words whose leaves B1's kernel tests on the primary rays of
+    packets ``pids``: bool (P, Lp/32), the word's box passes the packet's
+    interval test, or a bound of the interval is not finite (the kernel
+    then tests every word). A word whose box fails has no leaf that passes
+    (csrc/worklist.cu ``words_cluster_kernel``)."""
+    return _word_tests(tables, *_camera_bounds(cam, width, height, pids))
+
+
+def shared_word_tests(orig, d, tm, tables: LeafTables):
+    """:func:`camera_word_tests` of B3 on rays from the one origin
+    ``orig``, the planes ``d`` and ``tm``."""
+    return _word_tests(tables, *_shared_bounds(orig, d, tm))
+
+
+def general_word_tests(o, d, tm, tables: LeafTables):
+    """:func:`camera_word_tests` of B5 on the planes ``o``, ``d``,
+    ``tm``."""
+    return _word_tests(tables, *_general_bounds(o, d, tm))
 
 
 def _packet_leaves(tables: LeafTables, words_p):
@@ -1044,49 +1082,65 @@ def _words_out(p, k_bands, lp, dev):
             torch.empty((p, k_bands), dtype=torch.float32, device=dev))
 
 
+def _words_launch(name, k_bands, cluster, p, dev, tables, rays):
+    """Launches the words pass ``name`` (B1, B3 or B5) over clusters of
+    ``cluster`` blocks (None: :data:`WORDS_CLUSTER`) per packet; ``rays``:
+    the tensors its rays are made from, in its entry point's order (the
+    camera vector; the shared origin and planes; the planes). Returns
+    (words, summ, floors)."""
+    from ._build import library
+
+    _check_tables(tables, dev)
+    if tables.lp > WL_MAX_LP:
+        raise ValueError(
+            f"{name}: {tables.lp} leaf slots, more than the words passes "
+            f"take in shared memory ({WL_MAX_LP})")
+    cluster = WORDS_CLUSTER[name] if cluster is None else cluster
+    if cluster not in (1, 2, 4, 8):
+        raise ValueError(f"{name}: cluster of {cluster} blocks, expected "
+                         "1, 2, 4 or 8")
+    words, summ, floors = _words_out(p, k_bands, tables.lp, dev)
+    _launched(getattr(library(), f"snail_{name}")(
+        *(_ptr(t) for t in (*rays, tables.box, tables.wbox)),
+        tables.lp, tables.n_leaf, k_bands, p, cluster, _ptr(words),
+        _ptr(summ), _ptr(floors), _stream()), name)
+    return words, summ, floors
+
+
 def words_camera(cam, width: int, height: int, tables: LeafTables,
-                 k_bands: int = WL_BANDS):
+                 k_bands: int = WL_BANDS, cluster: int | None = None):
     """B1: primary leaf pass of a width x height frame (replaces
-    ``_words_camera_kernel``). Returns (words, summ, floors)."""
+    ``_words_camera_kernel``). Returns (words, summ, floors). On the card,
+    each packet runs on a cluster of ``cluster`` blocks (default
+    :data:`WORDS_CLUSTER`), and leaf tables of more than
+    :data:`WL_MAX_LP` slots are refused."""
     p = (width // TILE) * (height // TILE)
     if not _on_cuda(cam):
         return words_camera_plain(cam, width, height, tables, k_bands,
                                   torch.arange(p))
-    from ._build import library
-
-    dev = cam.device
-    _check(cam, "cam", torch.float32, (22,), dev)
-    _check_tables(tables, dev)
-    words, summ, floors = _words_out(p, k_bands, tables.lp, dev)
-    lib = library()
-    _launched(lib.snail_words_camera(
-        _ptr(cam), _ptr(tables.box), tables.lp, tables.n_leaf, k_bands, p,
-        _ptr(words), _ptr(summ), _ptr(floors), _stream()), "words_camera")
+    _check(cam, "cam", torch.float32, (22,), cam.device)
+    out = _words_launch("words_camera", k_bands, cluster, p, cam.device,
+                        tables, (cam,))
     words_camera.launches += 1
-    return words, summ, floors
+    return out
 
 
-def words_shared(orig, d, tm, tables: LeafTables, k_bands: int = 1):
+def words_shared(orig, d, tm, tables: LeafTables, k_bands: int = 1,
+                 cluster: int | None = None):
     """B3: leaf pass of rays from one origin (replaces
     ``_words_shared_kernel``). ``d`` three and ``tm`` one (P, PACKET_R)
-    float32 planes. Returns (words, summ, floors)."""
+    float32 planes. Returns (words, summ, floors); on the card as
+    :func:`words_camera`."""
     if not _on_cuda(tm):
         return words_shared_plain(orig, d, tm, tables, k_bands)
-    from ._build import library
-
     dev = tm.device
     p = tm.shape[0]
     _check(orig, "origin", torch.float32, (3,), dev)
     _check_planes((*d, tm), p, dev)
-    _check_tables(tables, dev)
-    words, summ, floors = _words_out(p, k_bands, tables.lp, dev)
-    lib = library()
-    _launched(lib.snail_words_shared(
-        _ptr(orig), _ptr(d[0]), _ptr(d[1]), _ptr(d[2]), _ptr(tm),
-        _ptr(tables.box), tables.lp, tables.n_leaf, k_bands, p,
-        _ptr(words), _ptr(summ), _ptr(floors), _stream()), "words_shared")
+    out = _words_launch("words_shared", k_bands, cluster, p, dev, tables,
+                        (orig, *d, tm))
     words_shared.launches += 1
-    return words, summ, floors
+    return out
 
 
 def _check_words(words, summ, floors, p, lp, dev):
@@ -1205,32 +1259,21 @@ def shadow_wl_stats(orig, d, tm, rows, tables: LeafTables, words, summ,
     return out, stats
 
 
-def words_general(o, d, tm, tables: LeafTables, k_bands: int = WL_BANDS):
+def words_general(o, d, tm, tables: LeafTables, k_bands: int = WL_BANDS,
+                  cluster: int | None = None):
     """B5: leaf pass of rays with their own origins (replaces
     ``_words_general_kernel``). ``o`` and ``d`` three and ``tm`` one (P,
     PACKET_R) float32 planes, masked rays substituted. Returns (words,
-    summ, floors). On the card, leaf tables of more than :data:`WL_MAX_LP`
-    slots are refused (scenes that large get node tables)."""
+    summ, floors); on the card as :func:`words_camera`."""
     if not _on_cuda(tm):
         return words_general_plain(o, d, tm, tables, k_bands)
-    from ._build import library
-
     dev = tm.device
     p = tm.shape[0]
     _check_planes((*o, *d, tm), p, dev)
-    _check_tables(tables, dev)
-    if tables.lp > WL_MAX_LP:
-        raise ValueError(
-            f"words_general: {tables.lp} leaf slots, more than B5 keeps in "
-            f"shared memory ({WL_MAX_LP})")
-    words, summ, floors = _words_out(p, k_bands, tables.lp, dev)
-    lib = library()
-    _launched(lib.snail_words_general(
-        *(_ptr(t) for t in (*o, *d, tm)), _ptr(tables.box),
-        _ptr(tables.wbox), tables.lp, tables.n_leaf, k_bands, p, _ptr(words),
-        _ptr(summ), _ptr(floors), _stream()), "words_general")
+    out = _words_launch("words_general", k_bands, cluster, p, dev, tables,
+                        (*o, *d, tm))
     words_general.launches += 1
-    return words, summ, floors
+    return out
 
 
 def closest_wl_g(o, d, tm, rows, tables: LeafTables, words, summ, floors):

@@ -41,7 +41,7 @@ class TracedScene:
     ``walk=True``, the port's explicit form of the JAX package's
     ``SNAIL_WL=0``, or one whose leaves hold more than IVAL_LEAF
     triangles, which the JAX package gives no leaf tables, or more than
-    WL_MAX_LP leaves, more than B5 keeps in shared memory); the entry
+    WL_MAX_LP leaves, more than the words passes take); the entry
     points route by which one the scene holds, and a node tree by its
     ``leaf_max`` (walk or fat-leaf kernels). ``depth``: the BVH's depth
     (root 0).

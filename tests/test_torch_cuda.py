@@ -564,6 +564,112 @@ def test_words_general_cluster_matches_plain(which):
             assert not bool((kern[0].ne(0).any(1) & ~tested).any())
 
 
+CLUSTERS = (1, 2, 4, 8)
+
+
+def _check_clusters(run, plain, tested):
+    """A words pass at 8 bands and at 1 over clusters of 1, 2, 4 and 8
+    blocks per packet: words, summaries and floors identical to the plain
+    version's, and no bit in a word whose box the pre-test drops.
+    ``run(k_bands, cluster)``, ``plain(k_bands)``."""
+    for k_bands in (pt.WL_BANDS, 1):
+        ref = plain(k_bands)
+        for cluster in CLUSTERS:
+            kern = run(k_bands, cluster)
+            torch.cuda.synchronize()
+            _assert_words_equal(kern, ref)
+            assert torch.equal(kern[2], ref[2]), cluster
+        assert not bool((ref[0].ne(0).any(1) & ~tested).any())
+
+
+@pytest.mark.parametrize("kernel", ["camera", "shared"])
+@pytest.mark.parametrize("which", SCENES)
+def test_words_camera_and_shared_clusters_match_plain(which, kernel):
+    """B1 and B3 on the padded scenes (at 8 blocks a packet the city's
+    ranks 1-7 hold padding only, and still join every barrier): B1 on the
+    frame's primary rays, B3 on its shadow rays toward the light and on
+    seeded shadow rays, each at every cluster size, as
+    ``_check_clusters``."""
+    _need_cuda()
+    from snail_tpu_torch.render.fast import shadow_wavefront
+
+    scene, cam, w, h = _padded_scene(which)
+    lt = scene.leaves
+    cv = pt.cam_vec(cam, w, h, scene.root_lo, scene.root_hi)
+    if kernel == "camera":
+        pids = torch.arange((w // pt.TILE) * (h // pt.TILE), device="cuda")
+        _check_clusters(
+            lambda k, c: pt.words_camera(cv, w, h, lt, k, c),
+            lambda k: pt.words_camera_plain(cv, w, h, lt, k, pids),
+            pt.camera_word_tests(cv, w, h, lt, pids))
+        return
+    light = scene.lights.pos[0].contiguous()
+    dist, u, v, tri, dx, dy, dz = pt.camera_trace(scene, cam, w, h)
+    primary = ((cam.pos[0], cam.pos[1], cam.pos[2]),
+               (dx.reshape(-1), dy.reshape(-1), dz.reshape(-1)),
+               dist.reshape(-1), u.reshape(-1), v.reshape(-1),
+               tri.reshape(-1))
+    d, tm = shadow_wavefront(scene, *primary, light)
+    pk = lambda a: a.reshape(-1, pt.PACKET_R).contiguous()
+    for d, tm in (((pk(d[0]), pk(d[1]), pk(d[2])), pk(tm)),
+                  _shadow_rays(scene, light, 6)):
+        _check_clusters(
+            lambda k, c: pt.words_shared(light, d, tm, lt, k, c),
+            lambda k: pt.words_shared_plain(light, d, tm, lt, k),
+            pt.shared_word_tests(light, d, tm, lt))
+
+
+def _scattered_tables(lp, seed=4):
+    """Leaf tables of ``lp`` real leaves on the card: seeded boxes of
+    half-width 0.001-0.02 around points of [-1, 1]^3 (triangles none)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1.0, 1.0, (3, lp))
+    e = rng.uniform(0.001, 0.02, (3, lp))
+    box = np.concatenate([c - e, c + e]).astype(np.float32)
+    zeros = torch.zeros(lp, dtype=torch.int32, device="cuda")
+    return pt.LeafTables(
+        torch.from_numpy(box).cuda(), zeros, zeros,
+        torch.from_numpy(pt._group_boxes(box, pt.WARP)).cuda(),
+        torch.from_numpy(pt._group_boxes(box, pt.LEAF_BLOCK)).cuda(), lp)
+
+
+@pytest.mark.parametrize("kernel", ["shared", "general"])
+def test_words_where_every_word_passes(kernel):
+    """B3's worst case, and B5's: on 65,536 scattered leaves (2,048
+    words), packet 0 casts rays in every direction from the middle, so its
+    direction bounds span 0 on every axis and every word's box passes;
+    packet 1 looks at the leaves from outside, so their entries differ.
+    At 8 bands one block a packet keeps the entries of 304 of its 2,048
+    words and recomputes the rest where it reads them. As
+    ``_check_clusters``."""
+    _need_cuda()
+    lt = _scattered_tables(64 * pt.LEAF_BLOCK)
+    rng = np.random.default_rng(6)
+    src = np.array([[0.0, 0.0, 0.0], [-4.0, 0.3, -0.2]])
+    tgt = rng.uniform(-1.0, 1.0, (2, pt.PACKET_R, 3))
+    d = np.concatenate([rng.normal(size=(1, pt.PACKET_R, 3)),
+                        tgt[1:] - src[1]])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    plane = lambda a: torch.from_numpy(
+        np.ascontiguousarray(a, np.float32)).cuda()
+    d = tuple(plane(d[..., k]) for k in range(3))
+    tm = torch.full((2, pt.PACKET_R), BIG, device="cuda")
+    if kernel == "shared":
+        orig = plane(src[0])
+        tested = pt.shared_word_tests(orig, d, tm, lt)
+        _check_clusters(
+            lambda k, c: pt.words_shared(orig, d, tm, lt, k, c),
+            lambda k: pt.words_shared_plain(orig, d, tm, lt, k), tested)
+    else:
+        o = src[:, None, :] + rng.uniform(-0.05, 0.05, (2, pt.PACKET_R, 3))
+        o = tuple(plane(o[..., k]) for k in range(3))
+        tested = pt.general_word_tests(o, d, tm, lt)
+        _check_clusters(
+            lambda k, c: pt.words_general(o, d, tm, lt, k, c),
+            lambda k: pt.words_general_plain(o, d, tm, lt, k), tested)
+    assert bool(tested[0].all())
+
+
 def _one_leaf_tables(lp):
     """Leaf tables of ``lp`` slots on the card with one real leaf, the unit
     box (triangles none), the rest padding."""
@@ -578,10 +684,10 @@ def _one_leaf_tables(lp):
 
 
 def test_words_general_refuses_tables_beyond_its_shared_memory():
-    """B5 keeps one rank's leaf entries in shared memory: it takes leaf
-    tables of WL_MAX_LP (429,056) slots at 8 bands, equal to the plain
-    version there, and the wrapper and the kernel's entry point both
-    refuse one block more, so WL_MAX_LP is the kernel's own limit."""
+    """B5 takes leaf tables of WL_MAX_LP (429,056) slots at 8 bands, equal
+    to the plain version there, and the wrapper and the kernel's entry
+    point both refuse one block more: WL_MAX_LP is the words passes' own
+    limit (csrc/worklist.cu kMaxLp)."""
     _need_cuda()
     from snail_tpu_torch.ops._build import library
 
@@ -604,8 +710,53 @@ def test_words_general_refuses_tables_beyond_its_shared_memory():
     ptr = lambda t: t.data_ptr()
     rc = library().snail_words_general(
         *(ptr(t) for t in (*o, *d, tm, big.box, big.wbox)), big.lp,
-        big.n_leaf, pt.WL_BANDS, 1, ptr(words), ptr(summ), ptr(floors),
+        big.n_leaf, pt.WL_BANDS, 1, 8, ptr(words), ptr(summ), ptr(floors),
         torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
+@pytest.mark.parametrize("kernel", ["camera", "shared"])
+def test_words_camera_and_shared_refuse_tables_beyond_wl_max_lp(kernel):
+    """B1 and B3 as B5: tables of WL_MAX_LP slots are taken, equal to the
+    plain version there; one block more is refused by the wrapper and by
+    the kernel's entry point, and so is a cluster of 3 blocks."""
+    _need_cuda()
+    from snail_tpu_torch.ops._build import library
+
+    lt = _one_leaf_tables(pt.WL_MAX_LP)
+    big = _one_leaf_tables(pt.WL_MAX_LP + pt.LEAF_BLOCK)
+    ptr = lambda t: t.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "camera":
+        cam = Camera.look_at(pos=(2.0, 1.5, 3.0), target=(0.5, 0.5, 0.5))
+        cv = pt.cam_vec(cam, pt.TILE, pt.TILE, lt.root[:3], lt.root[3:])
+        run = lambda t, **kw: pt.words_camera(cv, pt.TILE, pt.TILE, t, **kw)
+        plain = pt.words_camera_plain(cv, pt.TILE, pt.TILE, lt, pt.WL_BANDS,
+                                      torch.arange(1, device="cuda"))
+        lead = (cv,)
+    else:
+        rng = np.random.default_rng(2)
+        d = rng.uniform(0.5, 1.0, (3, pt.PACKET_R))
+        d /= np.linalg.norm(d, axis=0)
+        d = tuple(torch.from_numpy(c[None].astype(np.float32)).cuda()
+                  for c in d)
+        tm = torch.full((1, pt.PACKET_R), BIG, device="cuda")
+        orig = torch.full((3,), -1.0, device="cuda")
+        run = lambda t, **kw: pt.words_shared(orig, d, tm, t, pt.WL_BANDS,
+                                              **kw)
+        plain = pt.words_shared_plain(orig, d, tm, lt, pt.WL_BANDS)
+        lead = (orig, *d, tm)
+    kern = run(lt)
+    torch.cuda.synchronize()
+    _assert_words_equal(kern, plain)
+    with pytest.raises(ValueError, match="shared memory"):
+        run(big)
+    with pytest.raises(ValueError, match="cluster of 3"):
+        run(lt, cluster=3)
+    words, summ, floors = kern
+    rc = getattr(library(), f"snail_words_{kernel}")(
+        *(ptr(t) for t in (*lead, big.box, big.wbox)), big.lp, big.n_leaf,
+        pt.WL_BANDS, 1, 8, ptr(words), ptr(summ), ptr(floors), stream)
     assert rc != 0
 
 

@@ -6,8 +6,8 @@ word and block no later (with the kernels' float32 arithmetic), a leaf
 that passes a packet's interval test lies in a word that passes it, the
 counter simulation of B8b (``shadow_wl_stats_plain``, which follows
 ``scan_boxes``), and B8a's walked the same way, count what the word scan
-counted, less the skipped words, and scenes with more leaves than B5
-takes get node tables."""
+counted, less the skipped words, and scenes with more leaves than the
+words passes take get node tables."""
 
 import numpy as np
 import pytest
@@ -321,41 +321,111 @@ def _bounce_packets(sc, seeds=(3, 4, 5, 6)):
             torch.full((len(seeds), pt.PACKET_R), BIG))
 
 
-def test_a_leaf_that_passes_b5s_interval_test_has_a_word_that_passes(
-        scene):
-    """The property that makes B5's word-box pre-test exact: on seeded
-    bounce packets (every 5th ray axis-aligned, so that an inverse
-    direction is 1/INV_EPS), every leaf that passes its packet's interval
-    test with the four corner products per slab lies in a word whose box
-    passes it too, with an entry no larger and an exit no smaller; so the
-    plain words set no bit in a word that the pre-test drops."""
-    sc, _ = scene
+def _shadow_packets(sc, seeds=(3, 4, 5, 6)):
+    """Seeded packets of shadow rays, one per seed: from the scene's light
+    to points within 20 % of the scene box's extent of a seeded point in
+    the lower part of the box, tmax just short of them. Returns the (d, tm)
+    planes, (len(seeds), PACKET_R)."""
+    lo, hi = sc.root_lo.numpy(), sc.root_hi.numpy()
+    light = sc.lights.pos[0].numpy()
+    d, tm = [], []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        c = rng.uniform(lo, hi)
+        c[1] = rng.uniform(lo[1], lo[1] + 0.3 * (hi[1] - lo[1]))
+        v = c + rng.uniform(-0.2, 0.2, (pt.PACKET_R, 3)) * (hi - lo) - light
+        ld = np.linalg.norm(v, axis=-1)
+        d.append(v / ld[:, None])
+        tm.append(ld * 0.9999)
+    return (*(torch.from_numpy(np.stack(d)[..., k].astype(np.float32))
+              for k in range(3)),
+            torch.from_numpy(np.stack(tm).astype(np.float32)))
+
+
+def _fenced(planes):
+    """The planes of packet 0 once more as a last packet, whose ray 0 has
+    the x direction -INV_EPS: 1 / (d + INV_EPS) is +inf, so the interval's
+    inverse-direction bound is not finite."""
+    *o, dx, dy, dz, tm = planes
+    fence = dx[:1].clone()
+    fence[0, 0] = -INV_EPS
+    return (*(torch.cat([c, c[:1]]) for c in o),
+            torch.cat([dx, fence]), *(torch.cat([c, c[:1]])
+                                      for c in (dy, dz, tm)))
+
+
+def _mode_packets(sc, cam, mode):
+    """Seeded packets of each origin mode, with the interval bounds of
+    ``_leaf_pass``, the words whose box the kernels' pre-test passes, the
+    plain words, and how many leading packets have finite bounds:
+    camera, the 64 packets of a 512 x 512 frame; shared, the packets of
+    ``_shadow_packets``; general, those of ``_bounce_packets``. Shared and
+    general add the fence packet of ``_fenced`` (the camera's rays have no
+    such direction)."""
     lt = sc.leaves
+    if mode == "camera":
+        w = 512
+        cv = pt.cam_vec(cam, w, w, sc.root_lo, sc.root_hi)
+        pids = torch.arange((w // pt.TILE) ** 2)
+        return (pt._camera_bounds(cv, w, w, pids),
+                pt.camera_word_tests(cv, w, w, lt, pids),
+                pt.words_camera_plain(cv, w, w, lt, pt.WL_BANDS, pids)[0],
+                len(pids))
+    if mode == "shared":
+        *d, tm = _fenced(_shadow_packets(sc))
+        orig = sc.lights.pos[0]
+        return (pt._shared_bounds(orig, d, tm),
+                pt.shared_word_tests(orig, d, tm, lt),
+                pt.words_shared_plain(orig, d, tm, lt, pt.WL_BANDS)[0],
+                tm.shape[0] - 1)
     o, d, tm = _bounce_packets(sc)
-    om, oM, idir, mb = pt._general_bounds(o, d, tm)
+    *o, dx, dy, dz, tm = _fenced((*o, *d, tm))
+    d = (dx, dy, dz)
+    return (pt._general_bounds(o, d, tm), pt.general_word_tests(o, d, tm, lt),
+            pt.words_general_plain(o, d, tm, lt, pt.WL_BANDS)[0],
+            tm.shape[0] - 1)
+
+
+@pytest.mark.parametrize("mode", ["camera", "shared", "general"])
+def test_a_leaf_that_passes_b5s_interval_test_has_a_word_that_passes(
+        scene, mode):
+    """The property that makes the word-box pre-test of the words passes
+    (B1 camera, B3 shared origin, B5 per-ray origins: one origin and two
+    products per slab, or an origin interval and four) exact: on seeded
+    packets (B5's with every 5th ray axis-aligned, so that an inverse
+    direction is 1/INV_EPS), every leaf that passes its packet's interval
+    test lies in a word whose box passes it too, with an entry no larger
+    and an exit no smaller; so the plain words set no bit in a word that
+    the pre-test drops. A packet whose inverse-direction bound is not
+    finite (the fence) tests every word."""
+    sc, cam = scene
+    lt = sc.leaves
+    (om, oM, idir, mb), tested, words, n_tame = _mode_packets(sc, cam, mode)
     im, iM = zip(*[pt._widen(c.amin(1), c.amax(1)) for c in idir])
     n = lt.n_leaf
     tn, tf = pt._interval_test(lt.box[:, :n], om, oM, im, iM, mb)
+    wtn, wtf = pt._interval_test(lt.wbox, om, oM, im, iM, mb)
+    tn, tf, wtn, wtf = (x[:n_tame] for x in (tn, tf, wtn, wtf))
     ok = (tn <= tf) & (tf > 0.0)
     assert 100 < int(ok.sum()) < ok.numel()
-    wtn, wtf = pt._interval_test(lt.wbox, om, oM, im, iM, mb)
     of = torch.arange(n) // pt.WARP
     assert bool((wtn[:, of] <= tn)[ok].all())
     assert bool((wtf[:, of] >= tf)[ok].all())
-    tested = pt.general_word_tests(o, d, tm, lt)
-    assert bool(tested[:, of][ok].all())
-    assert not bool(tested.all())
-    words = pt.words_general_plain(o, d, tm, lt, pt.WL_BANDS)[0]
+    assert bool(tested[:n_tame, of][ok].all())
+    assert not bool(tested[:n_tame].all())
+    if mode != "camera":
+        assert len(tested) == n_tame + 1 and bool(tested[n_tame:].all())
+    assert words.ne(0).any()
     assert not bool((words.ne(0).any(1) & ~tested).any())
 
 
 def test_b5s_shared_memory_bounds_its_leaf_tables(monkeypatch):
-    """B5 keeps one cluster block's leaf entries in shared memory, so leaf
-    tables hold at most WL_MAX_LP slots: a scene with more leaves gets node
-    tables when it is built (here with the limit lowered below the 3,072
-    slots of terrain_scene(96) at leaf 8), one with as many keeps its leaf
-    tables, and both render the forward frame within 2e-3 on all but
-    0.1 % of the pixels (the walk frames' rule)."""
+    """Leaf tables hold at most WL_MAX_LP slots, the most the words passes
+    take: a scene with more leaves gets node tables when it is built
+    (here with the limit lowered below the 3,072 slots of
+    terrain_scene(96) at leaf 8), one with as many keeps its leaf tables,
+    and both render the forward frame within 2e-3 on all but 0.1 % of the
+    pixels (the walk frames' rule)."""
     from snail_tpu_torch.scene import scene as scene_mod
 
     assert pt.WL_MAX_LP == 419 * pt.LEAF_BLOCK
