@@ -78,7 +78,22 @@ Phases, each printed on its own line:
    gave them); then the fat fwd, bounce, fwd_bwd, instanced fwd and
    portable fwd frames, launching fat-leaf kernels only, each checked
    against the CPU path at small size, against the same geometry's frame
-   on leaf tables (leaf 16 / 32; the step by its loss) and timed.
+   on leaf tables (leaf 16 / 32; the step by its loss) and timed;
+8. textured frames (bench.py's ``section_tex``: ``checker_atlas`` on
+   every material, with its summed-area tables) on both phase-4 scenes:
+   the mip levels of the primary hits' texture samples (the terrain's
+   must span more than one), then the fwd frame with each filter (point,
+   bilinear, sat), each as a phase-4 path (launches of B1-B4, a 64 x 64
+   frame against the CPU path, ms/frame, MRays/s), the share of hit
+   pixels whose colour the atlas changes (> 0), and its ms/frame beside
+   the untextured fwd frame's, timed in turns; the textured terrain
+   bounce frame, the textured portable 1280 x 720 and instanced x16 city
+   frames, each beside its untextured twin; and a loaded scene:
+   city_scene(24) written as an OBJ (three ``usemtl`` groups) and an MTL
+   (Kd, Ks, one ``d 0.5``) into a temporary directory, loaded twice by
+   ``load_scene`` through its geometry and BVH cache (cold, then cached:
+   seconds each, the second scene's tables equal to the first's), and its
+   fwd frame on leaf tables (B1-B4) and on node tables (B9a/B9b).
 
 The last two lines are a JSON object per kernel (all 19 of the port, per
 scene) and the result line. Every kernel's line gives its time beside its
@@ -180,6 +195,18 @@ LOW_LIGHT = {"terrain": (-80.0, 20.0, 0.0)}
 # blocked share is held to 0.02-0.98 on the city's instanced wavefront and
 # on both scenes' seeded ones
 INSTANCE_GRID = {"city": (4, ("fwd", "bounce")), "terrain": (2, ("fwd",))}
+TEX_FILTERS = ("point", "bilinear", "sat")
+# the loaded scene's materials: every 12 faces (a box) take the next
+LOADED_MTL = """newmtl concrete
+Kd 0.7 0.7 0.65
+Ks 0.2 0.2 0.2
+newmtl glass
+Kd 0.3 0.5 0.8
+Ks 0.6 0.6 0.6
+d 0.5
+newmtl roof
+Kd 0.8 0.3 0.2
+"""
 
 # The card's peak rates (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s
@@ -1751,6 +1778,207 @@ def run_fat(kind, wl, card):
     return name, checks, launches
 
 
+def textured(scene):
+    """``scene`` with bench.py's ``section_tex`` checkerboard on every
+    material and its summed-area tables (what ``bench_scene(...,
+    textured="sat")`` builds, without the host build again)."""
+    from snail_tpu_torch.scene.scene import with_sat
+    from snail_tpu_torch.scene.textures import checker_atlas
+
+    return with_sat(checker_atlas(scene))
+
+
+def primary_mips(scene, cam):
+    """The mip level histogram of the primary hits' texture samples (the
+    footprint of their 32 x 32 quadrants, as ``render.fast`` computes it)
+    and the hit mask in raster order."""
+    import torch
+
+    from snail_tpu_torch.core.vecmath import BIG
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.fast import _packets_to_image
+    from snail_tpu_torch.scene.textures import mip_from_footprint, uv_footprint
+
+    dist, u, v, tri, _, _, _ = pt.camera_trace(scene, cam, WIDTH, HEIGHT)
+    hit = (dist > 0.0) & (dist < BIG)
+    sh = scene.sh_pack.index_select(0, torch.where(hit, tri, 0).long()).T
+    uv = torch.stack([sh[9] + sh[11] * u + sh[13] * v,
+                      sh[10] + sh[12] * u + sh[14] * v], -1)
+    w, h, n_mips, _ = scene.tex_meta[0]
+    mip = mip_from_footprint(uv_footprint(uv, (32, 32), hit), w.float(),
+                             h.float(), n_mips)
+    hist = torch.bincount(mip[hit].long(), minlength=int(n_mips)).tolist()
+    mask = hit.float()
+    return hist, _packets_to_image(mask, mask, mask, WIDTH, HEIGHT)[..., 0] > 0
+
+
+def beside(name, path, tex, flat, card, frames=TIMED_FRAMES):
+    """A textured frame's ms beside its untextured twin's, timed in turns
+    (untextured, textured, textured, untextured) over ``frames``."""
+    f1, t1, t2, f2 = (cuda_ms(fn, frames) for fn in (flat, tex, tex, flat))
+    print(f"texture {name} {path}: {(t1 + t2) / 2:.3f} ms/frame (runs "
+          f"{t1:.3f}, {t2:.3f}) beside the untextured frame's "
+          f"{(f1 + f2) / 2:.3f} ({f1:.3f}, {f2:.3f}): +"
+          f"{(t1 + t2 - f1 - f2) / 2:.3f} ms, on {card}", flush=True)
+
+
+def run_textured(name, kind, scene, cam, small, card):
+    """Phase 8 on one phase-4 scene (see the module docstring). Returns
+    {path: launch counts}."""
+    import torch
+
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.render.renderer import render_frame
+    from snail_tpu_torch.scene.bench_scenes import instanced_grid
+    from snail_tpu_torch.scene.instancing import render_instanced
+
+    tex = textured(scene)
+    tsmall = (textured(small[0]), small[1])
+    hist, hitmask = primary_mips(tex, cam)
+    used = sum(1 for n in hist if n)
+    print(f"texture {name}: mip levels of the primary hits' samples (0 "
+          f"up): {hist}, {used} levels used", flush=True)
+    if used < (2 if kind == "terrain" else 1):
+        fail(f"{name}: the primary hits sample {used} mip levels")
+    rays = WIDTH * HEIGHT * (1 + len(scene.lights))
+    frame = lambda opts: (lambda s, c, w, h: render_frame(s, c, w, h, opts))
+    flat_opts = RenderOpts(reflections=False, transparency=False,
+                           textures=False)
+    flat = render_frame(scene, cam, WIDTH, HEIGHT, flat_opts)
+    launches = {}
+    for filt in TEX_FILTERS:
+        opts = RenderOpts(reflections=False, transparency=False,
+                          tex_filter=filt)
+        path = f"tex {filt} fwd"
+        launches[f"tex_{filt}_fwd"] = run_path(name, path, FORWARD,
+                                               frame(opts), tex, cam,
+                                               tsmall, card, rays)
+        img = render_frame(tex, cam, WIDTH, HEIGHT, opts)
+        share = float(((img - flat).abs().amax(-1) > 1e-3)[hitmask]
+                      .float().mean())
+        print(f"texture {name} {path}: share of hit pixels the atlas "
+              f"changes {share:.4f}", flush=True)
+        if not share > 0:
+            fail(f"{name} {path}: the atlas changes no hit pixel")
+        beside(name, path, lambda: render_frame(tex, cam, WIDTH, HEIGHT,
+                                                opts),
+               lambda: render_frame(scene, cam, WIDTH, HEIGHT, flat_opts),
+               card)
+    if kind == "terrain":
+        opts, flat_opts = RenderOpts(), RenderOpts(textures=False)
+        launches["tex_bounce"] = run_path(name, "tex bounce", BOUNCE,
+                                          frame(opts), tex, cam, tsmall,
+                                          card, rays)
+        beside(name, "tex bounce",
+               lambda: render_frame(tex, cam, WIDTH, HEIGHT, opts),
+               lambda: render_frame(scene, cam, WIDTH, HEIGHT, flat_opts),
+               card)
+    else:
+        w, h = PORTABLE_SIZE
+        opts, flat_opts = RenderOpts(), RenderOpts(textures=False)
+        launches["tex_portable"] = run_path(
+            name, "tex portable", PORTABLE["leaves"], frame(opts), tex, cam,
+            tsmall, card, w * h * (1 + len(scene.lights)), PORTABLE_FRAMES,
+            PORTABLE_SIZE, PORTABLE_SMALL)
+        beside(name, "tex portable",
+               lambda: render_frame(tex, cam, w, h, opts),
+               lambda: render_frame(scene, cam, w, h, flat_opts), card,
+               PORTABLE_FRAMES)
+        grid, _ = INSTANCE_GRID[kind]
+        isc, icam = instanced_grid(kind, tex, grid)
+        flat_isc, _ = instanced_grid(kind, scene, grid)
+        opts = RenderOpts(reflections=False, transparency=False)
+        iname = f"{name} x{grid * grid}"
+        launches["tex_instanced_fwd"] = run_path(
+            iname, "tex instanced fwd", INSTANCED,
+            lambda s, c, w, h: render_instanced(s, c, w, h, opts), isc, icam,
+            instanced_grid(kind, tsmall[0], grid), card,
+            WIDTH * HEIGHT * (1 + len(isc.lights)), INSTANCED_FRAMES)
+        beside(iname, "tex instanced fwd",
+               lambda: render_instanced(isc, icam, WIDTH, HEIGHT, opts),
+               lambda: render_instanced(flat_isc, icam, WIDTH, HEIGHT,
+                                        dataclasses.replace(
+                                            opts, textures=False)),
+               card, INSTANCED_FRAMES)
+    del tex, tsmall
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_city_obj(directory, n):
+    """city_scene(n)'s geometry as ``city.obj`` (its faces wound so that
+    load_scene's flip gives the procedural winding; every 12 faces in the
+    next of LOADED_MTL's three ``usemtl`` groups) and ``city.mtl``.
+    Returns the OBJ's path."""
+    import os
+
+    from snail_tpu_torch.scene.procedural import city_scene
+
+    (obj,) = city_scene(n).objects
+    groups = ("concrete", "glass", "roof")
+    lines = ["mtllib city.mtl"]
+    lines += [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in obj.verts]
+    for i, (a, b, c) in enumerate(obj.tri_v + 1):
+        if i % 12 == 0:
+            lines.append(f"usemtl {groups[i // 12 % 3]}")
+        lines.append(f"f {b} {a} {c}")
+    path = os.path.join(directory, "city.obj")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(directory, "city.mtl"), "w") as f:
+        f.write(LOADED_MTL)
+    return path
+
+
+def run_loaded(card, n=24):
+    """Phase 8's loaded scene (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snail_tpu_torch.core.types import Camera, RenderOpts
+    from snail_tpu_torch.render.renderer import render_frame
+    from snail_tpu_torch.scene.scene import load_scene
+
+    name = f"loaded_city_{n}"
+    with tempfile.TemporaryDirectory() as d:
+        obj = write_city_obj(d, n)
+        scenes = []
+        for when in ("cold", "cached"):
+            t0 = time.perf_counter()
+            scenes.append(load_scene(obj, cache_dir=d, device="cuda"))
+            torch.cuda.synchronize()
+            print(f"scene {name}: load_scene {when} (OBJ parse or geometry "
+                  f"cache, BVH build or cache, MTL, upload) "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+        walk = load_scene(obj, cache_dir=d, device="cuda", walk=True)
+    a, b = scenes
+    same = (torch.equal(a.tri_rows, b.tri_rows)
+            and all(torch.equal(getattr(a.leaves, k), getattr(b.leaves, k))
+                    for k in ("box", "first", "count"))
+            and torch.equal(a.mat_pack, b.mat_pack))
+    print(f"scene {name}: {a.num_tris} tris, {a.leaves.n_leaf} leaves, "
+          f"{a.mat_pack.shape[0]} materials (has_transp {a.has_transp}); "
+          f"the cached scene's tables equal the cold one's: {same}",
+          flush=True)
+    if not same or not a.has_transp:
+        fail(f"{name}: the cached scene differs from the cold one")
+    lo, hi = a.root_lo.cpu().numpy(), a.root_hi.cpu().numpy()
+    c = (lo + hi) * 0.5
+    cam = Camera.look_at(pos=tuple(c + np.array([0.45, 0.35, 0.9])
+                                   * float((hi - lo).max())),
+                         target=tuple(c))
+    opts = RenderOpts(reflections=False, transparency=False, textures=False)
+    frame = lambda s, c, w, h: render_frame(s, c, w, h, opts)
+    rays = WIDTH * HEIGHT * (1 + len(a.lights))
+    run_path(name, "fwd", FORWARD, frame, a, cam, (a, cam), card, rays)
+    run_path(name, "walk fwd", WALK_FWD, frame, walk, cam, (walk, cam), card,
+             rays, only=WALK)
+    against_frame(name, "walk fwd", frame(walk, cam, WIDTH, HEIGHT),
+                  frame(a, cam, WIDTH, HEIGHT))
+
+
 def main() -> None:
     try:
         import torch
@@ -1854,6 +2082,8 @@ def main() -> None:
             launches["portable_fwd_bwd"] = run_portable_step(
                 name, scene, cam, small, card)
         stamp(f"{name} portable frames")
+        launches.update(run_textured(name, kind, scene, cam, small, card))
+        stamp(f"{name} textured frames")
         kernels += kernel_lines(name, checks, launches)
         fat_name, checks, launches = run_fat(
             kind, scene if FAT_N[kind] == n else None, card)
@@ -1861,6 +2091,8 @@ def main() -> None:
         stamp(f"{fat_name} fat-leaf phase")
         del scene, small, sscene, walk, wsmall
         torch.cuda.empty_cache()
+    run_loaded(card)
+    stamp("loaded scene")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,21 +4,25 @@ The package mirrors ``snail_tpu``'s module names so each piece can be read
 beside its JAX counterpart:
 
 - ``core``   — constants and the Camera / Light / RenderOpts records;
-- ``bvh``    — the NumPy SAH builder;
-- ``scene``  — NumPy scene assembly (procedural scenes, flattening, the
-  default material table), the device scene (:class:`TracedScene`) and
-  rigid instances of one base scene (``scene.instancing``);
+- ``bvh``    — the NumPy SAH builder and its disk cache;
+- ``scene``  — NumPy scene assembly (procedural scenes, the OBJ/MTL,
+  Doom 3 and Desperados 2 loaders, flattening, the material table, the
+  texture atlases), the device scene (:class:`TracedScene`, and the
+  one-call ``load_scene``), the texture samplers and rigid instances of
+  one base scene (``scene.instancing``);
 - ``ops``    — the traversal: host-side packing, the plain PyTorch versions
   of the kernels and the wrappers that launch the hand-written CUDA
   kernels in ``csrc/`` for tensors on a CUDA device;
 - ``render`` — the packed Whitted frames (forward, bounces, gradients,
   counters) and the frame renderer;
-- ``utils``  — the traversal counters' ``TreeStats`` record.
+- ``utils``  — the traversal counters' ``TreeStats`` record, the frame
+  counter and image IO.
 
 Nothing here imports JAX or ``snail_tpu``: what the port needs of the JAX
 package's NumPy host code it keeps as its own copy, which the CPU tests
-hold equal to the original (the BVH builder, the procedural scenes, the
-default material table), so a triangle id means the same in both.
+hold equal to the original (the BVH builder and cache, the procedural
+scenes, the loaders, the material table, the texture tables), so a
+triangle id means the same in both.
 Entry points build on the card unless the caller passes ``device="cpu"``.
 """
 

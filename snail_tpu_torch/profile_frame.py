@@ -3,7 +3,8 @@ the share of the frame the device is busy.
 
     python -m snail_tpu_torch.profile_frame [--kind city|terrain] [--n N]
         [--path fwd|bounce|fwd_bwd|stats|instanced|portable]
-        [--tables leaves|nodes] [--leaf L] [--trace out.json]
+        [--tables leaves|nodes] [--leaf L] [--tex point|bilinear|sat]
+        [--trace out.json]
 
 Traces five 1024 x 1024 frames on a benchmark scene at bench.py's size
 (or ``--n``) with ``torch.profiler``, after two warm-up frames:
@@ -18,7 +19,10 @@ leaves``) or node tables for the walk kernels (``--tables nodes``), its
 BVH built at the kind's leaf size or ``--leaf`` (33-64: a fat-leaf
 scene, node tables for the fat-leaf kernels B11a-d, which has no counter
 frame); prints the kernels by device time and the busy share (union of
-kernel intervals over the traced window). Needs a card.
+kernel intervals over the traced window). With ``--tex``, the scene is
+bench.py's textured one (``bench_scene(..., textured=...)``: a
+checkerboard on every material), rendered with textures on and that
+filter. Needs a card.
 """
 
 from __future__ import annotations
@@ -54,6 +58,9 @@ def main(argv=None) -> int:
                     choices=("leaves", "nodes"))
     ap.add_argument("--leaf", type=int, default=None,
                     help="BVH leaf size in place of the kind's")
+    ap.add_argument("--tex", default=None,
+                    choices=("point", "bilinear", "sat"),
+                    help="the textured scene, sampled with this filter")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
     args = ap.parse_args(argv)
@@ -76,10 +83,10 @@ def main(argv=None) -> int:
     bounce = args.path in ("bounce", "fwd_bwd", "portable")
     scene, cam, g, bvh = bench_scene(args.kind, n, bounce=bounce,
                                      walk=args.tables == "nodes",
-                                     leaf=args.leaf)
-    opts = (RenderOpts(textures=False) if args.path in ("bounce", "portable")
-            else RenderOpts(reflections=False, transparency=False,
-                            textures=False))
+                                     leaf=args.leaf, textured=args.tex)
+    tex = dict(textures=args.tex is not None, tex_filter=args.tex or "point")
+    opts = (RenderOpts(**tex) if args.path in ("bounce", "portable")
+            else RenderOpts(reflections=False, transparency=False, **tex))
     size = (1280, 720) if args.path == "portable" else (SIZE, SIZE)
     if args.path == "fwd_bwd":
         target = render_frame(scene, cam, SIZE, SIZE, STEP_OPTS)
@@ -118,7 +125,9 @@ def main(argv=None) -> int:
     tables = ("leaves" if scene.leaves is not None else
               f"nodes, {bvh.num_nodes} of them, leaf_max "
               f"{scene.nodes.leaf_max}")
-    print(f"{args.kind}_{n} {args.path} ({g.num_tris} tris, {tables}) "
+    print(f"{args.kind}_{n} {args.path}"
+          f"{'' if args.tex is None else ' tex ' + args.tex} "
+          f"({g.num_tris} tris, {tables}) "
           f"{size[0]}x{size[1]} on {dev}: "
           f"{wall_us / FRAMES / 1e3:.3f} ms/frame (host clock, "
           f"profiler on), device busy {busy / FRAMES / 1e3:.3f} "

@@ -23,8 +23,12 @@ the same shading through the ``normals``/``any_hit``/``bounce`` hooks of
 ``_shade_and_light``
 (instanced scenes, ``scene.instancing``).
 
-Textures and photon radiance are later slices of the port: options that
-would run them raise ``NotImplementedError``.
+A textured scene's hits take their diffuse colour from its atlas
+(``scene.textures.sample_diffuse``, JAX fast.py:159-192): the primary
+wavefront's 32 x 32 quadrants give each hit a uv footprint, which picks
+the mip (and the SAT rect); bounce wavefronts sample mip 0. As in the JAX
+package, this frame reads no dissolve map. Photon radiance is a later
+slice of the port: the option raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..ops.traverse import (QX, STATS, TILE, _pixel_xy, _rsqrt_rn,
                             any_hit_shared, any_hit_shared_stats,
                             camera_trace, camera_trace_stats, closest_hit_c,
                             is_fat, substitute_masked)
+from ..scene.textures import sample_diffuse
 
 DIFF_ROWS = 42  # sh_pack (32) | tri_a | tri_ba | tri_ca (9) | mat id
 
@@ -51,10 +56,7 @@ def _packets_to_image(cr, cg, cb, width: int, height: int):
     return img.permute(1, 3, 5, 2, 4, 6, 0).reshape(height, width, 3)
 
 
-def _check_supported(scene, opts: RenderOpts) -> None:
-    if opts.textures and scene.textured:
-        raise NotImplementedError(
-            "textures are not ported yet (ROADMAP queue A item 6)")
+def _check_supported(opts: RenderOpts) -> None:
     if opts.photons:
         raise NotImplementedError(
             "photon-map radiance is not ported yet (ROADMAP queue A "
@@ -204,7 +206,7 @@ def _lights(scene, p3, n3, hit, opts: RenderOpts, any_hit=None,
 def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
                      depth: int, pack: Optional[torch.Tensor] = None,
                      sh_row=None, normals=None, any_hit=None, bounce=None,
-                     stats_out=None):
+                     stats_out=None, tile_hw=(32, 32)):
     """Shading, bounces and lights of one traced wavefront. ``o3``: a
     shared origin (three 0-d tensors) or three (R,). ``pack``: the
     differentiable frame's (T, DIFF_ROWS) table, whose gathered columns
@@ -216,8 +218,11 @@ def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
     rays (see :func:`_lights`) and ``bounce(o3, d3, tmax, depth)`` traces
     and shades a bounce wavefront in place of :func:`_trace_and_shade`.
     ``stats_out`` collects the counters of this wavefront's shadow rays,
-    not those of its bounces (as the JAX package). Returns (r, g, b)."""
-    _check_supported(scene, opts)
+    not those of its bounces (as the JAX package). ``tile_hw``: the tiles
+    of the wavefront's pixels, whose uv differences give a textured hit
+    its footprint at depth 0 (the kernels' 32 x 32 quadrants; None: no
+    footprint). Returns (r, g, b)."""
+    _check_supported(opts)
     trace = bounce or (lambda bo3, bd3, btm, bdepth: _trace_and_shade(
         scene, bo3, bd3, btm, opts, bdepth, pack))
     hit, sh, n3, p3 = _surface(scene, o3, d3, dist, u, v, tri, sh_row,
@@ -229,6 +234,13 @@ def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
         ks = _SmallLookup.apply(scene.mat_specular, mid)
     else:
         kd, ks = mp[0:3], mp[3:6]
+    if opts.textures and scene.tex_atlas is not None:
+        uv = torch.stack([sh[9] + sh[11] * u + sh[13] * v,
+                          sh[10] + sh[12] * u + sh[14] * v], -1)
+        tex_id = mp[8].to(torch.int32)
+        rgb = sample_diffuse(scene, opts, tex_id, uv, hit,
+                             tile_hw if depth == 0 else None)
+        kd = torch.where(tex_id[None] >= 0, rgb.T, kd)
 
     ndotd = torch.abs(d3[0] * n3[0] + d3[1] * n3[1] + d3[2] * n3[2])
     dc = [torch.where(hit, kd[k] * ndotd, 0.0) for k in range(3)]

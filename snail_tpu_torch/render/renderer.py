@@ -52,7 +52,7 @@ def render_frame_portable(scene, camera: Camera, width: int, height: int,
     d = tile_rays(dirs, th, tw).reshape(-1, 3)
     o = origin.expand_as(d)
     tmax = torch.full(d.shape[:1], BIG, dtype=torch.float32, device=d.device)
-    color = render_wavefront(scene, o, d, tmax, opts)
+    color = render_wavefront(scene, o, d, tmax, opts, tile_hw=(th, tw))
     return untile_image(color.reshape(-1, th * tw, 3), height, width, th, tw)
 
 

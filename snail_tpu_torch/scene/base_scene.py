@@ -1,5 +1,5 @@
-"""Host-side scene assembly in NumPy: a copy of the parts of
-``snail_tpu.scene.base_scene`` that the port uses.
+"""Host-side scene assembly in NumPy: a copy of
+``snail_tpu.scene.base_scene``.
 
 The JAX package's ``snail_tpu.scene`` imports JAX through its package
 ``__init__`` (``lights.py`` -> ``core/types.py``), so the port keeps its
@@ -48,6 +48,19 @@ class SceneObject:
         ln = np.linalg.norm(n, axis=-1, keepdims=True)
         return n / np.maximum(ln, 1e-30)
 
+    def repair(self) -> None:
+        """Drop degenerate triangles — zero-area cross product
+        (reference Object::Repair, src/base_scene.cpp:173-184)."""
+        v0 = self.verts[self.tri_v[:, 0]]
+        v1 = self.verts[self.tri_v[:, 1]]
+        v2 = self.verts[self.tri_v[:, 2]]
+        n = np.cross(v1 - v0, v2 - v0)
+        keep = np.any(np.abs(n) >= 1e-8, axis=-1)
+        self.tri_v = self.tri_v[keep]
+        self.tri_vt = self.tri_vt[keep]
+        self.tri_vn = self.tri_vn[keep]
+        self.tri_mat = self.tri_mat[keep]
+
     def gen_normals(self) -> None:
         """Give faces with any missing corner normal their flat geometric
         normal (reference Object::GenNormals, src/base_scene.cpp:517-529 —
@@ -70,6 +83,21 @@ class SceneObject:
             tri_vn[rows[unset], k] = new_ids[unset]
         self.normals = normals.astype(np.float32)
         self.tri_vn = tri_vn
+
+    def flip_normals(self) -> None:
+        """Swap winding of every triangle and negate stored normals
+        (reference Object::FlipNormals, src/base_scene.cpp:326-335)."""
+        self.tri_v = self.tri_v[:, [1, 0, 2]].copy()
+        self.tri_vt = self.tri_vt[:, [1, 0, 2]].copy()
+        self.tri_vn = self.tri_vn[:, [1, 0, 2]].copy()
+        if len(self.normals):
+            self.normals = -self.normals
+
+    def swap_yz(self) -> None:
+        """(reference Object::SwapYZ, src/base_scene.cpp:337-342)"""
+        self.verts = self.verts[:, [0, 2, 1]].copy()
+        if len(self.normals):
+            self.normals = self.normals[:, [0, 2, 1]].copy()
 
 
 @dataclasses.dataclass
@@ -152,10 +180,45 @@ class BaseScene:
         self.objects: List[SceneObject] = []
         # "" is always material 0 (reference wavefront_obj.cpp:82-83)
         self.mat_names: Dict[str, int] = {"": 0}
+        self.mtl_libs: List[str] = []
+
+    @property
+    def num_tris(self) -> int:
+        return sum(o.num_tris for o in self.objects)
 
     def gen_normals(self) -> None:
         for o in self.objects:
             o.gen_normals()
+
+    def flip_normals(self) -> None:
+        for o in self.objects:
+            o.flip_normals()
+
+    def swap_yz(self) -> None:
+        for o in self.objects:
+            o.swap_yz()
+
+    def bbox(self):
+        lo = np.min([o.verts.min(axis=0) for o in self.objects], axis=0)
+        hi = np.max([o.verts.max(axis=0) for o in self.objects], axis=0)
+        return lo, hi
+
+    def join(self, other: "BaseScene") -> None:
+        """Concatenate another scene's objects, remapping material ids into
+        this scene's registry (the `.list` multi-obj concat path,
+        reference rtracer.cpp:524-545)."""
+        remap = {}
+        for name, mid in other.mat_names.items():
+            if name not in self.mat_names:
+                self.mat_names[name] = len(self.mat_names)
+            remap[mid] = self.mat_names[name]
+        lut = np.zeros(max(remap) + 1, np.int32)
+        for src, dst in remap.items():
+            lut[src] = dst
+        for o in other.objects:
+            o2 = dataclasses.replace(o)
+            o2.tri_mat = lut[o.tri_mat]
+            self.objects.append(o2)
 
     def flatten(self) -> FlatGeometry:
         """Flatten all objects into one SoA triangle array set, resolving

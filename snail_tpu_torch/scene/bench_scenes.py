@@ -49,13 +49,18 @@ def bounce_materials() -> MaterialTable:
 
 
 def bench_scene(kind: str, n: int, device="cuda", bounce: bool = False,
-                walk: bool = False, leaf: Optional[int] = None):
+                walk: bool = False, leaf: Optional[int] = None,
+                textured: Optional[str] = None):
     """(scene, camera, geometry, bvh) of ``kind`` at size ``n`` on
     ``device`` (the card unless the caller asks for the CPU); with
     ``bounce``, material 0 is :func:`bounce_materials`'; with ``walk``,
     the scene carries node tables for the walk kernels in place of leaf
     tables; ``leaf``, the BVH's leaf size in place of the kind's (33-64:
-    a fat-leaf scene, node tables for the fat-leaf kernels)."""
+    a fat-leaf scene, node tables for the fat-leaf kernels); ``textured``
+    (None, "point", "bilinear" or "sat"), bench.py's ``section_tex``
+    scene (bench.py:130-148): ``textures.checker_atlas`` on every
+    material, with its summed-area tables for "sat" (the filter itself
+    is ``RenderOpts.tex_filter``)."""
     make, kind_leaf, light, radius, offset = SCENES[kind]
     g = make(n).flatten()
     lo, hi = g.bounds()
@@ -64,6 +69,13 @@ def bench_scene(kind: str, n: int, device="cuda", bounce: bool = False,
         g, bvh, bounce_materials() if bounce else None,
         lights=Light.make(light, (1.0, 1.0, 1.0), radius, device=device),
         device=device, walk=walk)
+    if textured is not None:
+        from .scene import with_sat
+        from .textures import checker_atlas
+
+        scene = checker_atlas(scene)
+        if textured == "sat":
+            scene = with_sat(scene)
     c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
     ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
     cam = Camera.look_at(pos=tuple(c + np.array(offset) * ext),

@@ -5,7 +5,9 @@ walk kernels; a BVH whose leaves hold more than IVAL_LEAF triangles
 always gets the node tree, for the fat-leaf kernels, and so does one of
 more leaves than leaf tables hold, WL_MAX_LP), shading rows,
 materials, the primal triangle and material arrays that gradients flow
-to, and lights, as tensors on one device.
+to, lights and texture atlases, as tensors on one device; and the
+one-call start-up ``load_scene`` (OBJ -> flip/generate normals -> BVH
+build or cache -> MTL -> textures -> lights).
 """
 
 from __future__ import annotations
@@ -51,7 +53,14 @@ class TracedScene:
     tri_rows; sh_mat int32 (T,) the material id of each triangle;
     mat_diffuse, mat_specular float32 (M, 3). The kernels trace tri_rows
     as built: replacing tri_a (a gradient step) does not move the rows,
-    as the JAX package's pk_tris is not rebuilt either (ROADMAP C9)."""
+    as the JAX package's pk_tris is not rebuilt either (ROADMAP C9).
+
+    Textures (None: an untextured scene): tex_atlas float32 (NT, 2H, W, 3)
+    and tex_meta int32 (NT, 4), the pyramid atlas of ``scene.textures``;
+    tex_sat float32 (NT, H, W, 3), its summed-area tables (:func:`with_sat`).
+    has_diss_tex: a material reads a dissolve map (the portable
+    integrator's opacity; the packed frame reads none, as the JAX
+    package's)."""
 
     tri_rows: torch.Tensor
     leaves: Optional[LeafTables]
@@ -68,17 +77,20 @@ class TracedScene:
     lights: Optional[Light]
     has_refl: bool
     has_transp: bool
-    textured: bool = False  # texture atlases are a later slice
     num_tris: int = 0
     nodes: Optional[NodeTables] = None
     depth: int = 0
+    tex_atlas: Optional[torch.Tensor] = None
+    tex_meta: Optional[torch.Tensor] = None
+    tex_sat: Optional[torch.Tensor] = None
+    has_diss_tex: bool = False
 
     @property
     def device(self) -> torch.device:
         return self.tri_rows.device
 
     def to(self, device) -> "TracedScene":
-        mv = lambda t: t.to(device)
+        mv = lambda t: None if t is None else t.to(device)
         return dataclasses.replace(
             self, leaves=None if self.leaves is None else self.leaves.to(device),
             nodes=None if self.nodes is None else self.nodes.to(device),
@@ -87,7 +99,8 @@ class TracedScene:
 
 
 _TENSORS = ("tri_rows", "root_lo", "root_hi", "sh_pack", "mat_pack", "tri_a",
-            "tri_ba", "tri_ca", "sh_mat", "mat_diffuse", "mat_specular")
+            "tri_ba", "tri_ca", "sh_mat", "mat_diffuse", "mat_specular",
+            "tex_atlas", "tex_meta", "tex_sat")
 
 
 def _mat_pack(materials: MaterialTable) -> np.ndarray:
@@ -132,12 +145,13 @@ def _tables(walk: bool, lo, hi, child, count, axis, first, device):
 
 def make_traced_scene(geom: FlatGeometry, bvh,
                       materials: Optional[MaterialTable] = None,
-                      lights: Optional[Light] = None,
+                      lights: Optional[Light] = None, textures=None,
                       device="cuda", walk: bool = False) -> TracedScene:
     """Assemble the device scene from host-built pieces: ``geom`` as
     flattened, ``bvh`` from ``snail_tpu_torch.bvh.build_bvh`` (leaf size at
-    most ``ops.traverse.LEAF_PAD``), on ``device`` (the card unless the
-    caller asks for the CPU); with ``walk``, leaves over
+    most ``ops.traverse.LEAF_PAD``), ``textures`` an (atlas, meta) pair of
+    ``scene.textures.build_pyramid_atlas`` or None, on ``device`` (the card
+    unless the caller asks for the CPU); with ``walk``, leaves over
     ``ops.traverse.IVAL_LEAF`` triangles or more than
     ``ops.traverse.WL_MAX_LP`` leaves, node tables and no leaf tables."""
     device = resolve_device(device)
@@ -167,6 +181,9 @@ def make_traced_scene(geom: FlatGeometry, bvh,
         num_tris=geom.num_tris,
         nodes=nodes,
         depth=bvh.depth,
+        tex_atlas=None if textures is None else dev(textures[0]),
+        tex_meta=None if textures is None else dev(textures[1]),
+        has_diss_tex=bool(np.any(materials.dissolve_tex >= 0)),
     )
 
 
@@ -176,8 +193,9 @@ def traced_scene_from_numpy(arrays: Mapping[str, np.ndarray],
     arrays, keyed by their JAX names: node_lo, node_hi, node_child,
     node_count, tri_a, tri_ba, tri_ca, sh_mat, sh_pack, mat_pack,
     mat_diffuse, mat_specular, mat_reflect, mat_dissolve, optionally
-    tex_atlas, and the lights as light_pos, light_color, light_radius
-    (absent: no lights); with ``walk``, leaves over IVAL_LEAF triangles
+    tex_atlas, tex_meta and tex_sat (absent: untextured), and the lights
+    as light_pos, light_color, light_radius (absent: no lights); with
+    ``walk``, leaves over IVAL_LEAF triangles
     or more than WL_MAX_LP leaves, also node_axis and node_first, for node
     tables in place of the leaf tables. The triangle rows are packed from
     tri_a, tri_ba and tri_ca as given. On ``device``: the card unless the
@@ -185,6 +203,8 @@ def traced_scene_from_numpy(arrays: Mapping[str, np.ndarray],
     device = resolve_device(device)
     a = {k: np.asarray(v) for k, v in arrays.items() if v is not None}
     dev = lambda x: torch.from_numpy(np.array(x, np.float32)).to(device)
+    opt = lambda k, dt: (torch.from_numpy(np.array(a[k], dt)).to(device)
+                         if k in a else None)
     lights = None
     if "light_pos" in a:
         lights = Light.make(a["light_pos"], a["light_color"],
@@ -208,8 +228,135 @@ def traced_scene_from_numpy(arrays: Mapping[str, np.ndarray],
         lights=lights,
         has_refl=bool(np.any(a["mat_reflect"] > 0.0)),
         has_transp=bool(np.any(a["mat_dissolve"] < 1.0)),
-        textured="tex_atlas" in a,
         num_tris=len(a["tri_a"]) - LEAF_PAD,
         nodes=nodes,
         depth=tree_depth(a["node_child"], a["node_count"]),
+        tex_atlas=opt("tex_atlas", np.float32),
+        tex_meta=opt("tex_meta", np.int32),
+        tex_sat=opt("tex_sat", np.float32),
+        has_diss_tex=bool(np.any(a["mat_pack"][:, 9] >= 0)),
     )
+
+
+def with_sat(scene: TracedScene) -> TracedScene:
+    """Attach summed-area tables for RenderOpts(tex_filter="sat")
+    (reference SATSampler, sampling/sat_sampler.h:10-57), built on the
+    host (``textures.build_sat_atlas``); an untextured scene as it is."""
+    from .textures import build_sat_atlas
+
+    if scene.tex_atlas is None:
+        return scene
+    sat = build_sat_atlas(scene.tex_atlas.cpu().numpy())
+    return dataclasses.replace(
+        scene, tex_sat=torch.from_numpy(sat).to(scene.device))
+
+
+def _load_geom_cached(obj_path, cache_dir, flip_normals, gen_normals):
+    """OBJ parse with a flattened-geometry npz cache beside the BVH cache
+    (the JAX package's ``.geom.npz``, its format and key unchanged, so a
+    file written by either package is read by the other). Returns
+    (FlatGeometry, the BaseScene or, from the cache, an object with its
+    ``mat_names`` and ``mtl_libs``)."""
+    import json
+    import os
+    import zipfile
+
+    from .wavefront import load_wavefront_obj
+
+    st = os.stat(obj_path)
+    key = f"{st.st_size}:{int(st.st_mtime)}:{flip_normals}:{gen_normals}:g1"
+    path = None
+    if cache_dir:
+        name = os.path.splitext(os.path.basename(obj_path))[0]
+        path = os.path.join(cache_dir, f"{name}.geom.npz")
+        if os.path.exists(path):
+            try:
+                z = np.load(path, allow_pickle=False)
+                if str(z["key"]) == key:
+                    fields = [f.name for f in dataclasses.fields(FlatGeometry)]
+                    geom = FlatGeometry(**{f: z[f] for f in fields})
+                    meta = json.loads(str(z["meta"]))
+                    return geom, _CachedBaseMeta(meta["mat_names"],
+                                                 meta["mtl_libs"])
+            except (OSError, KeyError, ValueError, zipfile.BadZipFile):
+                pass  # an unreadable or stale cache file is rebuilt
+    base = load_wavefront_obj(obj_path)
+    if flip_normals:
+        base.flip_normals()
+    if gen_normals:
+        base.gen_normals()
+    geom = base.flatten()
+    if path:
+        os.makedirs(cache_dir, exist_ok=True)
+        np.savez(
+            path,
+            key=key,
+            meta=json.dumps({"mat_names": base.mat_names,
+                             "mtl_libs": base.mtl_libs}),
+            **{f.name: getattr(geom, f.name)
+               for f in dataclasses.fields(FlatGeometry)},
+        )
+    return geom, base
+
+
+@dataclasses.dataclass
+class _CachedBaseMeta:
+    """Stand-in for BaseScene when geometry comes from the npz cache: only
+    the loader metadata the rest of load_scene reads."""
+
+    mat_names: dict
+    mtl_libs: list
+
+
+def load_scene(obj_path: str, mtl_path: Optional[str] = None,
+               tex_dir: Optional[str] = None,
+               cache_dir: Optional[str] = None, flip_normals: bool = True,
+               gen_normals: bool = True, lights: Optional[Light] = None,
+               leaf_size: int = 32, device="cuda",
+               walk: bool = False) -> TracedScene:
+    """One-call scene load, the rtracer start-up path (rtracer.cpp:518-587:
+    load OBJ -> FlipNormals -> GenNormals -> BVH::Construct ->
+    materials/textures -> UpdateMaterialIds), as ``snail_tpu.scene.scene
+    .load_scene``: the geometry and the BVH (binned SAH) read from or
+    written to ``cache_dir`` (None: no cache; the files are the JAX
+    package's), the ``.mtl`` from ``mtl_path`` or the OBJ's first
+    ``mtllib`` beside it, its maps from ``tex_dir``, and one default light
+    above the scene unless ``lights`` are given. On ``device`` (the card
+    unless the caller asks for the CPU); ``walk`` as in
+    :func:`make_traced_scene`."""
+    import os
+
+    from ..bvh.cache import build_or_load
+    from .lights import default_scene_lights
+    from .materials import load_material_descs
+
+    device = resolve_device(device)
+    geom, base = _load_geom_cached(obj_path, cache_dir, flip_normals,
+                                   gen_normals)
+    lo, hi = geom.bounds()
+    name = os.path.splitext(os.path.basename(obj_path))[0]
+    bvh = build_or_load(lo, hi, cache_dir=cache_dir, name=name,
+                        leaf_size=leaf_size)
+
+    descs = []
+    if mtl_path is None:
+        for lib in base.mtl_libs:
+            cand = os.path.join(os.path.dirname(obj_path), lib)
+            if os.path.exists(cand):
+                mtl_path = cand
+                break
+    if mtl_path and os.path.exists(mtl_path):
+        descs = load_material_descs(mtl_path)
+
+    textures, tex_ids = None, {}
+    if tex_dir and descs:
+        from .textures import load_texture_atlas
+
+        textures, tex_ids = load_texture_atlas(descs, tex_dir)
+
+    mats = MaterialTable.build(base.mat_names, descs, tex_ids)
+    if lights is None:
+        lights = default_scene_lights(lo.min(axis=0), hi.max(axis=0),
+                                      device=device)
+    return make_traced_scene(geom, bvh, mats, lights, textures,
+                             device=device, walk=walk)

@@ -1083,3 +1083,86 @@ def test_fat_portable_and_instanced_frames_on_card(which):
     err = (img.cpu() - ref).abs().amax(-1)
     assert torch.isfinite(img).all() and img.abs().amax() > 0
     assert (err > 2e-3).float().mean() < 2e-3, float(err.max())
+
+
+# --- Textured and loaded scenes --------------------------------------------
+
+
+@pytest.mark.parametrize("filt", ["point", "bilinear", "sat"])
+@pytest.mark.parametrize("which", SCENES)
+def test_textured_frame_on_card_matches_cpu(which, filt):
+    """bench.py's textured scene (checker_atlas and its SATs): the fwd
+    frame with each filter launches B1-B4, matches the CPU path and
+    differs from the untextured frame."""
+    from snail_tpu_torch.scene.scene import with_sat
+    from snail_tpu_torch.scene.textures import checker_atlas
+
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which)
+    tex = with_sat(checker_atlas(scene))
+    opts = RenderOpts(reflections=False, transparency=False, tex_filter=filt)
+    pt.reset_launch_counts()
+    img = render_frame(tex, cam, w, h, opts)
+    torch.cuda.synchronize()
+    counts = pt.launch_counts()
+    need = ("words_camera", "camera_wl", "words_shared", "shadow_wl")
+    assert all(counts[k] > 0 for k in need), counts
+    ref = render_frame(tex.to("cpu"), cam.to("cpu"), w, h, opts)
+    err = (img.cpu() - ref).abs().amax(-1)
+    assert torch.isfinite(img).all() and img.abs().amax() > 0
+    assert (err > 2e-3).float().mean() < 2e-3, float(err.max())
+    flat = render_frame(scene, cam, w, h, OPTS)
+    assert float((img - flat).abs().max()) > 0.1
+
+
+def _write_city_obj(path, n=6):
+    """city_scene(n) as an OBJ, its faces wound so that load_scene's flip
+    gives the procedural winding, in three material groups, and an MTL."""
+    (obj,) = city_scene(n).objects
+    groups = ("concrete", "glass", "roof")
+    lines = ["mtllib city.mtl"]
+    lines += [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in obj.verts]
+    for i, (a, b, c) in enumerate(obj.tri_v + 1):
+        if i % 12 == 0:
+            lines.append(f"usemtl {groups[i // 12 % 3]}")
+        lines.append(f"f {b} {a} {c}")
+    (path / "city.obj").write_text("\n".join(lines) + "\n")
+    (path / "city.mtl").write_text(
+        "newmtl concrete\nKd 0.7 0.7 0.65\nKs 0.2 0.2 0.2\n"
+        "newmtl glass\nKd 0.3 0.5 0.8\nd 0.5\nnewmtl roof\nKd 0.8 0.3 0.2\n")
+    return str(path / "city.obj")
+
+
+@pytest.mark.parametrize("walk", [False, True], ids=["leaves", "nodes"])
+def test_loaded_scene_frame_on_card_matches_cpu(tmp_path, walk):
+    """load_scene of an OBJ and its MTL on the card, twice through its
+    cache (the second scene equal to the first), and its fwd frame, with
+    the checkerboard too, through the worklist (B1-B4) or walk (B9a/B9b)
+    kernels, against the CPU path."""
+    from snail_tpu_torch.scene.scene import load_scene
+    from snail_tpu_torch.scene.textures import checker_atlas
+
+    _need_cuda()
+    obj = _write_city_obj(tmp_path)
+    scene = load_scene(obj, cache_dir=str(tmp_path), walk=walk)
+    again = load_scene(obj, cache_dir=str(tmp_path), walk=walk)
+    assert torch.equal(scene.tri_rows, again.tri_rows)
+    assert torch.equal(scene.mat_pack, again.mat_pack) and scene.has_transp
+    lo, hi = scene.root_lo.cpu().numpy(), scene.root_hi.cpu().numpy()
+    c = (lo + hi) * 0.5
+    cam = Camera.look_at(pos=tuple(c + np.array([0.45, 0.35, 0.9])
+                                   * float((hi - lo).max())), target=tuple(c))
+    need = (("walk_camera", "walk_shadow") if walk else
+            ("words_camera", "camera_wl", "words_shared", "shadow_wl"))
+    for s, opts in ((scene, OPTS),
+                    (checker_atlas(scene), RenderOpts(
+                        reflections=False, transparency=False))):
+        pt.reset_launch_counts()
+        img = render_frame(s, cam, 128, 128, opts)
+        torch.cuda.synchronize()
+        counts = pt.launch_counts()
+        assert all(counts[k] > 0 for k in need), counts
+        ref = render_frame(s.to("cpu"), cam.to("cpu"), 128, 128, opts)
+        err = (img.cpu() - ref).abs().amax(-1)
+        assert torch.isfinite(img).all() and img.abs().amax() > 0
+        assert (err > 2e-3).float().mean() < 2e-3, float(err.max())

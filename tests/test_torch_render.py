@@ -171,8 +171,9 @@ def test_port_renders_without_jax():
     through another module: every module of the package and chip_smoke.py
     import without them, and the CPU renders a forward frame, a bounce
     frame, a differentiable one, an instanced and a counter frame, a
-    frame of a walk scene (node tables) and a 48 x 32 frame through the
-    portable integrator."""
+    frame of a walk scene (node tables), a 48 x 32 frame through the
+    portable integrator, and a scene loaded from an OBJ, an MTL and a PNG
+    (load_scene) in textured frames, packed and portable."""
     code = textwrap.dedent("""
         import dataclasses
         import importlib
@@ -229,6 +230,34 @@ def test_port_renders_without_jax():
         assert img.shape == (64, 64, 3) and float(img.max()) > 0.1
         img = render_frame(bounce, cam, 48, 32, RenderOpts(textures=False))
         assert img.shape == (32, 48, 3) and float(img.max()) > 0.1
+        import os
+        import tempfile
+        import numpy as np
+        from PIL import Image
+        from snail_tpu_torch.scene.scene import load_scene, with_sat
+        with tempfile.TemporaryDirectory() as d:
+            with open(os.path.join(d, "quad.obj"), "w") as f:
+                f.write("mtllib quad.mtl\\nv -2 0 -2\\nv 2 0 -2\\nv 2 0 2\\n"
+                        "v -2 0 2\\nvt 0 0\\nvt 2 0\\nvt 2 2\\nvt 0 2\\n"
+                        "usemtl tex\\nf 4/4 3/3 2/2 1/1\\n")
+            with open(os.path.join(d, "quad.mtl"), "w") as f:
+                f.write("newmtl tex\\nKd 1 1 1\\nmap_Kd chk.png\\n")
+            chk = (np.indices((8, 8)).sum(0) % 2 * 200 + 40).astype(np.uint8)
+            Image.fromarray(np.stack([chk] * 3, -1)).save(
+                os.path.join(d, "chk.png"))
+            quad = with_sat(load_scene(os.path.join(d, "quad.obj"),
+                                       tex_dir=d, cache_dir=d,
+                                       device="cpu"))
+        qcam = Camera.look_at(pos=(0.0, 3.0, 3.0), target=(0.0, 0.0, 0.0),
+                              device="cpu")
+        assert quad.tex_atlas.shape == (1, 16, 8, 3)
+        for size, filt in (((64, 64), "sat"), ((48, 32), "bilinear")):
+            opts = RenderOpts(tex_filter=filt)
+            img = render_frame(quad, qcam, *size, opts)
+            flat = render_frame(quad, qcam, *size,
+                                RenderOpts(textures=False))
+            assert float(img.max()) > 0.1
+            assert float((img - flat).abs().max()) > 0.1
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "snail_tpu")
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

@@ -127,8 +127,8 @@ def test_traced_scene_from_numpy_round_trips(city):
     for name in ("pos", "color", "radius"):
         assert torch.equal(getattr(rt.lights, name),
                            getattr(pscene.lights, name)), name
-    assert (rt.has_refl, rt.has_transp, rt.textured, rt.num_tris) == (
-        pscene.has_refl, pscene.has_transp, False, pscene.num_tris)
+    assert (rt.has_refl, rt.has_transp, rt.tex_atlas, rt.num_tris) == (
+        pscene.has_refl, pscene.has_transp, None, pscene.num_tris)
     # the parameters carry across as given: an edited vertex table arrives
     # with its rows packed from it
     fields = _jax_fields(jscene)
@@ -139,6 +139,24 @@ def test_traced_scene_from_numpy_round_trips(city):
                                   fields["tri_a"])
 
 
+def test_traced_scene_from_numpy_carries_textures(city):
+    """The JAX scene's atlas, meta and SATs arrive as they are given."""
+    from snail_tpu.scene.scene import with_sat as j_with_sat
+    from snail_tpu.scene.textures import checker_atlas as j_checker_atlas
+
+    jscene, _, _ = city
+    jt = j_with_sat(j_checker_atlas(jscene))
+    fields = _jax_fields(jt)
+    fields.update({k: np.asarray(getattr(jt, k))
+                   for k in ("tex_atlas", "tex_meta", "tex_sat")})
+    rt = traced_scene_from_numpy(fields, device="cpu")
+    for k in ("tex_atlas", "tex_meta", "tex_sat", "sh_pack", "mat_pack"):
+        a, b = getattr(rt, k).numpy(), fields[k]
+        assert a.dtype == b.dtype, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    assert not rt.has_diss_tex
+
+
 def test_scene_to_device_keeps_every_tensor(city):
     _, pscene, _ = city
     moved = pscene.to("cpu")
@@ -147,12 +165,18 @@ def test_scene_to_device_keeps_every_tensor(city):
     assert torch.equal(moved.lights.pos, pscene.lights.pos)
     assert moved.leaves.n_leaf == pscene.leaves.n_leaf
     # every tensor field goes: "meta" tensors have a device and no data
-    meta = pscene.to("meta")
+    from snail_tpu_torch.scene.scene import with_sat
+    from snail_tpu_torch.scene.textures import checker_atlas
+
+    textured = with_sat(checker_atlas(pscene))
+    meta = textured.to("meta")
     for f in dataclasses.fields(meta):
         t = getattr(meta, f.name)
         if isinstance(t, torch.Tensor):
             assert t.device.type == "meta", f.name
-            assert t.shape == getattr(pscene, f.name).shape, f.name
+            assert t.shape == getattr(textured, f.name).shape, f.name
+    assert meta.tex_sat.device.type == "meta"
+    assert pscene.to("meta").tex_atlas is None
     assert meta.leaves.box.device.type == "meta"
     assert meta.lights.pos.device.type == "meta"
 
@@ -174,6 +198,87 @@ def test_material_table_default_matches_jax():
     for f in dataclasses.fields(j):
         np.testing.assert_array_equal(np.asarray(getattr(j, f.name)),
                                       np.asarray(getattr(p, f.name)))
+
+
+def _objects(m):
+    """Two meshes of ``m``'s SceneObject: a box-like soup with a
+    degenerate triangle, missing normals and uvs, and one with neither."""
+    rng = np.random.default_rng(4)
+    verts = rng.normal(size=(8, 3)).astype(np.float32)
+    tri_v = np.array([[0, 1, 2], [2, 1, 3], [4, 5, 6], [0, 0, 1],
+                      [5, 6, 7]], np.int32)
+    a = m.SceneObject(
+        verts=verts, uvs=rng.random((4, 2)).astype(np.float32),
+        normals=rng.normal(size=(3, 3)).astype(np.float32), tri_v=tri_v,
+        tri_vt=np.array([[0, 1, 2], [2, 1, 3], [-1, -1, -1], [0, 0, 1],
+                         [1, 2, 3]], np.int32),
+        tri_vn=np.array([[0, 1, 2], [-1, 1, 2], [-1, -1, -1], [0, 0, 0],
+                         [2, 2, 2]], np.int32),
+        tri_mat=np.array([0, 1, 1, 0, 2], np.int32), name="a")
+    b = m.SceneObject(
+        verts=verts[:4] + 3, uvs=np.zeros((0, 2), np.float32),
+        normals=np.zeros((0, 3), np.float32), tri_v=tri_v[:2].copy(),
+        tri_vt=np.full((2, 3), -1, np.int32),
+        tri_vn=np.full((2, 3), -1, np.int32),
+        tri_mat=np.array([1, 0], np.int32), name="b")
+    return a, b
+
+
+def _scene_of(m, names):
+    s = m.BaseScene()
+    s.objects.extend(_objects(m))
+    s.mat_names = dict(names)
+    return s
+
+
+def _assert_same_scene(j, p):
+    assert j.mat_names == p.mat_names and j.mtl_libs == p.mtl_libs
+    assert j.num_tris == p.num_tris and len(j.objects) == len(p.objects)
+    for oj, op in zip(j.objects, p.objects):
+        for f in dataclasses.fields(oj):
+            a, b = getattr(oj, f.name), getattr(op, f.name)
+            if isinstance(a, np.ndarray):
+                assert a.dtype == b.dtype, f.name
+                np.testing.assert_array_equal(a, b, err_msg=f.name)
+            else:
+                assert a == b, f.name
+
+
+@pytest.mark.parametrize("step", ["repair", "flip_normals", "swap_yz",
+                                  "gen_normals", "join", "all"])
+def test_base_scene_methods_match_jax(step):
+    """SceneObject.repair, flip_normals and swap_yz, and BaseScene's
+    flip_normals, swap_yz, gen_normals, bbox and join, on both packages'
+    copies of the same meshes: every array equal."""
+    from snail_tpu.scene import base_scene as jbs
+
+    from snail_tpu_torch.scene import base_scene as pbs
+
+    names = {"": 0, "red": 1, "blue": 2}
+    j, p = _scene_of(jbs, names), _scene_of(pbs, names)
+    steps = (["repair", "flip_normals", "swap_yz", "gen_normals", "join"]
+             if step == "all" else [step])
+    for s in steps:
+        for scene in (j, p):
+            if s == "repair":
+                for o in scene.objects:
+                    o.repair()
+            elif s == "join":
+                other = _scene_of(jbs if scene is j else pbs,
+                                  {"": 0, "blue": 1, "green": 2})
+                scene.join(other)
+            else:
+                getattr(scene, s)()
+    _assert_same_scene(j, p)
+    for a, b in zip(j.bbox(), p.bbox()):
+        np.testing.assert_array_equal(a, b)
+    if step == "join":
+        assert list(p.mat_names) == ["", "red", "blue", "green"]
+        assert p.objects[2].tri_mat.tolist() == [0, 2, 2, 0, 3]
+    jg, pg = j.flatten(), p.flatten()
+    for f in dataclasses.fields(jg):
+        np.testing.assert_array_equal(getattr(jg, f.name),
+                                      getattr(pg, f.name), err_msg=f.name)
 
 
 def test_shared_rows_match_jax(city):
