@@ -93,19 +93,45 @@ Phases, each printed on its own line:
    (Kd, Ks, one ``d 0.5``) into a temporary directory, loaded twice by
    ``load_scene`` through its geometry and BVH cache (cold, then cached:
    seconds each, the second scene's tables equal to the first's), and its
-   fwd frame on leaf tables (B1-B4) and on node tables (B9a/B9b).
+   fwd frame on leaf tables (B1-B4) and on node tables (B9a/B9b);
+9. photons on both phase-4 scenes, from their bench light: trace_photons
+   with 2^20 photons (as many as the frame's primary rays) on leaf and
+   node tables (hits, ms on the host clock, launches), B5/B6 and B9c
+   against their plain versions on 64 sampled packets (a quarter) of the
+   photon wavefront and each kernel's time on the whole of it, photon_grid
+   at res 64 (host seconds, bytes on the card), the fwd frame with the photon
+   term on leaf and node tables as a phase-4 path, its delta over the
+   frame without photons equal to diffuse x |d.n| x the gathered
+   irradiance x exposure on the primary hits, and its ms beside that
+   frame's in turns; on the city the portable 1280 x 720 bounce frame with
+   photons (its bounces gather too); render_photon_preview at 1024 x 1024;
+   and the grid's gather correlated with the kd oracle's (> 0.5) on 48
+   points of a 2^14-photon map;
+10. the volume viewer: synthetic_sphere(512) (a CT series of 512 slices
+   of 512 x 512, 512 MiB float32 on the card) and the same with a constant
+   border shell; V1 (csrc/volume.cu) against its plain version on the
+   viewer's 512 x 512 rays, bit for bit in best and hit_t, iso and mip, on
+   both volumes, at the viewer's max_steps and at one that cuts rays off;
+   on the border volume the mip rays that miss the volume take the shell's
+   value from their extra sample (ROADMAP C19); V1's ms beside its bound
+   and its plain version's; render_volume iso and mip at 512 x 512 (V1's
+   launches: march_kernel, and in mip mode mip_extra_kernel too; ms/frame,
+   peak memory), a 64 x 64 frame of a 128^3 sphere
+   against the CPU path; and a DICOM series of 64 slices of 512 x 512
+   written with write_dicom_file, read back equal by load_dicom_dir, and
+   its iso frame.
 
-The last two lines are a JSON object per kernel (all 19 of the port, per
-scene) and the result line. Every kernel's line gives its time beside its
-bound: the larger of the bytes it must move (each input read once, each
-output written once) over the card's memory rate and the float operations
-of the tests its wavefront needs over the card's float32 rate
-(``needed_work``; a trace kernel's bytes count only the leaves its rays
-enter, a words pass's work only the word boxes and the leaves of the
-words whose box passes its packet's test). Each phase prints the seconds
-since the start. Any failed phase ends the run with a non-zero exit and
-no result line; so does a machine without a CUDA device or a directory
-without the package.
+The last two lines are a JSON object per kernel (all 19 traversal kernels
+of the port per scene, and V1 in iso and mip mode) and the result line.
+Every kernel's line gives its time beside its bound: the larger of the
+bytes it must move (each input read once, each output written once) over
+the card's memory rate and the float operations of the tests its wavefront
+needs over the card's float32 rate (``needed_work``; a trace kernel's
+bytes count only the leaves its rays enter, a words pass's work only the
+word boxes and the leaves of the words whose box passes its packet's
+test). Each phase prints the seconds since the start. Any failed phase
+ends the run with a non-zero exit and no result line; so does a machine
+without a CUDA device or a directory without the package.
 """
 
 import dataclasses
@@ -125,6 +151,9 @@ SIM_PACKETS = 3  # seeded packets whose counters are simulated
 SRC = "snail_tpu_torch/csrc/worklist.cu"
 WALK_SRC = "snail_tpu_torch/csrc/walk.cu"
 FAT_SRC = "snail_tpu_torch/csrc/fat.cu"
+VOL_SRC = "snail_tpu_torch/csrc/volume.cu"
+# V1 replaces the JAX volume march, a lax.while_loop, not a Pallas kernel
+VOL_REPLACES = "snail_tpu/volume/vtree.py:116"
 TPU = "snail_tpu/ops/traverse_pallas.py"
 REPLACES = {  # kernel -> line of the Pallas kernel it replaces
     "words_camera": f"{TPU}:2785",
@@ -196,6 +225,33 @@ LOW_LIGHT = {"terrain": (-80.0, 20.0, 0.0)}
 # on both scenes' seeded ones
 INSTANCE_GRID = {"city": (4, ("fwd", "bounce")), "terrain": (2, ("fwd",))}
 TEX_FILTERS = ("point", "bilinear", "sat")
+# phase 9: photons per light (as many as the frame's primary rays), runs of
+# trace_photons timed, packets of the photon wavefront held against the
+# plain versions, launches per kernel time on the whole wavefront, the
+# grid's resolution, and the photons of the kd oracle's map
+PHOTONS = 2 ** 20
+PHOTON_TRACES = 3
+PHOTON_PACKETS = 64
+PHOTON_REPS = 5
+PHOTON_RES = 64
+PHOTON_KD_N = 2 ** 14
+# phase 10: the sphere's size (a CT series of 512 slices of 512 x 512), the
+# viewer's frame and threshold, the march's step limits (the viewer's, and
+# one that cuts rays off), the border shell's value (below the threshold,
+# above 0), the DICOM series' slices
+VOLUME_N = 512
+VOLUME_SIZE = (512, 512)
+VOLUME_ISO = 0.05
+MARCH_MAX_STEPS = 2048
+MARCH_CUT_STEPS = 24
+BORDER_VALUE = 1500
+DICOM_SLICES = 64
+# V1's bound: per ray d (12 bytes), t0, t1 in and best, hit_t out (8 + 8),
+# and once the origin the frame's rays share (12); float operations of a
+# step, counted in csrc/volume.cu
+MARCH_RAY_BYTES = 28
+MARCH_ORIGIN_BYTES = 12
+MARCH_OPS = {"skip": 47, "sample": 50}
 # the loaded scene's materials: every 12 faces (a box) take the next
 LOADED_MTL = """newmtl concrete
 Kd 0.7 0.7 0.65
@@ -1812,14 +1868,18 @@ def primary_mips(scene, cam):
     return hist, _packets_to_image(mask, mask, mask, WIDTH, HEIGHT)[..., 0] > 0
 
 
-def beside(name, path, tex, flat, card, frames=TIMED_FRAMES):
+def beside(name, path, tex, flat, card, frames=TIMED_FRAMES,
+           what=("texture", "untextured")):
     """A textured frame's ms beside its untextured twin's, timed in turns
-    (untextured, textured, textured, untextured) over ``frames``."""
+    (untextured, textured, textured, untextured) over ``frames``; ``what``
+    names the line and the twin (("photon", "photon-less") for the photon
+    frames). Returns the ms added."""
     f1, t1, t2, f2 = (cuda_ms(fn, frames) for fn in (flat, tex, tex, flat))
-    print(f"texture {name} {path}: {(t1 + t2) / 2:.3f} ms/frame (runs "
-          f"{t1:.3f}, {t2:.3f}) beside the untextured frame's "
+    print(f"{what[0]} {name} {path}: {(t1 + t2) / 2:.3f} ms/frame (runs "
+          f"{t1:.3f}, {t2:.3f}) beside the {what[1]} frame's "
           f"{(f1 + f2) / 2:.3f} ({f1:.3f}, {f2:.3f}): +"
           f"{(t1 + t2 - f1 - f2) / 2:.3f} ms, on {card}", flush=True)
+    return (t1 + t2 - f1 - f2) / 2
 
 
 def run_textured(name, kind, scene, cam, small, card):
@@ -1979,6 +2039,475 @@ def run_loaded(card, n=24):
                   frame(a, cam, WIDTH, HEIGHT))
 
 
+def photon_planes(scene, seed=0):
+    """The wavefront ``trace_photons(scene, PHOTONS, seed)`` casts from
+    light 0 (the same draws of its seeded generator), as the B5/B6 and B9c
+    kernels take it: the (o, d, tm) planes."""
+    import torch
+
+    from snail_tpu_torch.core.vecmath import BIG
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.photons import _stratified_sphere
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    d = _stratified_sphere(PHOTONS, gen)
+    o = scene.lights.pos[0].expand(PHOTONS, 3)
+    tmax = torch.full((PHOTONS,), BIG, device="cuda")
+    o, d, tm, _ = pt.general_planes(o.unbind(1), d.unbind(1), tmax)
+    return o, d, tm
+
+
+def sample_planes(planes, n, seed=3):
+    """``n`` seeded packets of the (o, d, tm) planes."""
+    import numpy as np
+    import torch
+
+    o, d, tm = planes
+    idx = torch.from_numpy(np.sort(np.random.default_rng(seed).choice(
+        tm.shape[0], n, replace=False))).cuda()
+    pick = lambda c: c.index_select(0, idx).contiguous()
+    return tuple(map(pick, o)), tuple(map(pick, d)), pick(tm)
+
+
+def photon_kernels(name, scene, walk):
+    """B5/B6 and B9c on the photon wavefront: against their plain versions
+    on PHOTON_PACKETS sampled packets (a quarter of them: the plain
+    versions take ~40 ms a terrain packet), and each kernel's ms over the
+    whole wavefront beside the word boxes B5 passes per packet."""
+    from snail_tpu_torch.ops import traverse as pt
+
+    planes = photon_planes(scene)
+    o, d, tm = planes
+    sample = sample_planes(planes, PHOTON_PACKETS)
+    out, share = check_general(f"{name} photons ({PHOTON_PACKETS} packets)",
+                               scene, *sample)
+    wout, wshare = check_walk_closest(
+        f"{name} photons ({PHOTON_PACKETS} packets)", walk, *sample)
+    print_checks(f"{name} photons ({PHOTON_PACKETS} sampled packets)",
+                 {**out, "walk_closest_g": wout})
+    lt = scene.leaves
+    words = pt.words_general(o, d, tm, lt)
+    b5_ms, _ = words_ms(lambda: pt.words_general(o, d, tm, lt))
+    b6_ms = cuda_ms(lambda: pt.closest_wl_g(o, d, tm, scene.tri_rows, lt,
+                                            *words), PHOTON_REPS)
+    b9c_ms = cuda_ms(lambda: pt.walk_closest_g(o, d, tm, walk.tri_rows,
+                                               walk.nodes), PHOTON_REPS)
+    tested = pt.general_word_tests(o, d, tm, lt)
+    print(f"photon {name} wavefront ({PHOTONS} photons from light 0, "
+          f"{tm.shape[0]} packets): words_general {b5_ms:.4f} ms, "
+          f"closest_wl_g {b6_ms:.4f} ms, walk_closest_g {b9c_ms:.4f} ms; "
+          f"word boxes passing per packet: mean "
+          f"{float(tested.sum(1).float().mean()):.1f} of {tested.shape[1]}; "
+          f"hit share of the sampled packets' live rays {share:.4f} "
+          f"(walk {wshare:.4f})", flush=True)
+
+
+def photon_oracle(scene, cam, pg, exposure):
+    """The photon term the fwd frame must add on its primary hits (JAX
+    tests/test_photon_render.py:27-64): diffuse x |d . n| x the gathered
+    irradiance x exposure, as an image; and the mean gathered irradiance
+    over the hits."""
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.fast import _packets_to_image, _surface
+    from snail_tpu_torch.render.photons import gather_photons_grid
+
+    dist, u, v, tri, dx, dy, dz = pt.camera_trace(scene, cam, WIDTH, HEIGHT)
+    o3 = tuple(cam.pos)
+    d3 = (dx, dy, dz)
+    hit, sh, n3, p3 = _surface(scene, o3, d3, dist, u, v, tri)
+    ndotd = torch.abs(d3[0] * n3[0] + d3[1] * n3[1] + d3[2] * n3[2])
+    g = gather_photons_grid(pg, torch.stack(p3, -1))
+    dc = [torch.where(hit, sh[16 + k] * ndotd, 0.0) for k in range(3)]
+    want = [torch.where(hit, dc[k] * (g[:, k] * exposure), 0.0)
+            for k in range(3)]
+    return _packets_to_image(*want, WIDTH, HEIGHT), float(g[hit].mean())
+
+
+def run_photon_frame(name, path, need, tables, scene, cam, small, card, pg,
+                     exposure, only=None):
+    """The fwd frame with the photon term (``photons``, ``exposure``) as a
+    phase-4 path (run_path), its delta over the frame without photons
+    equal to ``photon_oracle`` (rtol 1e-4, atol 1e-5), and its ms beside
+    that frame's in turns. Returns (launches, ms added)."""
+    import torch
+
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.render.renderer import render_frame
+
+    fwd = dict(reflections=False, transparency=False, textures=False)
+    on = RenderOpts(photons=True, photon_exposure=exposure, **fwd)
+    off = RenderOpts(**fwd)
+    frame = lambda s, c, w, h: render_frame(s, c, w, h, on,
+                                            photon_grid=pg.to(s.device))
+    launches = run_path(name, path, need, frame, scene, cam, small, card,
+                        WIDTH * HEIGHT * (1 + len(scene.lights)), only=only)
+    delta = (render_frame(scene, cam, WIDTH, HEIGHT, on, photon_grid=pg)
+             - render_frame(scene, cam, WIDTH, HEIGHT, off))
+    want, _ = photon_oracle(scene, cam, pg, exposure)
+    err = float((delta - want).abs().max())
+    ok = bool(torch.allclose(delta, want, rtol=1e-4, atol=1e-5))
+    print(f"photon {name} {path} ({tables}): the frame's delta over the "
+          f"photon-less frame is diffuse x |d.n| x gather x exposure on "
+          f"the primary hits: {ok} (max |err| {err:.3e}, max delta "
+          f"{float(delta.max()):.4f}, mean {float(delta.mean()):.5f})",
+          flush=True)
+    if not ok or not float(delta.max()) > 1e-2:
+        fail(f"{name} {path}: the photon term differs from its oracle")
+    added = beside(name, path, lambda: frame(scene, cam, WIDTH, HEIGHT),
+                   lambda: render_frame(scene, cam, WIDTH, HEIGHT, off),
+                   card, what=("photon", "photon-less"))
+    return launches, added
+
+
+def photon_corr(name, scene):
+    """The grid's gather against the kd oracle's (tests/test_photons.py:
+    62-83): PHOTON_KD_N photons, a 16^3 grid, 48 photons' positions, the kd
+    radius one grid cell (the trilinear fetch's reach), each query with its
+    photon's normal; corr > 0.5."""
+    import numpy as np
+    import torch
+
+    from snail_tpu_torch.render.photons import (build_photon_kdtree,
+                                                gather_photons_grid,
+                                                gather_photons_kd,
+                                                photon_grid, trace_photons)
+
+    t0 = time.perf_counter()
+    pmap = trace_photons(scene, n_per_light=PHOTON_KD_N, seed=7)
+    kd = build_photon_kdtree(pmap)
+    lo, hi = scene.root_lo, scene.root_hi
+    pg = photon_grid(pmap, lo, hi, res=16)
+    radius = float((hi - lo).max()) / 16
+    sel = np.random.default_rng(0).choice(pmap.count, 48, replace=False)
+    grid_v = gather_photons_grid(pg, torch.from_numpy(
+        pmap.pos[sel]).cuda()).sum(1).cpu().numpy()
+    kd_v = np.array([gather_photons_kd(kd, pmap, pmap.pos[i],
+                                       pmap.normal[i], radius).sum()
+                     for i in sel])
+    corr = float(np.corrcoef(grid_v, kd_v)[0, 1])
+    print(f"photon {name}: grid gather vs kd oracle on 48 of {pmap.count} "
+          f"photons ({PHOTON_KD_N} shot, radius {radius:.3f}): corr "
+          f"{corr:.4f}, {time.perf_counter() - t0:.2f} s with the kd build",
+          flush=True)
+    if not corr > 0.5:
+        fail(f"{name}: the grid gather does not track the kd oracle ({corr})")
+
+
+def run_photons(name, kind, scene, walk, cam, small, wsmall, card):
+    """Phase 9 on one phase-4 scene and its walk twin (see the module
+    docstring). Returns {path: launch counts}."""
+    import torch
+
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.photons import (photon_grid,
+                                                render_photon_preview,
+                                                trace_photons)
+    from snail_tpu_torch.render.renderer import render_frame
+
+    launches = {}
+    for tables, s, need in (("leaves", scene, ("words_general",
+                                               "closest_wl_g")),
+                            ("nodes", walk, ("walk_closest_g",))):
+        torch.cuda.synchronize()
+        pt.reset_launch_counts()
+        pmap = trace_photons(s, n_per_light=PHOTONS)
+        key = "photon_trace" if tables == "leaves" else "walk_photon_trace"
+        launches[key] = launched(name, key, need)
+        ms = []
+        for _ in range(PHOTON_TRACES):
+            _, t = timed_plain(lambda: trace_photons(s, n_per_light=PHOTONS))
+            ms.append(t)
+        print(f"photon {name} trace_photons ({tables}): {pmap.count} of "
+              f"{PHOTONS} photons hit, {sum(ms) / len(ms):.3f} ms (runs "
+              + ", ".join(f"{t:.3f}" for t in ms) + f"; host clock, the "
+              f"hits copied and compacted on the host), launches "
+              f"{launches[key]}, on {card}", flush=True)
+        if not 0.05 * PHOTONS < pmap.count <= PHOTONS:
+            fail(f"{name} trace_photons ({tables}): {pmap.count} hits")
+        if tables == "leaves":
+            leaf_map = pmap
+    photon_kernels(name, scene, walk)
+    t0 = time.perf_counter()
+    pg = photon_grid(leaf_map, scene.root_lo, scene.root_hi, res=PHOTON_RES)
+    torch.cuda.synchronize()
+    print(f"photon {name} photon_grid res {PHOTON_RES}: "
+          f"{time.perf_counter() - t0:.3f} s host (splat and upload), "
+          f"{pg.grid.numel() * pg.grid.element_size()} bytes on the card",
+          flush=True)
+    # an exposure that makes the mean photon term on the hits 0.25
+    _, mean_g = photon_oracle(scene, cam, pg, 1.0)
+    exposure = 0.25 / max(mean_g, 1e-30)
+    print(f"photon {name}: mean gathered irradiance on the primary hits "
+          f"{mean_g:.4e}, exposure {exposure:.4e}", flush=True)
+    launches["photon_fwd"], _ = run_photon_frame(
+        name, "photon fwd", FORWARD, "leaves", scene, cam, small, card, pg,
+        exposure)
+    launches["walk_photon_fwd"], _ = run_photon_frame(
+        name, "walk photon fwd", WALK_FWD, "nodes", walk, cam, wsmall, card,
+        pg, exposure, only=WALK)
+    launches["photon_preview"] = run_path(
+        name, "photon preview", ("words_general", "closest_wl_g"),
+        lambda s, c, w, h: render_photon_preview(s, c, w, h, pg.to(s.device),
+                                                 exposure),
+        scene, cam, small, card, WIDTH * HEIGHT)
+    if kind == "city":
+        w, h = PORTABLE_SIZE
+        opts = RenderOpts(textures=False, photons=True,
+                          photon_exposure=exposure)
+        flat = RenderOpts(textures=False)
+        frame = lambda s, c, w, h: render_frame(s, c, w, h, opts,
+                                                photon_grid=pg.to(s.device))
+        launches["photon_portable_bounce"] = run_path(
+            name, "photon portable bounce", PORTABLE["leaves"], frame, scene,
+            cam, small, card, w * h * (1 + len(scene.lights)),
+            PORTABLE_FRAMES, PORTABLE_SIZE, PORTABLE_SMALL)
+        beside(name, "photon portable bounce",
+               lambda: frame(scene, cam, w, h),
+               lambda: render_frame(scene, cam, w, h, flat), card,
+               PORTABLE_FRAMES, what=("photon", "photon-less"))
+    photon_corr(name, scene)
+    del pg, leaf_map, pmap
+    torch.cuda.empty_cache()
+    return launches
+
+
+def with_border(vd):
+    """``vd`` with a one-voxel shell of BORDER_VALUE on all six faces,
+    where a mip ray done early takes its extra sample (ROADMAP C19)."""
+    from snail_tpu_torch.volume.data import VolumeData
+
+    data = vd.data.copy()
+    for a in range(3):
+        idx = [slice(None)] * 3
+        idx[a] = [0, -1]
+        data[tuple(idx)] = BORDER_VALUE
+    return VolumeData(data=data)
+
+
+def check_march(name, vt, rays, mode, max_steps):
+    """V1 against _march_plain on ``rays``, bit for bit in best and hit_t.
+    Returns ((best, hit_t), plain ms, max |kernel - plain| over both)."""
+    import torch
+
+    from snail_tpu_torch.ops.march import march
+    from snail_tpu_torch.volume.vtree import _march_plain
+
+    kern = march(vt, *rays, VOLUME_ISO, mode, max_steps)
+    plain, plain_ms = timed_plain(
+        lambda: _march_plain(vt, *rays, VOLUME_ISO, mode, max_steps))
+    same = all(torch.equal(a, b) for a, b in zip(kern, plain))
+    n_diff = int(sum((a != b).sum() for a, b in zip(kern, plain)))
+    err = max(float((a - b).abs().max()) for a, b in zip(kern, plain))
+    print(f"check {name} march {mode} max_steps {max_steps}: best and "
+          f"hit_t equal the plain version's bit for bit: {same} ({n_diff} "
+          f"values differ, max abs err {err}); plain {plain_ms:.1f} ms",
+          flush=True)
+    if not same:
+        fail(f"{name} march {mode} max_steps {max_steps}: {n_diff} values "
+             "differ from the plain version")
+    return kern, plain_ms, err
+
+
+def march_tally(vt, rays, iso, mode, max_steps):
+    """What the march needs, from the steps of the plain loop: the body
+    steps of live rays (in mip mode also the one extra step of ROADMAP
+    C19 of each ray done before the loop ends), those that sample, and
+    the bricks that hold a tap of some sample."""
+    import torch
+
+    from snail_tpu_torch.volume.vtree import (BRICK, _corners, _march_start,
+                                              _march_step)
+
+    o, d, t0, t1 = rays
+    shape = vt.shape
+    _, h, w = shape
+    bricks = torch.zeros(vt.brick_max.shape, dtype=torch.bool,
+                         device=t0.device)
+    _, bh, bw = bricks.shape
+    state = _march_start(t0, t1)
+    extra_taken = torch.zeros_like(state[1])
+    steps = samples = k = 0
+    while k < max_steps and bool((~state[1]).any()):
+        was_done = state[1]
+        state, pos, sampled = _march_step(vt, o, d, t1, iso, mode, state)
+        need = ~was_done
+        if mode == "mip":
+            need = need | (was_done & ~extra_taken)
+            extra_taken = extra_taken | was_done
+        steps += int(need.sum())
+        samples += int((need & sampled).sum())
+        idx, _ = _corners(pos[need & sampled], shape)
+        z, y, x = idx // (h * w), idx // w % h, idx % w
+        bricks.view(-1)[((z // BRICK * bh + y // BRICK) * bw
+                         + x // BRICK).reshape(-1).long()] = True
+        k += 1
+    return steps, samples, int(bricks.sum())
+
+
+def march_entry(name, vt, rays, mode, plain_ms, err):
+    """V1's ms (CUDA events) beside its bound, from the plain loop's tally
+    of this march (``march_tally``): the bytes of every brick some sample
+    reads, the rays' tables (MARCH_RAY_BYTES) and their shared origin
+    over the memory rate, the steps' operations (MARCH_OPS) over the
+    float32 rate."""
+    from snail_tpu_torch.ops.march import march
+
+    steps, samples, bricks = march_tally(vt, rays, VOLUME_ISO, mode,
+                                         MARCH_MAX_STEPS)
+    ms = cuda_ms(lambda: march(vt, *rays, VOLUME_ISO, mode, MARCH_MAX_STEPS),
+                 KERNEL_REPS)
+    n_rays = rays[2].shape[0]
+    ops = ((steps - samples) * MARCH_OPS["skip"]
+           + samples * MARCH_OPS["sample"])
+    e = entry(err, ms, plain_ms, bricks * 4 ** 3 * 4 + n_rays
+              * MARCH_RAY_BYTES + MARCH_ORIGIN_BYTES, ops, steps=steps,
+              samples=samples, bricks=bricks)
+    print(f"kernel {name} march {mode}: {ms:.4f} ms beside its bound "
+          f"{e['bound_ms']:.4f} ms ({e['bound_by']}; {steps} steps, "
+          f"{samples} with a sample, {bricks} bricks read, {n_rays} rays), "
+          f"plain {plain_ms:.1f} ms", flush=True)
+    return e
+
+
+def run_volume(card):
+    """Phase 10 (see the module docstring). Returns the kernels line's
+    entries of V1."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snail_tpu_torch.apps.dicom_viewer import viewer_camera
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.volume.data import (load_dicom_dir,
+                                             synthetic_sphere,
+                                             write_dicom_file)
+    from snail_tpu_torch.volume.vtree import (build_vtree, render_volume,
+                                              volume_rays)
+
+    n = VOLUME_N
+    t0 = time.perf_counter()
+    vd = synthetic_sphere(n)
+    vt = build_vtree(vd)
+    torch.cuda.synchronize()
+    name = f"sphere_{n}"
+    print(f"volume {name}: {n}^3 u16 ({n} slices of {n} x {n}), "
+          f"{vt.vol.numel() * 4 / 2**20:.0f} MiB float32 on the card, "
+          f"pyramid {tuple(vt.brick_max.shape)} / "
+          f"{tuple(vt.coarse_max.shape)}, host build "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    cam = viewer_camera(vt.shape)
+    w, h = VOLUME_SIZE
+    rays = volume_rays(vt, cam, w, h)
+    miss = rays[2] > rays[3]
+    print(f"volume {name}: {w}x{h} rays from the viewer's camera, "
+          f"{int(miss.sum())} miss the volume", flush=True)
+    # launches of V1 a view: march_kernel, and in mip mode also
+    # mip_extra_kernel (C19)
+    per_view = {"iso": ["march_kernel<ISO>"],
+                "mip": ["march_kernel<MIP>", "mip_extra_kernel"]}
+    entries, launches = {}, {}
+    for mode in ("iso", "mip"):
+        kern, plain_ms, err = check_march(name, vt, rays, mode,
+                                          MARCH_MAX_STEPS)
+        cut, _, cut_err = check_march(name, vt, rays, mode, MARCH_CUT_STEPS)
+        if all(torch.equal(a, b) for a, b in zip(kern, cut)):
+            fail(f"{name} march {mode}: max_steps {MARCH_CUT_STEPS} cut "
+                 "no ray")
+        entries[mode] = march_entry(name, vt, rays, mode, plain_ms,
+                                    max(err, cut_err))
+        torch.cuda.synchronize()
+        pt.reset_launch_counts()
+        img = render_volume(vt, cam, w, h, iso=VOLUME_ISO, mode=mode)
+        torch.cuda.synchronize()
+        launches[f"volume_{mode}"] = pt.launch_counts()
+        hit = float((img.amax(-1) > 0).float().mean())
+        if (launches[f"volume_{mode}"]["march"] != len(per_view[mode])
+                or not bool(torch.isfinite(img).all())
+                or not 0.05 < hit < 0.95 or not float(img.max()) > 0.5):
+            fail(f"{name} {mode}: launches {launches[f'volume_{mode}']}, "
+                 f"lit share {hit}, max {float(img.max())}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: render_volume(vt, cam, w, h, iso=VOLUME_ISO,
+                                           mode=mode), TIMED_FRAMES)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        print(f"frame {name} volume {mode} {w}x{h}: {ms:.3f} ms/frame, "
+              f"launches {launches[f'volume_{mode}']}, lit share {hit:.4f}, "
+              f"peak memory {peak:.1f} MiB (the volume included), on {card}",
+              flush=True)
+
+    # C19: the mip extra sample on a volume whose border is not empty
+    bt = build_vtree(with_border(vd))
+    bname = f"{name}_border"
+    for mode in ("iso", "mip"):
+        (best, _), _, err = check_march(bname, bt, rays, mode,
+                                        MARCH_MAX_STEPS)
+        _, _, cut_err = check_march(bname, bt, rays, mode, MARCH_CUT_STEPS)
+        entries[mode]["max_abs_err"] = max(entries[mode]["max_abs_err"],
+                                           err, cut_err)
+    want = torch.full_like(best[miss], BORDER_VALUE / 65535)
+    ok = bool(miss.any()) and bool(torch.allclose(best[miss], want,
+                                                  rtol=1e-6, atol=0))
+    print(f"check {bname} march mip: the {int(miss.sum())} rays that miss "
+          f"the volume take the border's value {BORDER_VALUE / 65535:.6f} "
+          f"from their extra sample (ROADMAP C19): {ok}", flush=True)
+    if not ok:
+        fail(f"{bname}: the mip extra sample is not the border's value")
+    del bt
+
+    # the CPU path at 64 x 64 on a 128^3 sphere
+    small = build_vtree(synthetic_sphere(128))
+    scam = viewer_camera(small.shape)
+    for mode in ("iso", "mip"):
+        a = render_volume(small, scam, 64, 64, iso=VOLUME_ISO, mode=mode)
+        b = render_volume(small.to("cpu"), scam.to("cpu"), 64, 64,
+                          iso=VOLUME_ISO, mode=mode)
+        # the rays' norms are sums in another order on the card (as every
+        # path's check_small allows): 2e-3 on all but 0.2 % of pixels
+        err = (a.cpu() - b).abs().amax(-1)
+        off = float((err > 2e-3).float().mean())
+        print(f"frame sphere_128 volume {mode} 64x64: card vs CPU path, share "
+              f"of pixels off by > 2e-3: {off} (max {float(err.max()):.3e})",
+              flush=True)
+        if off > 2e-3 or not float(b.max()) > 0.5:
+            fail(f"sphere_128 volume {mode}: the card frame differs from "
+                 "the CPU path")
+
+    # a DICOM series: the sphere's middle slices written and read back
+    lo = (n - DICOM_SLICES) // 2
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        for i in range(DICOM_SLICES):
+            write_dicom_file(f"{d}/{i:04d}.dcm", vd.data[lo + i],
+                             slice_location=0.5 * i,
+                             pixel_spacing=(0.4, 0.4))
+        t1 = time.perf_counter()
+        series = load_dicom_dir(d)
+        t2 = time.perf_counter()
+    same = bool(np.array_equal(series.data, vd.data[lo:lo + DICOM_SLICES]))
+    st = build_vtree(series)
+    img = render_volume(st, viewer_camera(st.shape), w, h, iso=VOLUME_ISO)
+    lit = float((img.amax(-1) > 0).float().mean())
+    print(f"volume dicom_{DICOM_SLICES}x{n}x{n}: written in {t1 - t0:.3f} s, "
+          f"read back in {t2 - t1:.3f} s, equal: {same}, spacing "
+          f"{series.spacing}; its iso frame {w}x{h}: lit share {lit:.4f}",
+          flush=True)
+    if not same or not lit > 0.01 or not bool(torch.isfinite(img).all()):
+        fail("the DICOM series does not load back equal or render")
+    del vt, st, small
+    torch.cuda.empty_cache()
+    return [{"name": f"march/{name}_{mode}", "route": "cuda",
+             "source": VOL_SRC, "replaces": VOL_REPLACES,
+             "launches": launches[f"volume_{mode}"]["march"],
+             "launched": per_view[mode], "path": f"volume_{mode}",
+             "launches_by_path": {p: c["march"] for p, c in launches.items()},
+             **e, "library_ms": None} for mode, e in entries.items()]
+
+
 def main() -> None:
     try:
         import torch
@@ -2084,6 +2613,9 @@ def main() -> None:
         stamp(f"{name} portable frames")
         launches.update(run_textured(name, kind, scene, cam, small, card))
         stamp(f"{name} textured frames")
+        launches.update(run_photons(name, kind, scene, walk, cam, small,
+                                    wsmall, card))
+        stamp(f"{name} photon phase")
         kernels += kernel_lines(name, checks, launches)
         fat_name, checks, launches = run_fat(
             kind, scene if FAT_N[kind] == n else None, card)
@@ -2093,6 +2625,8 @@ def main() -> None:
         torch.cuda.empty_cache()
     run_loaded(card)
     stamp("loaded scene")
+    kernels += run_volume(card)
+    stamp("volume phase")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

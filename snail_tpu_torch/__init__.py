@@ -14,7 +14,10 @@ beside its JAX counterpart:
   of the kernels and the wrappers that launch the hand-written CUDA
   kernels in ``csrc/`` for tensors on a CUDA device;
 - ``render`` — the packed Whitted frames (forward, bounces, gradients,
-  counters) and the frame renderer;
+  counters), the frame renderer and photon mapping;
+- ``volume`` — the volume loaders (raw, DICOM), the min/max brick pyramid
+  and its march (a CUDA kernel on the card), iso and MIP views;
+- ``apps``   — the DICOM viewer;
 - ``utils``  — the traversal counters' ``TreeStats`` record, the frame
   counter and image IO.
 

@@ -27,8 +27,13 @@ A textured scene's hits take their diffuse colour from its atlas
 (``scene.textures.sample_diffuse``, JAX fast.py:159-192): the primary
 wavefront's 32 x 32 quadrants give each hit a uv footprint, which picks
 the mip (and the SAT rect); bounce wavefronts sample mip 0. As in the JAX
-package, this frame reads no dissolve map. Photon radiance is a later
-slice of the port: the option raises ``NotImplementedError``.
+package, this frame reads no dissolve map.
+
+With ``opts.photons`` and a ``photon_grid`` (``render.photons``), the
+primary wavefront's hits add the grid's gathered irradiance times
+``opts.photon_exposure`` to their diffuse light sum (JAX fast.py:382-394);
+as in the JAX package, the bounce wavefronts of this frame gather none
+(ROADMAP C18), and ``photons`` without a grid adds nothing.
 """
 
 from __future__ import annotations
@@ -54,13 +59,6 @@ def _packets_to_image(cr, cg, cb, width: int, height: int):
     img = torch.stack([cr, cg, cb], dim=0).reshape(
         3, height // TILE, width // TILE, TILE // 32, QX, 32, 32)
     return img.permute(1, 3, 5, 2, 4, 6, 0).reshape(height, width, 3)
-
-
-def _check_supported(opts: RenderOpts) -> None:
-    if opts.photons:
-        raise NotImplementedError(
-            "photon-map radiance is not ported yet (ROADMAP queue A "
-            "item 13)")
 
 
 class _SmallLookup(torch.autograd.Function):
@@ -206,7 +204,7 @@ def _lights(scene, p3, n3, hit, opts: RenderOpts, any_hit=None,
 def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
                      depth: int, pack: Optional[torch.Tensor] = None,
                      sh_row=None, normals=None, any_hit=None, bounce=None,
-                     stats_out=None, tile_hw=(32, 32)):
+                     stats_out=None, tile_hw=(32, 32), photon_grid=None):
     """Shading, bounces and lights of one traced wavefront. ``o3``: a
     shared origin (three 0-d tensors) or three (R,). ``pack``: the
     differentiable frame's (T, DIFF_ROWS) table, whose gathered columns
@@ -221,8 +219,9 @@ def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
     not those of its bounces (as the JAX package). ``tile_hw``: the tiles
     of the wavefront's pixels, whose uv differences give a textured hit
     its footprint at depth 0 (the kernels' 32 x 32 quadrants; None: no
-    footprint). Returns (r, g, b)."""
-    _check_supported(opts)
+    footprint). ``photon_grid``, with ``opts.photons``, adds the photon
+    term to this wavefront's diffuse light sum (not to its bounces').
+    Returns (r, g, b)."""
     trace = bounce or (lambda bo3, bd3, btm, bdepth: _trace_and_shade(
         scene, bo3, bd3, btm, opts, bdepth, pack))
     hit, sh, n3, p3 = _surface(scene, o3, d3, dist, u, v, tri, sh_row,
@@ -267,6 +266,12 @@ def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
               for k in range(3)]
 
     ld, ls = _lights(scene, p3, n3, hit, opts, any_hit, stats_out)
+    if opts.photons and photon_grid is not None:
+        from .photons import gather_photons_grid
+
+        rad = gather_photons_grid(photon_grid, torch.stack(p3, -1)) \
+            * opts.photon_exposure
+        ld = [ld[k] + torch.where(hit, rad[:, k], 0.0) for k in range(3)]
     return tuple(torch.where(hit, dc[k] * ld[k]
                              + torch.where(hit, ks[k], 0.0) * ls[k], 0.0)
                  for k in range(3))
@@ -350,11 +355,13 @@ def _trace_and_shade(scene, o3, d3, tmax, opts: RenderOpts, depth: int,
 
 
 def render_frame_fast(scene, camera: Camera, width: int, height: int,
-                      opts: RenderOpts = RenderOpts()) -> torch.Tensor:
+                      opts: RenderOpts = RenderOpts(),
+                      photon_grid=None) -> torch.Tensor:
     """Full-frame packed Whitted render: primary wavefront, shading, one
-    shadow wavefront per light and the bounces of ``opts``. Returns (H, W,
-    3) float32 on the scene's device. Width and height must be multiples
-    of TILE (64)."""
+    shadow wavefront per light and the bounces of ``opts``; with
+    ``opts.photons``, the photon term of ``photon_grid`` on the primary
+    hits. Returns (H, W, 3) float32 on the scene's device. Width and
+    height must be multiples of TILE (64)."""
     dist, u, v, tri, dx, dy, dz = camera_trace(scene, camera, width, height)
     if not opts.shading:
         idist = torch.where((dist > 0.0) & (dist < BIG), 1.0 / dist, 0.0)
@@ -362,7 +369,7 @@ def render_frame_fast(scene, camera: Camera, width: int, height: int,
     else:
         o3 = (camera.pos[0], camera.pos[1], camera.pos[2])
         cr, cg, cb = _shade_and_light(scene, o3, (dx, dy, dz), dist, u, v,
-                                      tri, opts, 0)
+                                      tri, opts, 0, photon_grid=photon_grid)
     return _packets_to_image(cr, cg, cb, width, height)
 
 

@@ -27,15 +27,18 @@ from .raygen import TILE_H, TILE_W, primary_rays, tile_rays, untile_image
 
 
 def render_frame(scene, camera: Camera, width: int, height: int,
-                 opts: RenderOpts = RenderOpts()) -> torch.Tensor:
+                 opts: RenderOpts = RenderOpts(),
+                 photon_grid=None) -> torch.Tensor:
     """Render a full frame; returns float32 (height, width, 3) linear
-    color on the scene's device (differentiable on the portable path)."""
+    color on the scene's device (differentiable on the portable path).
+    ``photon_grid`` (``render.photons.PhotonGrid``), with ``opts.photons``,
+    adds the photon-map radiance term."""
     scale = 2 if opts.supersample else 1
     w, h = width * scale, height * scale
     if w % TILE == 0 and h % TILE == 0:
-        img = render_frame_fast(scene, camera, w, h, opts)
+        img = render_frame_fast(scene, camera, w, h, opts, photon_grid)
     else:
-        img = render_frame_portable(scene, camera, w, h, opts)
+        img = render_frame_portable(scene, camera, w, h, opts, photon_grid)
     if opts.supersample:
         img = (img[0::2, 0::2] + img[1::2, 0::2] + img[0::2, 1::2]
                + img[1::2, 1::2]) * 0.25
@@ -43,7 +46,8 @@ def render_frame(scene, camera: Camera, width: int, height: int,
 
 
 def render_frame_portable(scene, camera: Camera, width: int, height: int,
-                          opts: RenderOpts = RenderOpts()) -> torch.Tensor:
+                          opts: RenderOpts = RenderOpts(),
+                          photon_grid=None) -> torch.Tensor:
     """A width x height frame through the portable integrator
     (``renderer.py:54-69`` of the JAX package): (height, width, 3)."""
     th = TILE_H if height % TILE_H == 0 else 1
@@ -52,7 +56,8 @@ def render_frame_portable(scene, camera: Camera, width: int, height: int,
     d = tile_rays(dirs, th, tw).reshape(-1, 3)
     o = origin.expand_as(d)
     tmax = torch.full(d.shape[:1], BIG, dtype=torch.float32, device=d.device)
-    color = render_wavefront(scene, o, d, tmax, opts, tile_hw=(th, tw))
+    color = render_wavefront(scene, o, d, tmax, opts, tile_hw=(th, tw),
+                             photon_grid=photon_grid)
     return untile_image(color.reshape(-1, th * tw, 3), height, width, th, tw)
 
 

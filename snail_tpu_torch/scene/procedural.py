@@ -77,6 +77,18 @@ def cornell_scene() -> BaseScene:
     return s
 
 
+def soup_scene(n: int = 1000, spread: float = 5.0, size: float = 0.6,
+               seed: int = 0) -> BaseScene:
+    """Random triangle soup: the incoherent-ray stress scene."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-spread, spread, (n, 1, 3))
+    tri = (base + rng.uniform(-size, size, (n, 3, 3))).astype(np.float32)
+    s = BaseScene()
+    s.objects.append(_obj_from_tris(tri))
+    s.gen_normals()
+    return s
+
+
 def city_scene(grid: int = 24, seed: int = 0) -> BaseScene:
     """A grid of boxes of varying heights on a ground plane — a
     sponza-like benchmark stand-in (occlusion + shadow heavy) with

@@ -1166,3 +1166,131 @@ def test_loaded_scene_frame_on_card_matches_cpu(tmp_path, walk):
         err = (img.cpu() - ref).abs().amax(-1)
         assert torch.isfinite(img).all() and img.abs().amax() > 0
         assert (err > 2e-3).float().mean() < 2e-3, float(err.max())
+
+
+def _volume(border: bool, n: int = 64):
+    """The n^3 sphere on the card; with ``border``, a constant shell of
+    value 1500 on all six faces (mip sees it, iso at 0.03 does not), where
+    the mip mode's extra sample of a ray done early lands (ROADMAP C19)."""
+    from snail_tpu_torch.volume.data import VolumeData, synthetic_sphere
+    from snail_tpu_torch.volume.vtree import build_vtree
+
+    data = synthetic_sphere(n).data
+    if border:
+        for a in range(3):
+            idx = [slice(None)] * 3
+            idx[a] = [0, -1]
+            data[tuple(idx)] = 1500
+    return build_vtree(VolumeData(data=data))
+
+
+@pytest.mark.parametrize("max_steps", [2048, 24])
+@pytest.mark.parametrize("mode", ["iso", "mip"])
+@pytest.mark.parametrize("border", [False, True], ids=["sphere", "border"])
+def test_march_kernel_matches_plain(border, mode, max_steps):
+    """V1 (csrc/volume.cu) against _march_plain on the card, bit for bit
+    in best and hit_t, from the viewer's camera and from one that sees
+    the volume from outside a face, with the rays' shared origin read as
+    one (volume_rays' stride-0 view) and as a row per ray; with the
+    border, rays that miss the volume take C19's extra sample (best =
+    the shell's value)."""
+    from snail_tpu_torch.apps.dicom_viewer import viewer_camera
+    from snail_tpu_torch.ops.march import march
+    from snail_tpu_torch.volume.vtree import _march_plain, volume_rays
+
+    _need_cuda()
+    vt = _volume(border)
+    for cam in (viewer_camera(vt.shape),
+                Camera.look_at(pos=(32.0, 32.0, -96.0),
+                               target=(32.0, 32.0, 32.0))):
+        rays = volume_rays(vt, cam, 96, 80)
+        assert rays[0].stride(0) == 0
+        kb, kh = march(vt, *rays, 0.03, mode, max_steps)
+        pb, ph = _march_plain(vt, *rays, 0.03, mode, max_steps)
+        rb, rh = march(vt, rays[0].contiguous(), *rays[1:], 0.03, mode,
+                       max_steps)
+        torch.cuda.synchronize()
+        assert torch.equal(kb, pb) and torch.equal(kh, ph)
+        assert torch.equal(rb, pb) and torch.equal(rh, ph)
+        if mode == "iso":
+            assert bool((kh >= 0).any()) and bool((kh < 0).any())
+        else:
+            assert float(kb.max()) > 0.05
+            miss = rays[2] > rays[3]
+            if border and max_steps == 2048 and bool(miss.any()):
+                assert torch.allclose(kb[miss], torch.full_like(
+                    kb[miss], 1500 / 65535), rtol=1e-6, atol=0)
+
+
+def test_render_volume_launches_the_march_kernel():
+    """render_volume on the card goes through V1 (its launch counter,
+    in the registry of every kernel: march_kernel, and in mip mode
+    mip_extra_kernel too) and no other kernel, and its iso and mip images
+    match the CPU path's (the rays' norms are sums in another order on
+    the card: 2e-3 on all but 0.2 % of pixels, as every frame's check)."""
+    from snail_tpu_torch.apps.dicom_viewer import viewer_camera
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.volume.vtree import render_volume
+
+    _need_cuda()
+    vt = _volume(True)
+    cam = viewer_camera(vt.shape)
+    for mode, n in (("iso", 1), ("mip", 2)):
+        want = {k.__name__: 0 for k in pt.KERNELS} | {"march": n}
+        pt.reset_launch_counts()
+        img = render_volume(vt, cam, 64, 48, iso=0.03, mode=mode)
+        torch.cuda.synchronize()
+        assert pt.launch_counts() == want
+        ref = render_volume(vt.to("cpu"), cam.to("cpu"), 64, 48, iso=0.03,
+                            mode=mode)
+        assert pt.launch_counts() == want
+        err = (img.cpu() - ref).abs().amax(-1)
+        assert img.shape == (48, 64, 3) and float(img.max()) > 0.5
+        assert (err > 2e-3).float().mean() < 2e-3, (mode, float(err.max()))
+
+
+@pytest.mark.parametrize("tables", ["leaves", "nodes", "fat"])
+def test_photon_frame_on_card_matches_cpu(tables):
+    """The photon map traced on the card (B5/B6, B9c or B11b), its grid,
+    and the fwd frame with the photon term at 64 x 64 against the CPU
+    path on the same grid; the photon term lights something."""
+    from snail_tpu_torch.render.photons import (_stratified_sphere,
+                                                _trace_light, photon_grid,
+                                                render_photon_preview,
+                                                trace_photons)
+
+    _need_cuda()
+    scene, cam, _, _, _ = _scene("city", walk=tables == "nodes",
+                                 leaf=64 if tables == "fat" else 4)
+    # a light among the blocks: most photons land on the city
+    scene = dataclasses.replace(scene, lights=Light.make(
+        (0.0, 2.0, 0.3), (1.0, 1.0, 1.0), 120.0))
+    pt.reset_launch_counts()
+    pmap = trace_photons(scene, n_per_light=8192, seed=1)
+    torch.cuda.synchronize()
+    counts = pt.launch_counts()
+    need = {"leaves": ("words_general", "closest_wl_g"),
+            "nodes": ("walk_closest_g",), "fat": ("fat_closest",)}[tables]
+    assert all(counts[k] > 0 for k in need), counts
+    assert 2000 < pmap.count <= 8192
+    # the card's photons against the CPU path's on the same directions
+    d = _stratified_sphere(8192, torch.Generator("cuda").manual_seed(2))
+    card = _trace_light(scene, 0, d)
+    cpu = _trace_light(scene.to("cpu"), 0, d.cpu())
+    assert len(card[0]) == len(cpu[0]) > 2000
+    np.testing.assert_allclose(card[0], cpu[0], rtol=0, atol=1e-4)
+    pg = photon_grid(pmap, scene.root_lo, scene.root_hi, res=32)
+    assert pg.grid.is_cuda
+    on = RenderOpts(reflections=False, transparency=False, textures=False,
+                    photons=True, photon_exposure=5.0)
+    img = render_frame(scene, cam, 64, 64, on, photon_grid=pg)
+    cpu = render_frame(scene.to("cpu"), cam.to("cpu"), 64, 64, on,
+                       photon_grid=pg.to("cpu"))
+    err = (img.cpu() - cpu).abs().amax(-1)
+    assert (err > 2e-3).float().mean() < 2e-3, float(err.max())
+    assert float((img - render_frame(scene, cam, 64, 64, on)).max()) > 1e-3
+    prev = render_photon_preview(scene, cam, 64, 64, pg, exposure=5.0)
+    ref = render_photon_preview(scene.to("cpu"), cam.to("cpu"), 64, 64,
+                                pg.to("cpu"), exposure=5.0)
+    assert (((prev.cpu() - ref).abs().amax(-1) > 2e-3).float().mean()
+            < 2e-3)

@@ -1,7 +1,7 @@
 """The port's frame against the JAX package's render_frame_fast (Pallas
 kernels in interpret mode on the CPU), without and with reflection and
-transparency bounces, the committed golden image, and the options the
-port does not run yet."""
+transparency bounces, the committed golden image, and the photon option,
+which the port refused until it had the photon map."""
 
 import os
 import subprocess
@@ -152,9 +152,31 @@ def test_bounce_frame_matches_jax(name):
 
 
 def test_unported_options_raise():
-    _, _, ps, pcam, w, h = _pair("cornell", bounce=True)
-    with pytest.raises(NotImplementedError, match="photon"):
-        render_frame(ps, pcam, w, h, RenderOpts(photons=True, **OPTS))
+    """Photons, the last option the port refused, now render: without a
+    grid the option adds nothing, and with one the packed and portable
+    frames gain the photon term against the JAX package's frames (the
+    parity cases are in tests/test_torch_photons.py)."""
+    from snail_tpu.render import photons as jph
+    from snail_tpu.render.renderer import render_frame as j_render_frame
+    from snail_tpu_torch.render import photons as pph
+
+    js, jcam, ps, pcam, w, h = _pair("cornell", bounce=True)
+    opts = dict(textures=False, photons=True, photon_exposure=0.5)
+    off = render_frame(ps, pcam, w, h, RenderOpts(textures=False))
+    assert torch.equal(render_frame(ps, pcam, w, h, RenderOpts(**opts)), off)
+    jpmap = jph.trace_photons(js, n_per_light=512, seed=2)
+    lo, hi = ps.root_lo, ps.root_hi
+    jg = jph.photon_grid(jpmap, lo.numpy(), hi.numpy(), res=12)
+    pg = pph.photon_grid(pph.PhotonMap(jpmap.pos, jpmap.power, jpmap.normal,
+                                       jpmap.dirn), lo, hi, res=12)
+    on = render_frame(ps, pcam, w, h, RenderOpts(**opts), photon_grid=pg)
+    assert float((on - off).max()) > 1e-3
+    # the portable frame at 40 x 24 (not a multiple of the tile)
+    jimg = np.asarray(j_render_frame.__wrapped__(
+        js, jcam, 40, 24, JRenderOpts(**opts), photon_grid=jg))
+    pimg = render_frame(ps, pcam, 40, 24, RenderOpts(**opts), photon_grid=pg)
+    err = np.abs(pimg.numpy() - jimg).max(-1)
+    assert (err > 2e-3).mean() <= 2e-3, err.max()
 
 
 def test_bounce_options_run_when_no_material_bounces():
@@ -172,8 +194,10 @@ def test_port_renders_without_jax():
     import without them, and the CPU renders a forward frame, a bounce
     frame, a differentiable one, an instanced and a counter frame, a
     frame of a walk scene (node tables), a 48 x 32 frame through the
-    portable integrator, and a scene loaded from an OBJ, an MTL and a PNG
-    (load_scene) in textured frames, packed and portable."""
+    portable integrator, a photon map and a frame and preview with its
+    photon term, iso and mip views of a volume, and a scene loaded from an
+    OBJ, an MTL and a PNG (load_scene) in textured frames, packed and
+    portable."""
     code = textwrap.dedent("""
         import dataclasses
         import importlib
@@ -230,6 +254,25 @@ def test_port_renders_without_jax():
         assert img.shape == (64, 64, 3) and float(img.max()) > 0.1
         img = render_frame(bounce, cam, 48, 32, RenderOpts(textures=False))
         assert img.shape == (32, 48, 3) and float(img.max()) > 0.1
+        from snail_tpu_torch.render.photons import (photon_grid,
+                                                    render_photon_preview,
+                                                    trace_photons)
+        pmap = trace_photons(scene, n_per_light=256)
+        pg = photon_grid(pmap, scene.root_lo, scene.root_hi, res=8)
+        popts = RenderOpts(reflections=False, transparency=False,
+                           photons=True)
+        img = render_frame(scene, cam, 64, 64, popts, photon_grid=pg)
+        assert float((img - render_frame(scene, cam, 64, 64, popts)).max()
+                     ) > 0
+        assert float(render_photon_preview(scene, cam, 32, 32, pg).max()) > 0
+        from snail_tpu_torch.apps.dicom_viewer import viewer_camera
+        from snail_tpu_torch.volume import build_vtree, render_volume
+        from snail_tpu_torch.volume.data import synthetic_sphere
+        vt = build_vtree(synthetic_sphere(32), device="cpu")
+        for mode in ("iso", "mip"):
+            img = render_volume(vt, viewer_camera(vt.shape, "cpu"), 32, 32,
+                                mode=mode)
+            assert img.shape == (32, 32, 3) and float(img.max()) > 0.5
         import os
         import tempfile
         import numpy as np

@@ -30,6 +30,7 @@ SCENES = [
     ("city4", lambda m: m.city_scene(4)),
     ("city6_seed3", lambda m: m.city_scene(6, seed=3)),
     ("terrain16", lambda m: m.terrain_scene(16)),
+    ("soup300_seed2", lambda m: m.soup_scene(300, seed=2)),
 ]
 
 
