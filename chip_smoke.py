@@ -119,10 +119,33 @@ Phases, each printed on its own line:
    peak memory), a 64 x 64 frame of a 128^3 sphere
    against the CPU path; and a DICOM series of 64 slices of 512 x 512
    written with write_dicom_file, read back equal by load_dicom_dir, and
-   its iso frame.
+   its iso frame;
+11. the apps: the render server (apps.server ``serve``) on the card in a
+   thread, on 127.0.0.1 at a free port, serving phase 8's city OBJ + MTL;
+   the native codec built; the client (apps.client ``run_client``) at
+   1024 x 1024, 4 frames on its orbit, then a session of 1 frame with the
+   stats toggle (gVals[2]); each assembled frame equal to to_rgb8 of the
+   port's render_frame (the stats frame's: render_frame_fast_stats's) of
+   the request's camera bit for bit, the stats frame's counters equal to
+   tree_stats_from_counters of the counter frame's; per frame the
+   client's ms, the server's render_ms and encode_ms and the KB of its
+   parts; the host syncs of the frame loop's work for one frame (camera,
+   lights, render_frame) under torch.cuda.set_sync_debug_mode (none
+   allowed); then rtracer's main for one 1024 x 1024 frame, its PNG equal
+   to Renderer.render's frame of the same camera;
+12. torch.distributed at world size 1: a NCCL process group of one rank
+   on a file:// store; render_frame_sharded at 512 x 512 on city_24
+   (bounces on) bit for bit against render_frame_portable, and one
+   train_step_sharded (tri_a and mat_diffuse) bit for bit against the
+   same step without a process group; the sharded frame's ms beside the
+   portable frame's, in turns; scaling_report at 1 device; the group is
+   destroyed at the end.
 
 The last two lines are a JSON object per kernel (all 19 traversal kernels
-of the port per scene, and V1 in iso and mip mode) and the result line.
+of the port per scene, and V1 in iso and mip mode; the city_24 kernels'
+``launches_by_path`` also count phases 11 and 12's paths: ``served``,
+``served_stats``, ``rtracer``, ``sharded``, ``sharded_step``) and the
+result line.
 Every kernel's line gives its time beside its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
 the card's memory rate and the float operations of the tests its wavefront
@@ -252,6 +275,11 @@ DICOM_SLICES = 64
 MARCH_RAY_BYTES = 28
 MARCH_ORIGIN_BYTES = 12
 MARCH_OPS = {"skip": 47, "sample": 50}
+# phase 11: frames of the client's first session, and the longest wait for
+# the server thread; phase 12: the sharded frame's size
+APPS_FRAMES = 4
+APPS_TIMEOUT_S = 120
+SHARDED_SIZE = 512
 # the loaded scene's materials: every 12 faces (a box) take the next
 LOADED_MTL = """newmtl concrete
 Kd 0.7 0.7 0.65
@@ -2508,6 +2536,255 @@ def run_volume(card):
              **e, "library_ms": None} for mode, e in entries.items()]
 
 
+def served_sync_sites(scene, req, opts):
+    """The host syncs of the server's per-frame work on its frame loop
+    (camera, lights, render_frame; the encoder's copy to the host aside),
+    as ``torch.cuda.set_sync_debug_mode`` reports them: file:line -> count."""
+    import collections
+    import warnings
+
+    import torch
+
+    from snail_tpu_torch.core.types import Camera, Light
+    from snail_tpu_torch.render.renderer import render_frame
+
+    sites = collections.Counter()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            cam = Camera.look_at(pos=req.cam_pos, target=req.cam_target)
+            s = scene.with_lights(Light.stack([Light.make(
+                tuple(l["pos"]), tuple(l["color"]), float(l["radius"]))
+                for l in req.lights]))
+            render_frame(s, cam, WIDTH, HEIGHT, opts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            sites[f"{w.filename}:{w.lineno}"] += 1
+    torch.cuda.synchronize()
+    return dict(sites)
+
+
+def run_apps(card, n=24):
+    """Phase 11 (see the module docstring). Returns {path: launch counts}
+    of the served frames, the stats frame and rtracer's frame."""
+    import os
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from snail_tpu_torch.apps import client, rtracer, server
+    from snail_tpu_torch.core.types import Camera, Light, RenderOpts
+    from snail_tpu_torch.net import codec
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.fast import render_frame_fast_stats
+    from snail_tpu_torch.render.renderer import (Renderer, render_frame,
+                                                 to_rgb8)
+    from snail_tpu_torch.scene.bench_scenes import SCENES
+    from snail_tpu_torch.scene.scene import load_scene
+    from snail_tpu_torch.utils.image import save_image
+    from snail_tpu_torch.utils.stats import tree_stats_from_counters
+
+    name = f"served_city_{n}"
+    opts = RenderOpts()  # the server's options for a request without gVals
+    if not codec.native_available():
+        fail(f"{name}: the native codec did not build")
+    _, _, lpos, radius, _ = SCENES["city"]
+    light = {"pos": list(lpos), "color": [1.0, 1.0, 1.0], "radius": radius}
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        obj = write_city_obj(d, n)
+        scene = load_scene(obj, lights=Light.make(
+            light["pos"], light["color"], light["radius"]))
+        lo, hi = scene.root_lo.cpu().numpy(), scene.root_hi.cpu().numpy()
+        # run_loaded's camera, rounded so that its text (rtracer's --cam)
+        # parses back to the same floats
+        tgt = np.round((lo + hi).astype(np.float64) * 0.5, 3)
+        pos = np.round(tgt + np.array([0.45, 0.35, 0.9])
+                       * float((hi - lo).max()), 3)
+        srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        srv.bind(("127.0.0.1", 0))
+        srv.listen(1)
+        port = srv.getsockname()[1]
+        rc = []
+        th = threading.Thread(target=lambda: rc.append(server.serve(
+            srv, d, device="cuda", sessions=2)), daemon=True)
+        th.start()
+        sessions = {}
+        for path, frames, stats in (("served", APPS_FRAMES, False),
+                                    ("served_stats", 1, True)):
+            got = []
+            torch.cuda.synchronize()
+            pt.reset_launch_counts()
+            client.run_client("127.0.0.1", port, "city.obj", WIDTH, HEIGHT,
+                              frames, pos, tgt, [light], stats=stats,
+                              on_frame=lambda *a: got.append(a))
+            torch.cuda.synchronize()
+            launches[path] = launched(name, path,
+                                      STATS if stats else BOUNCE)
+            sessions[path] = got
+        th.join(APPS_TIMEOUT_S)
+        if th.is_alive() or rc != [0]:
+            fail(f"{name}: the server did not end its sessions cleanly "
+                 f"({rc})")
+        for path, got in sessions.items():
+            for f, req, img, st, dt, kb in got:
+                cam = Camera.look_at(pos=req.cam_pos, target=req.cam_target)
+                if st["measured"]:
+                    ref, counts = render_frame_fast_stats(
+                        scene, cam, WIDTH, HEIGHT,
+                        RenderOpts(stats=True))
+                    want = tree_stats_from_counters(counts, 1).to_dict()
+                    stat_ok = all(st[k] == want[k] for k in (
+                        "intersects", "loop_iters", "rays", "runs"))
+                else:
+                    ref, stat_ok = render_frame(scene, cam, WIDTH, HEIGHT,
+                                                opts), True
+                same = np.array_equal(img, to_rgb8(ref))
+                print(f"served {name} {path} frame {f} {WIDTH}x{HEIGHT}: "
+                      f"client {dt * 1e3:.3f} ms, server render_ms "
+                      f"{st['render_ms']:.3f}, encode_ms "
+                      f"{st['encode_ms']:.3f}, {kb:.1f} KB a frame; "
+                      f"equal to render_frame bit for bit: {same}; "
+                      f"measured {st['measured']} (intersects "
+                      f"{st['intersects']}, loop_iters {st['loop_iters']}, "
+                      f"rays {st['rays']}), on {card}", flush=True)
+                if not same or not stat_ok or st["measured"] != (
+                        path == "served_stats"):
+                    fail(f"{name} {path} frame {f}: the served frame or its "
+                         f"stats differ from the port's frame")
+        sites = served_sync_sites(scene, sessions["served"][0][1], opts)
+        print(f"served {name}: host syncs of the frame loop's work for one "
+              f"frame: {sites or 'none'}", flush=True)
+        if sites:
+            fail(f"{name}: the frame loop syncs with the card: {sites}")
+
+        out = os.path.join(d, "rtracer")
+        cam_arg = ",".join(map(str, pos)) + ":" + ",".join(map(str, tgt))
+        torch.cuda.synchronize()
+        pt.reset_launch_counts()
+        rtracer.main([obj, "-r", f"{WIDTH}x{HEIGHT}", "--out-dir", out,
+                      "--cam", cam_arg, "--light",
+                      ":".join(",".join(map(str, light[k]))
+                               for k in ("pos", "color")) + f":{radius}"])
+        torch.cuda.synchronize()
+        launches["rtracer"] = launched(name, "rtracer", BOUNCE)
+        cam = Camera.look_at(pos=tuple(client.orbit_pos(tgt, pos - tgt, 0,
+                                                         1)),
+                             target=tuple(tgt))
+        save_image(os.path.join(d, "ref.png"),
+                   Renderer(scene, WIDTH, HEIGHT, opts).render(cam))
+        png, ref = (np.asarray(Image.open(os.path.join(*p))) for p in (
+            (out, "output_000.png"), (d, "ref.png")))
+        same = png.shape == (HEIGHT, WIDTH, 3) and np.array_equal(png, ref)
+        print(f"rtracer {name}: output_000.png equal to Renderer.render's "
+              f"frame: {same}", flush=True)
+        if not same:
+            fail(f"{name}: rtracer's PNG differs from Renderer.render's")
+    return launches
+
+
+def run_distributed(card, n=24):
+    """Phase 12 (see the module docstring). Returns {path: launch
+    counts} of the sharded frame and step."""
+    import torch
+
+    name = f"city_{n}"
+    scene, cam, _, _ = make_scene("city", n)
+    # the step's backward scatter-adds its gradients (the backward of a
+    # gather), atomically on the card unless in deterministic mode: so two
+    # steps agree bit for bit there only
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return sharded_phase(card, name, scene, cam)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def sharded_phase(card, name, scene, cam):
+    """Phase 12 on ``scene`` in deterministic mode (see run_distributed)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.parallel import distributed as pdist
+    from snail_tpu_torch.parallel.mesh import (make_mesh,
+                                               render_frame_sharded,
+                                               train_step_sharded)
+    from snail_tpu_torch.render.renderer import render_frame_portable
+
+    w = h = SHARDED_SIZE
+    bounce = RenderOpts(textures=False)
+    fwd = RenderOpts(reflections=False, transparency=False, textures=False)
+    params = {"tri_a": scene.tri_a, "mat_diffuse": scene.mat_diffuse}
+    target = torch.zeros(h, w, 3, device=scene.device)
+    ref_img = render_frame_portable(scene, cam, w, h, bounce)
+    ref_loss, ref_new = train_step_sharded(scene, params, target, cam, w, h,
+                                           fwd, make_mesh())
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        tdist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                 world_size=1, rank=0)
+        try:
+            backend = tdist.get_backend()
+            mesh = pdist.global_mesh()
+            print(f"distributed {name}: process group on {backend}, world "
+                  f"size {tdist.get_world_size()}, mesh size {mesh.size}",
+                  flush=True)
+            if backend != "nccl" or mesh.group is None:
+                fail(f"{name}: no NCCL process group ({backend})")
+            s = pdist.replicate_scene(scene, mesh)
+            torch.cuda.synchronize()
+            pt.reset_launch_counts()
+            img = render_frame_sharded(s, cam, w, h, bounce, mesh)
+            torch.cuda.synchronize()
+            launches["sharded"] = launched(name, "sharded",
+                                           PORTABLE["leaves"])
+            pt.reset_launch_counts()
+            loss, new = train_step_sharded(s, params, target, cam, w, h, fwd,
+                                           mesh)
+            torch.cuda.synchronize()
+            launches["sharded_step"] = launched(name, "sharded_step",
+                                                PORTABLE["leaves"])
+            frame_same = torch.equal(img, ref_img)
+            diff = {k: float((new[k] - ref_new[k]).abs().max()) for k in new}
+            step_same = (torch.equal(loss, ref_loss)
+                         and all(torch.equal(new[k], ref_new[k])
+                                 for k in new))
+            print(f"distributed {name} sharded {w}x{h}: frame equal to "
+                  f"render_frame_portable bit for bit: {frame_same}; step "
+                  f"(loss {float(loss)} beside {float(ref_loss)}, new "
+                  f"parameters' max |diff| {diff}) equal to the step "
+                  f"without a process group bit for bit: {step_same}; "
+                  f"launches frame {launches['sharded']}, step "
+                  f"{launches['sharded_step']}", flush=True)
+            if not frame_same or not step_same:
+                fail(f"{name}: the sharded frame or step differs")
+            beside(name, f"sharded {w}x{h}",
+                   lambda: render_frame_sharded(s, cam, w, h, bounce, mesh),
+                   lambda: render_frame_portable(scene, cam, w, h, bounce),
+                   card, PORTABLE_FRAMES, ("sharded", "portable"))
+            rows = pdist.scaling_report(s, cam, w, h, bounce, [1],
+                                        frames=PORTABLE_FRAMES)
+            print(f"distributed {name}: scaling_report {rows}, on {card}",
+                  flush=True)
+            if [r["devices"] for r in rows] != [1] or not rows[0]["ms"] > 0:
+                fail(f"{name}: scaling_report rows {rows}")
+        finally:
+            tdist.destroy_process_group()
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2627,6 +2904,16 @@ def main() -> None:
     stamp("loaded scene")
     kernels += run_volume(card)
     stamp("volume phase")
+    extra = run_apps(card)
+    stamp("apps phase")
+    extra.update(run_distributed(card))
+    stamp("distributed phase")
+    # the new phases' launches beside the city's other paths
+    city = f"/city_{BENCH_N['city']}"
+    for e in kernels:
+        if e["name"].endswith(city):
+            k = e["name"].split("/")[0]
+            e["launches_by_path"].update({p: c[k] for p, c in extra.items()})
 
     print(card)
     print(json.dumps({"kernels": kernels}))

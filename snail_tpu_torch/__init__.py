@@ -17,15 +17,20 @@ beside its JAX counterpart:
   counters), the frame renderer and photon mapping;
 - ``volume`` — the volume loaders (raw, DICOM), the min/max brick pyramid
   and its march (a CUDA kernel on the card), iso and MIP views;
-- ``apps``   — the DICOM viewer;
+- ``net``    — the tile codec (the native LZ of ``native/codec.cpp``)
+  and the client/server frame protocol, host code;
+- ``apps``   — the render server, its client, the standalone renderer
+  ``rtracer`` and the DICOM viewer;
+- ``parallel`` — frames and training steps split over the ranks of a
+  ``torch.distributed`` process group, one device per process;
 - ``utils``  — the traversal counters' ``TreeStats`` record, the frame
   counter and image IO.
 
 Nothing here imports JAX or ``snail_tpu``: what the port needs of the JAX
 package's NumPy host code it keeps as its own copy, which the CPU tests
 hold equal to the original (the BVH builder and cache, the procedural
-scenes, the loaders, the material table, the texture tables), so a
-triangle id means the same in both.
+scenes, the loaders, the material table, the texture tables, the codec
+and the protocol), so a triangle id means the same in both.
 Entry points build on the card unless the caller passes ``device="cpu"``.
 """
 

@@ -28,7 +28,11 @@ def _f32(x, device) -> torch.Tensor:
     device = resolve_device(device)
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
-    return torch.tensor(np.asarray(x, np.float32), device=device)
+    # non-blocking: a copy to the card from pageable memory is staged when
+    # it is queued, and a blocking one would wait for the work queued
+    # before it (a render server builds a camera per frame)
+    return torch.tensor(np.asarray(x, np.float32)).to(device,
+                                                      non_blocking=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +79,13 @@ class Light:
         return Light(pos=torch.atleast_2d(_f32(pos, device)),
                      color=torch.atleast_2d(_f32(color, device)),
                      radius=torch.atleast_1d(_f32(radius, device)))
+
+    @staticmethod
+    def stack(lights) -> "Light":
+        """Concatenate several Light records into one multi-light set."""
+        return Light(pos=torch.cat([l.pos for l in lights]),
+                     color=torch.cat([l.color for l in lights]),
+                     radius=torch.cat([l.radius for l in lights]))
 
     def __len__(self) -> int:
         return self.pos.shape[0]

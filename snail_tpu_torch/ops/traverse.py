@@ -308,9 +308,10 @@ def cam_vec(camera, width: int, height: int, root_lo, root_hi):
     camera's device: right, up, front * plane_dist, pos, w/2, h/2, 1/h,
     tiles_x, root lo.xyz, root hi.xyz (the JAX package's ``_cam_vec_rb``)."""
     dev = camera.pos.device
+    # non-blocking, as core.types builds a camera: no wait for queued work
     scal = torch.tensor([width * 0.5, height * 0.5, 1.0 / height,
-                         float(width // TILE)], dtype=torch.float32,
-                        device=dev)
+                         float(width // TILE)], dtype=torch.float32
+                        ).to(dev, non_blocking=True)
     return torch.cat([camera.right, camera.up,
                       camera.front * camera.plane_dist, camera.pos, scal,
                       root_lo.to(dev), root_hi.to(dev)]).float().contiguous()

@@ -89,6 +89,9 @@ class TracedScene:
     def device(self) -> torch.device:
         return self.tri_rows.device
 
+    def with_lights(self, lights: Optional[Light]) -> "TracedScene":
+        return dataclasses.replace(self, lights=lights)
+
     def to(self, device) -> "TracedScene":
         mv = lambda t: None if t is None else t.to(device)
         return dataclasses.replace(

@@ -85,8 +85,9 @@ def _corners(p, shape):
     q = p - 0.5
     q0 = torch.floor(q)
     f = q - q0
-    q0 = q0.to(torch.int32)
-    top = torch.tensor([n - 1 for n in shape], dtype=torch.int32,
+    # int64: a volume may hold more than 2^31 voxels (V1 indexes in size_t)
+    q0 = q0.to(torch.int64)
+    top = torch.tensor([n - 1 for n in shape], dtype=torch.int64,
                        device=p.device)
     # (R, 3, 2): each axis's two taps, clamped
     ij = torch.minimum(torch.clamp_min(torch.stack([q0, q0 + 1], -1), 0),
@@ -101,7 +102,7 @@ def _sample(vol, p, shape):
     clamped: the JAX package's lerps in x, then y, then z, each
     ``a * (1 - f) + b * f``."""
     idx, f = _corners(p, shape)
-    c = vol.reshape(-1)[idx.long()]  # (R, z, y, x)
+    c = vol.reshape(-1)[idx]  # (R, z, y, x)
     fz, fy, fx = (f[:, k, None, None] for k in range(3))
     c = c[..., 0] * (1 - fx) + c[..., 1] * fx  # (R, z, y)
     c = c[..., 0] * (1 - fy[..., 0]) + c[..., 1] * fy[..., 0]  # (R, z)

@@ -1294,3 +1294,121 @@ def test_photon_frame_on_card_matches_cpu(tables):
                                 pg.to("cpu"), exposure=5.0)
     assert (((prev.cpu() - ref).abs().amax(-1) > 2e-3).float().mean()
             < 2e-3)
+
+
+def test_served_frames_on_card(tmp_path):
+    """The render server on the card over a socketpair: two frames equal
+    to_rgb8 of render_frame bit for bit through B1-B4, then a stats frame
+    through B8a/B8b whose counters are the counter frame's."""
+    import socket
+    import threading
+
+    from snail_tpu_torch.apps import server
+    from snail_tpu_torch.net import codec, protocol
+    from snail_tpu_torch.render.renderer import to_rgb8
+    from snail_tpu_torch.scene.scene import load_scene
+    from snail_tpu_torch.utils.stats import tree_stats_from_counters
+
+    _need_cuda()
+    assert codec.native_available()
+    _write_city_obj(tmp_path)
+    light = {"pos": [0.0, 30.0, 0.0], "color": [1.0, 1.0, 1.0],
+             "radius": 120.0}
+    srv, cli = socket.socketpair()
+    cli.settimeout(120)
+    err = []
+
+    def run():
+        try:
+            server.serve_connection(srv, str(tmp_path))
+        except Exception as e:
+            err.append(e)
+        finally:
+            srv.close()
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    w, h = 256, 128
+    protocol.send_json(cli, protocol.LoadModel("city.obj", w, h).to_json())
+    assert protocol.recv_json(cli)["type"] == "model_ready"
+    cams = [((9.0, 10.0, 14.0), (0.0, 1.0, 0.0)),
+            ((-12.0, 8.0, 9.0), (1.0, 0.0, 0.0))]
+    got = []
+    for (pos, tgt), gvals in ((cams[0], {}), (cams[1], {}),
+                              (cams[0], {"2": True})):
+        pt.reset_launch_counts()
+        protocol.send_json(cli, protocol.FrameRequest(
+            cam_pos=pos, cam_target=tgt, lights=[light],
+            gvals=gvals).to_json())
+        parts = list(protocol.recv_parts(cli))
+        got.append((protocol.assemble(parts, h, w), protocol.recv_json(cli),
+                    pt.launch_counts()))
+    protocol.send_json(cli, {"type": "finish", "finish": True})
+    th.join(120)
+    cli.close()
+    assert not th.is_alive() and not err, err
+    scene = load_scene(str(tmp_path / "city.obj"), lights=Light.make(
+        light["pos"], light["color"], light["radius"]))
+    for (img, st, counts), ((pos, tgt), stats) in zip(
+            got, ((cams[0], False), (cams[1], False), (cams[0], True))):
+        cam = Camera.look_at(pos=pos, target=tgt)
+        opts = RenderOpts(stats=stats)
+        if stats:
+            ref, kst = render_frame_fast_stats(scene, cam, w, h, opts)
+            want = tree_stats_from_counters(kst, 1).to_dict()
+            assert all(st[k] == want[k] for k in ("intersects",
+                                                  "loop_iters", "rays"))
+            need = ("camera_wl_stats", "shadow_wl_stats")
+        else:
+            ref = render_frame(scene, cam, w, h, opts)
+            need = ("words_camera", "camera_wl", "words_shared",
+                    "shadow_wl")
+        assert all(counts[k] > 0 for k in need), counts
+        np.testing.assert_array_equal(img, to_rgb8(ref))
+        assert st["measured"] is stats and img.max() > 100
+
+
+def test_nccl_world_size_one(tmp_path):
+    """A process group of one rank on NCCL: the sharded frame equals the
+    portable frame and the sharded step the step without a process group,
+    bit for bit (an all-gather and an all-reduce over one rank are the
+    identity)."""
+    import torch.distributed as tdist
+
+    from snail_tpu_torch.parallel import distributed as pdist
+    from snail_tpu_torch.parallel.mesh import (make_mesh,
+                                               render_frame_sharded,
+                                               train_step_sharded)
+    from snail_tpu_torch.render.renderer import render_frame_portable
+
+    _need_cuda()
+    scene, cam, w, h, _ = _scene("city", bounce=True)
+    params = {"tri_a": scene.tri_a, "mat_diffuse": scene.mat_diffuse}
+    target = torch.zeros(h, w, 3, device="cuda")
+    # the backward's scatter-adds are atomic on the card unless in
+    # deterministic mode, where two steps agree bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    alone = train_step_sharded(scene, params, target, cam, w, h, OPTS,
+                               make_mesh())
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                             world_size=1, rank=0)
+    try:
+        assert tdist.get_backend() == "nccl" and pdist.process_count() == 1
+        mesh = pdist.global_mesh()
+        assert mesh.group is not None and (mesh.size, mesh.rank) == (1, 0)
+        assert pdist.replicate_scene(scene, mesh) is scene
+        opts = RenderOpts(textures=False)
+        img = render_frame_sharded(scene, cam, w, h, opts, mesh)
+        assert torch.equal(img, render_frame_portable(scene, cam, w, h,
+                                                      opts))
+        loss, new = train_step_sharded(scene, params, target, cam, w, h,
+                                       OPTS, mesh)
+        assert torch.equal(loss, alone[0])
+        for k in params:
+            assert torch.equal(new[k], alone[1][k]), k
+        rows = pdist.scaling_report(scene, cam, w, h, OPTS, [1, 2],
+                                    frames=1)
+        assert [r["devices"] for r in rows] == [1] and rows[0]["mrays"] > 0
+    finally:
+        tdist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)

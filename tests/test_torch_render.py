@@ -195,9 +195,11 @@ def test_port_renders_without_jax():
     frame, a differentiable one, an instanced and a counter frame, a
     frame of a walk scene (node tables), a 48 x 32 frame through the
     portable integrator, a photon map and a frame and preview with its
-    photon term, iso and mip views of a volume, and a scene loaded from an
+    photon term, iso and mip views of a volume, a scene loaded from an
     OBJ, an MTL and a PNG (load_scene) in textured frames, packed and
-    portable."""
+    portable; the tile codec encodes and decodes a tile, and a frame and
+    a training step run on the trivial mesh (the net, apps and parallel
+    modules import with the rest)."""
     code = textwrap.dedent("""
         import dataclasses
         import importlib
@@ -301,6 +303,23 @@ def test_port_renders_without_jax():
                                 RenderOpts(textures=False))
             assert float(img.max()) > 0.1
             assert float((img - flat).abs().max()) > 0.1
+        from snail_tpu_torch.net import codec
+        from snail_tpu_torch.parallel import distributed as pdist
+        from snail_tpu_torch.parallel.mesh import (render_frame_sharded,
+                                                   train_step_sharded)
+        rgb8 = (np.indices((16, 24)).sum(0) % 7 * 30).astype(np.uint8)
+        rgb8 = np.stack([rgb8] * 3, -1)
+        assert (codec.decode_tile(*codec.encode_tile(rgb8), 16, 24)
+                == rgb8).all()
+        mesh = pdist.global_mesh()
+        img = render_frame_sharded(scene, cam, 32, 32,
+                                   RenderOpts(textures=False), mesh)
+        assert img.shape == (32, 32, 3) and float(img.max()) > 0.1
+        loss, new = train_step_sharded(
+            scene, {"mat_diffuse": scene.mat_diffuse}, img * 0.5, cam, 32,
+            32, RenderOpts(textures=False), mesh)
+        assert float(loss) > 0 and new["mat_diffuse"].shape == (
+            scene.mat_diffuse.shape)
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "snail_tpu")
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

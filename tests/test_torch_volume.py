@@ -267,3 +267,26 @@ def test_dicom_viewer_writes_png(tmp_path, capsys):
     assert np.asarray(Image.open(out3)).max() == 255
     assert "wrote" in capsys.readouterr().out
     assert os.path.exists(out3)
+
+
+def test_corners_index_past_2_31_voxels():
+    """ROADMAP C20: the trilinear taps' flat indices of a (4096, 1024,
+    1024) volume (2^32 voxels) are exact: each tap the per-axis clamped
+    voxel of the JAX package's indexing (``snail_tpu/volume/vtree.py``
+    ``_sample``), flattened in int64, as V1 does in size_t. No volume is
+    allocated."""
+    shape = (4096, 1024, 1024)
+    pts = np.array([[4000.2, 1000.3, 1000.7], [4095.9, 1023.9, 1023.6],
+                    [2048.5, 512.5, 0.2], [0.1, 0.3, 1023.99]], np.float32)
+    idx, f = pv._corners(torch.from_numpy(pts), shape)
+    assert idx.dtype == torch.int64 and idx.shape == (4, 2, 2, 2)
+    q = pts.astype(np.float32) - np.float32(0.5)
+    q0 = np.floor(q).astype(np.int64)
+    top = np.array(shape, np.int64) - 1
+    taps = np.clip(np.stack([q0, q0 + 1], -1), 0, top[:, None])  # (R, 3, 2)
+    z, y, x = taps[:, 0], taps[:, 1], taps[:, 2]
+    want = ((z[:, :, None, None] * shape[1] + y[:, None, :, None])
+            * shape[2] + x[:, None, None, :])
+    np.testing.assert_array_equal(idx.numpy(), want)
+    np.testing.assert_array_equal(f.numpy(), q - np.floor(q))
+    assert want[0, 1, 1, 1] == (4000 * 1024 + 1000) * 1024 + 1001 > 2 ** 31
