@@ -50,8 +50,11 @@ Phases, each printed on its own line:
    B9a on the primary rays, B9b on the frame's shadow rays (and the
    terrain's toward the low light), B9c on the frame's reflection rays and
    on a seeded wavefront, B9d on a seeded shadow wavefront with its own
-   origins; closest hits equal bit for bit where the triangle agrees, the
-   triangle differing only on a distance tie, verdicts identical; and the
+   origins; on the reflection rays also B9c's warps on a few seeded
+   packets, simulated (their outputs the kernel's bit for bit), with the
+   tally of their leaf visits by entering lanes (the ``scan`` lines);
+   closest hits equal bit for bit where the triangle agrees, the triangle
+   differing only on a distance tie, verdicts identical; and the
    walk's counting kernels B9e/B9f on B9a's and B9b's inputs: their
    outputs B9a's and B9b's bit for bit, their counters on a few seeded
    packets equal to the plain versions' simulation of every warp; then the
@@ -97,7 +100,8 @@ Phases, each printed on its own line:
 9. photons on both phase-4 scenes, from their bench light: trace_photons
    with 2^20 photons (as many as the frame's primary rays) on leaf and
    node tables (hits, ms on the host clock, launches), B5/B6 and B9c
-   against their plain versions on 64 sampled packets (a quarter) of the
+   against their plain versions on 64 sampled packets (a quarter; B9c's
+   tally as in phase 5) of the
    photon wavefront and each kernel's time on the whole of it, photon_grid
    at res 64 (host seconds, bytes on the card), the fwd frame with the photon
    term on leaf and node tables as a phase-4 path, its delta over the
@@ -1417,7 +1421,8 @@ def check_walk_kernels(name, kind, scene, cam):
     planes = pt.padded_planes if fat else pt.general_planes
     k = "fat_closest" if fat else "walk_closest_g"
     o, d, tm, _ = planes(*bounce_wavefront(scene, *primary))
-    out[k], _ = check_walk_closest(f"{name} reflections", scene, o, d, tm)
+    out[k], _ = check_walk_closest(f"{name} reflections", scene, o, d, tm,
+                                   scan=True)
     seeded, share = check_walk_closest(
         f"{name} seeded", scene, *seeded_general(scene, p, planes=planes))
     if not 0.02 < share < 0.98:
@@ -1528,12 +1533,52 @@ def check_walk_shadow(name, scene, primary, lp, need_blocked):
     return out
 
 
-def check_walk_closest(name, scene, o, d, tm):
+def closest_tally(name, kernel, o, d, tm, rows, nodes, signs, kern,
+                  seed=6):
+    """B9c's (``signs`` None) or B11b's warps on SIM_PACKETS seeded packets
+    of the planes ``o``, ``d``, ``tm`` with live rays, simulated
+    (ops/traverse_ref.py ``closest_g_sim``): their outputs must equal the
+    kernel's, ``kern``, bit for bit; prints ``scan`` lines of their tally
+    per warp (node steps, leaf visits, the lanes entering them and their
+    rows) and the share of the visits by their entering lanes, which
+    decides how csrc/walk.cuh ``leaf_closest_staged`` tests a leaf (node
+    steps as ``walk`` takes them: B9c's ``walk_pairs`` takes fewer).
+    Returns the tally's sums."""
+    import numpy as np
+    import torch
+
+    from snail_tpu_torch.ops import traverse_ref as ref
+
+    busy = torch.nonzero((tm >= 0).any(1)).flatten().cpu().numpy()
+    pk = torch.from_numpy(np.sort(np.random.default_rng(seed).choice(
+        busy, min(SIM_PACKETS, len(busy)), replace=False))).to(tm.device)
+    sel = lambda c: c.index_select(0, pk).contiguous()
+    out, _, tal = ref.closest_g_sim(
+        tuple(map(sel, o)), tuple(map(sel, d)), sel(tm), rows, nodes,
+        None if signs is None else sel(signs))
+    if not all(torch.equal(a, sel(b)) for a, b in zip(out, kern)):
+        fail(f"{name} {kernel}: the simulation's outputs on packets "
+             f"{pk.tolist()} differ from the kernel's")
+    tally = {"warps": tal.shape[1],
+             **dict(zip(ref.TALLY, tal.sum(1).tolist()))}
+    print_scan(name, kernel, tally)
+    visits = max(tally["visits"], 1)
+    print(f"scan {name} {kernel}: lanes entering a leaf visit (packets "
+          f"{pk.tolist()}, outputs equal to the kernel's): "
+          + ", ".join(f"{b} {tally[b] / visits:.4f}" for b in ref.LANE_BINS)
+          + f" of {tally['visits']} visits; mean "
+          f"{tally['lanes'] / visits:.3f} lanes and "
+          f"{tally['rows'] / visits:.3f} rows a visit", flush=True)
+    return tally
+
+
+def check_walk_closest(name, scene, o, d, tm, scan=False):
     """B9c, or on a fat-leaf scene B11b, against its plain version on the
     planes ``o``, ``d``, ``tm``: the miss and masked conventions exactly
     (B11b's live miss returns min(tmax, BIG)), tri 0 where nothing was
-    hit, the rest as ``closest_equal``. Returns (its entry, hit share of
-    the live rays)."""
+    hit, the rest as ``closest_equal``; with ``scan``, the tally of its
+    warps on a few packets (``closest_tally``). Returns (its entry, hit
+    share of the live rays)."""
     import torch
 
     from snail_tpu_torch.core.vecmath import BIG
@@ -1548,7 +1593,7 @@ def check_walk_closest(name, scene, o, d, tm):
                                                       nodes, work)
         ins, miss_dist = (*o, *d, tm, signs), tm.clamp_max(BIG)
     else:
-        k = "walk_closest_g"
+        k, signs = "walk_closest_g", None
         call = lambda: pt.walk_closest_g(o, d, tm, rows, nodes)
         plain_fn = lambda work: ref.walk_closest_g_plain(o, d, tm, rows,
                                                          nodes, work)
@@ -1564,10 +1609,12 @@ def check_walk_closest(name, scene, o, d, tm):
             and bool((kt[miss | ~live] == 0).all())):
         fail(f"{name} {k}: masked or miss conventions differ")
     err, share = closest_equal(f"{name} {k}", kern, plain, live)
+    extra = ({"scan": closest_tally(name, k, o, d, tm, rows, nodes, signs,
+                                    kern)} if scan else {})
     ms = cuda_ms(call, KERNEL_REPS)
     ops, tree_bytes = walk_work(k, nodes, rows, work)
-    return entry(err, ms, plain_ms, nbytes(*ins, *kern) + tree_bytes,
-                 ops), share
+    return entry(err, ms, plain_ms, nbytes(*ins, *kern) + tree_bytes, ops,
+                 **extra), share
 
 
 def check_walk_seeded_shadows(name, scene, n_packets):
@@ -2067,25 +2114,6 @@ def run_loaded(card, n=24):
                   frame(a, cam, WIDTH, HEIGHT))
 
 
-def photon_planes(scene, seed=0):
-    """The wavefront ``trace_photons(scene, PHOTONS, seed)`` casts from
-    light 0 (the same draws of its seeded generator), as the B5/B6 and B9c
-    kernels take it: the (o, d, tm) planes."""
-    import torch
-
-    from snail_tpu_torch.core.vecmath import BIG
-    from snail_tpu_torch.ops import traverse as pt
-    from snail_tpu_torch.render.photons import _stratified_sphere
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    d = _stratified_sphere(PHOTONS, gen)
-    o = scene.lights.pos[0].expand(PHOTONS, 3)
-    tmax = torch.full((PHOTONS,), BIG, device="cuda")
-    o, d, tm, _ = pt.general_planes(o.unbind(1), d.unbind(1), tmax)
-    return o, d, tm
-
-
 def sample_planes(planes, n, seed=3):
     """``n`` seeded packets of the (o, d, tm) planes."""
     import numpy as np
@@ -2105,13 +2133,16 @@ def photon_kernels(name, scene, walk):
     whole wavefront beside the word boxes B5 passes per packet."""
     from snail_tpu_torch.ops import traverse as pt
 
-    planes = photon_planes(scene)
+    from time_words import photon_planes
+
+    planes = photon_planes(scene, PHOTONS)
     o, d, tm = planes
     sample = sample_planes(planes, PHOTON_PACKETS)
     out, share = check_general(f"{name} photons ({PHOTON_PACKETS} packets)",
                                scene, *sample)
     wout, wshare = check_walk_closest(
-        f"{name} photons ({PHOTON_PACKETS} packets)", walk, *sample)
+        f"{name} photons ({PHOTON_PACKETS} packets)", walk, *sample,
+        scan=True)
     print_checks(f"{name} photons ({PHOTON_PACKETS} sampled packets)",
                  {**out, "walk_closest_g": wout})
     lt = scene.leaves

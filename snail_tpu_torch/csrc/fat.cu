@@ -27,8 +27,11 @@
 //   returns its best: a live miss with a finite tmax returns tmax (:655,
 //   :665); B11c/B11d use the one-sided rule with limit tmax, or -BIG when
 //   masked, and a warp stops once every live lane is blocked (:711-713).
-// One lane loops over its leaf's up to 64 rows from global memory
-// (rays.cuh leaf_closest / leaf_blocks).
+// B11a, B11c and B11d: one lane loops over its leaf's up to 64 rows from
+// global memory (rays.cuh leaf_closest / leaf_blocks). B11b copies each
+// leaf it visits into the warp's shared memory once and tests it lane per
+// triangle, two rows a lane, where few lanes enter it (walk.cuh
+// leaf_closest_staged).
 //
 // What the TPU kernels needed and these do not: the 64-row leaf DMA into
 // VMEM per visited leaf, STACK_CAP = 96 (here depth + 2, from the tree),
@@ -44,6 +47,12 @@
 #include "walk.cuh"
 
 namespace {
+
+// B11b's leaf stage: leaves of at most LEAF_PAD = 64 rows, tested lane per
+// triangle (two rows a lane) where at most kFatLaneTriMax lanes enter (set
+// by a sweep on the H100, PERF.md).
+constexpr int kFatLeafRows = 64;
+constexpr int kFatLaneTriMax = 16;
 
 // B11a: camera raygen + closest hit on the raw rows. Outputs dist, u, v,
 // tri, dx, dy, dz; a miss has dist BIG and tri 0.
@@ -83,7 +92,10 @@ fat_camera_kernel(const float* __restrict__ cam,
 
 // B11b: closest hit of rays with their own origins on the raw rows.
 // Returns each ray's best: its hit, else min(tmax, BIG), or -BIG when
-// masked; tri 0 where nothing was hit.
+// masked; tri 0 where nothing was hit. Leaves through the staged leaf
+// stage (walk.cuh), lane per triangle where at most kFatLaneTriMax lanes
+// enter. It walks with ``walk``: B9c's walk_pairs was slower here, on
+// both leaf-64 bench scenes (PERF.md).
 __global__ void __launch_bounds__(kWalkThreads)
 fat_closest_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                    const float* __restrict__ oz, const float* __restrict__ dx,
@@ -92,8 +104,8 @@ fat_closest_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                    const int32_t* __restrict__ signs,
                    const float* __restrict__ rows,
                    const float4* __restrict__ nodes, int stack_cap,
-                   float* __restrict__ out_dist, float* __restrict__ out_u,
-                   float* __restrict__ out_v,
+                   int leaf_max, float* __restrict__ out_dist,
+                   float* __restrict__ out_u, float* __restrict__ out_v,
                    int32_t* __restrict__ out_tri) {
   const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const float o[3] = {ox[g], oy[g], oz[g]};
@@ -103,13 +115,14 @@ fat_closest_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   float best = tm[g] >= 0.0f ? fminf(tm[g], kBig) : -kBig, bu = 0.0f,
         bv = 0.0f;
   int tri = -1;
+  float4* stage = warp_stage(stack_cap, leaf_max);
   WalkCounts wc;
   walk<false>(nodes, warp_stack(stack_cap), o, idir,
               packet_signs(signs, (int)(g / kPacketR)), [&] { return best; },
               [&](bool enter, int first, int count, int&) {
-                if (enter)
-                  leaf_closest<true>(rows, first, count, o, d, best, tri, bu,
-                                     bv);
+                leaf_closest_staged<kFatLeafRows, kFatLaneTriMax>(
+                    rows, stage, first, count, enter, o, d, best, tri, bu,
+                    bv);
                 return false;
               },
               wc);
@@ -198,18 +211,23 @@ int snail_fat_camera(const float* cam, const int32_t* signs,
   return (int)cudaGetLastError();
 }
 
+// ``leaf_max``: the tree's largest leaf, at most kFatLeafRows; it sizes
+// each warp's leaf stage.
 int snail_fat_closest(const float* ox, const float* oy, const float* oz,
                       const float* dx, const float* dy, const float* dz,
                       const float* tm, const int32_t* signs,
                       const float* rows, const float* nodes, int n_nodes,
-                      int stack_cap, int n_packets, float* dist, float* u,
-                      float* v, int32_t* tri, void* stream) {
-  if (!walk_args_ok(n_nodes, stack_cap, n_packets))
+                      int stack_cap, int leaf_max, int n_packets, float* dist,
+                      float* u, float* v, int32_t* tri, void* stream) {
+  if (!walk_args_ok(n_nodes, stack_cap, n_packets, leaf_max) ||
+      leaf_max < 1 || leaf_max > kFatLeafRows)
     return (int)cudaErrorInvalidValue;
   fat_closest_kernel<<<walk_blocks(n_packets), kWalkThreads,
-                       walk_smem(stack_cap), (cudaStream_t)stream>>>(
+                       walk_smem(stack_cap, leaf_max),
+                       (cudaStream_t)stream>>>(
       ox, oy, oz, dx, dy, dz, tm, signs, rows,
-      reinterpret_cast<const float4*>(nodes), stack_cap, dist, u, v, tri);
+      reinterpret_cast<const float4*>(nodes), stack_cap, leaf_max, dist, u,
+      v, tri);
   return (int)cudaGetLastError();
 }
 

@@ -22,8 +22,14 @@
 // lanes' inverse directions, as _ival_bounds takes the packet's). At a
 // leaf, the lanes that enter it test its triangles with the device
 // functions of the worklist kernels (rays.cuh): shared-origin rows for
-// B9a/B9b, raw rows for B9c/B9d. Any-hit warps stop once every live lane is
-// blocked (_shadow_ival_drain's exit, :1698). B9e/B9f are B9a/B9b with
+// B9a/B9b, raw rows for B9c/B9d. B9c copies each leaf it visits into the
+// warp's shared memory once and tests it lane per triangle where few lanes
+// enter it (walk.cuh leaf_closest_staged): on reflection rays a warp's
+// lanes scatter, and a visit has a handful of entering lanes. Its walk
+// tests both children of a node in one step (walk.cuh walk_pairs), the
+// same leaves in the same order in fewer dependent steps. Any-hit
+// warps stop once every live lane is blocked (_shadow_ival_drain's exit,
+// :1698). B9e/B9f are B9a/B9b with
 // STATS: the walk counts what each warp did (walk.cuh WalkCounts) and lane
 // 0 adds it to the packet's (P, 8) int32 row with integer atomics, so the
 // counts do not depend on the order the warps run in; with STATS false the
@@ -45,11 +51,20 @@
 // memory or float rate; the card hides the latency with many warps (8 per
 // block, blocks limited by registers). The shared-memory stack costs a few
 // hundred bytes per warp; the counters five registers and five atomics per
-// warp.
+// warp. B9c's leaf stage adds 8 warps x 32 rows x 48 B = 12 KB a block at
+// leaf 32: the SM's 228 KB would hold 18 such blocks, more than its 2,048
+// threads (8 blocks) or its registers let in, so it costs no occupancy,
+// only some of the L1 that shares the SM's 256 KB.
 
 #include "walk.cuh"
 
 namespace {
+
+// B9c's leaf stage: leaves of at most IVAL_LEAF = 32 rows, tested lane per
+// triangle where at most kWalkLaneTriMax lanes enter (set by a sweep on
+// the H100, PERF.md).
+constexpr int kWalkLeafRows = 32;
+constexpr int kWalkLaneTriMax = 12;
 
 // B9a / B10a: camera raygen + closest hit on the shared-origin rows. A
 // ray's bound starts at its root-box exit (0 when it misses the box);
@@ -128,7 +143,9 @@ walk_shadow_kernel(const float* __restrict__ orig,
 // B9c / B10c: closest hit of rays with their own origins on the raw rows.
 // A live ray (tmax >= 0) starts at min(tmax, BIG); a miss returns BIG, a
 // masked ray -BIG, and tri is clamped at 0 (_closest_ival_impl_g
-// :2169-2175).
+// :2169-2175). The walk tests a node's two children at once (walk.cuh
+// walk_pairs), and leaves go through the staged leaf stage, lane per
+// triangle where at most kWalkLaneTriMax lanes enter.
 __global__ void __launch_bounds__(kWalkThreads)
 walk_closest_g_kernel(const float* __restrict__ ox,
                       const float* __restrict__ oy,
@@ -139,8 +156,8 @@ walk_closest_g_kernel(const float* __restrict__ ox,
                       const float* __restrict__ tm,
                       const float* __restrict__ rows,
                       const float4* __restrict__ nodes, int stack_cap,
-                      float* __restrict__ out_dist, float* __restrict__ out_u,
-                      float* __restrict__ out_v,
+                      int leaf_max, float* __restrict__ out_dist,
+                      float* __restrict__ out_u, float* __restrict__ out_v,
                       int32_t* __restrict__ out_tri) {
   const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const float o[3] = {ox[g], oy[g], oz[g]};
@@ -150,16 +167,14 @@ walk_closest_g_kernel(const float* __restrict__ ox,
   const bool active = tm[g] >= 0.0f;
   float best = active ? fminf(tm[g], kBig) : -kBig, bu = 0.0f, bv = 0.0f;
   int tri = -1;
-  WalkCounts wc;
-  walk<false>(nodes, warp_stack(stack_cap), o, idir,
-              warp_signs(idir, best > 0.0f), [&] { return best; },
-              [&](bool enter, int first, int count, int&) {
-                if (enter)
-                  leaf_closest<true>(rows, first, count, o, d, best, tri, bu,
-                                     bv);
-                return false;
-              },
-              wc);
+  float4* stage = warp_stage(stack_cap, leaf_max);
+  walk_pairs(nodes, warp_stack(stack_cap), o, idir,
+             warp_signs(idir, best > 0.0f), [&] { return best; },
+             [&](bool enter, int first, int count) {
+               leaf_closest_staged<kWalkLeafRows, kWalkLaneTriMax>(
+                   rows, stage, first, count, enter, o, d, best, tri, bu,
+                   bv);
+             });
   out_dist[g] = tri >= 0 ? best : (active ? kBig : -kBig);
   out_u[g] = bu;
   out_v[g] = bv;
@@ -235,18 +250,22 @@ int snail_walk_shadow(const float* orig, const float* dx, const float* dy,
   return (int)cudaGetLastError();
 }
 
+// ``leaf_max``: the tree's largest leaf, at most kWalkLeafRows; it sizes
+// each warp's leaf stage.
 int snail_walk_closest_g(const float* ox, const float* oy, const float* oz,
                          const float* dx, const float* dy, const float* dz,
                          const float* tm, const float* rows,
                          const float* nodes, int n_nodes, int stack_cap,
-                         int n_packets, float* dist, float* u, float* v,
-                         int32_t* tri, void* stream) {
-  if (!walk_args_ok(n_nodes, stack_cap, n_packets))
+                         int leaf_max, int n_packets, float* dist, float* u,
+                         float* v, int32_t* tri, void* stream) {
+  if (!walk_args_ok(n_nodes, stack_cap, n_packets, leaf_max) ||
+      leaf_max < 1 || leaf_max > kWalkLeafRows)
     return (int)cudaErrorInvalidValue;
   walk_closest_g_kernel<<<walk_blocks(n_packets), kWalkThreads,
-                          walk_smem(stack_cap), (cudaStream_t)stream>>>(
+                          walk_smem(stack_cap, leaf_max),
+                          (cudaStream_t)stream>>>(
       ox, oy, oz, dx, dy, dz, tm, rows, reinterpret_cast<const float4*>(nodes),
-      stack_cap, dist, u, v, tri);
+      stack_cap, leaf_max, dist, u, v, tri);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
 // The warp walk of the node tree, shared by the walk kernels (walk.cu,
 // B9a-f) and the fat-leaf kernels (fat.cu, B11a-d): the node row, the
-// near-child signs, the walk loop, its counters and the launch geometry.
+// near-child signs, the walk loop, its counters, B9c's walk that tests a
+// node's two children at once, the staged closest-hit leaf stage of B9c
+// and B11b, and the launch geometry.
 //
 // One warp walks the tree for its 32 rays with warp-uniform control flow:
 // it pops a node, each lane slab-tests the node against its own ray and
@@ -133,25 +135,223 @@ __device__ __forceinline__ void walk(const float4* nodes, int* stack,
   }
 }
 
+// The walk of B9c: the leaves of ``walk``, in its order, each with the
+// same lanes entering it, in fewer dependent steps. A step at an entered
+// inner node tests both children, adjacent rows (64 bytes), against each
+// lane's bound; the warp goes on into the near child if some lane enters
+// it, else into the far one, and pushes the far child only if some lane
+// enters it and the near one too. Bounds only fall, so a child no lane
+// enters now is entered by none later; a pushed child is tested again when
+// it is popped, since the leaves between may have lowered the bounds, as
+// ``walk`` tests it then. ``leaf(enter, first, count)`` runs at every leaf
+// some lane enters (a closest hit never stops early). On the H100 it took
+// B9c 3-18 % less time than ``walk``; on B11b, whose leaves are larger,
+// it was slower (PERF.md).
+template <typename BoundFn, typename LeafFn>
+__device__ __forceinline__ void walk_pairs(const float4* nodes, int* stack,
+                                           const float o[3],
+                                           const float idir[3],
+                                           const Signs& sg, BoundFn bound,
+                                           LeafFn leaf) {
+  const int lane = threadIdx.x & 31;
+  auto test = [&](const Node& nd) {
+    float tf;
+    bool enter;
+    const float tn = slab_entry(nd.lo, nd.hi, o, idir, tf, enter);
+    return enter && tn < bound();
+  };
+  int sp = 0;
+  Node nd = load_node(nodes, 0);
+  bool enter = test(nd);
+  if (!__any_sync(kFull, enter)) return;
+  for (;;) {
+    if (nd.count > 0) {
+      leaf(enter, nd.child, nd.count);
+    } else {
+      const int s = nd.axis == 0 ? sg.s[0] : nd.axis == 1 ? sg.s[1] : sg.s[2];
+      const int bit = nd.first ^ s;
+      const Node cn = load_node(nodes, nd.child + bit),
+                 cf = load_node(nodes, nd.child + 1 - bit);
+      const bool en = test(cn), ef = test(cf);
+      const bool any_n = __any_sync(kFull, en), any_f = __any_sync(kFull, ef);
+      if (any_n) {
+        if (any_f) {
+          if (lane == 0) stack[sp] = nd.child + 1 - bit;
+          ++sp;
+        }
+        nd = cn;
+        enter = en;
+        continue;
+      }
+      if (any_f) {
+        nd = cf;
+        enter = ef;
+        continue;
+      }
+    }
+    for (;;) {  // pop, up to a node some lane enters
+      if (sp == 0) return;
+      __syncwarp();  // lane 0's pushes are visible to every lane
+      nd = load_node(nodes, stack[--sp]);
+      enter = test(nd);
+      if (__any_sync(kFull, enter)) break;
+    }
+  }
+}
+
 __device__ __forceinline__ int* warp_stack(int stack_cap) {
   extern __shared__ int s_stack[];
   return s_stack + (threadIdx.x >> 5) * stack_cap;
 }
 
+// --- The staged closest-hit leaf stage of B9c and B11b --------------------
+//
+// At a leaf some lane enters, the warp first copies the leaf's rows into
+// its own slice of shared memory, 16 bytes a lane with cp.async: one
+// coalesced copy of at most 1.5 KB (leaf 32) or 3 KB (leaf 64) in place
+// of a chain of 32-64 dependent global loads in every entering lane. A
+// staged row keeps a, ba, ca and n (48 bytes; the row's pad is not
+// copied), so that lanes reading consecutive rows 16 bytes at a time meet
+// no bank conflict: 48 B is 12 banks, and the 8 lanes of each quarter-warp
+// phase cover the 32 banks once.
+//
+// Then the warp tests the rows one of two ways, by how many lanes entered:
+// - few (at most LANE_TRI_MAX): lane per triangle. The warp takes the
+//   entering rays one at a time, broadcasts the ray and its best, lane j
+//   tests rows j and j + 32, and a warp argmin over (distance, row) picks
+//   the hit, the lower row on a tie;
+// - many: lane per ray, each entering lane looping over the staged rows.
+// Both give exactly what the serial loop of leaf_closest gives: its
+// first strictly nearer hit is the nearest row below the best the ray
+// brought into the leaf, the first of equal ones, which is the argmin.
+// Every test is moller_raw + closer_hit, as there.
+
+constexpr int kStageVec = 3;  // float4 of a staged row
+
+// The warp's slice of ``leaf_max`` staged rows, after the warps' stacks
+// (rounded up to 16 bytes).
+__device__ __forceinline__ float4* warp_stage(int stack_cap, int leaf_max) {
+  extern __shared__ int s_stack[];
+  const int off = (kWalkWarps * stack_cap + 3) & ~3;
+  return reinterpret_cast<float4*>(s_stack + off) +
+         (threadIdx.x >> 5) * leaf_max * kStageVec;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// Copies rows first .. first + count - 1 of ``rows`` into the warp's
+// ``stage``; every lane of the warp calls it.
+__device__ __forceinline__ void stage_leaf(const float* rows, int first,
+                                           int count, float4* stage) {
+  const int lane = threadIdx.x & 31;
+  const float4* src = reinterpret_cast<const float4*>(rows) + (size_t)first * 4;
+  __syncwarp();  // every lane is done with the previous leaf's rows
+  for (int c = lane; c < count * kStageVec; c += 32) {
+    const int r = c / kStageVec;
+    cp_async16(stage + c, src + 4 * r + (c - kStageVec * r));
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+}
+
+__device__ __forceinline__ RawRow staged_row(const float4* stage, int j) {
+  const float4 a = stage[kStageVec * j], b = stage[kStageVec * j + 1],
+               c = stage[kStageVec * j + 2];
+  return RawRow{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w};
+}
+
+// The closest hit of this lane's ray over the ``count`` (<= MAX_ROWS) rows
+// from ``first`` of a leaf, if it entered it (``enter``); every lane of
+// the warp calls it. Updates best, tri, bu and bv as leaf_closest<true>.
+template <int MAX_ROWS, int LANE_TRI_MAX>
+__device__ __forceinline__ void leaf_closest_staged(
+    const float* rows, float4* stage, int first, int count, bool enter,
+    const float o[3], const float d[3], float& best, int& tri, float& bu,
+    float& bv) {
+  static_assert(MAX_ROWS % 32 == 0, "rows are tested 32 a step");
+  const int lane = threadIdx.x & 31;
+  stage_leaf(rows, first, count, stage);
+  const unsigned in = __ballot_sync(kFull, enter);
+  if (__popc(in) > LANE_TRI_MAX) {
+    if (enter)
+      for (int j = 0; j < count; ++j) {
+        float dist, u, v;
+        if (closer_hit(moller_raw(o, d, staged_row(stage, j)), best, dist, u,
+                       v)) {
+          best = dist;
+          tri = first + j;
+          bu = u;
+          bv = v;
+        }
+      }
+    return;
+  }
+  for (unsigned m = in; m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    float ro[3], rd[3];
+    for (int k = 0; k < 3; ++k) {
+      ro[k] = __shfl_sync(kFull, o[k], src);
+      rd[k] = __shfl_sync(kFull, d[k], src);
+    }
+    const float rb = __shfl_sync(kFull, best, src);
+    // this lane's nearest hit below rb over its rows; a hit's distance is
+    // > 0, so its bits order as the floats do, and no hit is ~0u
+    unsigned key = ~0u;
+    int jb = 0;
+    float hu = 0.0f, hv = 0.0f;
+#pragma unroll
+    for (int r = 0; r < MAX_ROWS / 32; ++r) {
+      const int j = lane + 32 * r;
+      float dist, u, v;
+      if (j < count &&
+          closer_hit(moller_raw(ro, rd, staged_row(stage, j)), rb, dist, u,
+                     v) &&
+          __float_as_uint(dist) < key) {
+        key = __float_as_uint(dist);
+        jb = j;
+        hu = u;
+        hv = v;
+      }
+    }
+    const unsigned kmin = __reduce_min_sync(kFull, key);
+    if (kmin == ~0u) continue;
+    const unsigned jmin =
+        __reduce_min_sync(kFull, key == kmin ? (unsigned)jb : ~0u);
+    const float wu = __shfl_sync(kFull, hu, jmin & 31),
+                wv = __shfl_sync(kFull, hv, jmin & 31);
+    if (lane == src) {
+      best = __uint_as_float(kmin);
+      tri = first + (int)jmin;
+      bu = wu;
+      bv = wv;
+    }
+  }
+}
+
 // Launch geometry: one thread per ray, kWalkThreads per block; the rays
 // are whole packets. The launchers return cudaErrorInvalidValue for
-// arguments the kernels do not take.
-inline bool walk_args_ok(int n_nodes, int stack_cap, int n_packets) {
-  return n_nodes > 0 && stack_cap >= 2 && n_packets > 0 &&
-         kWalkWarps * stack_cap * (int)sizeof(int) <= 48 * 1024;
+// arguments the kernels do not take. ``leaf_rows``: the rows of each
+// warp's leaf stage (the tree's largest leaf), 0 for a kernel without one.
+inline size_t walk_smem(int stack_cap, int leaf_rows = 0) {
+  const size_t stack = (size_t)kWalkWarps * stack_cap * sizeof(int);
+  if (leaf_rows == 0) return stack;
+  return (stack + 15) / 16 * 16 +
+         (size_t)kWalkWarps * leaf_rows * kStageVec * sizeof(float4);
+}
+
+inline bool walk_args_ok(int n_nodes, int stack_cap, int n_packets,
+                         int leaf_rows = 0) {
+  return n_nodes > 0 && stack_cap >= 2 && n_packets > 0 && leaf_rows >= 0 &&
+         walk_smem(stack_cap, leaf_rows) <= 48 * 1024;
 }
 
 inline int walk_blocks(int n_packets) {
   return n_packets * (kPacketR / kWalkThreads);
-}
-
-inline size_t walk_smem(int stack_cap) {
-  return (size_t)kWalkWarps * stack_cap * sizeof(int);
 }
 
 }  // namespace

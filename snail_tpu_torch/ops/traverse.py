@@ -1450,7 +1450,8 @@ def walk_closest_g(o, d, tm, rows, nodes: NodeTables):
     ``_closest_ival_kernel_g_paged``); ``o``/``d`` three and ``tm`` one
     (P, PACKET_R) planes, masked rays substituted. Returns B6's outputs
     (dist, u, v, tri): a miss has dist BIG, a masked ray -BIG, tri is
-    clamped at 0."""
+    clamped at 0. The kernel stages leaves of up to IVAL_LEAF rows; a
+    tree with larger ones is the fat-leaf kernels' (:func:`fat_closest`)."""
     if not _on_cuda(tm):
         from .traverse_ref import walk_closest_g_plain
 
@@ -1462,13 +1463,17 @@ def walk_closest_g(o, d, tm, rows, nodes: NodeTables):
     _check_planes((*o, *d, tm), p, dev)
     _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
     _check_nodes(nodes, dev)
+    if nodes.leaf_max > IVAL_LEAF:
+        raise ValueError(f"leaf of {nodes.leaf_max} triangles > IVAL_LEAF "
+                         f"({IVAL_LEAF}): walk_closest_g stages leaves of "
+                         f"up to {IVAL_LEAF}; use fat_closest")
     dist, u, v = (torch.empty((p, PACKET_R), dtype=torch.float32,
                               device=dev) for _ in range(3))
     tri = torch.empty((p, PACKET_R), dtype=torch.int32, device=dev)
     _launched(library().snail_walk_closest_g(
         *(_ptr(t) for t in (*o, *d, tm)), _ptr(rows), _ptr(nodes.node),
-        nodes.n_nodes, nodes.stack_cap, p, _ptr(dist), _ptr(u), _ptr(v),
-        _ptr(tri), _stream()), "walk_closest_g")
+        nodes.n_nodes, nodes.stack_cap, nodes.leaf_max, p, _ptr(dist),
+        _ptr(u), _ptr(v), _ptr(tri), _stream()), "walk_closest_g")
     walk_closest_g.launches += 1
     return dist, u, v, tri
 
@@ -1583,8 +1588,8 @@ def fat_closest(o, d, tm, signs, rows, nodes: NodeTables):
     tri = torch.empty((p, PACKET_R), dtype=torch.int32, device=dev)
     _launched(library().snail_fat_closest(
         *(_ptr(t) for t in (*o, *d, tm)), _ptr(signs), _ptr(rows),
-        _ptr(nodes.node), nodes.n_nodes, nodes.stack_cap, p, _ptr(dist),
-        _ptr(u), _ptr(v), _ptr(tri), _stream()), "fat_closest")
+        _ptr(nodes.node), nodes.n_nodes, nodes.stack_cap, nodes.leaf_max, p,
+        _ptr(dist), _ptr(u), _ptr(v), _ptr(tri), _stream()), "fat_closest")
     fat_closest.launches += 1
     return dist, u, v, tri
 

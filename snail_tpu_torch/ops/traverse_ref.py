@@ -2,7 +2,8 @@
 stack walk over the node tree on tensors, and the plain versions of the
 walk kernels B9a-d (``csrc/walk.cu``) and of the fat-leaf kernels B11a-d
 (``csrc/fat.cu``) built on it; and a simulation of every warp's walk, the
-plain versions of the counting walk kernels B9e/B9f.
+plain versions of the counting walk kernels B9e/B9f, which also tallies
+the leaf visits of B9c's and B11b's warps (:func:`closest_g_sim`).
 
 Each ray keeps its own stack of ``NodeTables.stack_cap`` = depth + 2
 entries, sized from the tree (the JAX oracle clamps at 66 entries,
@@ -258,15 +259,28 @@ def walk_closest_g_plain(o, d, tm, rows, nodes: NodeTables, work=None):
     ``o``/``d`` three and ``tm`` one (P, PACKET_R) planes. A live ray
     starts at min(tmax, BIG). Returns (dist, u, v, tri): a miss has dist
     BIG, a masked ray -BIG, tri is clamped at 0."""
-    active = tm >= 0.0
-    best0 = torch.where(active, tm.clamp_max(BIG), -BIG).reshape(-1)
     best, tri, u, v = walk_plain(nodes, [c.reshape(-1) for c in o],
-                                 [c.reshape(-1) for c in d], best0, rows,
-                                 True, True, work)
+                                 [c.reshape(-1) for c in d], _best0(tm),
+                                 rows, True, True, work)
+    return _closest_g_out(best, tri, u, v, tm, False)
+
+
+def _best0(tm):
+    """B9c's and B11b's starting best of each ray, flat: min(tmax, BIG),
+    or -BIG where tmax < 0 masks the ray."""
+    return torch.where(tm >= 0.0, tm.clamp_max(BIG), -BIG).reshape(-1)
+
+
+def _closest_g_out(best, tri, u, v, tm, fat: bool):
+    """B9c's (``fat`` False) or B11b's outputs (dist, u, v, tri) from the
+    walk's flat per-ray results, shaped as ``tm``: tri clamped at 0, and a
+    ray that hit nothing has dist BIG (B9c; B11b: its best, min(tmax,
+    BIG)), a masked ray -BIG."""
     shape = tm.shape
     tri = tri.reshape(shape)
-    dist = torch.where(tri >= 0, best.reshape(shape),
-                       torch.where(active, BIG, -BIG))
+    dist = best.reshape(shape)
+    if not fat:
+        dist = torch.where(tri >= 0, dist, torch.where(tm >= 0.0, BIG, -BIG))
     return (dist, u.reshape(shape), v.reshape(shape),
             tri.clamp_min(0).to(torch.int32))
 
@@ -309,14 +323,11 @@ def fat_closest_plain(o, d, tm, signs, rows, nodes: NodeTables, work=None):
     children by ``signs`` (P, 3). Returns (dist, u, v, tri): each ray's
     best, starting at min(tmax, BIG), or -BIG when masked; tri 0 where
     nothing was hit."""
-    best0 = torch.where(tm >= 0.0, tm.clamp_max(BIG), -BIG).reshape(-1)
     best, tri, u, v = walk_plain(nodes, [c.reshape(-1) for c in o],
-                                 [c.reshape(-1) for c in d], best0, rows,
-                                 True, True, work,
+                                 [c.reshape(-1) for c in d], _best0(tm),
+                                 rows, True, True, work,
                                  _ray_signs(signs, PACKET_R))
-    shape = tm.shape
-    return (best.reshape(shape), u.reshape(shape), v.reshape(shape),
-            tri.clamp_min(0).to(torch.int32).reshape(shape))
+    return _closest_g_out(best, tri, u, v, tm, True)
 
 
 def fat_shadow_plain(orig, d, tm, signs, rows, nodes: NodeTables,
@@ -344,17 +355,31 @@ def fat_shadow_g_plain(o, d, tm, signs, rows, nodes: NodeTables, work=None):
 # --- The counters of B9e/B9f: a simulation of every warp's walk ---------
 
 
+# The tally of a warp walk (``_WarpWalk.tally``), per warp: node rows
+# loaded (loop steps), leaf visits (leaves some lane enters), the lanes
+# that enter them and the rows of the leaves visited, summed over the
+# visits, and the visits by their entering lanes: 1, 2-4, 5-8, 9-16, 17-32
+# (the two ways csrc/walk.cuh leaf_closest_staged tests a leaf).
+LANE_BINS = ("1", "2-4", "5-8", "9-16", "17-32")
+TALLY = ("nodes", "visits", "lanes", "rows") + LANE_BINS
+_BIN_EDGES = (1, 4, 8, 16)
+
+
 class _WarpWalk(_Walk):
     """Every warp's walk as the kernels run it (``csrc/walk.cuh`` ``walk``),
     with the counters of ``WalkCounts``: a warp loads a node, each lane
     slab-tests it against its own bound, and the warp descends where some
     lane enters it; at a leaf the lanes that enter it test its triangles;
     an any-hit warp stops after a leaf once every live lane is blocked.
-    Warps are a batch dimension, lanes the rays of the per-ray state."""
+    Warps are a batch dimension, lanes the rays of the per-ray state.
+    ``signs``: each ray's near-child signs, (R, 3) int64 (B11's, each
+    packet's), or None for its warp's (B9). Besides the counters, it keeps
+    ``tally`` (len(TALLY), n_warps) int64: the rows of :data:`TALLY`."""
 
     def __init__(self, nodes: NodeTables, o, d, bound0, rows, raw: bool,
-                 closest: bool):
-        super().__init__(nodes, o, d, bound0, rows, raw, closest, None)
+                 closest: bool, signs=None):
+        super().__init__(nodes, o, d, bound0, rows, raw, closest, None,
+                         signs)
         dev = bound0.device
         nw = bound0.shape[0] // WARP
         self.live0 = bound0 > 0.0
@@ -366,6 +391,23 @@ class _WarpWalk(_Walk):
         self.wactive = torch.ones(nw, dtype=torch.bool, device=dev)
         # nodes, leaves, quarters, tri_blocks, chunks per warp
         self.counts = torch.zeros((5, nw), dtype=torch.int64, device=dev)
+        self.tally = torch.zeros((len(TALLY), nw), dtype=torch.int64,
+                                 device=dev)
+        self._edges = torch.tensor(_BIN_EDGES, device=dev)
+
+    def _tally(self, idx, enter, at_leaf, cnt):
+        """Adds a step of warps ``idx`` to the tally: ``enter`` (n, WARP)
+        the lanes entering each warp's node, ``at_leaf`` the warps at a
+        leaf some lane enters, ``cnt`` its rows."""
+        t = self.tally
+        t[0, idx] += 1
+        lanes = enter.sum(1)
+        wi, n_in = idx[at_leaf], lanes[at_leaf]
+        t[1, wi] += 1
+        t[2, wi] += n_in
+        t[3, wi] += cnt[at_leaf]
+        b = 4 + torch.bucketize(n_in, self._edges)
+        t.index_put_((b, wi), torch.ones_like(wi), accumulate=True)
 
     def step(self) -> bool:
         """One node per walking warp; False once no warp walks."""
@@ -389,6 +431,7 @@ class _WarpWalk(_Walk):
         enter = ((tn <= tf) & (tf > 0.0) & (tn < bound)).reshape(-1, WARP)
         some = enter.any(1)
         at_leaf, inner = some & (cnt > 0), some & (cnt == 0)
+        self._tally(idx, enter, at_leaf, cnt)
         stop = torch.zeros_like(some)
         if bool(at_leaf.any()):
             wi, _ = torch.nonzero(enter & at_leaf[:, None], as_tuple=True)
@@ -452,3 +495,20 @@ def walk_shadow_stats_plain(orig, d, tm, rows, nodes: NodeTables):
                   rows, False, False)
     stats = w.run()
     return w.blocked.float().reshape(tm.shape), stats
+
+
+def closest_g_sim(o, d, tm, rows, nodes: NodeTables, signs=None):
+    """B9c (``signs`` None: each warp's own signs) or B11b (``signs`` (P,
+    3): each packet's) on the planes ``o``/``d`` (three) and ``tm`` (P,
+    PACKET_R), simulated warp by warp. Returns (the kernel's outputs as
+    :func:`walk_closest_g_plain` / :func:`fat_closest_plain` give them,
+    its counters int32 (P, 8) as B9e's, its tally: ``_WarpWalk.tally``
+    (len(TALLY), P * WARPS)). The simulation walks as ``walk`` does; B9c
+    (``walk_pairs``) visits the same leaves with the same lanes, in fewer
+    node steps than the tally's."""
+    w = _WarpWalk(nodes, [c.reshape(-1) for c in o],
+                  [c.reshape(-1) for c in d], _best0(tm), rows, True, True,
+                  None if signs is None else _ray_signs(signs, PACKET_R))
+    stats = w.run()
+    out = _closest_g_out(w.bound, w.tri, w.bu, w.bv, tm, signs is not None)
+    return out, stats, w.tally

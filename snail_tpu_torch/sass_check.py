@@ -1,15 +1,16 @@
-"""Compiled code of the worklist kernels against another tree's.
+"""Compiled code of the kernels against another tree's.
 
     python -m snail_tpu_torch.sass_check OTHER_TREE [--out FILE]
 
-Compiles ``snail_tpu_torch/csrc/worklist.cu`` of this tree and of
+Compiles every kernel source of ``snail_tpu_torch/csrc`` (``ops/_build.py``
+SOURCES: worklist.cu, walk.cu, fat.cu, volume.cu) of this tree and of
 ``OTHER_TREE`` (a checkout of another commit) with the build's flags
-(``ops/_build.py``: sm_90a, ``--fmad=false``, ``-Xptxas -v``), and prints
-for each kernel of either the registers, stack and spills that ptxas
-reports, its SASS instruction count (``cuobjdump -sass``) and whether
-its SASS is the other tree's instruction for instruction. With ``--out``
-the SASS of both trees goes to FILE. Needs ``nvcc`` and ``cuobjdump``
-(the CUDA toolkit), no card.
+(``ops/_build.py``: sm_90a, ``--fmad=false``, ``-Xptxas -v``), all at
+once, and prints for each kernel of either the registers, stack and spills
+that ptxas reports, its SASS instruction count (``cuobjdump -sass``) and
+whether its SASS is the other tree's instruction for instruction. With
+``--out`` the SASS of both trees goes to FILE. Needs ``nvcc`` and
+``cuobjdump`` (the CUDA toolkit), no card.
 """
 
 from __future__ import annotations
@@ -20,11 +21,10 @@ import re
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from .ops._build import CSRC, NVCC_FLAGS, _nvcc
-
-SOURCE = "worklist.cu"
+from .ops._build import CSRC, NVCC_FLAGS, SOURCES, _nvcc
 
 
 def _demangle(names):
@@ -49,7 +49,11 @@ def _demangle(names):
 
 def compile_source(src: Path, tmp: Path):
     """(ptxas report, SASS) of one source: {kernel: {regs, stack, spill
-    stores, spill loads}}, {kernel: [instruction lines]}."""
+    stores, spill loads}}, {kernel: [instruction lines]}; ({}, {}) where
+    the tree has no such source. ``tmp``: a directory of its own."""
+    if not src.exists():
+        return {}, {}
+    tmp.mkdir(parents=True)
     obj = tmp / "k.o"
     res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(src.parent), "-c",
                           "-o", str(obj), str(src)],
@@ -96,26 +100,32 @@ def main() -> None:
     ap.add_argument("other", type=Path)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
-    with tempfile.TemporaryDirectory() as tmp:
-        ours = compile_source(CSRC / SOURCE, Path(tmp))
-        theirs = compile_source(
-            args.other / "snail_tpu_torch" / "csrc" / SOURCE, Path(tmp))
+    trees = {"this": CSRC, "other": args.other / "snail_tpu_torch" / "csrc"}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor() as ex:
+        jobs = {(tree, name): ex.submit(compile_source, csrc / name,
+                                        Path(tmp) / tree / name)
+                for tree, csrc in trees.items() for name in SOURCES}
+        done = {key: job.result() for key, job in jobs.items()}
     rows = []
-    for k in sorted(set(ours[1]) | set(theirs[1])):
-        a, b = ours[1].get(k), theirs[1].get(k)
-        rows.append({"kernel": k, "this": ours[0].get(k),
-                     "other": theirs[0].get(k),
-                     "instructions": [len(a or []), len(b or [])],
-                     "identical": a is not None and a == b})
-        print(f"{k}: this {ours[0].get(k)} {len(a or [])} instructions; "
-              f"other {theirs[0].get(k)} {len(b or [])} instructions; SASS "
-              f"{'identical' if rows[-1]['identical'] else 'differs'}",
-              flush=True)
+    for name in SOURCES:
+        (rep_a, ours), (rep_b, theirs) = (done["this", name],
+                                          done["other", name])
+        for k in sorted(set(ours) | set(theirs)):
+            a, b = ours.get(k), theirs.get(k)
+            rows.append({"source": name, "kernel": k, "this": rep_a.get(k),
+                         "other": rep_b.get(k),
+                         "instructions": [len(a or []), len(b or [])],
+                         "identical": a is not None and a == b})
+            print(f"{name} {k}: this {rep_a.get(k)} {len(a or [])} "
+                  f"instructions; other {rep_b.get(k)} {len(b or [])} "
+                  f"instructions; SASS "
+                  f"{'identical' if rows[-1]['identical'] else 'differs'}",
+                  flush=True)
     if args.out:
         args.out.write_text("\n".join(
-            f"== {tree} {k}\n" + "\n".join(c)
-            for tree, sass in (("this", ours[1]), ("other", theirs[1]))
-            for k, c in sorted(sass.items())))
+            f"== {tree} {name} {k}\n" + "\n".join(c)
+            for tree in trees for name in SOURCES
+            for k, c in sorted(done[tree, name][1].items())))
     print(json.dumps(rows))
 
 

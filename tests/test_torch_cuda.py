@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from snail_tpu_torch.bvh import build_bvh
+from snail_tpu_torch.bvh.build import BVH
 from snail_tpu_torch.core.types import Camera, Light, RenderOpts
 from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
@@ -32,6 +33,7 @@ from snail_tpu_torch.render.renderer import render_frame
 from snail_tpu_torch.scene import instancing
 from snail_tpu_torch.scene.bench_scenes import (STEP_OPTS, bench_scene,
                                                 bench_step, bounce_materials)
+from snail_tpu_torch.scene.base_scene import FlatGeometry
 from snail_tpu_torch.scene.procedural import city_scene, terrain_scene
 from snail_tpu_torch.scene.scene import make_traced_scene
 
@@ -997,6 +999,132 @@ def test_fat_closest_kernel_matches_plain(which):
     assert bool((tm[miss] < BIG).any())
     hit = live & (kd < tm.clamp_max(BIG))
     _assert_closest_equal(kern, plain, (hit | miss).cpu().numpy())
+
+
+# the leaf sizes of the staged-leaf tests: B9c's leaves of 1-32 rows,
+# B11b's of 33-64
+STAGED_LEAVES = {"walk": (1, 31, 32, 17, 2), "fat": (33, 63, 64, 48, 40)}
+
+
+def _leaf_scene(sizes, device, seed=21):
+    """A scene of leaves side by side along x under a balanced tree of
+    hand-built inner nodes: leaf i, in the cell x in [3i, 3i + 2], holds
+    sizes[i] triangles parallel to the z = 0 plane at z = 0.05 j in a
+    seeded order, and two more of them at z = 0, the nearest (exact
+    distance ties; rows j and j + 32 on a leaf of more than 32)."""
+    rng = np.random.default_rng(seed)
+    a, first = [], []
+    for i, s in enumerate(sizes):
+        z = rng.permutation(s).astype(np.float32) * np.float32(0.05)
+        if s > 1:
+            j = int(rng.integers(0, s - 32)) if s > 32 else 0
+            z[[j, j + 32] if s > 32 else rng.choice(s, 2, replace=False)] = 0
+        first.append(len(a))
+        a += [(3.0 * i, 0.0, zj) for zj in z]
+    a = np.float32(a)
+    lo_t, hi_t = a, a + np.float32([2.0, 2.0, 0.0])
+    # breadth first, so that a node's two children are adjacent
+    under, child = [list(range(len(sizes)))], [0]
+    for n, leaves in enumerate(under):
+        if len(leaves) > 1:
+            child[n] = len(under)
+            h = len(leaves) // 2
+            under += [leaves[:h], leaves[h:]]
+            child += [0, 0]
+    tris = lambda ls: np.concatenate([np.arange(first[i], first[i] + sizes[i])
+                                      for i in ls])
+    node_lo = np.float32([lo_t[tris(ls)].min(0) for ls in under])
+    node_hi = np.float32([hi_t[tris(ls)].max(0) for ls in under])
+    count = np.int32([sizes[ls[0]] if len(ls) == 1 else 0 for ls in under])
+    child = np.int32([first[ls[0]] if len(ls) == 1 else c
+                      for ls, c in zip(under, child)])
+    zero = np.zeros(len(under), np.int32)
+    n = len(a)
+    bvh = BVH(node_lo, node_hi, child, count, zero, zero,
+              np.arange(n, dtype=np.int32), pt.tree_depth(child, count))
+    z0 = np.zeros((n, 3), np.float32)
+    up = z0 + np.float32([0.0, 0.0, 1.0])
+    geom = FlatGeometry(
+        a=a, ba=np.tile(np.float32([2.0, 0.0, 0.0]), (n, 1)),
+        ca=np.tile(np.float32([0.0, 2.0, 0.0]), (n, 1)), nrm=up,
+        t0=np.full(n, 4.0, np.float32), uv0=z0[:, :2], uv_e1=z0[:, :2],
+        uv_e2=z0[:, :2], n0=up, n_e1=z0, n_e2=z0,
+        mat_id=np.zeros(n, np.int32))
+    return make_traced_scene(geom, bvh, device=device, walk=True)
+
+
+def _lane_rays(n_leaves, device, seed=23):
+    """Two packets of rays with their own origins as (o, d, tm) planes, and
+    the lanes of each warp that enter a leaf: warp w aims k = w % 32 + 1
+    seeded lanes at leaf (w // 32) % n_leaves, from z = -1 along +z, a
+    little tilted, half with tmax BIG and half a finite tmax past the
+    leaf; of its other lanes, half are masked (tmax -BIG, garbage origins
+    and directions) and half are live misses along -z with a finite tmax
+    (ROADMAP C13)."""
+    rng = np.random.default_rng(seed)
+    nw = 2 * pt.WARPS
+    k = np.arange(nw) % pt.WARP + 1
+    o, d = np.zeros((2, nw, pt.WARP, 3))
+    tm = np.zeros((nw, pt.WARP))
+    cell = lambda leaf, m: np.stack([3.0 * leaf + rng.uniform(0.1, 0.7, m),
+                                     rng.uniform(0.1, 0.7, m),
+                                     np.full(m, -1.0)], 1)
+    for w in range(nw):
+        leaf = (w // pt.WARP) % n_leaves
+        aim = rng.permutation(pt.WARP) < k[w]
+        rest = np.flatnonzero(~aim)
+        masked, away = rest[::2], rest[1::2]
+        o[w, aim] = cell(leaf, k[w])
+        d[w, aim, :2] = rng.uniform(-0.02, 0.02, (k[w], 2))
+        d[w, aim, 2] = 1.0
+        tm[w, aim] = np.where(rng.random(k[w]) < 0.5, BIG, 5.0)
+        o[w, masked], d[w, masked], tm[w, masked] = 1e30, (3, -7, 0.5), -BIG
+        o[w, away], d[w, away] = cell(leaf, len(away)), (0.01, 0.0, -1.0)
+        tm[w, away] = rng.uniform(1.0, 4.0, len(away))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pk = lambda x: torch.from_numpy(np.ascontiguousarray(
+        x, np.float32).reshape(2, pt.PACKET_R)).to(device)
+    return (tuple(pk(o[..., c]) for c in range(3)),
+            tuple(pk(d[..., c]) for c in range(3)), pk(tm), k)
+
+
+@pytest.mark.parametrize("kind", list(STAGED_LEAVES))
+def test_staged_closest_kernel_matches_plain_exactly(kind):
+    """B9c (``walk``) and B11b (``fat``), whose leaf stage tests a leaf
+    lane per triangle where at most a threshold of lanes enter it and lane
+    per ray above: every output equal to the plain version's, tri
+    included, with 1 to 32 lanes entering a leaf (both ways, whatever the
+    threshold), leaves of 1, 31, 32 (B9c) and 33, 63, 64 rows (B11b),
+    exact distance ties in a leaf, masked rays with garbage planes and
+    live misses with a finite tmax."""
+    _need_cuda()
+    sizes = STAGED_LEAVES[kind]
+    scene = _leaf_scene(sizes, "cuda")
+    assert scene.nodes.leaf_max == max(sizes)
+    assert pt.is_fat(scene) == (kind == "fat")
+    o, d, tm, _ = _lane_rays(len(sizes), "cuda")
+    rows, nodes = scene.tri_rows, scene.nodes
+    if kind == "fat":
+        signs = pt.packet_signs(d)
+        kern = pt.fat_closest(o, d, tm, signs, rows, nodes)
+        plain = fat_closest_plain(o, d, tm, signs, rows, nodes)
+        miss_dist = tm.clamp_max(BIG)
+    else:
+        kern = pt.walk_closest_g(o, d, tm, rows, nodes)
+        plain = walk_closest_g_plain(o, d, tm, rows, nodes)
+        miss_dist = torch.full_like(tm, BIG)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+    kd, kt = kern[0], kern[3]
+    live = tm >= 0
+    hit = live & (kd < miss_dist)
+    assert bool((kd[~live] == -BIG).all()) and bool((kt[~hit] == 0).all())
+    assert bool((kd[live & ~hit] == miss_dist[live & ~hit]).all())
+    assert bool((tm[live & ~hit] < BIG).any())
+    # every aimed ray hits the nearest triangle of its leaf, z = 0
+    assert int(hit.sum()) == 2 * pt.WARPS * (pt.WARP + 1) // 2
+    assert torch.equal(scene.tri_a[kt[hit].long(), 2],
+                       torch.zeros_like(kd[hit]))
 
 
 @pytest.mark.parametrize("which", SCENES)

@@ -44,6 +44,9 @@ from snail_tpu_torch.bvh import build_bvh as p_build_bvh
 from snail_tpu_torch.core.types import Camera, RenderOpts
 from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
+from snail_tpu_torch.ops.traverse_ref import (LANE_BINS, TALLY,
+                                              closest_g_sim,
+                                              fat_closest_plain)
 from snail_tpu_torch.render.fast import (render_frame_fast,
                                          render_frame_fast_diff,
                                          render_frame_fast_stats,
@@ -446,3 +449,50 @@ def test_fat_counter_frame_raises(scenes):
     d, tm = _shadow_rays(scenes[0])
     with pytest.raises(ValueError, match="IVAL_LEAF"):
         pt.any_hit_shared_stats(ps, _t(np.float32(LIGHT[0])), _p3(d), _t(tm))
+
+
+def test_fat_closest_tally_matches_counters(scenes):
+    """B11b's warps simulated (``closest_g_sim`` with each packet's ray-0
+    signs) on two packets of seeded rays, as the caller gives them (masked
+    rays not substituted; packet 0's warps coherent, packet 1's
+    scattered): their outputs are ``fat_closest_plain``'s bit for bit,
+    and their tally holds against their counters: node steps are the
+    ``nodes`` slot, leaf visits the ``quarters`` slot, the visits by
+    entering lanes sum to the visits."""
+    _, ps, _, _ = scenes
+    rng = np.random.default_rng(17)
+    lo, hi = ps.root_lo.numpy(), ps.root_hi.numpy()
+    nw, ext = 2 * pt.WARPS, hi - lo
+    spread = np.where(np.arange(nw) < pt.WARPS, 0.01, 0.3)[:, None, None]
+    o = (rng.uniform(lo, hi, (nw, 1, 3))
+         + rng.uniform(-1.0, 1.0, (nw, pt.WARP, 3)) * spread * ext)
+    d = (rng.normal(size=(nw, 1, 3)) + [0.3, -0.8, 0.2]
+         + rng.normal(size=(nw, pt.WARP, 3)) * 0.3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    tm = np.full(len(o), BIG)
+    tm[1::3] = rng.uniform(0.5, 6.0, len(tm[1::3]))
+    tm[::11] = -BIG
+    o[::11] = 1e30
+    pk = lambda a: _t(a.astype(np.float32).reshape(2, -1))
+    o, d = (tuple(pk(x[:, k]) for k in range(3)) for x in (o, d))
+    tm = pk(tm)
+    signs = pt.packet_signs(d)
+    out, stats, tally = closest_g_sim(o, d, tm, ps.tri_rows, ps.nodes,
+                                      signs)
+    plain = fat_closest_plain(o, d, tm, signs, ps.tri_rows, ps.nodes)
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    live = tm >= 0
+    assert 0.2 < float((out[0][live] < tm.clamp_max(BIG)[live]).float()
+                       .mean()) < 1.0
+    t = dict(zip(TALLY, tally))
+    packet = lambda x: x.reshape(-1, pt.WARPS).sum(1)
+    assert torch.equal(packet(t["nodes"]), stats[:, 0].long())
+    assert torch.equal(packet(t["visits"]), stats[:, 2].long())
+    assert torch.equal(packet(t["rows"]), stats[:, 3].long())
+    assert torch.equal(sum(t[b] for b in LANE_BINS), t["visits"])
+    assert ((t["visits"] <= t["lanes"])
+            & (t["lanes"] <= pt.WARP * t["visits"])).all()
+    # leaves of 33-64 rows, entered by one lane and by many
+    assert int(t["rows"].sum()) > pt.IVAL_LEAF * int(t["visits"].sum()) // 2
+    assert int(t["1"].sum()) > 0 and int(t["17-32"].sum()) > 0

@@ -40,7 +40,10 @@ from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
 from snail_tpu_torch.ops.intersect import (intersect_any_brute_force,
                                            intersect_brute_force)
-from snail_tpu_torch.ops.traverse_ref import (walk_camera_stats_plain,
+from snail_tpu_torch.ops.traverse_ref import (LANE_BINS, TALLY,
+                                              closest_g_sim,
+                                              walk_camera_stats_plain,
+                                              walk_closest_g_plain,
                                               walk_plain,
                                               walk_shadow_stats_plain)
 from snail_tpu_torch.render.fast import (render_frame_fast,
@@ -452,3 +455,62 @@ def test_walk_counter_frame_matches_fwd_frame(scenes):
     assert st["tri_blocks"] >= st["quarters"] and st["chunks"] > 0
     *_, primary = pt.camera_trace_stats(ps, pcam, W, H)
     assert st["nodes"] > int(primary[:, 0].sum())  # the shadow rays count
+
+
+def _packet_rays(lo, hi, n_packets, seed):
+    """``n_packets`` packets of seeded rays with their own origins as the
+    (o, d, tm) planes of B9c/B11b: each warp's rays leave points near a
+    seeded point of the box [lo, hi] (spread 1 % of the box in packet 0,
+    30 % in the others) within a cone around a seeded direction, so that
+    a leaf visit has from one to all 32 lanes entering; every 9th ray is
+    masked with a garbage origin, every 5th live one has a finite tmax."""
+    rng = np.random.default_rng(seed)
+    nw, ext = n_packets * pt.WARPS, hi - lo
+    spread = np.where(np.arange(nw) < pt.WARPS, 0.01, 0.3)[:, None, None]
+    o = (rng.uniform(lo, hi, (nw, 1, 3))
+         + rng.uniform(-1.0, 1.0, (nw, pt.WARP, 3)) * spread * ext)
+    d = rng.normal(size=(nw, 1, 3)) + rng.normal(size=(nw, pt.WARP, 3)) * 0.3
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    tm = np.full(len(o), BIG)
+    tm[1::5] = rng.uniform(0.5, 3.0, len(tm[1::5])) * float(ext.max())
+    tm[::9] = -BIG
+    o[::9] = 1e30
+    pk = lambda a: torch.from_numpy(
+        np.ascontiguousarray(a, np.float32).reshape(n_packets, -1))
+    return (tuple(pk(o[:, k]) for k in range(3)),
+            tuple(pk(d[:, k]) for k in range(3)), pk(tm))
+
+
+def _assert_tally_holds(tally, stats):
+    """The tally of a closest-hit warp walk against its counters, int32
+    (P, 8): node steps are the ``nodes`` slot and leaf visits the
+    ``quarters`` slot, summed over each packet's warps; the visits by
+    entering lanes sum to the visits; each visit has 1-32 entering lanes
+    and tests its leaf's rows (``tri_blocks``, a closest hit's)."""
+    t = dict(zip(TALLY, tally))
+    packet = lambda x: x.reshape(-1, pt.WARPS).sum(1)
+    assert torch.equal(packet(t["nodes"]), stats[:, 0].long())
+    assert torch.equal(packet(t["visits"]), stats[:, 2].long())
+    assert torch.equal(packet(t["rows"]), stats[:, 3].long())
+    assert torch.equal(sum(t[b] for b in LANE_BINS), t["visits"])
+    assert (t["visits"] <= t["lanes"]).all()
+    assert (t["lanes"] <= pt.WARP * t["visits"]).all()
+    # both ways of testing a leaf occur: few lanes and many
+    assert int(t["1"].sum()) > 0 and int(t["17-32"].sum()) > 0
+
+
+def test_walk_closest_tally_matches_counters(scenes):
+    """B9c's warps simulated (``closest_g_sim``, each warp's own signs):
+    their outputs are the plain B9c's bit for bit, and their tally holds
+    against their counters."""
+    _, _, ps, _, _ = scenes
+    o, d, tm = _packet_rays(ps.root_lo.numpy(), ps.root_hi.numpy(), 2, 13)
+    out, stats, tally = closest_g_sim(o, d, tm, ps.tri_rows, ps.nodes)
+    plain = walk_closest_g_plain(o, d, tm, ps.tri_rows, ps.nodes)
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    live = tm >= 0
+    assert 0.2 < float((out[0][live] < BIG).float().mean()) < 1.0
+    assert stats.shape == (2, 8) and tally.shape == (len(TALLY),
+                                                     2 * pt.WARPS)
+    _assert_tally_holds(tally, stats)

@@ -1,32 +1,61 @@
 #!/usr/bin/env python3
-"""Device time of the words passes B1, B3 and B5 on one CUDA card.
+"""Device time of the words passes B1, B3 and B5 and of the closest hits B9c
+and B11b on one CUDA card.
 
-    python3 time_words.py [--tree DIR] [--reps N]
+    python3 time_words.py [--tree DIR] [--reps N] [--only words|closest]
+    python3 time_words.py [--tree DIR] [--reps N] --sweep T[,T...]
 
 Imports ``snail_tpu_torch`` from DIR (default: the directory of this
 script), so that one command can time another commit's kernels from a
-checkout of it, and compare trees in turns within one call. Builds the
-bench scenes city_24 and terrain_724 on the card (bench_scenes, material
-0 reflective), and on their 1024 x 1024 wavefronts times B1 on the primary
-rays, B3 on the shadow rays toward light 0 (one band) and B5 on the
-reflection rays (8 bands): the mean device time of each kernel over N
-launches (default 20) after one warm-up, queued behind a spin so that
-the host's time between launches does not count (``device_ms``). Where
-the tree's wrappers take a cluster size, each pass is timed at 1, 2, 4
-and 8 blocks per packet too. Prints the card (name and power limit, from
-nvidia-smi) and one JSON line per scene. Exits non-zero without a card.
+checkout of it, and compare trees in turns within one call. Each time is
+the mean device time of a kernel over N launches (default 20) after one
+warm-up, queued behind a spin so that the host's time between launches
+does not count (``device_ms``).
+
+- words: builds the bench scenes city_24 and terrain_724 on the card
+  (bench_scenes, material 0 reflective), and on their 1024 x 1024
+  wavefronts times B1 on the primary rays, B3 on the shadow rays toward
+  light 0 (one band) and B5 on the reflection rays (8 bands). Where the
+  tree's wrappers take a cluster size, each pass is timed at 1, 2, 4 and
+  8 blocks per packet too.
+- closest: B9c on the reflection rays of the same scenes built with node
+  tables, and on the terrain's photon wavefront (2^20 photons from light
+  0, trace_photons' first draws); B11b on the reflection rays of
+  city_24 and terrain_530 at leaf 64; and the 1024 x 1024 bounce frame
+  of each of these four scenes (CUDA events over 10 frames after one
+  warm-up: host time between launches counts there).
+
+With ``--sweep``, times the closest hits of copies of the tree's package
+in which B9c and B11b test a leaf lane per triangle where at most T lanes
+enter it (the constexprs ``kWalkLaneTriMax`` in csrc/walk.cu and
+``kFatLaneTriMax`` in csrc/fat.cu set to T), one copy per T in turn, each
+in a process of its own; each JSON line then carries its
+``lane_tri_max``.
+
+Prints the card (name and power limit, from nvidia-smi) and one JSON line
+per scene. Exits non-zero without a card.
 """
 
 import argparse
 import inspect
 import json
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 WIDTH = HEIGHT = 1024
 CLUSTERS = (1, 2, 4, 8)
+# the closest-hit scenes: kind -> size at leaf 64 (chip_smoke.py FAT_N),
+# the photons of the photon wavefront, and the bounce frames timed
+FAT_N = {"city": 24, "terrain": 530}
+PHOTONS = 2 ** 20
+FRAMES = 10
+# the threshold constexprs of the staged leaf stage, by source
+LANE_TRI_MAX = {"walk.cu": "kWalkLaneTriMax", "fat.cu": "kFatLaneTriMax"}
 # ~50 ms at the H100's 1.98 GHz boost clock: far longer than the host
 # takes to queue the timed calls
 SPIN_CYCLES = 100_000_000
@@ -92,11 +121,157 @@ def wavefronts(kind: str, n: int):
     }
 
 
+def photon_planes(scene, n: int, seed: int = 0):
+    """The wavefront ``trace_photons(scene, n, seed)`` casts from light 0
+    (the same draws of its seeded generator), as B5/B6 and B9c take it:
+    the (o, d, tm) planes."""
+    import torch
+
+    from snail_tpu_torch.core.vecmath import BIG
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.photons import _stratified_sphere
+
+    gen = torch.Generator(device=scene.device)
+    gen.manual_seed(seed)
+    d = _stratified_sphere(n, gen)
+    o = scene.lights.pos[0].expand(n, 3)
+    tmax = torch.full((n,), BIG, device=scene.device)
+    o, d, tm, _ = pt.general_planes(o.unbind(1), d.unbind(1), tmax)
+    return o, d, tm
+
+
+def closest_calls(kind: str, n: int, leaf=None):
+    """A bounce scene of ``kind`` at size ``n`` with node tables (``leaf``
+    None: the kind's leaf, B9c) or at leaf ``leaf`` (64: B11b), and its
+    timed calls: {name: fn()}: the closest hit on the reflection rays of
+    its 1024 x 1024 frame (on the terrain's node tables, also on the
+    photon wavefront) and the bounce frame."""
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.render.fast import bounce_wavefront
+    from snail_tpu_torch.render.renderer import render_frame
+    from snail_tpu_torch.scene.bench_scenes import bench_scene
+
+    scene, cam, _, _ = bench_scene(kind, n, bounce=True, walk=leaf is None,
+                                   leaf=leaf)
+    w, h = WIDTH, HEIGHT
+    dist, u, v, tri, dx, dy, dz = pt.camera_trace(scene, cam, w, h)
+    flat = lambda a: a.reshape(-1)
+    primary = ((cam.pos[0], cam.pos[1], cam.pos[2]),
+               (flat(dx), flat(dy), flat(dz)), flat(dist), flat(u), flat(v),
+               flat(tri))
+    rows, nodes = scene.tri_rows, scene.nodes
+    calls = {}
+    if pt.is_fat(scene):
+        o, d, tm, _ = pt.padded_planes(*bounce_wavefront(scene, *primary))
+        signs = pt.packet_signs(d)
+        calls["fat_closest reflections"] = lambda: pt.fat_closest(
+            o, d, tm, signs, rows, nodes)
+    else:
+        o, d, tm, _ = pt.general_planes(*bounce_wavefront(scene, *primary))
+        calls["walk_closest_g reflections"] = lambda: pt.walk_closest_g(
+            o, d, tm, rows, nodes)
+        if kind == "terrain":
+            po, pd, ptm = photon_planes(scene, PHOTONS)
+            calls["walk_closest_g photons"] = lambda: pt.walk_closest_g(
+                po, pd, ptm, rows, nodes)
+    opts = RenderOpts(textures=False)
+    calls["bounce frame"] = lambda: render_frame(scene, cam, w, h, opts)
+    return calls
+
+
+def frame_ms(fn, frames: int = FRAMES) -> float:
+    """Mean ms of fn() over ``frames`` calls after one warm-up, CUDA events
+    around them (the host's time between launches counts)."""
+    import torch
+
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(frames):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / frames
+
+
+def time_passes(tree, reps: int) -> None:
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.scene.bench_scenes import BENCH_N
+
+    sized = "cluster" in inspect.signature(pt.words_camera).parameters
+    for kind in ("city", "terrain"):
+        lt, runs = wavefronts(kind, BENCH_N[kind])
+        out = {"scene": f"{kind}_{BENCH_N[kind]}", "tree": str(tree)}
+        for k, run in runs.items():
+            row = {"default": device_ms(lambda: run(None), reps)}
+            if sized:
+                row.update({str(c): device_ms(lambda: run(c), reps)
+                            for c in CLUSTERS})
+            out[k] = row
+        print(json.dumps(out), flush=True)
+        del lt, runs
+        torch.cuda.empty_cache()
+
+
+def time_closest(tree, reps: int) -> None:
+    import torch
+
+    from snail_tpu_torch.scene.bench_scenes import BENCH_N
+
+    for kind, n, leaf, tables in (
+            ("city", BENCH_N["city"], None, "nodes"),
+            ("terrain", BENCH_N["terrain"], None, "nodes"),
+            ("city", FAT_N["city"], 64, "leaf 64"),
+            ("terrain", FAT_N["terrain"], 64, "leaf 64")):
+        calls = closest_calls(kind, n, leaf)
+        out = {"scene": f"{kind}_{n} {tables}", "tree": str(tree)}
+        for k, fn in calls.items():
+            out[k] = (frame_ms(fn) if k == "bounce frame"
+                      else device_ms(fn, reps))
+        print(json.dumps(out), flush=True)
+        del calls
+        torch.cuda.empty_cache()
+
+
+def sweep(tree: Path, values, reps: int) -> None:
+    """The closest hits of ``tree``'s package with each lane-per-triangle
+    threshold in ``values``: a copy of the package per value, timed by
+    this script in a process of its own."""
+    for t in values:
+        with tempfile.TemporaryDirectory() as tmp:
+            pkg = Path(tmp) / "snail_tpu_torch"
+            shutil.copytree(tree / "snail_tpu_torch", pkg,
+                            ignore=shutil.ignore_patterns("build",
+                                                          "__pycache__"))
+            for name, const in LANE_TRI_MAX.items():
+                src = pkg / "csrc" / name
+                text, n = re.subn(rf"constexpr int {const} = \d+;",
+                                  f"constexpr int {const} = {t};",
+                                  src.read_text())
+                if n != 1:
+                    raise RuntimeError(f"{const} not found in {src}")
+                src.write_text(text)
+            res = subprocess.run(
+                [sys.executable, __file__, "--only", "closest", "--tree",
+                 tmp, "--reps", str(reps)], capture_output=True, text=True)
+            if res.returncode:
+                raise RuntimeError(f"lane_tri_max {t}: {res.stderr}")
+            for line in res.stdout.splitlines():
+                if line.startswith("{"):
+                    print(json.dumps({"lane_tri_max": t,
+                                      **json.loads(line)}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path,
                     default=Path(__file__).resolve().parent)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", choices=("words", "closest"))
+    ap.add_argument("--sweep", type=lambda v: [int(t) for t in v.split(",")])
     args = ap.parse_args()
     sys.path.insert(0, str(args.tree.resolve()))
     import torch
@@ -104,26 +279,17 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         sys.exit(1)
-    from snail_tpu_torch.ops import traverse as pt
-    from snail_tpu_torch.scene.bench_scenes import BENCH_N
-
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}; tree {args.tree}", flush=True)
-    sized = "cluster" in inspect.signature(pt.words_camera).parameters
-    for kind in ("city", "terrain"):
-        lt, runs = wavefronts(kind, BENCH_N[kind])
-        out = {"scene": f"{kind}_{BENCH_N[kind]}", "tree": str(args.tree)}
-        for k, run in runs.items():
-            row = {"default": device_ms(lambda: run(None), args.reps)}
-            if sized:
-                row.update({str(c): device_ms(lambda: run(c), args.reps)
-                            for c in CLUSTERS})
-            out[k] = row
-        print(json.dumps(out), flush=True)
-        del lt, runs
-        torch.cuda.empty_cache()
+    if args.sweep:
+        sweep(args.tree.resolve(), args.sweep, args.reps)
+        return
+    if args.only != "closest":
+        time_passes(args.tree, args.reps)
+    if args.only != "words":
+        time_closest(args.tree, args.reps)
 
 
 if __name__ == "__main__":
