@@ -49,10 +49,13 @@ Phases, each printed on its own line:
    B10a-d that the same kernels cover), each over its whole wavefront:
    B9a on the primary rays, B9b on the frame's shadow rays (and the
    terrain's toward the low light), B9c on the frame's reflection rays and
-   on a seeded wavefront, B9d on a seeded shadow wavefront with its own
-   origins; on the reflection rays also B9c's warps on a few seeded
-   packets, simulated (their outputs the kernel's bit for bit), with the
-   tally of their leaf visits by entering lanes (the ``scan`` lines);
+   on a seeded wavefront, B9d on the instanced frame's own shadow
+   wavefront (taken from the frame's calls: the first instance's with a
+   blocked ray) and on a seeded shadow wavefront with its own origins; on the reflection rays B9c's warps,
+   and on both shadow wavefronts B9d's, on a few seeded packets,
+   simulated (their outputs the kernel's bit for bit), with the tally of
+   their leaf visits by entering lanes (the ``scan`` lines; for B9d also
+   the rows its lanes tested up to their first occluder);
    closest hits equal bit for bit where the triangle agrees, the triangle
    differing only on a distance tie, verdicts identical; and the
    walk's counting kernels B9e/B9f on B9a's and B9b's inputs: their
@@ -77,9 +80,10 @@ Phases, each printed on its own line:
    24,576 nodes), each with material 0 reflective: B11a-d (csrc/fat.cu) against
    their plain versions over whole wavefronts, as phase 5 (B11a on the
    primary rays, B11c on the shadow rays, B11b on the reflection rays and
-   a seeded wavefront, B11d on seeded shadow rays, the rays as the caller
-   gave them); then the fat fwd, bounce, fwd_bwd, instanced fwd and
-   portable fwd frames, launching fat-leaf kernels only, each checked
+   a seeded wavefront, B11d on the instanced frame's own shadow wavefront
+   and on seeded shadow rays, the rays as the caller gave them); then the
+   fat fwd, bounce, fwd_bwd, instanced fwd and portable fwd frames,
+   launching fat-leaf kernels only, each checked
    against the CPU path at small size, against the same geometry's frame
    on leaf tables (leaf 16 / 32; the step by its loss) and timed;
 8. textured frames (bench.py's ``section_tex``: ``checker_atlas`` on
@@ -1407,7 +1411,7 @@ def check_walk_kernels(name, kind, scene, cam):
     kd, ku, kv, kt, kdx, kdy, kdz = kern
 
     # B9b/B11c on the frame's shadow rays, B9c/B11b on its reflection rays
-    # and on a seeded wavefront, B9d/B11d on a seeded shadow wavefront
+    # and on a seeded wavefront
     primary = ((cam.pos[0], cam.pos[1], cam.pos[2]),
                (kdx.reshape(-1), kdy.reshape(-1), kdz.reshape(-1)),
                kd.reshape(-1), ku.reshape(-1), kv.reshape(-1),
@@ -1428,8 +1432,13 @@ def check_walk_kernels(name, kind, scene, cam):
     if not 0.02 < share < 0.98:
         fail(f"{name} seeded wavefront: hit share {share}")
     print_checks(f"{name} seeded", {k: seeded})
+    # B9d/B11d on the instanced frame's own shadow wavefront, the one
+    # their main path launches, and on a seeded one
     k = "fat_shadow_g" if fat else "walk_shadow_g"
-    out[k] = check_walk_seeded_shadows(name, scene, p)
+    wave, e = check_walk_instanced_shadows(name, kind, scene)
+    seeded = check_walk_seeded_shadows(name, scene, p)
+    print_checks(f"{name} seeded", {k: seeded})
+    out[k] = {**e, "wavefront": wave, "seeded": seeded}
     print_checks(name, out)
     return out
 
@@ -1533,30 +1542,46 @@ def check_walk_shadow(name, scene, primary, lp, need_blocked):
     return out
 
 
-def closest_tally(name, kernel, o, d, tm, rows, nodes, signs, kern,
-                  seed=6):
-    """B9c's (``signs`` None) or B11b's warps on SIM_PACKETS seeded packets
-    of the planes ``o``, ``d``, ``tm`` with live rays, simulated
-    (ops/traverse_ref.py ``closest_g_sim``): their outputs must equal the
-    kernel's, ``kern``, bit for bit; prints ``scan`` lines of their tally
-    per warp (node steps, leaf visits, the lanes entering them and their
-    rows) and the share of the visits by their entering lanes, which
-    decides how csrc/walk.cuh ``leaf_closest_staged`` tests a leaf (node
-    steps as ``walk`` takes them: B9c's ``walk_pairs`` takes fewer).
-    Returns the tally's sums."""
+def warp_tally(name, kernel, o, d, tm, rows, nodes, signs, kern, seed=6,
+               by_live=False):
+    """The warps of a closest hit (B9c, or B11b with ``signs``) or of an
+    any-hit (B9d, or B11d with ``signs``) on SIM_PACKETS seeded packets of
+    the planes ``o``, ``d``, ``tm`` with live rays, simulated
+    (ops/traverse_ref.py ``closest_g_sim`` / ``shadow_g_sim``): their
+    outputs must equal the kernel's, ``kern``, bit for bit; prints ``scan``
+    lines of their tally per warp (node steps, leaf visits, the lanes
+    entering them and their rows, the rows tested up to a stop) and the
+    share of the visits by their entering lanes, which decides how
+    csrc/walk.cuh ``leaf_closest_staged`` / ``leaf_blocks_staged`` tests
+    a leaf (node steps as ``walk`` takes them: B9c's and B9d's
+    ``walk_pairs`` takes fewer); for an any-hit also the share of the
+    entering lanes' rows they tested and of the lanes blocked, and of the
+    visits of a leaf of more than 32 rows, those whose rows 33-64 some
+    entering lane still needs. With ``by_live``,
+    a packet is drawn with a chance in proportion to its live rays (an
+    instanced wavefront, where most packets hold a few). Returns the
+    tally's sums."""
     import numpy as np
     import torch
 
     from snail_tpu_torch.ops import traverse_ref as ref
 
-    busy = torch.nonzero((tm >= 0).any(1)).flatten().cpu().numpy()
+    n_live = (tm >= 0).sum(1).cpu().numpy()
+    busy = np.flatnonzero(n_live)
+    p = n_live[busy] / n_live[busy].sum() if by_live else None
     pk = torch.from_numpy(np.sort(np.random.default_rng(seed).choice(
-        busy, min(SIM_PACKETS, len(busy)), replace=False))).to(tm.device)
+        busy, min(SIM_PACKETS, len(busy)), replace=False, p=p))).to(
+            tm.device)
     sel = lambda c: c.index_select(0, pk).contiguous()
-    out, _, tal = ref.closest_g_sim(
-        tuple(map(sel, o)), tuple(map(sel, d)), sel(tm), rows, nodes,
-        None if signs is None else sel(signs))
-    if not all(torch.equal(a, sel(b)) for a, b in zip(out, kern)):
+    closest = "closest" in kernel
+    sim = ref.closest_g_sim if closest else ref.shadow_g_sim
+    out, _, tal = sim(tuple(map(sel, o)), tuple(map(sel, d)), sel(tm), rows,
+                      nodes, None if signs is None else sel(signs))
+    if closest:
+        same = all(torch.equal(a, sel(b)) for a, b in zip(out, kern))
+    else:
+        same = torch.equal(out, sel(kern))
+    if not same:
         fail(f"{name} {kernel}: the simulation's outputs on packets "
              f"{pk.tolist()} differ from the kernel's")
     tally = {"warps": tal.shape[1],
@@ -1569,6 +1594,15 @@ def closest_tally(name, kernel, o, d, tm, rows, nodes, signs, kern,
           + f" of {tally['visits']} visits; mean "
           f"{tally['lanes'] / visits:.3f} lanes and "
           f"{tally['rows'] / visits:.3f} rows a visit", flush=True)
+    if not closest:
+        lanes = max(tally["lanes"], 1)
+        print(f"scan {name} {kernel}: rows tested up to a stop "
+              f"{tally['tested'] / max(tally['lane_rows'], 1):.4f} of the "
+              f"entering lanes' leaf rows, the longest lane "
+              f"{tally['most'] / max(tally['rows'], 1):.4f} of a visit's "
+              f"rows; entering lanes blocked in the visit "
+              f"{tally['blocked'] / lanes:.4f}; visits still needing rows "
+              f"33-64 {tally['chunk2']} of {tally['visits']}", flush=True)
     return tally
 
 
@@ -1577,7 +1611,7 @@ def check_walk_closest(name, scene, o, d, tm, scan=False):
     planes ``o``, ``d``, ``tm``: the miss and masked conventions exactly
     (B11b's live miss returns min(tmax, BIG)), tri 0 where nothing was
     hit, the rest as ``closest_equal``; with ``scan``, the tally of its
-    warps on a few packets (``closest_tally``). Returns (its entry, hit
+    warps on a few packets (``warp_tally``). Returns (its entry, hit
     share of the live rays)."""
     import torch
 
@@ -1609,29 +1643,45 @@ def check_walk_closest(name, scene, o, d, tm, scan=False):
             and bool((kt[miss | ~live] == 0).all())):
         fail(f"{name} {k}: masked or miss conventions differ")
     err, share = closest_equal(f"{name} {k}", kern, plain, live)
-    extra = ({"scan": closest_tally(name, k, o, d, tm, rows, nodes, signs,
-                                    kern)} if scan else {})
+    extra = ({"scan": warp_tally(name, k, o, d, tm, rows, nodes, signs,
+                                 kern)} if scan else {})
     ms = cuda_ms(call, KERNEL_REPS)
     ops, tree_bytes = walk_work(k, nodes, rows, work)
     return entry(err, ms, plain_ms, nbytes(*ins, *kern) + tree_bytes, ops,
                  **extra), share
 
 
-def check_walk_seeded_shadows(name, scene, n_packets):
-    """B9d, or on a fat-leaf scene B11d, against its plain version on the
-    seeded shadow rays of ``check_seeded_shadows`` (the first seed whose
-    blocked share lies in 0.02-0.98; for B11d the rays as given, masked
-    ones unsubstituted): verdicts identical, masked rays never blocked.
-    Returns its entry."""
-    import numpy as np
-    import torch
-
+def anyhit_calls(scene, o, d, tm, signs):
+    """B9d, or with ``signs`` (a fat-leaf scene) B11d, on the planes ``o``,
+    ``d``, ``tm``: (kernel, its call, its plain version's call with a
+    ``work`` dict)."""
     from snail_tpu_torch.ops import traverse as pt
     from snail_tpu_torch.ops import traverse_ref as ref
 
     rows, nodes = scene.tri_rows, scene.nodes
+    if signs is not None:
+        return ("fat_shadow_g",
+                lambda: pt.fat_shadow_g(o, d, tm, signs, rows, nodes),
+                lambda work: ref.fat_shadow_g_plain(o, d, tm, signs, rows,
+                                                    nodes, work))
+    return ("walk_shadow_g",
+            lambda: pt.walk_shadow_g(o, d, tm, rows, nodes),
+            lambda work: ref.walk_shadow_g_plain(o, d, tm, rows, nodes,
+                                                 work))
+
+
+def seeded_shadow_planes(scene, n_packets):
+    """The seeded shadow rays of ``check_seeded_shadows`` for a node-table
+    scene's any-hit, B9d (``general_planes``) or on a fat-leaf scene B11d
+    (``padded_planes``: masked rays unsubstituted): the first seed whose
+    blocked share of the live rays lies in 0.02-0.98. Returns (seed, o,
+    d, tm, signs: B11d's packet signs, else None)."""
+    import numpy as np
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+
     fat = pt.is_fat(scene)
-    k = "fat_shadow_g" if fat else "walk_shadow_g"
     for seed in range(5, 25):
         o, d, tm = seeded_general(scene, n_packets, seed, planes=(
             pt.padded_planes if fat else pt.general_planes))
@@ -1640,36 +1690,130 @@ def check_walk_seeded_shadows(name, scene, n_packets):
         frac = torch.from_numpy(rng.uniform(0.05, 0.6, tuple(tm.shape))
                                 .astype(np.float32)).cuda()
         tm = torch.where(tm >= 0, frac * diag, tm)
-        if fat:
-            signs = pt.packet_signs(d)
-            call = lambda: pt.fat_shadow_g(o, d, tm, signs, rows, nodes)
-            plain_fn = lambda work: ref.fat_shadow_g_plain(
-                o, d, tm, signs, rows, nodes, work)
-            ins = (*o, *d, tm, signs)
-        else:
-            call = lambda: pt.walk_shadow_g(o, d, tm, rows, nodes)
-            plain_fn = lambda work: ref.walk_shadow_g_plain(o, d, tm, rows,
-                                                            nodes, work)
-            ins = (*o, *d, tm)
-        kern = call()
-        live = tm >= 0
-        share = float(kern[live].mean())
-        if 0.02 < share < 0.98:
-            break
-    else:
-        fail(f"{name}: no seeded shadow wavefront blocks 0.02-0.98 of its "
-             "rays")
+        signs = pt.packet_signs(d) if fat else None
+        kern = anyhit_calls(scene, o, d, tm, signs)[1]()
+        if 0.02 < float(kern[tm >= 0].mean()) < 0.98:
+            return seed, o, d, tm, signs
+    fail("no seeded shadow wavefront blocks 0.02-0.98 of its rays")
+
+
+def anyhit_bytes(o, d, tm, signs, blocked) -> int:
+    """The bytes of an any-hit's rays that it must move: tm and the verdict
+    of every ray, the o and d planes of the live rays only (a masked ray
+    needs no more than its tm), and B11d's ``signs`` (or None) of the
+    packets with a live ray."""
+    live = tm >= 0
+    n = nbytes(tm, blocked) + int(live.sum()) * sum(
+        c.element_size() for c in (*o, *d))
+    if signs is not None:
+        n += int(live.any(1).sum()) * signs.shape[1] * signs.element_size()
+    return n
+
+
+def check_walk_anyhit(name, scene, o, d, tm, signs, need_window=True,
+                      by_live=False):
+    """B9d, or with ``signs`` B11d, against its plain version on the planes
+    ``o``, ``d``, ``tm``: verdicts identical, masked rays never blocked,
+    with ``need_window`` a blocked share of the live rays in 0.02-0.98;
+    and the tally of its warps on a few packets (``warp_tally``, its
+    ``by_live``). Returns its entry (with the tally's sums)."""
+    import torch
+
+    k, call, plain_fn = anyhit_calls(scene, o, d, tm, signs)
+    kern = call()
+    live = tm >= 0
+    share = float(kern[live].mean())
     work = {}
     plain, plain_ms = timed_plain(lambda: plain_fn(work))
     n_diff = int((kern != plain).sum())
-    print(f"check {name} seeded {seed} {k}: {n_diff} verdicts differ, "
-          f"blocked share {share} of {int(live.sum())} live rays",
-          flush=True)
-    if n_diff or bool(kern[~live].any()):
-        fail(f"{name} {k}: {n_diff} verdicts differ")
+    print(f"check {name} {k}: {n_diff} verdicts differ, blocked share "
+          f"{share} of {int(live.sum())} live rays", flush=True)
+    if (n_diff or bool(kern[~live].any())
+            or (need_window and not 0.02 < share < 0.98)):
+        fail(f"{name} {k}: {n_diff} verdicts differ, blocked share {share}")
+    tally = warp_tally(name, k, o, d, tm, scene.tri_rows, scene.nodes,
+                       signs, kern, by_live=by_live)
     ms = cuda_ms(call, KERNEL_REPS)
-    ops, tree_bytes = walk_work(k, nodes, rows, work)
-    return entry(0.0, ms, plain_ms, nbytes(*ins, kern) + tree_bytes, ops)
+    ops, tree_bytes = walk_work(k, scene.nodes, scene.tri_rows, work)
+    return entry(0.0, ms, plain_ms,
+                 anyhit_bytes(o, d, tm, signs, kern) + tree_bytes, ops,
+                 scan=tally)
+
+
+def check_walk_seeded_shadows(name, scene, n_packets):
+    """B9d, or on a fat-leaf scene B11d, on the seeded shadow rays of
+    ``seeded_shadow_planes`` (``check_walk_anyhit``). Returns its
+    entry."""
+    seed, o, d, tm, signs = seeded_shadow_planes(scene, n_packets)
+    return check_walk_anyhit(f"{name} seeded {seed}", scene, o, d, tm, signs)
+
+
+def captured(name: str, fn):
+    """The arguments of every call of the kernel wrapper
+    ``ops.traverse.<name>`` while fn() runs (the wrapper still runs, and
+    counts its launches on the name it looks itself up by)."""
+    from snail_tpu_torch.ops import traverse as pt
+
+    wrapper, calls = getattr(pt, name), []
+
+    def record(*args):
+        calls.append(args)
+        return wrapper(*args)
+
+    record.launches = wrapper.launches
+    setattr(pt, name, record)
+    try:
+        fn()
+    finally:
+        setattr(pt, name, wrapper)
+        wrapper.launches = record.launches
+    return calls
+
+
+def instanced_shadow_calls(kind, scene):
+    """The instanced fwd frame of a grid of instances of the node-table
+    scene ``scene`` (INSTANCE_GRID: 16 of the city, 4 of the terrain) and
+    the arguments of its any-hit kernel's calls (B9d, or on a fat-leaf
+    scene B11d), one per instance in order: light 0 in the instance's
+    object space, rays whose segment misses its box or that an earlier
+    instance blocked masked. Returns (instanced scene, camera, kernel
+    name, [its arguments, one call per instance])."""
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.scene.bench_scenes import instanced_grid
+    from snail_tpu_torch.scene.instancing import render_instanced
+
+    isc, icam = instanced_grid(kind, scene, INSTANCE_GRID[kind][0])
+    k = "fat_shadow_g" if pt.is_fat(scene) else "walk_shadow_g"
+    opts = RenderOpts(reflections=False, transparency=False, textures=False)
+    return isc, icam, k, captured(
+        k, lambda: render_instanced(isc, icam, WIDTH, HEIGHT, opts))
+
+
+def check_walk_instanced_shadows(name, kind, scene):
+    """B9d, or on a fat-leaf scene B11d, on the instanced frame's own
+    shadow wavefront (``instanced_shadow_calls``): that of the first
+    instance in which the kernel blocks a live ray (none is a failure:
+    the terrain's overhead light blocks few rays, and a kernel that never
+    blocks would pass on a wavefront with none), as ``check_walk_anyhit``,
+    on the city with a blocked share in 0.02-0.98. Returns (the
+    wavefront's name, its entry)."""
+    from snail_tpu_torch.ops import traverse as pt
+
+    isc, _, k, waves = instanced_shadow_calls(kind, scene)
+    kern = getattr(pt, k)
+    for i, args in enumerate(waves):
+        if bool(kern(*args)[args[2] >= 0].any()):
+            break
+    else:
+        fail(f"{name} {k}: no live ray of the x{len(waves)} instanced "
+             "frame's shadow wavefronts is blocked")
+    o, d, tm = args[:3]
+    wave = f"x{len(waves)} instance {i} shadows"
+    return wave, check_walk_anyhit(
+        f"{name} {wave}", isc.base, o, d, tm,
+        args[3] if pt.is_fat(scene) else None, need_window=kind == "city",
+        by_live=True)
 
 
 def against_frame(name, path, a, b):

@@ -27,7 +27,10 @@
 // enter it (walk.cuh leaf_closest_staged): on reflection rays a warp's
 // lanes scatter, and a visit has a handful of entering lanes. Its walk
 // tests both children of a node in one step (walk.cuh walk_pairs), the
-// same leaves in the same order in fewer dependent steps. Any-hit
+// same leaves in the same order in fewer dependent steps. B9d walks so
+// too, and stages its leaves and tests them lane per triangle where few
+// lanes enter, each lane per ray up to its first occluder where many do
+// (walk.cuh leaf_blocks_staged). Any-hit
 // warps stop once every live lane is blocked (_shadow_ival_drain's exit,
 // :1698). B9e/B9f are B9a/B9b with
 // STATS: the walk counts what each warp did (walk.cuh WalkCounts) and lane
@@ -51,10 +54,10 @@
 // memory or float rate; the card hides the latency with many warps (8 per
 // block, blocks limited by registers). The shared-memory stack costs a few
 // hundred bytes per warp; the counters five registers and five atomics per
-// warp. B9c's leaf stage adds 8 warps x 32 rows x 48 B = 12 KB a block at
-// leaf 32: the SM's 228 KB would hold 18 such blocks, more than its 2,048
-// threads (8 blocks) or its registers let in, so it costs no occupancy,
-// only some of the L1 that shares the SM's 256 KB.
+// warp. B9c's and B9d's leaf stage adds 8 warps x 32 rows x 48 B = 12 KB
+// a block at leaf 32: the SM's 228 KB would hold 18 such blocks, more
+// than its 2,048 threads (8 blocks) or its registers let in, so it costs
+// no occupancy, only some of the L1 that shares the SM's 256 KB.
 
 #include "walk.cuh"
 
@@ -65,6 +68,10 @@ namespace {
 // the H100, PERF.md).
 constexpr int kWalkLeafRows = 32;
 constexpr int kWalkLaneTriMax = 12;
+// B9d's leaf stage: the same leaves, tested lane per triangle where at
+// most kWalkAnyLaneTriMax lanes enter (set by a sweep on the H100,
+// PERF.md).
+constexpr int kWalkAnyLaneTriMax = 12;
 
 // B9a / B10a: camera raygen + closest hit on the shared-origin rows. A
 // ray's bound starts at its root-box exit (0 when it misses the box);
@@ -182,7 +189,14 @@ walk_closest_g_kernel(const float* __restrict__ ox,
 }
 
 // B9d / B10d: any-hit of rays with their own origins on the raw rows.
-__global__ void __launch_bounds__(kWalkThreads)
+// The walk tests a node's two children at once (walk.cuh walk_pairs) and
+// ends once every live lane is blocked; leaves go through the staged
+// any-hit leaf stage (walk.cuh leaf_blocks_staged), lane per triangle
+// where at most kWalkAnyLaneTriMax lanes enter. Asked for at least 2
+// blocks an SM, ptxas gives it 52 registers and spills none; with no
+// minimum it gave 48 and spilled, with 4 it gave 55 and ran 3 % slower
+// (PERF.md).
+__global__ void __launch_bounds__(kWalkThreads, 2)
 walk_shadow_g_kernel(const float* __restrict__ ox,
                      const float* __restrict__ oy,
                      const float* __restrict__ oz,
@@ -192,25 +206,24 @@ walk_shadow_g_kernel(const float* __restrict__ ox,
                      const float* __restrict__ tm,
                      const float* __restrict__ rows,
                      const float4* __restrict__ nodes, int stack_cap,
-                     float* __restrict__ out_blocked) {
+                     int leaf_max, float* __restrict__ out_blocked) {
   const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const float o[3] = {ox[g], oy[g], oz[g]};
   const float d[3] = {dx[g], dy[g], dz[g]};
   const float idir[3] = {1.0f / (d[0] + kInvEps), 1.0f / (d[1] + kInvEps),
                          1.0f / (d[2] + kInvEps)};
   const float limit = tm[g] >= 0.0f ? tm[g] : -kBig;
+  float4* stage = warp_stage(stack_cap, leaf_max);
   bool blocked = false;
-  WalkCounts wc;
-  walk<false>(nodes, warp_stack(stack_cap), o, idir,
-              warp_signs(idir, limit > 0.0f),
-              [&] { return blocked ? -kBig : limit; },
-              [&](bool enter, int first, int count, int& tested) {
-                if (enter)
-                  blocked = leaf_blocks<true>(rows, first, count, o, d, limit,
-                                              tested);
-                return __all_sync(kFull, blocked || !(limit > 0.0f));
-              },
-              wc);
+  walk_pairs(nodes, warp_stack(stack_cap), o, idir,
+             warp_signs(idir, limit > 0.0f),
+             [&] { return blocked ? -kBig : limit; },
+             [&](bool enter, int first, int count) {
+               if (leaf_blocks_staged<kWalkLeafRows, kWalkAnyLaneTriMax>(
+                       rows, stage, first, count, enter, o, d, limit))
+                 blocked = true;
+               return __all_sync(kFull, blocked || !(limit > 0.0f));
+             });
   out_blocked[g] = blocked ? 1.0f : 0.0f;
 }
 
@@ -269,17 +282,21 @@ int snail_walk_closest_g(const float* ox, const float* oy, const float* oz,
   return (int)cudaGetLastError();
 }
 
+// ``leaf_max``: as snail_walk_closest_g's.
 int snail_walk_shadow_g(const float* ox, const float* oy, const float* oz,
                         const float* dx, const float* dy, const float* dz,
                         const float* tm, const float* rows,
                         const float* nodes, int n_nodes, int stack_cap,
-                        int n_packets, float* blocked, void* stream) {
-  if (!walk_args_ok(n_nodes, stack_cap, n_packets))
+                        int leaf_max, int n_packets, float* blocked,
+                        void* stream) {
+  if (!walk_args_ok(n_nodes, stack_cap, n_packets, leaf_max) ||
+      leaf_max < 1 || leaf_max > kWalkLeafRows)
     return (int)cudaErrorInvalidValue;
   walk_shadow_g_kernel<<<walk_blocks(n_packets), kWalkThreads,
-                         walk_smem(stack_cap), (cudaStream_t)stream>>>(
+                         walk_smem(stack_cap, leaf_max),
+                         (cudaStream_t)stream>>>(
       ox, oy, oz, dx, dy, dz, tm, rows, reinterpret_cast<const float4*>(nodes),
-      stack_cap, blocked);
+      stack_cap, leaf_max, blocked);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 // B9a-f) and the fat-leaf kernels (fat.cu, B11a-d): the node row, the
 // near-child signs, the walk loop, its counters, B9c's walk that tests a
 // node's two children at once, the staged closest-hit leaf stage of B9c
-// and B11b, and the launch geometry.
+// and B11b, the staged any-hit leaf stage of B9d and B11d, and the launch
+// geometry.
 //
 // One warp walks the tree for its 32 rays with warp-uniform control flow:
 // it pops a node, each lane slab-tests the node against its own ray and
@@ -13,6 +14,8 @@
 // the lanes that enter it test its triangles (the kernel's leaf function).
 
 #pragma once
+
+#include <type_traits>
 
 #include "rays.cuh"
 
@@ -144,9 +147,10 @@ __device__ __forceinline__ void walk(const float4* nodes, int* stack,
 // enters now is entered by none later; a pushed child is tested again when
 // it is popped, since the leaves between may have lowered the bounds, as
 // ``walk`` tests it then. ``leaf(enter, first, count)`` runs at every leaf
-// some lane enters (a closest hit never stops early). On the H100 it took
-// B9c 3-18 % less time than ``walk``; on B11b, whose leaves are larger,
-// it was slower (PERF.md).
+// some lane enters; where it returns a bool (an any-hit), true ends the
+// warp's walk, as ``walk``'s leaf function does. On the H100 it took
+// B9c 3-18 % and B9d 2-7 % less time than ``walk``; on B11b, whose leaves
+// are larger, it was slower (PERF.md).
 template <typename BoundFn, typename LeafFn>
 __device__ __forceinline__ void walk_pairs(const float4* nodes, int* stack,
                                            const float o[3],
@@ -166,7 +170,11 @@ __device__ __forceinline__ void walk_pairs(const float4* nodes, int* stack,
   if (!__any_sync(kFull, enter)) return;
   for (;;) {
     if (nd.count > 0) {
-      leaf(enter, nd.child, nd.count);
+      if constexpr (std::is_same_v<decltype(leaf(enter, 0, 0)), bool>) {
+        if (leaf(enter, nd.child, nd.count)) return;
+      } else {
+        leaf(enter, nd.child, nd.count);
+      }
     } else {
       const int s = nd.axis == 0 ? sg.s[0] : nd.axis == 1 ? sg.s[1] : sg.s[2];
       const int bit = nd.first ^ s;
@@ -331,6 +339,70 @@ __device__ __forceinline__ void leaf_closest_staged(
       bv = wv;
     }
   }
+}
+
+// --- The staged any-hit leaf stage of B9d and B11d -------------------------
+//
+// An any-hit needs one occluder, and its verdict does not depend on the
+// order in which a ray tests the rows: every (ray, row) test is the same
+// ``occludes(moller_raw(...), limit)``. So at a leaf some unblocked lane
+// enters, the warp stages the leaf's rows (stage_leaf, as the closest-hit
+// stage) and tests them one of two ways, by how many lanes entered:
+// - few (at most LANE_TRI_MAX): lane per triangle. The warp takes the
+//   entering rays one at a time, broadcasts the ray and its limit, lane j
+//   tests rows j and j + 32, and __any_sync gives the ray's verdict;
+// - many: lane per ray, each entering lane looping over the staged rows
+//   up to its first occluder.
+// Staging B11d's leaves of 33-64 rows 32 at a time, the second half only
+// for lanes the first did not block, was slower on the H100: most visits
+// need the second half (PERF.md).
+// Its staging, branch and broadcast are leaf_closest_staged's, line for
+// line: change one, change the other. They are not one template because
+// every form of one tried changed the register allocation of B11b
+// (fat_closest_kernel), whose SASS stays as it was (PERF.md).
+
+// Whether this lane's ray, if it entered the leaf (``enter``) of ``count``
+// (<= MAX_ROWS) rows from ``first``, is occluded before ``limit`` by one
+// of them; every lane of the warp calls it, and a lane that did not enter
+// gets false.
+template <int MAX_ROWS, int LANE_TRI_MAX>
+__device__ __forceinline__ bool leaf_blocks_staged(
+    const float* rows, float4* stage, int first, int count, bool enter,
+    const float o[3], const float d[3], float limit) {
+  static_assert(MAX_ROWS % 32 == 0, "rows are tested 32 a step");
+  const int lane = threadIdx.x & 31;
+  stage_leaf(rows, first, count, stage);
+  const unsigned in = __ballot_sync(kFull, enter);
+  bool hit = false;
+  if (__popc(in) > LANE_TRI_MAX) {
+    if (enter)
+      for (int j = 0; j < count; ++j)
+        if (occludes(moller_raw(o, d, staged_row(stage, j)), limit)) {
+          hit = true;
+          break;
+        }
+    return hit;
+  }
+  for (unsigned m = in; m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    float ro[3], rd[3];
+    for (int k = 0; k < 3; ++k) {
+      ro[k] = __shfl_sync(kFull, o[k], src);
+      rd[k] = __shfl_sync(kFull, d[k], src);
+    }
+    const float rl = __shfl_sync(kFull, limit, src);
+    bool occ = false;
+#pragma unroll
+    for (int r = 0; r < MAX_ROWS / 32; ++r) {
+      const int j = lane + 32 * r;
+      occ = occ ||
+            (j < count &&
+             occludes(moller_raw(ro, rd, staged_row(stage, j)), rl));
+    }
+    const bool any = __any_sync(kFull, occ);
+    if (lane == src) hit = any;
+  }
+  return hit;
 }
 
 // Launch geometry: one thread per ray, kWalkThreads per block; the rays

@@ -1482,7 +1482,9 @@ def walk_shadow_g(o, d, tm, rows, nodes: NodeTables):
     """B9d: any-hit of rays with their own origins through the node tree
     on the raw ``rows`` (replaces ``_shadow_ival_kernel_g`` and
     ``_shadow_ival_kernel_g_paged``). Returns blocked float32 (P,
-    PACKET_R); a masked ray is never blocked."""
+    PACKET_R); a masked ray is never blocked. The kernel stages leaves of
+    up to IVAL_LEAF rows; a tree with larger ones is the fat-leaf
+    kernels' (:func:`fat_shadow_g`)."""
     if not _on_cuda(tm):
         from .traverse_ref import walk_shadow_g_plain
 
@@ -1494,11 +1496,15 @@ def walk_shadow_g(o, d, tm, rows, nodes: NodeTables):
     _check_planes((*o, *d, tm), p, dev)
     _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
     _check_nodes(nodes, dev)
+    if nodes.leaf_max > IVAL_LEAF:
+        raise ValueError(f"leaf of {nodes.leaf_max} triangles > IVAL_LEAF "
+                         f"({IVAL_LEAF}): walk_shadow_g stages leaves of "
+                         f"up to {IVAL_LEAF}; use fat_shadow_g")
     blocked = torch.empty((p, PACKET_R), dtype=torch.float32, device=dev)
     _launched(library().snail_walk_shadow_g(
         *(_ptr(t) for t in (*o, *d, tm)), _ptr(rows), _ptr(nodes.node),
-        nodes.n_nodes, nodes.stack_cap, p, _ptr(blocked), _stream()),
-        "walk_shadow_g")
+        nodes.n_nodes, nodes.stack_cap, nodes.leaf_max, p, _ptr(blocked),
+        _stream()), "walk_shadow_g")
     walk_shadow_g.launches += 1
     return blocked
 
@@ -1642,8 +1648,8 @@ def fat_shadow_g(o, d, tm, signs, rows, nodes: NodeTables):
     blocked = torch.empty((p, PACKET_R), dtype=torch.float32, device=dev)
     _launched(library().snail_fat_shadow_g(
         *(_ptr(t) for t in (*o, *d, tm)), _ptr(signs), _ptr(rows),
-        _ptr(nodes.node), nodes.n_nodes, nodes.stack_cap, p, _ptr(blocked),
-        _stream()), "fat_shadow_g")
+        _ptr(nodes.node), nodes.n_nodes, nodes.stack_cap, nodes.leaf_max, p,
+        _ptr(blocked), _stream()), "fat_shadow_g")
     fat_shadow_g.launches += 1
     return blocked
 

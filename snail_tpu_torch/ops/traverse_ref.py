@@ -359,10 +359,21 @@ def fat_shadow_g_plain(o, d, tm, signs, rows, nodes: NodeTables, work=None):
 # loaded (loop steps), leaf visits (leaves some lane enters), the lanes
 # that enter them and the rows of the leaves visited, summed over the
 # visits, and the visits by their entering lanes: 1, 2-4, 5-8, 9-16, 17-32
-# (the two ways csrc/walk.cuh leaf_closest_staged tests a leaf).
+# (the two ways csrc/walk.cuh leaf_closest_staged and leaf_blocks_staged
+# test a leaf). Then, summed over the visits: ``tested``, the rows the
+# entering lanes tested up to their stop (an any-hit lane stops at its
+# first occluder), against ``lane_rows``, the rows of the leaf times its
+# entering lanes; ``most``, the most rows a lane tested (the loop of a
+# visit tested lane per ray); ``blocked``, the entering lanes blocked in
+# the visit; and ``chunk2``, the visits of a leaf of more than 32 rows
+# that some entering lane is not blocked by within its first 32 rows (the
+# visits that would still test rows 33-64 if a leaf were staged 32 rows
+# at a time).
 LANE_BINS = ("1", "2-4", "5-8", "9-16", "17-32")
-TALLY = ("nodes", "visits", "lanes", "rows") + LANE_BINS
+TALLY = (("nodes", "visits", "lanes", "rows") + LANE_BINS
+         + ("tested", "lane_rows", "most", "blocked", "chunk2"))
 _BIN_EDGES = (1, 4, 8, 16)
+CHUNK_ROWS = 32  # the rows of a half leaf (``chunk2``)
 
 
 class _WarpWalk(_Walk):
@@ -409,6 +420,20 @@ class _WarpWalk(_Walk):
         b = 4 + torch.bucketize(n_in, self._edges)
         t.index_put_((b, wi), torch.ones_like(wi), accumulate=True)
 
+    def _tally_rows(self, idx, wi, tested, cnt, most, blocked):
+        """Adds the row counts of the leaf visits of warps ``idx`` to the
+        tally: ``wi`` the entering lanes' warps (positions in ``idx``),
+        ``tested`` the rows each tested, ``blocked`` whether it is blocked
+        now (it was not when it entered); ``cnt`` (per warp) the rows of
+        its leaf and ``most`` the most rows a lane of it tested."""
+        t, k = self.tally, len(LANE_BINS) + 4
+        per = lambda x: torch.zeros_like(cnt).index_add_(0, wi, x.long())
+        t[k, idx] += per(tested)
+        t[k + 1, idx] += per(cnt[wi])
+        t[k + 2, idx] += most
+        t[k + 3, idx] += per(blocked)
+        t[k + 4, idx] += (cnt > CHUNK_ROWS) & (per(tested > CHUNK_ROWS) > 0)
+
     def step(self) -> bool:
         """One node per walking warp; False once no warp walks."""
         idx = torch.nonzero(self.wactive).flatten()
@@ -435,11 +460,13 @@ class _WarpWalk(_Walk):
         stop = torch.zeros_like(some)
         if bool(at_leaf.any()):
             wi, _ = torch.nonzero(enter & at_leaf[:, None], as_tuple=True)
-            tested = self._leaves(lanes[enter & at_leaf[:, None]],
-                                  self.child[n[wi]], cnt[wi])
+            rl_in = lanes[enter & at_leaf[:, None]]
+            tested = self._leaves(rl_in, self.child[n[wi]], cnt[wi])
             most = torch.zeros_like(n).scatter_reduce(0, wi, tested, "amax")
             self.counts[2, idx] += at_leaf
             self.counts[3, idx] += most
+            self._tally_rows(idx, wi, tested, cnt, most,
+                             self.blocked[rl_in])
             if not self.closest:
                 done = (self.blocked | ~self.live0).reshape(-1, WARP)[idx]
                 stop = at_leaf & done.all(1)
@@ -512,3 +539,23 @@ def closest_g_sim(o, d, tm, rows, nodes: NodeTables, signs=None):
     stats = w.run()
     out = _closest_g_out(w.bound, w.tri, w.bu, w.bv, tm, signs is not None)
     return out, stats, w.tally
+
+
+def shadow_g_sim(o, d, tm, rows, nodes: NodeTables, signs=None):
+    """B9d (``signs`` None: each warp's own signs) or B11d (``signs`` (P,
+    3): each packet's) on the planes ``o``/``d`` (three) and ``tm`` (P,
+    PACKET_R), simulated warp by warp. Returns (blocked float32 (P,
+    PACKET_R) as :func:`walk_shadow_g_plain` / :func:`fat_shadow_g_plain`
+    give it, the counters int32 (P, 8) as B9f's, the tally
+    ``_WarpWalk.tally`` (len(TALLY), P * WARPS)). A warp stops after a
+    leaf once every live lane is blocked; an entering lane tests the
+    leaf's rows up to its first occluder, so ``tested`` counts what the
+    any-hit needs of the rows the warp stages. The simulation walks as
+    ``walk`` does; B9d (``walk_pairs``) visits the same leaves with the
+    same lanes, in fewer node steps than the tally's."""
+    limit = torch.where(tm >= 0.0, tm, -BIG).reshape(-1)
+    w = _WarpWalk(nodes, [c.reshape(-1) for c in o],
+                  [c.reshape(-1) for c in d], limit, rows, True, False,
+                  None if signs is None else _ray_signs(signs, PACKET_R))
+    stats = w.run()
+    return w.blocked.float().reshape(tm.shape), stats, w.tally

@@ -32,7 +32,8 @@ from snail_tpu_torch.render.fast import render_frame_fast_stats
 from snail_tpu_torch.render.renderer import render_frame
 from snail_tpu_torch.scene import instancing
 from snail_tpu_torch.scene.bench_scenes import (STEP_OPTS, bench_scene,
-                                                bench_step, bounce_materials)
+                                                bench_step, bounce_materials,
+                                                instanced_grid)
 from snail_tpu_torch.scene.base_scene import FlatGeometry
 from snail_tpu_torch.scene.procedural import city_scene, terrain_scene
 from snail_tpu_torch.scene.scene import make_traced_scene
@@ -1006,19 +1007,15 @@ def test_fat_closest_kernel_matches_plain(which):
 STAGED_LEAVES = {"walk": (1, 31, 32, 17, 2), "fat": (33, 63, 64, 48, 40)}
 
 
-def _leaf_scene(sizes, device, seed=21):
-    """A scene of leaves side by side along x under a balanced tree of
-    hand-built inner nodes: leaf i, in the cell x in [3i, 3i + 2], holds
-    sizes[i] triangles parallel to the z = 0 plane at z = 0.05 j in a
-    seeded order, and two more of them at z = 0, the nearest (exact
-    distance ties; rows j and j + 32 on a leaf of more than 32)."""
-    rng = np.random.default_rng(seed)
+def _leaf_fields(zs):
+    """Leaves side by side along x under a balanced tree of hand-built
+    inner nodes: leaf i, in the cell x in [3i, 3i + 2], holds one
+    triangle parallel to the z = 0 plane at z = zs[i][j] for each of its
+    rows j, in that order. Returns (FlatGeometry fields, BVH fields) as
+    numpy, for either package's classes."""
+    sizes = [len(z) for z in zs]
     a, first = [], []
-    for i, s in enumerate(sizes):
-        z = rng.permutation(s).astype(np.float32) * np.float32(0.05)
-        if s > 1:
-            j = int(rng.integers(0, s - 32)) if s > 32 else 0
-            z[[j, j + 32] if s > 32 else rng.choice(s, 2, replace=False)] = 0
+    for i, z in enumerate(zs):
         first.append(len(a))
         a += [(3.0 * i, 0.0, zj) for zj in z]
     a = np.float32(a)
@@ -1040,17 +1037,89 @@ def _leaf_scene(sizes, device, seed=21):
                       for ls, c in zip(under, child)])
     zero = np.zeros(len(under), np.int32)
     n = len(a)
-    bvh = BVH(node_lo, node_hi, child, count, zero, zero,
-              np.arange(n, dtype=np.int32), pt.tree_depth(child, count))
+    bvh = dict(node_lo=node_lo, node_hi=node_hi, child=child, count=count,
+               axis=zero, first_node=zero,
+               order=np.arange(n, dtype=np.int32),
+               depth=pt.tree_depth(child, count))
     z0 = np.zeros((n, 3), np.float32)
     up = z0 + np.float32([0.0, 0.0, 1.0])
-    geom = FlatGeometry(
+    geom = dict(
         a=a, ba=np.tile(np.float32([2.0, 0.0, 0.0]), (n, 1)),
         ca=np.tile(np.float32([0.0, 2.0, 0.0]), (n, 1)), nrm=up,
         t0=np.full(n, 4.0, np.float32), uv0=z0[:, :2], uv_e1=z0[:, :2],
         uv_e2=z0[:, :2], n0=up, n_e1=z0, n_e2=z0,
         mat_id=np.zeros(n, np.int32))
-    return make_traced_scene(geom, bvh, device=device, walk=True)
+    return geom, bvh
+
+
+def _traced(fields, device):
+    geom, bvh = fields
+    return make_traced_scene(FlatGeometry(**geom), BVH(**bvh), device=device,
+                             walk=True)
+
+
+def _leaf_scene(sizes, device, seed=21):
+    """A scene of ``_leaf_fields`` leaves: leaf i holds sizes[i]
+    triangles at z = 0.05 j in a seeded order, and two more of them at z
+    = 0, the nearest (exact distance ties; rows j and j + 32 on a leaf of
+    more than 32)."""
+    rng = np.random.default_rng(seed)
+    zs = []
+    for s in sizes:
+        z = rng.permutation(s).astype(np.float32) * np.float32(0.05)
+        if s > 1:
+            j = int(rng.integers(0, s - 32)) if s > 32 else 0
+            z[[j, j + 32] if s > 32 else rng.choice(s, 2, replace=False)] = 0
+        zs.append(z)
+    return _traced(_leaf_fields(zs), device)
+
+
+def _blocker_fields(sizes, row):
+    """``_leaf_fields`` of leaves of ``sizes`` rows whose only row that a
+    ray from z = -1 along +z meets before 3 is row ``row`` (-1: the
+    last; past a leaf's rows: its last), at z = 0; its other rows lie at
+    z = 2 + 0.05 j."""
+    zs = []
+    for s in sizes:
+        b = s - 1 if row < 0 else min(row, s - 1)
+        zs.append(np.float32([0.0 if j == b else 2.0 + 0.05 * j
+                              for j in range(s)]))
+    return _leaf_fields(zs)
+
+
+def _blocker_rays(n_leaves, seed=29):
+    """``_lane_rays``' two packets (on the CPU), the aimed rays' tmax
+    changed for ``_blocker_fields``' scenes, and the verdict each ray
+    must get. An aimed ray (from z = -1 toward its leaf's cell) reaches
+    its leaf's blocker at t = 1 / d_z: a quarter have tmax 0.5 (short of
+    it), a quarter 1.5 (past it, short of the other rows), a quarter just
+    short of and just past it (t (1 -+ 1e-5): the one-sided rule's edge),
+    and a quarter turn toward +x, tmax 5: blocked at their leaf, their
+    segment then runs into the next leaf's box, which the warp may visit
+    after (lanes blocked in one leaf, masked for the next). Masked rays
+    keep their garbage planes; live misses are never blocked. Returns
+    (o, d, tm, want: bool (2, PACKET_R))."""
+    o, d, tm, _ = _lane_rays(n_leaves, "cpu")
+    o, d = [c.numpy().copy() for c in o], [c.numpy().copy() for c in d]
+    tm = tm.numpy().copy()
+    aimed = (tm >= 0) & (d[2] > 0)
+    rng = np.random.default_rng(seed)
+    kind = rng.integers(0, 5, tm.shape)
+    t_hit = 1.0 / d[2].astype(np.float64)
+    tm[aimed & (kind == 0)] = 0.5
+    tm[aimed & (kind == 1)] = 1.5
+    for k, f in ((2, 1.0 - 1e-5), (3, 1.0 + 1e-5)):
+        m = aimed & (kind == k)
+        tm[m] = (t_hit[m] * f).astype(np.float32)
+    diag = aimed & (kind == 4)
+    o[0][diag] = np.floor(o[0][diag] / 3.0) * 3.0 + 0.5
+    o[1][diag] = 0.2
+    d[0][diag], d[1][diag] = np.float32(np.sqrt(0.5)), 0.0
+    d[2][diag] = np.float32(np.sqrt(0.5))
+    tm[diag] = 5.0
+    want = aimed & ((kind == 1) | (kind == 3) | (kind == 4))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return (tuple(map(t, o)), tuple(map(t, d)), t(tm), torch.from_numpy(want))
 
 
 def _lane_rays(n_leaves, device, seed=23):
@@ -1125,6 +1194,79 @@ def test_staged_closest_kernel_matches_plain_exactly(kind):
     assert int(hit.sum()) == 2 * pt.WARPS * (pt.WARP + 1) // 2
     assert torch.equal(scene.tri_a[kt[hit].long(), 2],
                        torch.zeros_like(kd[hit]))
+
+
+@pytest.mark.parametrize("kind,row", [("walk", 0), ("walk", 16),
+                                      ("walk", 31), ("fat", 0), ("fat", 31),
+                                      ("fat", 63)])
+def test_staged_any_hit_kernel_matches_plain_exactly(kind, row):
+    """B9d (``walk``) and B11d (``fat``), whose leaf stage stages a whole
+    leaf and tests it lane per triangle (lane j: rows j and j + 32) where
+    at most a threshold of unblocked lanes enter it and lane per ray
+    above: verdicts equal to the plain version's and to what the rays must
+    get, with 1 to 32 lanes entering a leaf (both ways, whatever the
+    threshold), leaves of 1, 31, 32, 17, 2 (B9d) and 33, 63, 64, 48, 40
+    rows (B11d) whose only blocker is row 0, 16 or 31 (B9d) or row 0, 31
+    or 63 (B11d; on a leaf of more than 32 rows, row 63 is the second row
+    some lane tests), each leaf's last where it has fewer rows, tmax just
+    short of and just past the blocker, lanes blocked in one leaf whose
+    segment runs on into the next, masked rays with garbage planes and
+    live misses."""
+    _need_cuda()
+    sizes = STAGED_LEAVES[kind]
+    scene = _traced(_blocker_fields(sizes, row), "cuda")
+    assert scene.nodes.leaf_max == max(sizes)
+    o, d, tm, want = _blocker_rays(len(sizes))
+    o, d, tm = (tuple(c.cuda() for c in o), tuple(c.cuda() for c in d),
+                tm.cuda())
+    rows, nodes = scene.tri_rows, scene.nodes
+    if kind == "fat":
+        signs = pt.packet_signs(d)
+        kern = pt.fat_shadow_g(o, d, tm, signs, rows, nodes)
+        plain = fat_shadow_g_plain(o, d, tm, signs, rows, nodes)
+    else:
+        kern = pt.walk_shadow_g(o, d, tm, rows, nodes)
+        plain = walk_shadow_g_plain(o, d, tm, rows, nodes)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, plain)
+    assert torch.equal(kern.cpu() > 0, want)
+
+
+@pytest.mark.parametrize("kind", ["walk", "fat"])
+def test_any_hit_kernels_match_plain_on_instanced_shadows(kind, monkeypatch):
+    """B9d and B11d on the shadow wavefronts that an instanced fwd frame
+    launches (2 x 2 instances of the city at leaf 4, or 64: light 0 in
+    each instance's object space, rays missing its box or blocked by an
+    earlier instance masked): verdicts equal to their plain versions'."""
+    _need_cuda()
+    fat = kind == "fat"
+    scene, _, _, _, _ = _scene("city", walk=not fat, leaf=64 if fat else 4)
+    assert pt.is_fat(scene) == fat
+    name = "fat_shadow_g" if fat else "walk_shadow_g"
+    wrapper, waves = getattr(pt, name), []
+
+    def record(*args):
+        waves.append(args)
+        return wrapper(*args)
+
+    # the wrapper counts its launches on the name it looks itself up by
+    record.launches = wrapper.launches
+    monkeypatch.setattr(pt, name, record)
+    isc, icam = instanced_grid("city", scene, 2)
+    instancing.render_instanced(isc, icam, 256, 128, OPTS)
+    monkeypatch.undo()
+    assert len(waves) == 4
+    plain_fn = fat_shadow_g_plain if fat else walk_shadow_g_plain
+    shares = []
+    for args in waves:
+        kern = wrapper(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(kern, plain_fn(*args))
+        live = args[2] >= 0
+        assert not kern[~live].any()
+        if bool(live.any()):
+            shares.append(float(kern[live].mean()))
+    assert shares and 0.0 < max(shares) and min(shares) < 1.0
 
 
 @pytest.mark.parametrize("which", SCENES)

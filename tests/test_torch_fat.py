@@ -46,7 +46,9 @@ from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
 from snail_tpu_torch.ops.traverse_ref import (LANE_BINS, TALLY,
                                               closest_g_sim,
-                                              fat_closest_plain)
+                                              fat_closest_plain,
+                                              fat_shadow_g_plain,
+                                              shadow_g_sim)
 from snail_tpu_torch.render.fast import (render_frame_fast,
                                          render_frame_fast_diff,
                                          render_frame_fast_stats,
@@ -496,3 +498,35 @@ def test_fat_closest_tally_matches_counters(scenes):
     # leaves of 33-64 rows, entered by one lane and by many
     assert int(t["rows"].sum()) > pt.IVAL_LEAF * int(t["visits"].sum()) // 2
     assert int(t["1"].sum()) > 0 and int(t["17-32"].sum()) > 0
+
+
+def test_fat_shadow_tally_matches_plain(scenes):
+    """B11d's warps simulated (``shadow_g_sim`` with each packet's ray-0
+    signs) on shadow rays from the light and on scattered ones, as the
+    caller gives them (masked rays not substituted): their verdicts are
+    ``fat_shadow_g_plain``'s bit for bit and the JAX package's
+    ``any_hit_c``'s (``_shadow_kernel_g`` in interpret mode), and their
+    tally holds against their counters and verdicts (as
+    tests/test_torch_walk.py's B9d tally); leaves of 33-64 rows, some of
+    whose visits test rows 33-64 and some not."""
+    from test_torch_walk import _assert_shadow_tally_holds, _shadow_g_rays
+
+    js, ps, _, _ = scenes
+    o, d, tm = _shadow_g_rays(ps.root_lo.numpy(), ps.root_hi.numpy(),
+                              LIGHT[0], 23)
+    jb = np.asarray(tp.any_hit_c(js, _j3(o), _j3(d), jnp.asarray(tm)))
+    po, pd, ptm, n = pt.padded_planes(_p3(o), _p3(d), _t(tm))
+    signs = pt.packet_signs(pd)
+    blocked, stats, tally = shadow_g_sim(po, pd, ptm, ps.tri_rows, ps.nodes,
+                                         signs)
+    assert torch.equal(blocked, fat_shadow_g_plain(po, pd, ptm, signs,
+                                                   ps.tri_rows, ps.nodes))
+    pb = blocked.reshape(-1)[:n].numpy() > 0
+    live = tm >= 0
+    assert not pb[~live].any()
+    assert 0.05 < pb[live].mean() < 0.95
+    np.testing.assert_array_equal(pb, jb)
+    _assert_shadow_tally_holds(tally, stats, blocked, ptm >= 0)
+    t = dict(zip(TALLY, tally))
+    assert int(t["rows"].sum()) > pt.IVAL_LEAF * int(t["visits"].sum()) // 2
+    assert 0 < int(t["chunk2"].sum()) < int(t["visits"].sum())

@@ -23,12 +23,14 @@ import torch
 import jax.numpy as jnp
 
 from snail_tpu.bvh import build_bvh
+from snail_tpu.bvh.build import BVH as JBVH
 from snail_tpu.bvh.pages import partition_pages
 from snail_tpu.core.types import Camera as JCamera
 from snail_tpu.core.types import Light as JLight
 from snail_tpu.core.types import RenderOpts as JRenderOpts
 from snail_tpu.ops import traverse_pallas as tp
 from snail_tpu.render.fast import render_frame_fast as j_render_frame_fast
+from snail_tpu.scene.base_scene import FlatGeometry as JFlatGeometry
 from snail_tpu.scene.materials import MaterialTable as JMaterialTable
 from snail_tpu.scene.procedural import cornell_scene
 from snail_tpu.scene.scene import make_traced_scene as j_make_traced_scene
@@ -42,9 +44,12 @@ from snail_tpu_torch.ops.intersect import (intersect_any_brute_force,
                                            intersect_brute_force)
 from snail_tpu_torch.ops.traverse_ref import (LANE_BINS, TALLY,
                                               closest_g_sim,
+                                              fat_shadow_g_plain,
+                                              shadow_g_sim,
                                               walk_camera_stats_plain,
                                               walk_closest_g_plain,
                                               walk_plain,
+                                              walk_shadow_g_plain,
                                               walk_shadow_stats_plain)
 from snail_tpu_torch.render.fast import (render_frame_fast,
                                          render_frame_fast_stats,
@@ -514,3 +519,119 @@ def test_walk_closest_tally_matches_counters(scenes):
     assert stats.shape == (2, 8) and tally.shape == (len(TALLY),
                                                      2 * pt.WARPS)
     _assert_tally_holds(tally, stats)
+
+
+def _shadow_g_rays(lo, hi, light, seed):
+    """Three half packets of shadow rays with their own origins, flat (R,
+    3) / (R,) numpy: the first from ``light`` toward seeded points of the
+    box [lo, hi], each with a tmax just short of its point (an instanced
+    frame's shadow wavefront: one origin), the others from near seeded
+    points of the box in a cone (scattered warps), tmax a seeded share of
+    the box; every 9th ray masked with a garbage origin."""
+    rng = np.random.default_rng(seed)
+    n = pt.PACKET_R // 2
+    tgt = rng.uniform(lo, hi, (n, 3))
+    d0 = tgt - np.float64(light)
+    t0 = np.linalg.norm(d0, axis=-1)
+    o1 = (rng.uniform(lo, hi, (2 * n // pt.WARP, 1, 3))
+          + rng.uniform(-0.1, 0.1, (2 * n // pt.WARP, pt.WARP, 3))
+          * (hi - lo)).reshape(-1, 3)
+    d1 = rng.normal(size=(2 * n, 3)) * 0.3 + rng.normal(size=3)
+    o = np.concatenate([np.broadcast_to(light, (n, 3)), o1])
+    d = np.concatenate([d0 / t0[:, None],
+                        d1 / np.linalg.norm(d1, axis=-1, keepdims=True)])
+    tm = np.concatenate([t0 * 0.9999, rng.uniform(0.05, 0.6, 2 * n)
+                         * float(np.linalg.norm(hi - lo))])
+    tm[::9] = -BIG
+    o[::9] = 1e30
+    f = lambda a: np.ascontiguousarray(a, np.float32)
+    return f(o), f(d), f(tm)
+
+
+def _assert_shadow_tally_holds(tally, stats, blocked, live):
+    """The tally of an any-hit warp walk (``shadow_g_sim``) against its
+    counters, int32 (P, 8), and its verdicts ``blocked`` on the ``live``
+    rays: node steps are the ``nodes`` slot, leaf visits the ``quarters``
+    slot and the most rows a lane tested the ``tri_blocks`` slot, summed
+    over each packet's warps; the visits by entering lanes sum to the
+    visits; an entering lane tests at least one row of its leaf and never
+    more than the leaf's rows, some stop early; each blocked ray is
+    blocked in one visit."""
+    t = dict(zip(TALLY, tally))
+    packet = lambda x: x.reshape(-1, pt.WARPS).sum(1)
+    assert torch.equal(packet(t["nodes"]), stats[:, 0].long())
+    assert torch.equal(packet(t["visits"]), stats[:, 2].long())
+    assert torch.equal(packet(t["most"]), stats[:, 3].long())
+    assert torch.equal(sum(t[b] for b in LANE_BINS), t["visits"])
+    assert ((t["visits"] <= t["lanes"])
+            & (t["lanes"] <= pt.WARP * t["visits"])).all()
+    assert ((t["lanes"] <= t["tested"]) & (t["tested"] <= t["lane_rows"])
+            & (t["most"] <= t["rows"]) & (t["blocked"] <= t["lanes"])).all()
+    assert int(t["tested"].sum()) < int(t["lane_rows"].sum())
+    assert int(t["blocked"].sum()) == int(blocked[live].sum())
+    assert int(t["1"].sum()) > 0 and int(t["17-32"].sum()) > 0
+
+
+def test_walk_shadow_tally_matches_plain(scenes):
+    """B9d's warps simulated (``shadow_g_sim``, each warp's own signs) on
+    shadow rays from one light and on scattered ones: their verdicts are
+    the plain B9d's bit for bit and the JAX package's ``any_hit_c``'s on
+    the flat walk scene (B9 in interpret mode), and their tally holds
+    against their counters and verdicts."""
+    js, _, ps, _, _ = scenes
+    o, d, tm = _shadow_g_rays(ps.root_lo.numpy(), ps.root_hi.numpy(),
+                              LIGHT[0], 19)
+    jb = np.asarray(tp.any_hit_c(
+        js, tuple(jnp.asarray(o[:, k]) for k in range(3)),
+        tuple(jnp.asarray(d[:, k]) for k in range(3)), jnp.asarray(tm)))
+    po, pd, ptm, n = pt.general_planes(tuple(_t(o[:, k]) for k in range(3)),
+                                       tuple(_t(d[:, k]) for k in range(3)),
+                                       _t(tm))
+    blocked, stats, tally = shadow_g_sim(po, pd, ptm, ps.tri_rows, ps.nodes)
+    assert torch.equal(blocked, walk_shadow_g_plain(po, pd, ptm, ps.tri_rows,
+                                                    ps.nodes))
+    pb = blocked.reshape(-1)[:n].numpy() > 0
+    live = tm >= 0
+    assert not pb[~live].any()
+    assert 0.05 < pb[live].mean() < 0.95
+    np.testing.assert_array_equal(pb, jb)
+    assert stats.shape == (2, 8) and tally.shape == (len(TALLY),
+                                                     2 * pt.WARPS)
+    _assert_shadow_tally_holds(tally, stats, blocked, ptm >= 0)
+
+
+@pytest.mark.parametrize("kind", ["walk", "fat"])
+def test_lane_scene_any_hit_matches_jax(kind):
+    """The plain any-hit, B9d's on leaves of 1, 31 and 32 rows or B11d's
+    on leaves of 33, 63 and 64, on the staged-leaf card tests' scene and
+    rays (tests/test_torch_cuda.py ``_blocker_fields``: each leaf's only
+    blocker in its last row; ``_blocker_rays``: 1 to 32 lanes of a warp
+    aimed at a leaf, tmax short of, at the edge of and past the blocker,
+    lanes running on into the next leaf, masked rays with garbage planes,
+    live misses) against the JAX package's ``any_hit_c`` on the same
+    geometry and tree (the interval walk, or the fat-leaf kernel, in
+    interpret mode): verdicts identical, and the ones the rays must get;
+    the simulation's verdicts the plain version's."""
+    from test_torch_cuda import (STAGED_LEAVES, _blocker_fields,
+                                 _blocker_rays, _traced)
+
+    sizes = STAGED_LEAVES[kind]
+    fields = _blocker_fields(sizes, -1)
+    ps = _traced(fields, "cpu")
+    geom, bvh = fields
+    js = j_make_traced_scene(JFlatGeometry(**geom), JBVH(**bvh))
+    js = _walk_only(js) if kind == "walk" else js
+    assert pt.is_fat(ps) == (kind == "fat") and ps.nodes.leaf_max == max(sizes)
+    o, d, tm, want = _blocker_rays(len(sizes))
+    signs = pt.packet_signs(d) if kind == "fat" else None
+    if signs is None:
+        plain = walk_shadow_g_plain(o, d, tm, ps.tri_rows, ps.nodes)
+    else:
+        plain = fat_shadow_g_plain(o, d, tm, signs, ps.tri_rows, ps.nodes)
+    assert torch.equal(plain > 0, want)
+    sim = shadow_g_sim(o, d, tm, ps.tri_rows, ps.nodes, signs)[0]
+    assert torch.equal(sim, plain)
+    flat = lambda c: jnp.asarray(c.reshape(-1).numpy())
+    jb = np.asarray(tp.any_hit_c(js, tuple(map(flat, o)),
+                                 tuple(map(flat, d)), flat(tm)))
+    np.testing.assert_array_equal(jb, want.reshape(-1).numpy())

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Device time of the words passes B1, B3 and B5 and of the closest hits B9c
-and B11b on one CUDA card.
+"""Device time of the words passes B1, B3 and B5, of the closest hits B9c
+and B11b, and of the any-hits B9d and B11d on one CUDA card.
 
-    python3 time_words.py [--tree DIR] [--reps N] [--only words|closest]
-    python3 time_words.py [--tree DIR] [--reps N] --sweep T[,T...]
+    python3 time_words.py [--tree DIR] [--reps N] [--only words|closest|anyhit]
+    python3 time_words.py [--tree DIR] [--reps N] [--only closest|anyhit]
+                          --sweep T[,T...]
 
 Imports ``snail_tpu_torch`` from DIR (default: the directory of this
 script), so that one command can time another commit's kernels from a
@@ -24,19 +25,36 @@ does not count (``device_ms``).
   city_24 and terrain_530 at leaf 64; and the 1024 x 1024 bounce frame
   of each of these four scenes (CUDA events over 10 frames after one
   warm-up: host time between launches counts there).
+- anyhit: B9d on city_24 and terrain_724 with node tables and B11d on
+  city_24 and terrain_530 at leaf 64, each on the shadow wavefronts that
+  the 1024 x 1024 instanced fwd frame of its ``instanced_grid`` (16
+  instances of the city, 4 of the terrain) launches, one per instance
+  (taken from the frame's own calls: light 0 in the instance's object
+  space, rays that miss its box or an earlier instance blocked masked),
+  summed per frame, and on chip_smoke.py's seeded shadow wavefront
+  (``seeded_shadow_planes``); with each, the live rays and blocked share
+  of every instance's wavefront, the kernel's bound on it (chip_smoke
+  ``walk_work``, from its plain version's walk, and ``anyhit_bytes``), B5 (one band) + B7 on
+  the same wavefronts on the same geometry's leaf tables and the
+  instanced fwd frame (CUDA events over 10 frames). The kernels'
+  verdicts and the tally of their warps are chip_smoke.py's (phases 5
+  and 7).
 
-With ``--sweep``, times the closest hits of copies of the tree's package
-in which B9c and B11b test a leaf lane per triangle where at most T lanes
-enter it (the constexprs ``kWalkLaneTriMax`` in csrc/walk.cu and
-``kFatLaneTriMax`` in csrc/fat.cu set to T), one copy per T in turn, each
-in a process of its own; each JSON line then carries its
-``lane_tri_max``.
+With ``--sweep``, times the closest hits (``--only closest``, the
+default) or the any-hits (``--only anyhit``: the kernels' times only) of
+copies of the
+tree's package in which B9c and B11b, or B9d and B11d, test a leaf lane
+per triangle where at most T lanes enter it (the constexprs
+``kWalkLaneTriMax`` / ``kFatLaneTriMax``, or ``kWalkAnyLaneTriMax`` /
+``kFatAnyLaneTriMax``, set to T), one copy per T in turn, each in a
+process of its own; each JSON line then carries its ``lane_tri_max``.
 
 Prints the card (name and power limit, from nvidia-smi) and one JSON line
 per scene. Exits non-zero without a card.
 """
 
 import argparse
+import importlib.util
 import inspect
 import json
 import re
@@ -54,8 +72,16 @@ CLUSTERS = (1, 2, 4, 8)
 FAT_N = {"city": 24, "terrain": 530}
 PHOTONS = 2 ** 20
 FRAMES = 10
-# the threshold constexprs of the staged leaf stage, by source
-LANE_TRI_MAX = {"walk.cu": "kWalkLaneTriMax", "fat.cu": "kFatLaneTriMax"}
+# the threshold constexprs of the staged leaf stages, by kernels and
+# source
+LANE_TRI_MAX = {
+    "closest": {"walk.cu": "kWalkLaneTriMax", "fat.cu": "kFatLaneTriMax"},
+    "anyhit": {"walk.cu": "kWalkAnyLaneTriMax",
+               "fat.cu": "kFatAnyLaneTriMax"}}
+# the any-hit scenes: (kind, size, leaf): node tables at the kind's leaf
+# (B9d; B5 + B7 on the same geometry's leaf tables), or leaf 64 (B11d)
+ANYHIT = (("city", 24, None), ("terrain", 724, None), ("city", 24, 64),
+          ("terrain", 530, 64))
 # ~50 ms at the H100's 1.98 GHz boost clock: far longer than the host
 # takes to queue the timed calls
 SPIN_CYCLES = 100_000_000
@@ -236,17 +262,135 @@ def time_closest(tree, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
-def sweep(tree: Path, values, reps: int) -> None:
-    """The closest hits of ``tree``'s package with each lane-per-triangle
-    threshold in ``values``: a copy of the package per value, timed by
-    this script in a process of its own."""
+def smoke():
+    """chip_smoke.py beside this script (not the ``--tree``'s), as a
+    module."""
+    if "chip_smoke" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", Path(__file__).resolve().with_name("chip_smoke.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules["chip_smoke"]
+
+
+def anyhit_waves(kind: str, n: int, leaf):
+    """A bounce scene of ``kind`` at size ``n`` with node tables (``leaf``
+    None; and its leaf-table twin on the same geometry and BVH) or at
+    leaf ``leaf`` (64), the instanced grid of it, and the shadow
+    wavefronts its instanced fwd frame gives its any-hit kernel
+    (chip_smoke ``instanced_shadow_calls``): (node scene, twin or None,
+    instanced scene, camera, kernel name, [the kernel's arguments, one
+    call per instance])."""
+    from snail_tpu_torch.scene.bench_scenes import (bench_scene,
+                                                    bounce_materials)
+    from snail_tpu_torch.scene.scene import make_traced_scene
+
+    if leaf:
+        node, twin = bench_scene(kind, n, bounce=True, leaf=leaf)[0], None
+    else:
+        twin, _, g, bvh = bench_scene(kind, n, bounce=True)
+        node = make_traced_scene(g, bvh, bounce_materials(),
+                                 lights=twin.lights, device=twin.device,
+                                 walk=True)
+    return (node, twin, *smoke().instanced_shadow_calls(kind, node))
+
+
+def anyhit_extra(out, k, twin, isc, icam, waves, seeded, reps):
+    """Adds to ``out`` what ``--only anyhit`` gives beside the kernel's
+    times: per instance the live rays, blocked share and bound of its
+    wavefront (and the seeded one's); B5 + B7 on the twin's leaf tables;
+    the instanced fwd frame."""
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops import traverse_ref as ref
+    from snail_tpu_torch.scene.instancing import render_instanced
+
+    sm = smoke()
+    kern = getattr(pt, k)
+    plain = getattr(ref, f"{k}_plain")
+    live, share, bound = [], [], []
+    for a in waves + [seeded]:
+        tm, blocked = a[2], kern(*a)
+        work = {}
+        plain(*a, work)
+        ops, tree_bytes = sm.walk_work(k, a[-1], a[-2], work)
+        n_bytes = sm.anyhit_bytes(*a[:3], a[3] if len(a) == 6 else None,
+                                  blocked)
+        bound.append(sm.entry(0.0, 0.0, 0.0, n_bytes + tree_bytes,
+                              ops)["bound_ms"])
+        live.append(int((tm >= 0).sum()))
+        share.append(float(blocked[tm >= 0].mean()) if live[-1] else 0.0)
+    out.update({"live rays by instance": live[:-1],
+                "blocked share by instance": share[:-1],
+                "instanced bound ms": sum(bound[:-1]),
+                "instanced bound ms by instance": bound[:-1],
+                "seeded live rays": live[-1], "seeded blocked share":
+                share[-1], "seeded bound ms": bound[-1]})
+    if twin is not None:
+        lt, rows = twin.leaves, twin.tri_rows
+        b7 = b57 = 0.0
+        for o, d, tm, _, _ in waves:
+            words = pt.words_general(o, d, tm, lt, 1)
+            b7 += device_ms(lambda: pt.shadow_wl_g(o, d, tm, rows, lt,
+                                                   *words), reps)
+            b57 += device_ms(lambda: pt.shadow_wl_g(
+                o, d, tm, rows, lt, *pt.words_general(o, d, tm, lt, 1)),
+                reps)
+        o, d, tm, _, _ = seeded
+        words = pt.words_general(o, d, tm, lt, 1)
+        out.update({
+            "instanced shadow_wl_g ms": b7,
+            "instanced words_general + shadow_wl_g ms": b57,
+            "seeded shadow_wl_g ms": device_ms(
+                lambda: pt.shadow_wl_g(o, d, tm, rows, lt, *words), reps),
+            "seeded words_general + shadow_wl_g ms": device_ms(
+                lambda: pt.shadow_wl_g(o, d, tm, rows, lt,
+                                       *pt.words_general(o, d, tm, lt, 1)),
+                reps)})
+    opts = RenderOpts(reflections=False, transparency=False, textures=False)
+    out["instanced fwd frame ms"] = frame_ms(
+        lambda: render_instanced(isc, icam, WIDTH, HEIGHT, opts))
+
+
+def time_anyhit(tree, reps: int, quick: bool = False) -> None:
+    """B9d and B11d on the ANYHIT scenes' instanced and seeded shadow
+    wavefronts: their times, and unless ``quick`` ``anyhit_extra``."""
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+
+    for kind, n, leaf in ANYHIT:
+        node, twin, isc, icam, k, waves = anyhit_waves(kind, n, leaf)
+        kern = getattr(pt, k)
+        seed, o, d, tm, signs = smoke().seeded_shadow_planes(
+            node, (WIDTH // pt.TILE) * (HEIGHT // pt.TILE))
+        seeded = ((o, d, tm) + (() if signs is None else (signs,))
+                  + (node.tri_rows, node.nodes))
+        by = [device_ms(lambda: kern(*a), reps) for a in waves]
+        out = {"scene": f"{kind}_{n} {'leaf 64' if leaf else 'nodes'} "
+                        f"x{len(waves)}", "tree": str(tree), "kernel": k,
+               "seed": seed, "instanced ms": sum(by),
+               "instanced ms by instance": by,
+               "seeded ms": device_ms(lambda: kern(*seeded), reps)}
+        if not quick:
+            anyhit_extra(out, k, twin, isc, icam, waves, seeded, reps)
+        print(json.dumps(out), flush=True)
+        del node, twin, isc, waves, seeded
+        torch.cuda.empty_cache()
+
+
+def sweep(tree: Path, only: str, values, reps: int) -> None:
+    """The closest hits or any-hits (``only``) of ``tree``'s package with
+    each lane-per-triangle threshold in ``values``: a copy of the package
+    per value, timed by this script in a process of its own."""
     for t in values:
         with tempfile.TemporaryDirectory() as tmp:
             pkg = Path(tmp) / "snail_tpu_torch"
             shutil.copytree(tree / "snail_tpu_torch", pkg,
                             ignore=shutil.ignore_patterns("build",
                                                           "__pycache__"))
-            for name, const in LANE_TRI_MAX.items():
+            for name, const in LANE_TRI_MAX[only].items():
                 src = pkg / "csrc" / name
                 text, n = re.subn(rf"constexpr int {const} = \d+;",
                                   f"constexpr int {const} = {t};",
@@ -255,8 +399,9 @@ def sweep(tree: Path, values, reps: int) -> None:
                     raise RuntimeError(f"{const} not found in {src}")
                 src.write_text(text)
             res = subprocess.run(
-                [sys.executable, __file__, "--only", "closest", "--tree",
-                 tmp, "--reps", str(reps)], capture_output=True, text=True)
+                [sys.executable, __file__, "--only", only, "--tree", tmp,
+                 "--reps", str(reps), "--quick"], capture_output=True,
+                text=True)
             if res.returncode:
                 raise RuntimeError(f"lane_tri_max {t}: {res.stderr}")
             for line in res.stdout.splitlines():
@@ -270,8 +415,10 @@ def main() -> None:
     ap.add_argument("--tree", type=Path,
                     default=Path(__file__).resolve().parent)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=("words", "closest"))
+    ap.add_argument("--only", choices=("words", "closest", "anyhit"))
     ap.add_argument("--sweep", type=lambda v: [int(t) for t in v.split(",")])
+    # the any-hits' times only (what a sweep's copies print)
+    ap.add_argument("--quick", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     sys.path.insert(0, str(args.tree.resolve()))
     import torch
@@ -284,12 +431,17 @@ def main() -> None:
                           text=True, check=True).stdout.strip()
     print(f"card: {card}; tree {args.tree}", flush=True)
     if args.sweep:
-        sweep(args.tree.resolve(), args.sweep, args.reps)
+        only = args.only or "closest"
+        if only not in LANE_TRI_MAX:
+            ap.error("--sweep times --only closest (the default) or anyhit")
+        sweep(args.tree.resolve(), only, args.sweep, args.reps)
         return
-    if args.only != "closest":
+    if args.only in (None, "words"):
         time_passes(args.tree, args.reps)
-    if args.only != "words":
+    if args.only in (None, "closest"):
         time_closest(args.tree, args.reps)
+    if args.only in (None, "anyhit"):
+        time_anyhit(args.tree, args.reps, args.quick)
 
 
 if __name__ == "__main__":
