@@ -16,8 +16,11 @@ Phases, each printed on its own line:
    the frame's own reflection rays, and on a seeded wavefront that hits
    where too few of those do; B7 on a seeded wavefront of shadow rays with
    their own origins, and on the instanced frame's own shadow wavefront
-   (phase 4). B4 and B6 must equal their plain versions bit for bit
-   (verdicts; dist, u, v and tri), B2 in dist, u and v wherever the
+   (phase 4), each with the ``scan`` lines of its warps simulated on a few
+   packets (ops/traverse.py ``shadow_wl_g_sim``: words and blocks
+   entered, leaf visits by entering lanes, rows tested up to a stop; its
+   verdicts the kernel's bit for bit). B4, B6 and B7 must equal their
+   plain versions bit for bit (verdicts; dist, u, v and tri), B2 in dist, u and v wherever the
    triangle agrees, which may differ only on a distance tie, and B1, B3
    and B5 in their words, summaries and floors (and set no bit in a word
    whose box the pre-test drops; the ``passing`` lines give the word
@@ -79,7 +82,10 @@ Phases, each printed on its own line:
    ~0.56 Mtri, whose tree is the largest the TPU's B11 took (at most
    24,576 nodes), each with material 0 reflective: B11a-d (csrc/fat.cu) against
    their plain versions over whole wavefronts, as phase 5 (B11a on the
-   primary rays, B11c on the shadow rays, B11b on the reflection rays and
+   primary rays, B11c on the shadow rays and on the bounce frame's own
+   shadow wavefronts, taken from its calls: the first with a blocked live
+   ray, on the terrain lit by the low light, each with the ``scan`` lines
+   of its warps, B11b on the reflection rays and
    a seeded wavefront, B11d on the instanced frame's own shadow wavefront
    and on seeded shadow rays, the rays as the caller gave them); then the
    fat fwd, bounce, fwd_bwd, instanced fwd and portable fwd frames,
@@ -730,7 +736,6 @@ def check_kernels(name, kind, scene, cam):
         check_shadow(f"{name} low light", scene, primary,
                      torch.tensor(LOW_LIGHT[kind], device="cuda"), True)
     out.update(check_bounce(name, scene, primary))
-    check_seeded_shadows(name, scene, p)
     print_checks(name, out)
     return out
 
@@ -970,13 +975,14 @@ def blocked_share(scene, o, d, tm):
     return words, summ, floors, kern, float(kern[tm >= 0].mean())
 
 
-def check_shadow_general(name, scene, o, d, tm, need_window=True):
+def check_shadow_general(name, scene, o, d, tm, need_window=True,
+                         by_live=False):
     """B7 against its plain version on the planes ``o``, ``d``, ``tm``:
-    agreement > 0.999 on the live rays, masked rays never blocked, and
-    with ``need_window`` a blocked share of the live rays in 0.02-0.98.
-    Returns its entry."""
-    import torch
-
+    verdicts identical, masked rays never blocked, and with
+    ``need_window`` a blocked share of the live rays in 0.02-0.98; and
+    the tally of its warps on a few packets (``wl_tally``, its
+    ``by_live``). Returns its entry (with the tally's sums); its bound
+    counts the o and d planes of the live rays only (``anyhit_bytes``)."""
     from snail_tpu_torch.ops import traverse as pt
 
     lt, rows = scene.leaves, scene.tri_rows
@@ -984,33 +990,51 @@ def check_shadow_general(name, scene, o, d, tm, need_window=True):
     live = tm >= 0
     plain, plain_ms = timed_plain(
         lambda: pt.shadow_wl_g_plain(o, d, tm, rows, lt, words))
-    agree = float((kern[live] == plain[live]).float().mean())
-    print(f"check {name} shadow_wl_g: agreement {agree}, blocked share "
-          f"{share} of {int(live.sum())} live rays", flush=True)
-    if (agree <= 0.999 or bool(kern[~live].any())
-            or bool(plain[~live].any())
+    n_diff = int((kern != plain).sum())
+    print(f"check {name} shadow_wl_g: {n_diff} verdicts differ, blocked "
+          f"share {share} of {int(live.sum())} live rays", flush=True)
+    if (n_diff or bool(kern[~live].any())
             or (need_window and not 0.02 < share < 0.98)):
-        fail(f"{name} shadow_wl_g: agreement {agree}, blocked share {share}")
+        fail(f"{name} shadow_wl_g: {n_diff} verdicts differ, blocked share "
+             f"{share}")
+    tally = wl_tally(name, o, d, tm, rows, lt, words, floors, kern,
+                     by_live=by_live)
     ms = cuda_ms(lambda: pt.shadow_wl_g(o, d, tm, rows, lt, words, summ,
                                         floors), KERNEL_REPS)
+    e = entry(float((kern - plain).abs().max()), ms, plain_ms,
+              *b7_work(lt, rows, o, d, tm, words, summ, floors, kern),
+              scan=tally)
+    print_checks(name, {"shadow_wl_g": e})
+    return e
+
+
+def b7_work(lt, rows, o, d, tm, words, summ, floors, kern):
+    """The bytes and float operations that B7 needs on the planes ``o``,
+    ``d``, ``tm`` over B5's ``words``, with its verdicts ``kern``: the
+    leaves each unblocked live ray enters before its reach
+    (``needed_work``), one test for each blocked one, the word lists and
+    the root box, and the rays' planes as ``anyhit_bytes`` counts them
+    (o and d of the live rays only)."""
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+
     idir = [1.0 / (c + pt.INV_EPS) for c in d]
-    blocked = kern > 0
+    live, blocked = tm >= 0, kern > 0
     reach = torch.minimum(tm, root_exit(lt, o, idir))
     ops, leaf_bytes = needed_work(
         "shadow_wl_g", lt, rows, words, o, idir,
         torch.where(live & ~blocked, reach, float("-inf")),
         int((live & blocked).sum()))
-    e = entry(float((kern - plain).abs().max()), ms, plain_ms, nbytes(
-        *o, *d, tm, lt.root, words, summ, floors, kern) + leaf_bytes, ops)
-    print_checks(name, {"shadow_wl_g": e})
-    return e
+    return (anyhit_bytes(o, d, tm, None, kern)
+            + nbytes(lt.root, words, summ, floors) + leaf_bytes), ops
 
 
 def check_seeded_shadows(name, scene, n_packets):
     """B7 on seeded shadow rays with their own origins: the rays of
     ``seeded_general``, each live one looking 0.05-0.6 of the scene box's
     diagonal far; checked on the first seed whose blocked share lies in
-    0.02-0.98."""
+    0.02-0.98. Returns its entry, with the wavefront's name."""
     import numpy as np
     import torch
 
@@ -1022,8 +1046,9 @@ def check_seeded_shadows(name, scene, n_packets):
                                 .astype(np.float32)).cuda()
         tm = torch.where(tm >= 0, frac * diag, tm)
         if 0.02 < blocked_share(scene, o, d, tm)[-1] < 0.98:
-            check_shadow_general(f"{name} seeded {seed}", scene, o, d, tm)
-            return
+            wave = f"seeded {seed}"
+            return {**check_shadow_general(f"{name} {wave}", scene, o, d,
+                                           tm), "wavefront": wave}
     fail(f"{name}: no seeded shadow wavefront blocks 0.02-0.98 of its rays")
 
 
@@ -1158,10 +1183,12 @@ def run_stats(name, opts, scene, cam, small, card):
 
 
 def run_instanced(name, kind, scene, small, card):
-    """Phase 3's B7 check on the instanced frame's own shadow wavefront and
-    phase 4's instanced frames on a grid of instances of ``scene``, timed
-    over INSTANCED_FRAMES. Returns (B7's entry, {path: launch counts})."""
+    """Phase 3's B7 checks, on the instanced frame's own shadow wavefront
+    and on a seeded one (``check_seeded_shadows``), and phase 4's
+    instanced frames on a grid of instances of ``scene``, timed over
+    INSTANCED_FRAMES. Returns (B7's entry, {path: launch counts})."""
     from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.ops.traverse import TILE
     from snail_tpu_torch.scene.bench_scenes import instanced_grid
     from snail_tpu_torch.scene.instancing import render_instanced
 
@@ -1170,6 +1197,8 @@ def run_instanced(name, kind, scene, small, card):
     small_isc, small_cam = instanced_grid(kind, small[0], grid)
     iname = f"{name} x{grid * grid}"
     b7 = check_instanced(iname, isc, icam, need_window=kind == "city")
+    b7["seeded"] = check_seeded_shadows(
+        name, scene, (WIDTH // TILE) * (HEIGHT // TILE))
     launches = {}
     for path in paths:
         opts = (RenderOpts(textures=False) if path == "bounce" else
@@ -1225,8 +1254,10 @@ def check_instanced(name, isc, icam, need_window):
     o, d = inst._to_object(isc, i, lo3, fl3)
     o, d, tmi, _ = pt.general_planes(o.unbind(1), d.unbind(1),
                                      torch.where(touch, stm, -BIG))
-    return check_shadow_general(f"{name} instance {i} shadows", isc.base, o,
-                                d, tmi, need_window)
+    wave = f"{name.split()[-1]} instance {i} shadows"
+    return {**check_shadow_general(f"{name} instance {i} shadows", isc.base,
+                                   o, d, tmi, need_window, by_live=True),
+            "wavefront": wave}
 
 
 def run_step(name, scene, cam, small, card, path="fwd_bwd", need=BOUNCE,
@@ -1359,7 +1390,8 @@ def check_walk_kernels(name, kind, scene, cam):
     """Phase 5 on a walk scene's wavefronts (phase 7 on a fat-leaf
     scene's): B9a-d against their plain versions on the card, each over
     its whole wavefront, and B9e/B9f against B9a/B9b and the simulation
-    of their warps (B11a-d against theirs); returns {kernel: entry}."""
+    of their warps (B11a-d against theirs, B11c also on the bounce
+    frame's own shadow wavefronts); returns {kernel: entry}."""
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
@@ -1420,8 +1452,18 @@ def check_walk_kernels(name, kind, scene, cam):
                                scene.lights.pos[0], kind not in LOW_LIGHT)
     out.update(shadow)
     if kind in LOW_LIGHT:
-        check_walk_shadow(f"{name} low light", scene, primary,
-                          torch.tensor(LOW_LIGHT[kind], device="cuda"), True)
+        low = check_walk_shadow(f"{name} low light", scene, primary,
+                                torch.tensor(LOW_LIGHT[kind], device="cuda"),
+                                True)
+    if fat:
+        # B11c on the fwd frame's shadow rays, and on the bounce frame's own
+        out["fat_shadow"].update(wavefront="fwd frame shadows, light 0")
+        if kind in LOW_LIGHT:
+            out["fat_shadow"]["low light"] = {
+                **low["fat_shadow"], "wavefront": "fwd frame shadows, low "
+                "light"}
+        out["fat_shadow"]["bounce"] = check_fat_bounce_shadows(
+            name, kind, scene, cam)
     planes = pt.padded_planes if fat else pt.general_planes
     k = "fat_closest" if fat else "walk_closest_g"
     o, d, tm, _ = planes(*bounce_wavefront(scene, *primary))
@@ -1479,11 +1521,11 @@ def stats_entry(base, ms, plain_ms, stats, n_packets):
 
 def check_walk_shadow(name, scene, primary, lp, need_blocked):
     """B9b (and B9f) against its plain version, or on a fat-leaf scene B11c
-    against its own, on the frame's shadow rays from the ``primary`` hits
-    toward the light at ``lp``: verdicts identical, some rays unblocked
-    and, with ``need_blocked``, some blocked; B9f's verdicts B9b's bit for
-    bit and its counters of a few seeded packets the simulation's. Returns
-    {kernel: entry}."""
+    against its own (``check_fat_shadow``), on the frame's shadow rays
+    from the ``primary`` hits toward the light at ``lp``: verdicts
+    identical, some rays unblocked and, with ``need_blocked``, some
+    blocked; B9f's verdicts B9b's bit for bit and its counters of a few
+    seeded packets the simulation's. Returns {kernel: entry}."""
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
@@ -1495,20 +1537,15 @@ def check_walk_shadow(name, scene, primary, lp, need_blocked):
     orig, d, tm = lp.contiguous(), tuple(pk(c) for c in d), pk(tm)
     nodes = scene.nodes
     if pt.is_fat(scene):
-        k, rows, signs = "fat_shadow", scene.tri_rows, pt.packet_signs(d)
-        call = lambda: pt.fat_shadow(orig, d, tm, signs, rows, nodes)
-        plain_fn = lambda work: ref.fat_shadow_plain(orig, d, tm, signs, rows,
-                                                     nodes, work)
-        ins = (orig, *d, tm, signs)
-    else:
-        k, rows = "walk_shadow", pt.shared_rows(scene.tri_rows, orig)
-        call = lambda: pt.walk_shadow(orig, d, tm, rows, nodes)
-        plain_fn = lambda work: ref.walk_shadow_plain(orig, d, tm, rows,
-                                                      nodes, work)
-        ins = (orig, *d, tm)
+        return {"fat_shadow": check_fat_shadow(
+            name, orig, d, tm, pt.packet_signs(d), scene.tri_rows, nodes,
+            need_blocked, frac_max=0.98)}
+    k, rows = "walk_shadow", pt.shared_rows(scene.tri_rows, orig)
+    call = lambda: pt.walk_shadow(orig, d, tm, rows, nodes)
     kern = call()
     work = {}
-    plain, plain_ms = timed_plain(lambda: plain_fn(work))
+    plain, plain_ms = timed_plain(lambda: ref.walk_shadow_plain(
+        orig, d, tm, rows, nodes, work))
     live = tm >= 0
     frac = float(plain[live].mean())
     n_diff = int((kern != plain).sum())
@@ -1519,59 +1556,178 @@ def check_walk_shadow(name, scene, primary, lp, need_blocked):
         fail(f"{name} {k}: {n_diff} verdicts differ, blocked share {frac}")
     ms = cuda_ms(call, KERNEL_REPS)
     ops, tree_bytes = walk_work(k, nodes, rows, work)
-    out = {k: entry(0.0, ms, plain_ms, nbytes(*ins, kern) + tree_bytes,
-                    ops)}
-    if k == "walk_shadow":
-        # B9f: B9b's verdicts bit for bit, and the simulated counters
-        blocked, st = pt.walk_shadow_stats(orig, d, tm, rows, nodes)
-        if not torch.equal(blocked, kern):
-            fail(f"{name} walk_shadow_stats: verdicts differ from "
-                 "walk_shadow's")
-        ps = sample_packets(st, 4)
-        (sim_blocked, sim), sim_ms = timed_plain(
-            lambda: ref.walk_shadow_stats_plain(
-                orig, tuple(c[ps] for c in d), tm[ps], rows, nodes))
-        check_counters(f"{name} walk_shadow_stats", st, ps, sim)
-        if not torch.equal(sim_blocked, kern[ps]):
-            fail(f"{name} walk_shadow_stats: the simulation's verdicts "
-                 "differ")
-        ms = cuda_ms(lambda: pt.walk_shadow_stats(orig, d, tm, rows, nodes),
-                     KERNEL_REPS)
-        out["walk_shadow_stats"] = stats_entry(out[k], ms, sim_ms, st,
-                                               len(ps))
+    out = {k: entry(0.0, ms, plain_ms, nbytes(orig, *d, tm, kern)
+                    + tree_bytes, ops)}
+    # B9f: B9b's verdicts bit for bit, and the simulated counters
+    blocked, st = pt.walk_shadow_stats(orig, d, tm, rows, nodes)
+    if not torch.equal(blocked, kern):
+        fail(f"{name} walk_shadow_stats: verdicts differ from "
+             "walk_shadow's")
+    ps = sample_packets(st, 4)
+    (sim_blocked, sim), sim_ms = timed_plain(
+        lambda: ref.walk_shadow_stats_plain(
+            orig, tuple(c[ps] for c in d), tm[ps], rows, nodes))
+    check_counters(f"{name} walk_shadow_stats", st, ps, sim)
+    if not torch.equal(sim_blocked, kern[ps]):
+        fail(f"{name} walk_shadow_stats: the simulation's verdicts "
+             "differ")
+    ms = cuda_ms(lambda: pt.walk_shadow_stats(orig, d, tm, rows, nodes),
+                 KERNEL_REPS)
+    out["walk_shadow_stats"] = stats_entry(out[k], ms, sim_ms, st,
+                                           len(ps))
     return out
+
+
+def check_fat_shadow(name, orig, d, tm, signs, rows, nodes, need_blocked,
+                     frac_max=1.0):
+    """B11c against its plain version on a shadow wavefront from ``orig``:
+    verdicts identical, masked rays never blocked, a blocked share of the
+    live rays below ``frac_max`` and, with ``need_blocked``, above 0.02;
+    and the tally of its warps on a few packets drawn by their live rays
+    (``warp_tally``, the shared origin given as planes). Returns its entry
+    (with the tally's sums); its bound counts the d planes of the live
+    rays only (``anyhit_bytes``)."""
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops import traverse_ref as ref
+
+    call = lambda: pt.fat_shadow(orig, d, tm, signs, rows, nodes)
+    kern = call()
+    work = {}
+    plain, plain_ms = timed_plain(lambda: ref.fat_shadow_plain(
+        orig, d, tm, signs, rows, nodes, work))
+    live = tm >= 0
+    frac = float(plain[live].mean())
+    n_diff = int((kern != plain).sum())
+    print(f"check {name} fat_shadow: {n_diff} verdicts differ, blocked "
+          f"share {frac} of {int(live.sum())} live rays", flush=True)
+    if (n_diff or bool(kern[~live].any()) or frac >= frac_max
+            or (need_blocked and frac <= 0.02)):
+        fail(f"{name} fat_shadow: {n_diff} verdicts differ, blocked share "
+             f"{frac}")
+    tally = warp_tally(name, "fat_shadow",
+                       tuple(orig[k].expand_as(tm) for k in range(3)), d, tm,
+                       rows, nodes, signs, kern, by_live=True)
+    ms = cuda_ms(call, KERNEL_REPS)
+    ops, tree_bytes = walk_work("fat_shadow", nodes, rows, work)
+    return entry(0.0, ms, plain_ms, nbytes(orig)
+                 + anyhit_bytes((), d, tm, signs, kern) + tree_bytes, ops,
+                 scan=tally)
+
+
+def frame_shadow_calls(scene, cam, opts):
+    """The arguments of every B11c call (``fat_shadow``) of a 1024 x 1024
+    ``render_frame`` of the fat-leaf ``scene`` with ``opts``, in the
+    order of the frame's calls (``captured``; with bounces, the bounce
+    wavefronts' shadow rays come first, the primary hits' last)."""
+    from snail_tpu_torch.render.renderer import render_frame
+
+    return captured("fat_shadow", lambda: render_frame(scene, cam, WIDTH,
+                                                       HEIGHT, opts))
+
+
+def bounce_shadow_calls(kind, scene, cam):
+    """The fat bounce frame's B11c calls (``frame_shadow_calls``) and the
+    name of the light: light 0's if one of its wavefronts blocks a live
+    ray, else (the terrain's overhead light blocks none) those of the
+    same frame lit by the kind's low light."""
+    from snail_tpu_torch.core.types import Light, RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.scene.bench_scenes import SCENES
+
+    opts = RenderOpts(textures=False)
+    calls = frame_shadow_calls(scene, cam, opts)
+    if any(bool(pt.fat_shadow(*a)[a[2] >= 0].any()) for a in calls) or (
+            kind not in LOW_LIGHT):
+        return "light 0", calls
+    low = dataclasses.replace(scene, lights=Light.make(
+        LOW_LIGHT[kind], (1.0, 1.0, 1.0), SCENES[kind][3]))
+    return "low light", frame_shadow_calls(low, cam, opts)
+
+
+def check_fat_bounce_shadows(name, kind, scene, cam):
+    """B11c on the fat bounce frame's own shadow wavefronts
+    (``bounce_shadow_calls``): the first of them in which the kernel
+    blocks a live ray, as ``check_fat_shadow``. Returns its entry, with
+    the wavefront's name."""
+    from snail_tpu_torch.ops import traverse as pt
+
+    light, calls = bounce_shadow_calls(kind, scene, cam)
+    for i, args in enumerate(calls):
+        if bool(pt.fat_shadow(*args)[args[2] >= 0].any()):
+            break
+    else:
+        fail(f"{name} fat_shadow: no live ray of the bounce frame's "
+             f"{len(calls)} shadow wavefronts is blocked")
+    wave = f"bounce frame shadows, call {i + 1} of {len(calls)}, {light}"
+    return {**check_fat_shadow(f"{name} {wave}", *args, False),
+            "wavefront": wave}
+
+
+def draw_packets(tm, seed, by_live):
+    """SIM_PACKETS seeded packets of the (P, PACKET_R) ``tm`` with live
+    rays; with ``by_live``, each drawn with a chance in proportion to its
+    live rays (an instanced wavefront, where most packets hold a few)."""
+    import numpy as np
+    import torch
+
+    n_live = (tm >= 0).sum(1).cpu().numpy()
+    busy = np.flatnonzero(n_live)
+    p = n_live[busy] / n_live[busy].sum() if by_live else None
+    return torch.from_numpy(np.sort(np.random.default_rng(seed).choice(
+        busy, min(SIM_PACKETS, len(busy)), replace=False, p=p))).to(
+            tm.device)
+
+
+def print_tally(name, kernel, pk, tally, closest):
+    """The ``scan`` lines of a simulated tally (``warp_tally``,
+    ``wl_tally``) of packets ``pk``: its counts per warp, the share of the
+    leaf visits by their entering lanes and, for an any-hit, the rows
+    tested up to a stop."""
+    from snail_tpu_torch.ops import traverse as pt
+
+    print_scan(name, kernel, tally)
+    visits = max(tally["visits"], 1)
+    print(f"scan {name} {kernel}: lanes entering a leaf visit (packets "
+          f"{pk.tolist()}, outputs equal to the kernel's): "
+          + ", ".join(f"{b} {tally[b] / visits:.4f}" for b in pt.LANE_BINS)
+          + f" of {tally['visits']} visits; mean "
+          f"{tally['lanes'] / visits:.3f} lanes and "
+          f"{tally['rows'] / visits:.3f} rows a visit", flush=True)
+    if not closest:
+        lanes = max(tally["lanes"], 1)
+        print(f"scan {name} {kernel}: rows tested up to a stop "
+              f"{tally['tested'] / max(tally['lane_rows'], 1):.4f} of the "
+              f"entering lanes' leaf rows, the longest lane "
+              f"{tally['most'] / max(tally['rows'], 1):.4f} of a visit's "
+              f"rows; entering lanes blocked in the visit "
+              f"{tally['blocked'] / lanes:.4f}; visits still needing rows "
+              f"33-64 {tally['chunk2']} of {tally['visits']}", flush=True)
 
 
 def warp_tally(name, kernel, o, d, tm, rows, nodes, signs, kern, seed=6,
                by_live=False):
     """The warps of a closest hit (B9c, or B11b with ``signs``) or of an
-    any-hit (B9d, or B11d with ``signs``) on SIM_PACKETS seeded packets of
-    the planes ``o``, ``d``, ``tm`` with live rays, simulated
+    any-hit (B9d, or B11c/B11d with ``signs``; B11c's shared origin given
+    as planes) on SIM_PACKETS seeded packets of the planes ``o``, ``d``,
+    ``tm`` with live rays (``draw_packets``, its ``by_live``), simulated
     (ops/traverse_ref.py ``closest_g_sim`` / ``shadow_g_sim``): their
-    outputs must equal the kernel's, ``kern``, bit for bit; prints ``scan``
-    lines of their tally per warp (node steps, leaf visits, the lanes
-    entering them and their rows, the rows tested up to a stop) and the
-    share of the visits by their entering lanes, which decides how
-    csrc/walk.cuh ``leaf_closest_staged`` / ``leaf_blocks_staged`` tests
-    a leaf (node steps as ``walk`` takes them: B9c's and B9d's
-    ``walk_pairs`` takes fewer); for an any-hit also the share of the
-    entering lanes' rows they tested and of the lanes blocked, and of the
-    visits of a leaf of more than 32 rows, those whose rows 33-64 some
-    entering lane still needs. With ``by_live``,
-    a packet is drawn with a chance in proportion to its live rays (an
-    instanced wavefront, where most packets hold a few). Returns the
-    tally's sums."""
-    import numpy as np
+    outputs must equal the kernel's, ``kern``, bit for bit; prints
+    ``scan`` lines of their tally per warp (node steps, leaf visits, the
+    lanes entering them and their rows, the rows tested up to a stop) and
+    the share of the visits by their entering lanes, which decides how
+    csrc/walk.cuh ``leaf_closest_staged`` / csrc/rays.cuh
+    ``leaf_blocks_staged`` tests a leaf (node steps as ``walk`` takes
+    them: B9c's and B9d's ``walk_pairs`` takes fewer); for an any-hit
+    also the share of the entering lanes' rows they tested and of the
+    lanes blocked, and of the visits of a leaf of more than 32 rows, those
+    whose rows 33-64 some entering lane still needs. Returns the tally's
+    sums."""
     import torch
 
+    from snail_tpu_torch.ops import traverse as pt
     from snail_tpu_torch.ops import traverse_ref as ref
 
-    n_live = (tm >= 0).sum(1).cpu().numpy()
-    busy = np.flatnonzero(n_live)
-    p = n_live[busy] / n_live[busy].sum() if by_live else None
-    pk = torch.from_numpy(np.sort(np.random.default_rng(seed).choice(
-        busy, min(SIM_PACKETS, len(busy)), replace=False, p=p))).to(
-            tm.device)
+    pk = draw_packets(tm, seed, by_live)
     sel = lambda c: c.index_select(0, pk).contiguous()
     closest = "closest" in kernel
     sim = ref.closest_g_sim if closest else ref.shadow_g_sim
@@ -1585,24 +1741,39 @@ def warp_tally(name, kernel, o, d, tm, rows, nodes, signs, kern, seed=6,
         fail(f"{name} {kernel}: the simulation's outputs on packets "
              f"{pk.tolist()} differ from the kernel's")
     tally = {"warps": tal.shape[1],
-             **dict(zip(ref.TALLY, tal.sum(1).tolist()))}
-    print_scan(name, kernel, tally)
-    visits = max(tally["visits"], 1)
-    print(f"scan {name} {kernel}: lanes entering a leaf visit (packets "
-          f"{pk.tolist()}, outputs equal to the kernel's): "
-          + ", ".join(f"{b} {tally[b] / visits:.4f}" for b in ref.LANE_BINS)
-          + f" of {tally['visits']} visits; mean "
-          f"{tally['lanes'] / visits:.3f} lanes and "
-          f"{tally['rows'] / visits:.3f} rows a visit", flush=True)
-    if not closest:
-        lanes = max(tally["lanes"], 1)
-        print(f"scan {name} {kernel}: rows tested up to a stop "
-              f"{tally['tested'] / max(tally['lane_rows'], 1):.4f} of the "
-              f"entering lanes' leaf rows, the longest lane "
-              f"{tally['most'] / max(tally['rows'], 1):.4f} of a visit's "
-              f"rows; entering lanes blocked in the visit "
-              f"{tally['blocked'] / lanes:.4f}; visits still needing rows "
-              f"33-64 {tally['chunk2']} of {tally['visits']}", flush=True)
+             **dict(zip(pt.TALLY, tal.sum(1).tolist()))}
+    print_tally(name, kernel, pk, tally, closest)
+    return tally
+
+
+def wl_tally(name, o, d, tm, rows, lt, words, floors, kern, seed=6,
+             by_live=False):
+    """B7's warps on SIM_PACKETS seeded packets of the planes ``o``, ``d``,
+    ``tm`` with live rays (``draw_packets``), simulated as the kernel
+    scans (ops/traverse.py ``shadow_wl_g_sim``: ``scan_boxes`` and the
+    staged any-hit leaf stage): their verdicts must equal the kernel's,
+    ``kern``, bit for bit; prints ``scan`` lines per warp (words that
+    reach the leaf level, blocks entered, leaves its cull keeps, bands
+    entered) and the tally of its leaf visits, as ``warp_tally``. Returns
+    the tally's sums."""
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+
+    pk = draw_packets(tm, seed, by_live)
+    sel = lambda c: c.index_select(0, pk).contiguous()
+    blocked, cnt, tal = pt.shadow_wl_g_sim(
+        tuple(map(sel, o)), tuple(map(sel, d)), sel(tm), rows, lt,
+        sel(words), sel(floors))
+    if not torch.equal(blocked, sel(kern)):
+        fail(f"{name} shadow_wl_g: the simulation's verdicts on packets "
+             f"{pk.tolist()} differ from the kernel's")
+    cnt, t = cnt.sum(1).tolist(), tal.sum(1).tolist()
+    tally = {"warps": tal.shape[1], "words entered": cnt[0],
+             "blocks entered": cnt[5], "leaves kept": cnt[1],
+             "bands entered": cnt[4],
+             **dict(zip(pt.TALLY[1:], t[1:]))}
+    print_tally(name, "shadow_wl_g", pk, tally, False)
     return tally
 
 

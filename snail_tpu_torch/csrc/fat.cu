@@ -27,13 +27,13 @@
 //   returns its best: a live miss with a finite tmax returns tmax (:655,
 //   :665); B11c/B11d use the one-sided rule with limit tmax, or -BIG when
 //   masked, and a warp stops once every live lane is blocked (:711-713).
-// B11a and B11c: one lane loops over its leaf's up to 64 rows from
-// global memory (rays.cuh leaf_closest / leaf_blocks). B11b copies each
-// leaf it visits into the warp's shared memory once and tests it lane per
-// triangle, two rows a lane, where few lanes enter it (walk.cuh
-// leaf_closest_staged); B11d stages its leaves too and tests them lane
-// per triangle where few lanes enter, lane per ray up to each ray's first
-// occluder where many do (walk.cuh leaf_blocks_staged).
+// B11a: one lane loops over its leaf's up to 64 rows from global memory
+// (rays.cuh leaf_closest). B11b copies each leaf it visits into the
+// warp's shared memory once and tests it lane per triangle, two rows a
+// lane, where few lanes enter it (walk.cuh leaf_closest_staged); B11c
+// and B11d stage their leaves too and test them lane per triangle where
+// few lanes enter, lane per ray up to each ray's first occluder where
+// many do (rays.cuh leaf_blocks_staged).
 //
 // What the TPU kernels needed and these do not: the 64-row leaf DMA into
 // VMEM per visited leaf, STACK_CAP = 96 (here depth + 2, from the tree),
@@ -42,9 +42,10 @@
 // falls to its jnp reference; here the same kernels serve any tree size).
 //
 // What bounds them on this card: as the walk kernels, the latency of each
-// warp's chain of node loads, and here more the leaf tests: a leaf of up
-// to 64 raw rows is 64 dependent 48-byte loads per lane, with the lanes
-// that enter the leaf diverging from those that do not.
+// warp's chain of node loads, and here more the leaf tests: for B11a a
+// leaf of up to 64 raw rows is 64 dependent 48-byte loads per lane, with
+// the lanes that enter the leaf diverging from those that do not; B11b-d
+// copy it once per warp and test it from shared memory.
 
 #include "walk.cuh"
 
@@ -59,6 +60,10 @@ constexpr int kFatLaneTriMax = 16;
 // most kFatAnyLaneTriMax lanes enter (set by a sweep on the H100,
 // PERF.md).
 constexpr int kFatAnyLaneTriMax = 16;
+// B11c's leaf stage: the same leaves, tested lane per triangle where at
+// most kFatShadowLaneTriMax lanes enter (set by a sweep on the H100,
+// PERF.md).
+constexpr int kFatShadowLaneTriMax = 24;
 
 // B11a: camera raygen + closest hit on the raw rows. Outputs dist, u, v,
 // tri, dx, dy, dz; a miss has dist BIG and tri 0.
@@ -138,34 +143,11 @@ fat_closest_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   out_tri[g] = max(tri, 0);
 }
 
-// The any-hit of B11c for one ray from ``o``: blocked as 1.0f, a masked
-// ray (tmax < 0) never blocked.
-__device__ __forceinline__ float fat_blocked(const float4* nodes,
-                                             int stack_cap,
-                                             const int32_t* signs,
-                                             const float* rows,
-                                             const float o[3],
-                                             const float d[3], float tmax) {
-  const float idir[3] = {1.0f / (d[0] + kInvEps), 1.0f / (d[1] + kInvEps),
-                         1.0f / (d[2] + kInvEps)};
-  const float limit = tmax >= 0.0f ? tmax : -kBig;
-  const int pid = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) /
-                        kPacketR);
-  bool blocked = false;
-  WalkCounts wc;
-  walk<false>(nodes, warp_stack(stack_cap), o, idir, packet_signs(signs, pid),
-              [&] { return blocked ? -kBig : limit; },
-              [&](bool enter, int first, int count, int& tested) {
-                if (enter)
-                  blocked = leaf_blocks<true>(rows, first, count, o, d, limit,
-                                              tested);
-                return __all_sync(kFull, blocked || !(limit > 0.0f));
-              },
-              wc);
-  return blocked ? 1.0f : 0.0f;
-}
-
-// B11c: any-hit from the shared origin ``orig`` (the light) on the raw rows.
+// B11c: any-hit from the shared origin ``orig`` (the light) on the raw
+// rows: blocked as 1.0f, a masked ray (tmax < 0) never blocked. Leaves go
+// through the staged any-hit leaf stage (rays.cuh leaf_blocks_staged),
+// lane per triangle, two rows a lane, where at most kFatShadowLaneTriMax
+// lanes enter. It walks with ``walk``, as B11d.
 __global__ void __launch_bounds__(kWalkThreads)
 fat_shadow_kernel(const float* __restrict__ orig,
                   const float* __restrict__ dx, const float* __restrict__ dy,
@@ -173,16 +155,32 @@ fat_shadow_kernel(const float* __restrict__ orig,
                   const int32_t* __restrict__ signs,
                   const float* __restrict__ rows,
                   const float4* __restrict__ nodes, int stack_cap,
-                  float* __restrict__ out_blocked) {
+                  int leaf_max, float* __restrict__ out_blocked) {
   const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const float o[3] = {orig[0], orig[1], orig[2]};
   const float d[3] = {dx[g], dy[g], dz[g]};
-  out_blocked[g] = fat_blocked(nodes, stack_cap, signs, rows, o, d, tm[g]);
+  const float idir[3] = {1.0f / (d[0] + kInvEps), 1.0f / (d[1] + kInvEps),
+                         1.0f / (d[2] + kInvEps)};
+  const float limit = tm[g] >= 0.0f ? tm[g] : -kBig;
+  float4* stage = warp_stage(stack_cap, leaf_max);
+  bool blocked = false;
+  WalkCounts wc;
+  walk<false>(nodes, warp_stack(stack_cap), o, idir,
+              packet_signs(signs, (int)(g / kPacketR)),
+              [&] { return blocked ? -kBig : limit; },
+              [&](bool enter, int first, int count, int&) {
+                if (leaf_blocks_staged<kFatLeafRows, kFatShadowLaneTriMax>(
+                        rows, stage, first, count, enter, o, d, limit))
+                  blocked = true;
+                return __all_sync(kFull, blocked || !(limit > 0.0f));
+              },
+              wc);
+  out_blocked[g] = blocked ? 1.0f : 0.0f;
 }
 
 // B11d: any-hit of rays with their own origins on the raw rows: blocked
 // as 1.0f, a masked ray (tmax < 0) never blocked. Leaves go through the
-// staged any-hit leaf stage (walk.cuh leaf_blocks_staged), lane per
+// staged any-hit leaf stage (rays.cuh leaf_blocks_staged), lane per
 // triangle, two rows a lane, where at most kFatAnyLaneTriMax lanes enter.
 // It walks with ``walk``, as B11b.
 __global__ void __launch_bounds__(kWalkThreads)
@@ -257,17 +255,20 @@ int snail_fat_closest(const float* ox, const float* oy, const float* oz,
   return (int)cudaGetLastError();
 }
 
+// ``leaf_max``: as snail_fat_closest's.
 int snail_fat_shadow(const float* orig, const float* dx, const float* dy,
                      const float* dz, const float* tm, const int32_t* signs,
                      const float* rows, const float* nodes, int n_nodes,
-                     int stack_cap, int n_packets, float* blocked,
-                     void* stream) {
-  if (!walk_args_ok(n_nodes, stack_cap, n_packets))
+                     int stack_cap, int leaf_max, int n_packets,
+                     float* blocked, void* stream) {
+  if (!walk_args_ok(n_nodes, stack_cap, n_packets, leaf_max) ||
+      leaf_max < 1 || leaf_max > kFatLeafRows)
     return (int)cudaErrorInvalidValue;
   fat_shadow_kernel<<<walk_blocks(n_packets), kWalkThreads,
-                      walk_smem(stack_cap), (cudaStream_t)stream>>>(
+                      walk_smem(stack_cap, leaf_max),
+                      (cudaStream_t)stream>>>(
       orig, dx, dy, dz, tm, signs, rows,
-      reinterpret_cast<const float4*>(nodes), stack_cap, blocked);
+      reinterpret_cast<const float4*>(nodes), stack_cap, leaf_max, blocked);
   return (int)cudaGetLastError();
 }
 

@@ -30,7 +30,7 @@
 // same leaves in the same order in fewer dependent steps. B9d walks so
 // too, and stages its leaves and tests them lane per triangle where few
 // lanes enter, each lane per ray up to its first occluder where many do
-// (walk.cuh leaf_blocks_staged). Any-hit
+// (rays.cuh leaf_blocks_staged). Any-hit
 // warps stop once every live lane is blocked (_shadow_ival_drain's exit,
 // :1698). B9e/B9f are B9a/B9b with
 // STATS: the walk counts what each warp did (walk.cuh WalkCounts) and lane
@@ -138,8 +138,8 @@ walk_shadow_kernel(const float* __restrict__ orig,
               [&] { return blocked ? -kBig : limit; },
               [&](bool enter, int first, int count, int& tested) {
                 if (enter)
-                  blocked = leaf_blocks<false>(rows, first, count, o, d,
-                                               limit, tested);
+                  blocked = leaf_blocks(rows, first, count, d, limit,
+                                        tested);
                 return __all_sync(kFull, blocked || !(limit > 0.0f));
               },
               wc);
@@ -191,7 +191,7 @@ walk_closest_g_kernel(const float* __restrict__ ox,
 // B9d / B10d: any-hit of rays with their own origins on the raw rows.
 // The walk tests a node's two children at once (walk.cuh walk_pairs) and
 // ends once every live lane is blocked; leaves go through the staged
-// any-hit leaf stage (walk.cuh leaf_blocks_staged), lane per triangle
+// any-hit leaf stage (rays.cuh leaf_blocks_staged), lane per triangle
 // where at most kWalkAnyLaneTriMax lanes enter. Asked for at least 2
 // blocks an SM, ptxas gives it 52 registers and spills none; with no
 // minimum it gave 48 and spilled, with 4 it gave 55 and ran 3 % slower

@@ -215,14 +215,9 @@ __device__ __forceinline__ int* warp_stack(int stack_cap) {
 // --- The staged closest-hit leaf stage of B9c and B11b --------------------
 //
 // At a leaf some lane enters, the warp first copies the leaf's rows into
-// its own slice of shared memory, 16 bytes a lane with cp.async: one
-// coalesced copy of at most 1.5 KB (leaf 32) or 3 KB (leaf 64) in place
-// of a chain of 32-64 dependent global loads in every entering lane. A
-// staged row keeps a, ba, ca and n (48 bytes; the row's pad is not
-// copied), so that lanes reading consecutive rows 16 bytes at a time meet
-// no bank conflict: 48 B is 12 banks, and the 8 lanes of each quarter-warp
-// phase cover the 32 banks once.
-//
+// its own slice of shared memory (rays.cuh stage_leaf: 48-byte rows, one
+// coalesced cp.async copy in place of a chain of dependent global loads
+// in every entering lane).
 // Then the warp tests the rows one of two ways, by how many lanes entered:
 // - few (at most LANE_TRI_MAX): lane per triangle. The warp takes the
 //   entering rays one at a time, broadcasts the ray and its best, lane j
@@ -234,8 +229,6 @@ __device__ __forceinline__ int* warp_stack(int stack_cap) {
 // brought into the leaf, the first of equal ones, which is the argmin.
 // Every test is moller_raw + closer_hit, as there.
 
-constexpr int kStageVec = 3;  // float4 of a staged row
-
 // The warp's slice of ``leaf_max`` staged rows, after the warps' stacks
 // (rounded up to 16 bytes).
 __device__ __forceinline__ float4* warp_stage(int stack_cap, int leaf_max) {
@@ -243,34 +236,6 @@ __device__ __forceinline__ float4* warp_stage(int stack_cap, int leaf_max) {
   const int off = (kWalkWarps * stack_cap + 3) & ~3;
   return reinterpret_cast<float4*>(s_stack + off) +
          (threadIdx.x >> 5) * leaf_max * kStageVec;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-// Copies rows first .. first + count - 1 of ``rows`` into the warp's
-// ``stage``; every lane of the warp calls it.
-__device__ __forceinline__ void stage_leaf(const float* rows, int first,
-                                           int count, float4* stage) {
-  const int lane = threadIdx.x & 31;
-  const float4* src = reinterpret_cast<const float4*>(rows) + (size_t)first * 4;
-  __syncwarp();  // every lane is done with the previous leaf's rows
-  for (int c = lane; c < count * kStageVec; c += 32) {
-    const int r = c / kStageVec;
-    cp_async16(stage + c, src + 4 * r + (c - kStageVec * r));
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncwarp();
-}
-
-__device__ __forceinline__ RawRow staged_row(const float4* stage, int j) {
-  const float4 a = stage[kStageVec * j], b = stage[kStageVec * j + 1],
-               c = stage[kStageVec * j + 2];
-  return RawRow{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w};
 }
 
 // The closest hit of this lane's ray over the ``count`` (<= MAX_ROWS) rows
@@ -339,70 +304,6 @@ __device__ __forceinline__ void leaf_closest_staged(
       bv = wv;
     }
   }
-}
-
-// --- The staged any-hit leaf stage of B9d and B11d -------------------------
-//
-// An any-hit needs one occluder, and its verdict does not depend on the
-// order in which a ray tests the rows: every (ray, row) test is the same
-// ``occludes(moller_raw(...), limit)``. So at a leaf some unblocked lane
-// enters, the warp stages the leaf's rows (stage_leaf, as the closest-hit
-// stage) and tests them one of two ways, by how many lanes entered:
-// - few (at most LANE_TRI_MAX): lane per triangle. The warp takes the
-//   entering rays one at a time, broadcasts the ray and its limit, lane j
-//   tests rows j and j + 32, and __any_sync gives the ray's verdict;
-// - many: lane per ray, each entering lane looping over the staged rows
-//   up to its first occluder.
-// Staging B11d's leaves of 33-64 rows 32 at a time, the second half only
-// for lanes the first did not block, was slower on the H100: most visits
-// need the second half (PERF.md).
-// Its staging, branch and broadcast are leaf_closest_staged's, line for
-// line: change one, change the other. They are not one template because
-// every form of one tried changed the register allocation of B11b
-// (fat_closest_kernel), whose SASS stays as it was (PERF.md).
-
-// Whether this lane's ray, if it entered the leaf (``enter``) of ``count``
-// (<= MAX_ROWS) rows from ``first``, is occluded before ``limit`` by one
-// of them; every lane of the warp calls it, and a lane that did not enter
-// gets false.
-template <int MAX_ROWS, int LANE_TRI_MAX>
-__device__ __forceinline__ bool leaf_blocks_staged(
-    const float* rows, float4* stage, int first, int count, bool enter,
-    const float o[3], const float d[3], float limit) {
-  static_assert(MAX_ROWS % 32 == 0, "rows are tested 32 a step");
-  const int lane = threadIdx.x & 31;
-  stage_leaf(rows, first, count, stage);
-  const unsigned in = __ballot_sync(kFull, enter);
-  bool hit = false;
-  if (__popc(in) > LANE_TRI_MAX) {
-    if (enter)
-      for (int j = 0; j < count; ++j)
-        if (occludes(moller_raw(o, d, staged_row(stage, j)), limit)) {
-          hit = true;
-          break;
-        }
-    return hit;
-  }
-  for (unsigned m = in; m; m &= m - 1) {
-    const int src = __ffs(m) - 1;
-    float ro[3], rd[3];
-    for (int k = 0; k < 3; ++k) {
-      ro[k] = __shfl_sync(kFull, o[k], src);
-      rd[k] = __shfl_sync(kFull, d[k], src);
-    }
-    const float rl = __shfl_sync(kFull, limit, src);
-    bool occ = false;
-#pragma unroll
-    for (int r = 0; r < MAX_ROWS / 32; ++r) {
-      const int j = lane + 32 * r;
-      occ = occ ||
-            (j < count &&
-             occludes(moller_raw(ro, rd, staged_row(stage, j)), rl));
-    }
-    const bool any = __any_sync(kFull, occ);
-    if (lane == src) hit = any;
-  }
-  return hit;
 }
 
 // Launch geometry: one thread per ray, kWalkThreads per block; the rays

@@ -49,7 +49,7 @@
 //   dependent loads) and divergence; no block barriers. The TPU's grid
 //   ran in order and kept a leaf ring and the leaf table staged across
 //   grid steps; here all state is per warp.
-// - B4 and B6 (and B8b) scan with scan_boxes: ahead of the leaf level a
+// - B4, B6 and B7 (and B8b) scan with scan_boxes: ahead of the leaf level a
 //   warp skips each 1024-leaf block and each 32-leaf word whose box
 //   (LeafTables bbox/wbox, built once per scene) no lane's ray enters
 //   before its current limit, so it works in proportion to the words its
@@ -71,7 +71,12 @@
 //   keeps more leaves; the warp culls are what keep the scan short.
 // - B7 is B4 with an origin per ray, on B6's raw rows and warp culls: the
 //   full Moller terms (~2x B4's flops per triangle) and B4's exit once
-//   every live ray of a warp is blocked.
+//   every live ray of a warp is blocked. Its leaves go through the staged
+//   any-hit leaf stage of the node-table any-hits (rays.cuh
+//   leaf_blocks_staged): the instanced frame's shadow rays enter a leaf a
+//   few lanes at a time, and an unblocked lane tests every row, so one
+//   coalesced copy of the leaf and a lane per triangle replace each
+//   entering lane's chain of dependent row loads.
 // - B8a/B8b are B2/B4 with counters (template STATS; with STATS=false no
 //   counting code is compiled in). Every counter is warp-uniform, kept in
 //   registers and added to the packet's row by one integer atomicAdd per
@@ -588,7 +593,7 @@ __device__ __forceinline__ void count_leaf(Counters& c, bool go,
   c.tri_blocks += (int)__reduce_max_sync(kFull, (unsigned)tested);
 }
 
-// Scan of one packet's words in band order, shared by B2/B4/B6/B7. Band b
+// Scan of one packet's words in band order, B2's (B8a's). Band b
 // is skipped once its floor is at or above the warp's bound
 // (bound_fn() = max over lanes of the distance still of interest, <= 0
 // when the warp is done); every leaf in a band has its interval entry at
@@ -598,7 +603,7 @@ __device__ __forceinline__ void count_leaf(Counters& c, bool go,
 // scene; its warps' culls do not); leaf_fn(l) then runs for the
 // survivors, in order, and returns true to end the scan. With STATS the
 // scan counts into ``st`` (chunks, nodes, leaves; leaf_fn the rest).
-template <bool GEN, bool STATS = false, typename BoundFn, typename LeafFn>
+template <bool STATS = false, typename BoundFn, typename LeafFn>
 __device__ __forceinline__ void scan_words(const int32_t* words,
                                            const int32_t* summ,
                                            const float* floors, int k_bands,
@@ -622,7 +627,7 @@ __device__ __forceinline__ void scan_words(const int32_t* words,
         if (!(wc.iv.mb > 0.0f)) return;
         if constexpr (STATS) ++st.nodes;
         const bool ok = ((word >> lane) & 1u) &&
-                        warp_keeps<GEN>(box, lp, w * 32 + lane, wc);
+                        warp_keeps<false>(box, lp, w * 32 + lane, wc);
         word = __ballot_sync(kFull, ok);
         if constexpr (STATS) st.leaves += __popc(word);
         while (word) {
@@ -671,7 +676,7 @@ __device__ __forceinline__ void fetch_word(float* slot, const float* box,
   cp_async_commit();
 }
 
-// Scan of one packet's words for B4/B6 (B8b with STATS): the visit order
+// Scan of one packet's words for B4/B6/B7 (B8b with STATS): the visit order
 // and leaf level of scan_words, with two skip levels ahead of the leaf
 // level, so that a warp works in proportion to the words its rays enter,
 // not to its packet's word list. Per band, per summary word s:
@@ -804,7 +809,7 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
   WarpCull wc = warp_cull<false>(o, r.d, r.idir, best);
   Counters st;
 
-  scan_words<false, STATS>(
+  scan_words<STATS>(
       words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
       floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc, st,
       [&] { return warp_max(fmaxf(best, 0.0f)); },
@@ -869,8 +874,8 @@ shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
         const bool go = pass && tn < (blocked ? -kBig : limit);
         int tested = 0;
         if (go)
-          blocked = leaf_blocks<false>(rows, __ldg(lfirst + l),
-                                       __ldg(lcount + l), o, d, limit, tested);
+          blocked = leaf_blocks(rows, __ldg(lfirst + l), __ldg(lcount + l),
+                                d, limit, tested);
         if constexpr (STATS) count_leaf(st, go, tested);
         return __all_sync(kFull, blocked || !(limit > 0.0f));
       });
@@ -940,11 +945,23 @@ closest_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   out_tri[g] = max(tri, 0);
 }
 
+// B7's leaf stage: leaves of at most IVAL_LEAF = 32 rows (leaf tables
+// hold no larger one: ops/traverse.py pack_leaf_tables), tested lane per
+// triangle where at most kWlAnyLaneTriMax lanes enter (set by a sweep on
+// the H100, PERF.md).
+constexpr int kWlLeafRows = 32;
+constexpr int kWlAnyLaneTriMax = 12;
+
 // B7: any-hit of rays with their own origins, one thread per ray, on the
-// raw triangle rows: B4's scan and exit (a warp stops once every live ray
-// in it is blocked) with B6's per-ray-origin warp culls and root-box clip,
-// and the one-sided shadow rule of _shadow_ival_drain_g (:2044-2050) on
-// the full Moller terms. A masked ray (tmax < 0) is never blocked.
+// raw triangle rows: B4's scan_boxes and exit (a warp stops once every
+// live ray in it is blocked) with B6's per-ray-origin warp culls and
+// root-box clip, and the one-sided shadow rule of _shadow_ival_drain_g
+// (:2044-2050) on the full Moller terms. A masked ray (tmax < 0) is never
+// blocked. At a leaf some unblocked lane enters, the warp stages the
+// leaf's rows into its slice of shared memory (8 warps x 32 rows x 48 B =
+// 12 KB a block) and tests them lane per triangle where at most
+// kWlAnyLaneTriMax lanes enter, lane per ray up to each ray's first
+// occluder where more do (rays.cuh leaf_blocks_staged).
 __global__ void __launch_bounds__(kTraceThreads)
 shadow_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                    const float* __restrict__ oz, const float* __restrict__ dx,
@@ -952,6 +969,8 @@ shadow_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                    const float* __restrict__ tm,
                    const float* __restrict__ rows,
                    const float* __restrict__ box,
+                   const float* __restrict__ wbox,
+                   const float* __restrict__ bbox,
                    const float* __restrict__ root,
                    const int32_t* __restrict__ lfirst,
                    const int32_t* __restrict__ lcount, int lp,
@@ -973,19 +992,23 @@ shadow_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   bool blocked = false;
   WarpCull wc = warp_cull<true>(o, d, idir, reach);
   Counters none;
+  __shared__ float4 s_stage[kTraceThreads / 32 * kWlLeafRows * kStageVec];
+  float4* stage = s_stage + (threadIdx.x >> 5) * kWlLeafRows * kStageVec;
 
-  scan_words<true>(
+  scan_boxes<true, false, false>(
       words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
-      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc, none,
+      floors + (size_t)pid * k_bands, k_bands, nw, ns, box, wbox, bbox, lp,
+      wc, o, idir, none, nullptr,
       [&] { return warp_max(fmaxf(blocked ? -kBig : reach, 0.0f)); },
-      [&](int l) {
-        const float lim = blocked ? -kBig : limit;
-        bool pass;
-        const float tn = ray_slab(box, lp, l, o, idir, pass);
-        int tested = 0;
-        if (pass && tn < lim)
-          blocked = leaf_blocks<true>(rows, __ldg(lfirst + l),
-                                      __ldg(lcount + l), o, d, limit, tested);
+      [&] { return blocked ? -kBig : limit; },
+      [&](int l, float tn, bool pass) {
+        const bool go = pass && tn < (blocked ? -kBig : limit);
+        // a leaf no lane enters is not staged
+        if (__any_sync(kFull, go) &&
+            leaf_blocks_staged<kWlLeafRows, kWlAnyLaneTriMax>(
+                rows, stage, __ldg(lfirst + l), __ldg(lcount + l), go, o, d,
+                limit))
+          blocked = true;
         return __all_sync(kFull, blocked || !(reach > 0.0f));
       });
 
@@ -1134,9 +1157,12 @@ int snail_closest_wl_g(const float* ox, const float* oy, const float* oz,
   return (int)cudaGetLastError();
 }
 
+// ``wbox``/``bbox``: as snail_shadow_wl's. Every leaf of the tables holds
+// at most kWlLeafRows triangles.
 int snail_shadow_wl_g(const float* ox, const float* oy, const float* oz,
                       const float* dx, const float* dy, const float* dz,
                       const float* tm, const float* rows, const float* box,
+                      const float* wbox, const float* bbox,
                       const float* root, const int32_t* lfirst,
                       const int32_t* lcount, int lp, const int32_t* words,
                       const int32_t* summ, const float* floors, int k_bands,
@@ -1145,8 +1171,8 @@ int snail_shadow_wl_g(const float* ox, const float* oy, const float* oz,
     return (int)cudaErrorInvalidValue;
   shadow_wl_g_kernel<<<n_packets * (kPacketR / kTraceThreads), kTraceThreads,
                        0, (cudaStream_t)stream>>>(
-      ox, oy, oz, dx, dy, dz, tm, rows, box, root, lfirst, lcount, lp, words,
-      summ, floors, k_bands, blocked);
+      ox, oy, oz, dx, dy, dz, tm, rows, box, wbox, bbox, root, lfirst, lcount,
+      lp, words, summ, floors, k_bands, blocked);
   return (int)cudaGetLastError();
 }
 

@@ -82,6 +82,27 @@ WORDS_CLUSTER = {"words_camera": 2, "words_shared": 4, "words_general": 4}
 STATS = ("nodes", "leaves", "quarters", "tri_blocks", "chunks")
 # rays per tri_blocks unit: one triangle is tested against one warp
 RAYS_PER_TRI_BLOCK = WARP
+# The tally of the warps of a simulated walk (``traverse_ref._WarpWalk``)
+# or scan (:func:`shadow_wl_g_sim`), per warp: node rows loaded (loop
+# steps; for a scan, the words that reach the leaf level), leaf visits
+# (leaves some lane enters), the lanes that enter them and the rows of
+# the leaves visited, summed over the visits, and the visits by their
+# entering lanes: 1, 2-4, 5-8, 9-16, 17-32 (the two ways csrc/walk.cuh
+# leaf_closest_staged and csrc/rays.cuh leaf_blocks_staged test a leaf).
+# Then, summed over the visits: ``tested``, the rows the entering lanes
+# tested up to their stop (an any-hit lane stops at its first occluder),
+# against ``lane_rows``, the rows of the leaf times its entering lanes;
+# ``most``, the most rows a lane tested (the loop of a visit tested lane
+# per ray); ``blocked``, the entering lanes blocked in the visit; and
+# ``chunk2``, the visits of a leaf of more than 32 rows that some
+# entering lane is not blocked by within its first 32 rows (the visits
+# that would still test rows 33-64 if a leaf were staged 32 rows at a
+# time).
+LANE_BINS = ("1", "2-4", "5-8", "9-16", "17-32")
+TALLY = (("nodes", "visits", "lanes", "rows") + LANE_BINS
+         + ("tested", "lane_rows", "most", "blocked", "chunk2"))
+_BIN_EDGES = (1, 4, 8, 16)
+CHUNK_ROWS = 32  # the rows of a half leaf (``chunk2``)
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +128,8 @@ class LeafTables:
 
     Min and max do not round, so ``wbox`` and ``bbox`` hold the leaf
     boxes' own floats and contain every leaf box of their word or block:
-    the skip tests of B4 and B6 (csrc/worklist.cu ``scan_boxes``) and B5's
-    word pre-test rest on that."""
+    the skip tests of B4, B6 and B7 (csrc/worklist.cu ``scan_boxes``) and
+    B5's word pre-test rest on that."""
 
     box: torch.Tensor
     first: torch.Tensor
@@ -832,7 +853,7 @@ def _warp_keeps_sim(box, ls, cull, mb):
 
 
 def _scan_sim(tables: LeafTables, words_p, floors_p, o, cull, bound_fn,
-              leaf_fn, lanes_fn=None):
+              leaf_fn, lanes_fn=None, per_warp=False):
     """One packet's counters (int64 (5,), the order of :data:`STATS`):
     every warp walks the packet's words ``words_p`` (K, Lp/32) in band
     order as ``scan_words`` does. ``bound_fn()`` gives the warps' bounds
@@ -842,12 +863,14 @@ def _scan_sim(tables: LeafTables, words_p, floors_p, o, cull, bound_fn,
     ``lanes_fn`` the walk is ``scan_boxes``'s: ``lanes_fn()`` gives each
     lane's inverse directions (three (WARPS, WARP)) and current limit
     (WARPS, WARP), and a warp skips the blocks and words whose box none of
-    its lanes enters before its limit, and the words its cull drops."""
+    its lanes enters before its limit, and the words its cull drops. With
+    ``per_warp``, returns the counters of each warp, int64 (6, WARPS),
+    and in row 5 the blocks each warp enters (``scan_boxes``)."""
     words_cpu = words_p.cpu()
     dev = words_p.device
     lanes = torch.arange(WARP, device=dev)
     done = torch.zeros(WARPS, dtype=torch.bool, device=dev)
-    cnt = torch.zeros((5, WARPS), dtype=torch.int64, device=dev)
+    cnt = torch.zeros((6, WARPS), dtype=torch.int64, device=dev)
     # a warp whose cull has a bound that is not finite keeps every word
     tame = torch.ones(WARPS, dtype=torch.bool, device=dev)
     for bounds in cull[:4]:
@@ -902,6 +925,7 @@ def _scan_sim(tables: LeafTables, words_p, floors_p, o, cull, bound_fn,
             if not bool(active.any()):
                 break
             active &= enters(tables.bbox, s)
+            cnt[5] += active
             if not bool(active.any()):
                 continue
             mb = bound_fn()
@@ -917,7 +941,7 @@ def _scan_sim(tables: LeafTables, words_p, floors_p, o, cull, bound_fn,
                 act &= enters(tables.wbox, w)
                 if bool(act.any()):
                     leaf_level(b, w, act)
-    return cnt.sum(1)
+    return cnt if per_warp else cnt[:5].sum(1)
 
 
 def _box_slab(box, c, o, idir):
@@ -1014,6 +1038,104 @@ def shadow_wl_stats_plain(orig, d, tm, rows, tables: LeafTables, words,
             lambda: torch.where(blk, 0.0, torch.clamp_min(limit, 0.0))
             .amax(1), leaf, lambda: (wi, torch.where(blk, -BIG, limit)))))
     return blocked, torch.stack(stats)
+
+
+def _root_reach(tables: LeafTables, o, idir, limit):
+    """B7's ``reach``: ``limit``, clipped at each ray's exit from the root
+    box times 1.0001 (``box_exit``; 0 where it misses the box)."""
+    root = tables.root
+    tn, tf = _slab([(root[k] - o[k]) * idir[k] for k in range(3)],
+                   [(root[3 + k] - o[k]) * idir[k] for k in range(3)])
+    exit_ = torch.where((tn <= tf) & (tf > 0.0), tf * 1.0001, 0.0)
+    return torch.minimum(limit, exit_)
+
+
+def _tally_visits(go, tested, hit, cnt):
+    """The tally (len(TALLY), WARPS) of a warp scan's leaves, its ``nodes``
+    row 0: ``go`` (n, WARPS, WARP) the lanes entering each of its n leaf
+    calls, ``tested`` the rows each tested up to its stop, ``hit``
+    whether it is blocked there, ``cnt`` (n,) the leaves' rows."""
+    n_in = go.sum(2)
+    at = n_in > 0
+    tested = torch.where(go, tested, 0)
+    cnt = cnt[:, None]
+    bins = torch.bucketize(n_in, torch.tensor(_BIN_EDGES, device=go.device))
+    by_bin = [(at & (bins == j)).sum(0) for j in range(len(LANE_BINS))]
+    return torch.stack([
+        torch.zeros_like(n_in[0]), at.sum(0), n_in.sum(0),
+        (at * cnt).sum(0), *by_bin, tested.sum((0, 2)),
+        (n_in * cnt).sum(0), tested.amax(2).sum(0),
+        (go & hit).sum((0, 2)),
+        (at & (cnt > CHUNK_ROWS) & (tested > CHUNK_ROWS).any(2)).sum(0)])
+
+
+def shadow_wl_g_sim(o, d, tm, rows, tables: LeafTables, words, floors):
+    """B7 on the planes ``o``/``d`` (three) and ``tm`` (P, PACKET_R) over
+    B5's ``words``/``floors`` of those packets, simulated warp by warp as
+    the kernel scans (``scan_boxes``, each lane's limit its tmax until it
+    is blocked, the warp's bound the largest ``reach``: the limit clipped
+    at the root box), with its exit once every live lane is blocked.
+    Returns (blocked float32 (P, PACKET_R), as :func:`shadow_wl_g_plain`
+    gives it; the scan's counters per warp, int64 (6, P * WARPS): the
+    rows of :data:`STATS` (``nodes``: words that reach the leaf level;
+    ``quarters``: leaf visits; ``tri_blocks``: per visit the most rows a
+    lane tested up to its first occluder) and the blocks each warp
+    enters; the tally of its leaf visits, int64 (len(TALLY), P * WARPS),
+    :data:`TALLY`'s rows with ``nodes`` the words that reach the leaf
+    level). An entering lane tests a leaf's rows up to its first
+    occluder, so ``tested`` counts what the any-hit needs of the rows the
+    warp stages."""
+    idir = [1.0 / (c + INV_EPS) for c in d]
+    limit_all = torch.where(tm >= 0.0, tm, -BIG)
+    blocked = torch.zeros_like(tm)
+    # the leaves' first rows and counts on the host: no sync per leaf
+    first, count = tables.first.tolist(), tables.count.tolist()
+    counts, tallies = [], []
+    for i in range(tm.shape[0]):
+        lanes = lambda c: c[i].reshape(WARPS, WARP)
+        wo, wd, wi = ([lanes(c) for c in x] for x in (o, d, idir))
+        flat_o, flat_d = ([c.reshape(-1) for c in x] for x in (wo, wd))
+        limit = lanes(limit_all)
+        reach = _root_reach(tables, wo, wi, limit)
+        blk = torch.zeros_like(limit, dtype=torch.bool)
+        cull = _warp_cull_sim(wo, wd, wi, reach)
+        calls = []  # (go, tested, hit, rows) of each leaf call
+
+        def leaf(l, proc):
+            tn, pas = _box_slab(tables.box, l, wo, wi)
+            go = proc[:, None] & pas & (tn < torch.where(blk, -BIG, limit))
+            cnt = count[l]
+            det, u, v, tmul = _moller_g(rows[first[l]:first[l] + cnt],
+                                        flat_o, flat_d)
+            occ = ((torch.minimum(u, v) >= 0.0) & (u + v <= det)
+                   & (tmul > 0.0) & (tmul < limit.reshape(-1, 1) * det))
+            hit = occ.any(1).reshape(limit.shape)
+            # a lane stops at its first blocker
+            tested = torch.where(hit, occ.int().argmax(1).reshape(
+                limit.shape) + 1, cnt)
+            calls.append((go, tested, hit, cnt))
+            blk.copy_(blk | (go & hit))
+            return (go.any(1), torch.where(go, tested, 0).amax(1),
+                    (blk | ~(reach > 0.0)).all(1))
+
+        cnt = _scan_sim(
+            tables, words[i], floors[i], wo, cull,
+            lambda: torch.where(blk, 0.0, torch.clamp_min(reach, 0.0))
+            .amax(1), leaf, lambda: (wi, torch.where(blk, -BIG, limit)),
+            per_warp=True)
+        if calls:
+            go, tested, hit, n_rows = zip(*calls)
+            tal = _tally_visits(torch.stack(go), torch.stack(tested),
+                                torch.stack(hit),
+                                torch.tensor(n_rows, device=tm.device))
+        else:
+            tal = torch.zeros((len(TALLY), WARPS), dtype=torch.int64,
+                              device=tm.device)
+        tal[0] = cnt[0]
+        blocked[i] = blk.reshape(-1).float()
+        counts.append(cnt)
+        tallies.append(tal)
+    return blocked, torch.cat(counts, 1), torch.cat(tallies, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -1324,9 +1446,10 @@ def shadow_wl_g(o, d, tm, rows, tables: LeafTables, words, summ, floors):
     blocked = torch.empty((p, PACKET_R), dtype=torch.float32, device=dev)
     _launched(library().snail_shadow_wl_g(
         *(_ptr(t) for t in (*o, *d, tm)), _ptr(rows), _ptr(tables.box),
-        _ptr(tables.root), _ptr(tables.first), _ptr(tables.count), tables.lp,
-        _ptr(words), _ptr(summ), _ptr(floors), words.shape[1], p,
-        _ptr(blocked), _stream()), "shadow_wl_g")
+        _ptr(tables.wbox), _ptr(tables.bbox), _ptr(tables.root),
+        _ptr(tables.first), _ptr(tables.count), tables.lp, _ptr(words),
+        _ptr(summ), _ptr(floors), words.shape[1], p, _ptr(blocked),
+        _stream()), "shadow_wl_g")
     shadow_wl_g.launches += 1
     return blocked
 
@@ -1622,8 +1745,8 @@ def fat_shadow(orig, d, tm, signs, rows, nodes: NodeTables):
     blocked = torch.empty((p, PACKET_R), dtype=torch.float32, device=dev)
     _launched(library().snail_fat_shadow(
         _ptr(orig), *(_ptr(t) for t in (*d, tm)), _ptr(signs), _ptr(rows),
-        _ptr(nodes.node), nodes.n_nodes, nodes.stack_cap, p, _ptr(blocked),
-        _stream()), "fat_shadow")
+        _ptr(nodes.node), nodes.n_nodes, nodes.stack_cap, nodes.leaf_max, p,
+        _ptr(blocked), _stream()), "fat_shadow")
     fat_shadow.launches += 1
     return blocked
 

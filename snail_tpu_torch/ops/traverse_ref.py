@@ -29,8 +29,9 @@ from __future__ import annotations
 import torch
 
 from ..core.vecmath import BIG, INV_EPS
-from .traverse import (PACKET_R, WARP, WARPS, NodeTables, _camera_rays,
-                       _slab, _stats_row)
+from .traverse import (_BIN_EDGES, CHUNK_ROWS, LANE_BINS, PACKET_R, TALLY,
+                       WARP, WARPS, NodeTables, _camera_rays, _slab,
+                       _stats_row)
 
 LEAF_RAYS = 65536  # rays per step of the leaf tests
 
@@ -355,25 +356,8 @@ def fat_shadow_g_plain(o, d, tm, signs, rows, nodes: NodeTables, work=None):
 # --- The counters of B9e/B9f: a simulation of every warp's walk ---------
 
 
-# The tally of a warp walk (``_WarpWalk.tally``), per warp: node rows
-# loaded (loop steps), leaf visits (leaves some lane enters), the lanes
-# that enter them and the rows of the leaves visited, summed over the
-# visits, and the visits by their entering lanes: 1, 2-4, 5-8, 9-16, 17-32
-# (the two ways csrc/walk.cuh leaf_closest_staged and leaf_blocks_staged
-# test a leaf). Then, summed over the visits: ``tested``, the rows the
-# entering lanes tested up to their stop (an any-hit lane stops at its
-# first occluder), against ``lane_rows``, the rows of the leaf times its
-# entering lanes; ``most``, the most rows a lane tested (the loop of a
-# visit tested lane per ray); ``blocked``, the entering lanes blocked in
-# the visit; and ``chunk2``, the visits of a leaf of more than 32 rows
-# that some entering lane is not blocked by within its first 32 rows (the
-# visits that would still test rows 33-64 if a leaf were staged 32 rows
-# at a time).
-LANE_BINS = ("1", "2-4", "5-8", "9-16", "17-32")
-TALLY = (("nodes", "visits", "lanes", "rows") + LANE_BINS
-         + ("tested", "lane_rows", "most", "blocked", "chunk2"))
-_BIN_EDGES = (1, 4, 8, 16)
-CHUNK_ROWS = 32  # the rows of a half leaf (``chunk2``)
+# The tally of a warp walk (``_WarpWalk.tally``): the rows of
+# ``traverse.TALLY``, per warp.
 
 
 class _WarpWalk(_Walk):

@@ -337,8 +337,9 @@ def test_shadow_wl_g_kernel_matches_plain(which):
     kb, pb = kern.cpu().numpy(), plain.cpu().numpy()
     assert not kb[~live].any() and not pb[~live].any()
     assert 0.02 < pb[live].mean() < 0.98
-    # blockers at the tmax boundary, as B4 (test_pallas.py:183-190)
-    assert (kb[live] == pb[live]).mean() > 0.999
+    # every (ray, row) test is the plain version's arithmetic
+    # (--fmad=false), so the verdicts are its own bit for bit
+    assert torch.equal(kern, plain)
 
 
 @pytest.mark.parametrize("which", SCENES)
@@ -1052,10 +1053,10 @@ def _leaf_fields(zs):
     return geom, bvh
 
 
-def _traced(fields, device):
+def _traced(fields, device, walk=True):
     geom, bvh = fields
     return make_traced_scene(FlatGeometry(**geom), BVH(**bvh), device=device,
-                             walk=True)
+                             walk=walk)
 
 
 def _leaf_scene(sizes, device, seed=21):
@@ -1196,53 +1197,122 @@ def test_staged_closest_kernel_matches_plain_exactly(kind):
                        torch.zeros_like(kd[hit]))
 
 
-@pytest.mark.parametrize("kind,row", [("walk", 0), ("walk", 16),
-                                      ("walk", 31), ("fat", 0), ("fat", 31),
-                                      ("fat", 63)])
+def _shared_blocker_rays(n_leaves, seed=37):
+    """Two packets of rays from one origin below ``_blocker_fields``'
+    leaves (B11c's light), and the verdict each ray must get: warp w aims
+    k = w % 32 + 1 seeded lanes at seeded points of the blocker triangle
+    of leaf (w // 32) % n_leaves, on z = 0, which an aimed ray reaches at
+    t = -orig_z / d_z. A fifth of the aimed rays have tmax half of that
+    (short of the leaf's box), a fifth that + 1 (past the blocker, short
+    of the leaf's other rows), a fifth just short of and a fifth just past
+    it (t (1 -+ 1e-5): the one-sided rule's edge), a fifth 1e3 (blocked,
+    the segment running on through the leaf and out of it). Of the other
+    lanes, half are masked (tmax -BIG, garbage directions) and half are
+    live misses along -z. Returns (orig, d, tm, want: bool (2,
+    PACKET_R)), on the CPU."""
+    rng = np.random.default_rng(seed)
+    orig = np.float32([1.5 * n_leaves - 0.5, 1.0, -20.0])
+    nw = 2 * pt.WARPS
+    k = np.arange(nw) % pt.WARP + 1
+    d = np.zeros((nw, pt.WARP, 3), np.float32)
+    tm = np.zeros((nw, pt.WARP))
+    want = np.zeros((nw, pt.WARP), bool)
+    unit = lambda v: np.float32(v) / np.linalg.norm(np.float32(v))
+    for w in range(nw):
+        leaf = (w // pt.WARP) % n_leaves
+        aim = rng.permutation(pt.WARP) < k[w]
+        rest = np.flatnonzero(~aim)
+        masked, away = rest[::2], rest[1::2]
+        tgt = np.stack([3.0 * leaf + rng.uniform(0.1, 0.7, k[w]),
+                        rng.uniform(0.1, 0.7, k[w]), np.zeros(k[w])], 1)
+        da = tgt - orig
+        d[w, aim] = da / np.linalg.norm(da, axis=1, keepdims=True)
+        t_hit = -np.float64(orig[2]) / d[w, aim, 2].astype(np.float64)
+        kind = rng.integers(0, 5, k[w])
+        tm[w, aim] = np.select(
+            [kind == 0, kind == 1, kind == 2, kind == 3],
+            [0.5 * t_hit, t_hit + 1.0, t_hit * (1.0 - 1e-5),
+             t_hit * (1.0 + 1e-5)], 1e3)
+        want[w, aim] = (kind == 1) | (kind == 3) | (kind == 4)
+        d[w, masked], tm[w, masked] = unit((3.0, -7.0, 0.5)), -BIG
+        d[w, away] = unit((0.01, 0.0, -1.0))
+        tm[w, away] = rng.uniform(1.0, 4.0, len(away))
+    pk = lambda x: torch.from_numpy(np.ascontiguousarray(
+        x, np.float32).reshape(2, pt.PACKET_R))
+    return (torch.from_numpy(orig), tuple(pk(d[..., c]) for c in range(3)),
+            pk(tm), torch.from_numpy(want.reshape(2, pt.PACKET_R)))
+
+
+@pytest.mark.parametrize("kind,row", [
+    ("walk", 0), ("walk", 16), ("walk", 31), ("fat", 0), ("fat", 31),
+    ("fat", 63), ("wl", 0), ("wl", 16), ("wl", 31), ("fat_shared", 0),
+    ("fat_shared", 31), ("fat_shared", 63)])
 def test_staged_any_hit_kernel_matches_plain_exactly(kind, row):
-    """B9d (``walk``) and B11d (``fat``), whose leaf stage stages a whole
-    leaf and tests it lane per triangle (lane j: rows j and j + 32) where
-    at most a threshold of unblocked lanes enter it and lane per ray
-    above: verdicts equal to the plain version's and to what the rays must
-    get, with 1 to 32 lanes entering a leaf (both ways, whatever the
-    threshold), leaves of 1, 31, 32, 17, 2 (B9d) and 33, 63, 64, 48, 40
-    rows (B11d) whose only blocker is row 0, 16 or 31 (B9d) or row 0, 31
-    or 63 (B11d; on a leaf of more than 32 rows, row 63 is the second row
-    some lane tests), each leaf's last where it has fewer rows, tmax just
-    short of and just past the blocker, lanes blocked in one leaf whose
-    segment runs on into the next, masked rays with garbage planes and
-    live misses."""
+    """B9d (``walk``), B11d (``fat``), B7 (``wl``: the same leaves on leaf
+    tables, B5's words) and B11c (``fat_shared``: rays from one origin,
+    ``_shared_blocker_rays``), whose leaf stage stages a whole leaf and
+    tests it lane per triangle (lane j: rows j and j + 32) where at most a
+    threshold of unblocked lanes enter it and lane per ray above: verdicts
+    equal to the plain version's and to what the rays must get, with 1 to
+    32 lanes entering a leaf (both ways, whatever the threshold), leaves
+    of 1, 31, 32, 17, 2 (B9d, B7) and 33, 63, 64, 48, 40 rows (B11d,
+    B11c) whose only blocker is row 0, 16 or 31 (B9d, B7) or row 0, 31 or
+    63 (B11d, B11c; on a leaf of more than 32 rows, row 63 is the second
+    row some lane tests), each leaf's last where it has fewer rows, tmax
+    just short of and just past the blocker, lanes blocked in one leaf
+    whose segment runs on into the next, masked rays with garbage planes
+    and live misses."""
     _need_cuda()
-    sizes = STAGED_LEAVES[kind]
-    scene = _traced(_blocker_fields(sizes, row), "cuda")
-    assert scene.nodes.leaf_max == max(sizes)
-    o, d, tm, want = _blocker_rays(len(sizes))
-    o, d, tm = (tuple(c.cuda() for c in o), tuple(c.cuda() for c in d),
-                tm.cuda())
+    sizes = STAGED_LEAVES["walk" if kind in ("walk", "wl") else "fat"]
+    scene = _traced(_blocker_fields(sizes, row), "cuda", walk=kind != "wl")
     rows, nodes = scene.tri_rows, scene.nodes
-    if kind == "fat":
+    if kind == "fat_shared":
+        orig, d, tm, want = _shared_blocker_rays(len(sizes))
+        orig, d, tm = orig.cuda(), tuple(c.cuda() for c in d), tm.cuda()
+        signs = pt.packet_signs(d)
+        kern = pt.fat_shadow(orig, d, tm, signs, rows, nodes)
+        plain = fat_shadow_plain(orig, d, tm, signs, rows, nodes)
+    else:
+        o, d, tm, want = _blocker_rays(len(sizes))
+        o, d, tm = (tuple(c.cuda() for c in o),
+                    tuple(c.cuda() for c in d), tm.cuda())
+    if kind == "wl":
+        # B5 and B7 take masked rays substituted, as any_hit_c gives them
+        o, d, tm, _ = pt.general_planes(*(tuple(c.reshape(-1) for c in x)
+                                          for x in (o, d)), tm.reshape(-1))
+        lt = scene.leaves
+        assert int(lt.count.max()) == max(sizes)
+        words, summ, floors = pt.words_general(o, d, tm, lt, 1)
+        kern = pt.shadow_wl_g(o, d, tm, rows, lt, words, summ, floors)
+        plain = pt.shadow_wl_g_plain(o, d, tm, rows, lt, words)
+    elif kind == "fat":
         signs = pt.packet_signs(d)
         kern = pt.fat_shadow_g(o, d, tm, signs, rows, nodes)
         plain = fat_shadow_g_plain(o, d, tm, signs, rows, nodes)
-    else:
+    elif kind == "walk":
         kern = pt.walk_shadow_g(o, d, tm, rows, nodes)
         plain = walk_shadow_g_plain(o, d, tm, rows, nodes)
+    if kind != "wl":
+        assert scene.nodes.leaf_max == max(sizes)
     torch.cuda.synchronize()
     assert torch.equal(kern, plain)
     assert torch.equal(kern.cpu() > 0, want)
 
 
-@pytest.mark.parametrize("kind", ["walk", "fat"])
+@pytest.mark.parametrize("kind", ["walk", "fat", "wl"])
 def test_any_hit_kernels_match_plain_on_instanced_shadows(kind, monkeypatch):
-    """B9d and B11d on the shadow wavefronts that an instanced fwd frame
-    launches (2 x 2 instances of the city at leaf 4, or 64: light 0 in
-    each instance's object space, rays missing its box or blocked by an
-    earlier instance masked): verdicts equal to their plain versions'."""
+    """B9d, B11d and B7 (``wl``, on leaf tables) on the shadow wavefronts
+    that an instanced fwd frame launches (2 x 2 instances of the city at
+    leaf 4, or 64: light 0 in each instance's object space, rays missing
+    its box or blocked by an earlier instance masked): verdicts equal to
+    their plain versions'."""
     _need_cuda()
     fat = kind == "fat"
-    scene, _, _, _, _ = _scene("city", walk=not fat, leaf=64 if fat else 4)
+    scene, _, _, _, _ = _scene("city", walk=kind == "walk",
+                               leaf=64 if fat else 4)
     assert pt.is_fat(scene) == fat
-    name = "fat_shadow_g" if fat else "walk_shadow_g"
+    name = {"walk": "walk_shadow_g", "fat": "fat_shadow_g",
+            "wl": "shadow_wl_g"}[kind]
     wrapper, waves = getattr(pt, name), []
 
     def record(*args):
@@ -1256,7 +1326,8 @@ def test_any_hit_kernels_match_plain_on_instanced_shadows(kind, monkeypatch):
     instancing.render_instanced(isc, icam, 256, 128, OPTS)
     monkeypatch.undo()
     assert len(waves) == 4
-    plain_fn = fat_shadow_g_plain if fat else walk_shadow_g_plain
+    plain_fn = {"walk": walk_shadow_g_plain, "fat": fat_shadow_g_plain,
+                "wl": lambda *a: pt.shadow_wl_g_plain(*a[:6])}[kind]
     shares = []
     for args in waves:
         kern = wrapper(*args)
@@ -1283,6 +1354,41 @@ def test_fat_shadow_kernel_matches_plain(which):
     assert not kern[~live].any()
     assert 0.02 < float(plain[live].mean()) < 0.98
     assert torch.equal(kern, plain)
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_fat_shadow_kernel_matches_plain_on_bounce_frame_shadows(which,
+                                                                 monkeypatch):
+    """B11c on the shadow wavefronts of the fat bounce frame (its calls of
+    the wrapper: the bounce wavefronts' and the primary hits', toward
+    light 0; the terrain's is set low, since its overhead light blocks no
+    ray): verdicts equal to its plain version's, masked rays never
+    blocked, and some live ray blocked in one of them."""
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which, bounce=True, leaf=64)
+    if which == "terrain":
+        scene = dataclasses.replace(scene, lights=Light.make(
+            (-40.0, 10.0, 0.0), (1.0, 1.0, 1.0), 200.0))
+    wrapper, waves = pt.fat_shadow, []
+
+    def record(*args):
+        waves.append(args)
+        return wrapper(*args)
+
+    record.launches = wrapper.launches
+    monkeypatch.setattr(pt, "fat_shadow", record)
+    render_frame(scene, cam, w, h, RenderOpts(textures=False))
+    monkeypatch.undo()
+    assert len(waves) == 3
+    blocked = 0
+    for args in waves:
+        kern = wrapper(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(kern, fat_shadow_plain(*args))
+        live = args[2] >= 0
+        assert not kern[~live].any()
+        blocked += int(kern[live].sum())
+    assert blocked > 0
 
 
 @pytest.mark.parametrize("which", SCENES)

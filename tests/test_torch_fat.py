@@ -48,6 +48,7 @@ from snail_tpu_torch.ops.traverse_ref import (LANE_BINS, TALLY,
                                               closest_g_sim,
                                               fat_closest_plain,
                                               fat_shadow_g_plain,
+                                              fat_shadow_plain,
                                               shadow_g_sim)
 from snail_tpu_torch.render.fast import (render_frame_fast,
                                          render_frame_fast_diff,
@@ -530,3 +531,34 @@ def test_fat_shadow_tally_matches_plain(scenes):
     t = dict(zip(TALLY, tally))
     assert int(t["rows"].sum()) > pt.IVAL_LEAF * int(t["visits"].sum()) // 2
     assert 0 < int(t["chunk2"].sum()) < int(t["visits"].sum())
+
+
+def test_fat_shared_shadow_tally_matches_plain(scenes):
+    """B11c's warps simulated (``shadow_g_sim`` with the light given as
+    planes and each packet's ray-0 signs: the kernel's walk and staged
+    any-hit leaf stage) on the light's shadow rays (``_shadow_rays``, as
+    ``any_hit_shared`` pads them): their verdicts are
+    ``fat_shadow_plain``'s bit for bit and the JAX package's
+    ``any_hit_shared``'s (``_shadow_kernel`` in interpret mode), and their
+    tally holds against their counters and verdicts (as the B11d tally's);
+    leaves of 33-64 rows."""
+    from test_torch_walk import _assert_shadow_tally_holds
+
+    js, ps, _, _ = scenes
+    d, tm = _shadow_rays(js)
+    lp = np.float32(LIGHT[0])
+    jb = np.asarray(tp.any_hit_shared(js, jnp.asarray(lp), _j3(d),
+                                      jnp.asarray(tm)))
+    orig, pd, ptm, n = pt._light_planes(_t(lp), _p3(d), _t(tm))
+    signs = pt.packet_signs(pd)
+    o = tuple(orig[k].expand_as(ptm) for k in range(3))
+    blocked, stats, tally = shadow_g_sim(o, pd, ptm, ps.tri_rows, ps.nodes,
+                                         signs)
+    assert torch.equal(blocked, fat_shadow_plain(orig, pd, ptm, signs,
+                                                 ps.tri_rows, ps.nodes))
+    np.testing.assert_array_equal(blocked.reshape(-1)[:n].numpy() > 0, jb)
+    live = tm >= 0
+    assert 0.05 < jb[live].mean() < 0.95 and not jb[~live].any()
+    _assert_shadow_tally_holds(tally, stats, blocked, ptm >= 0)
+    t = dict(zip(TALLY, tally))
+    assert int(t["rows"].sum()) > pt.IVAL_LEAF * int(t["visits"].sum()) // 2

@@ -142,6 +142,111 @@ def test_any_hit_from_matches_any_hit(city, shadow_rays):
     assert (a == b).mean() > 0.999
 
 
+@pytest.fixture(scope="module")
+def city24():
+    """city_scene(24) at leaf 16 (the bench city's tree; 1 summary word of
+    leaves): the JAX scene on its worklist path and the port's from its
+    arrays, both lit by the bench light."""
+    g = jproc.city_scene(24).flatten()
+    lo, hi = g.bounds()
+    bvh = build_bvh(lo, hi, leaf_size=16)
+    js = j_make_traced_scene(g, bvh,
+                             lights=JLight.make(LIGHT, (1.0, 1.0, 1.0), 120.0))
+    assert js.wl_lfc is not None
+    ps = traced_scene_from_numpy({k: np.asarray(getattr(js, k))
+                                  for k in FIELDS}, device="cpu")
+    return js, ps
+
+
+def _instanced_wave(ps):
+    """The B7 wavefront that the instanced fwd frame of 2 x 2 instances of
+    ``ps`` (``instanced_grid``) at 128 x 64 launches for the first
+    instance in which it blocks a live ray: (o, d, tm), B7's planes."""
+    from snail_tpu_torch.scene.bench_scenes import instanced_grid
+
+    wrapper, waves = pt.shadow_wl_g, []
+
+    def record(*args):
+        waves.append(args)
+        return wrapper(*args)
+
+    isc, icam = instanced_grid("city", ps, 2)
+    pt.shadow_wl_g = record
+    try:
+        pinst.render_instanced(isc, icam, 128, 64, RenderOpts(
+            reflections=False, transparency=False, textures=False))
+    finally:
+        pt.shadow_wl_g = wrapper
+    assert len(waves) == 4
+    for o, d, tm, *_ in waves:
+        if bool(pt.shadow_wl_g_plain(o, d, tm, *waves[0][3:6])[tm >= 0]
+                .any()):
+            return o, d, tm
+    raise AssertionError("no instance's wavefront blocks a live ray")
+
+
+@pytest.mark.parametrize("wave", ["scattered", "instanced"])
+def test_shadow_wl_g_sim_matches_plain_and_jax(city24, wave):
+    """B7's warps simulated (``shadow_wl_g_sim``: ``scan_boxes`` with the
+    staged any-hit leaf stage, as the kernel scans) on city_scene(24) at
+    leaf 16, on two packets of scattered shadow rays (the first from one
+    point above the city, as an instance's light, the second from
+    scattered points) and on the instanced fwd frame's own wavefront:
+    the verdicts are the plain B7's and the JAX package's ``any_hit_c``'s
+    (B5 + ``_shadow_wl_kernel_g`` in interpret mode) bit for bit, masked
+    rays never blocked; the tally holds against the scan's counters (leaf
+    visits, the most rows a lane tested, the words at the leaf level) and
+    the verdicts (each blocked ray blocked in one visit), and the visits
+    by entering lanes sum to the visits."""
+    js, ps = city24
+    if wave == "scattered":
+        rng = np.random.default_rng(31)
+        n = 2 * pt.PACKET_R
+        lo, hi = ps.root_lo.numpy(), ps.root_hi.numpy()
+        o = np.empty((n, 3), np.float32)
+        o[:pt.PACKET_R] = (lo + hi) * 0.5 + np.array([5.0, 30.0, -3.0])
+        o[pt.PACKET_R:] = rng.uniform(lo, hi, (pt.PACKET_R, 3))
+        o[pt.PACKET_R:, 1] = rng.uniform(2.0, 8.0, pt.PACKET_R)
+        tgt = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+        tgt[:, 1] = rng.uniform(0.0, 2.5, n)
+        d = tgt - o
+        ld = np.linalg.norm(d, axis=-1)
+        d = (d / ld[:, None]).astype(np.float32)
+        tm = (ld * 0.9999).astype(np.float32)
+        tm[::7] = -BIG
+        o[::7] = 1e30
+        po, pd, ptm, _ = pt.general_planes(
+            tuple(_t(o[:, k]) for k in range(3)),
+            tuple(_t(d[:, k]) for k in range(3)), _t(tm))
+    else:
+        po, pd, ptm = _instanced_wave(ps)
+    rows, lt = ps.tri_rows, ps.leaves
+    words, _, floors = pt.words_general(po, pd, ptm, lt, 1)
+    blocked, cnt, tally = pt.shadow_wl_g_sim(po, pd, ptm, rows, lt, words,
+                                             floors)
+    assert torch.equal(blocked, pt.shadow_wl_g_plain(po, pd, ptm, rows, lt,
+                                                     words))
+    live = ptm >= 0
+    flat = lambda c: jnp.asarray(c.reshape(-1).numpy())
+    jb = np.asarray(tp.any_hit_c(js, tuple(map(flat, po)),
+                                 tuple(map(flat, pd)), flat(ptm)))
+    np.testing.assert_array_equal(blocked.reshape(-1).numpy() > 0, jb)
+    assert not bool(blocked[~live].any())
+    assert 0.0 < float(blocked[live].mean()) < 1.0
+    t = dict(zip(pt.TALLY, tally))
+    assert torch.equal(t["nodes"], cnt[0])
+    assert torch.equal(t["visits"], cnt[2]) and torch.equal(t["most"],
+                                                            cnt[3])
+    assert torch.equal(sum(t[b] for b in pt.LANE_BINS), t["visits"])
+    assert ((t["visits"] <= t["lanes"])
+            & (t["lanes"] <= pt.WARP * t["visits"])).all()
+    assert ((t["lanes"] <= t["tested"]) & (t["tested"] <= t["lane_rows"])
+            & (t["most"] <= t["rows"]) & (t["blocked"] <= t["lanes"])
+            & (t["visits"] <= cnt[1]) & (cnt[5] <= cnt[4])).all()
+    assert int(t["blocked"].sum()) == int(blocked[live].sum())
+    assert int(t["chunk2"].sum()) == 0 and int(t["visits"].sum()) > 0
+
+
 def _jax_bounce_materials():
     mats = JMaterialTable.build({"": 0}, [])
     mats.reflectivity[0] = 0.5

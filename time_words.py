@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Device time of the words passes B1, B3 and B5, of the closest hits B9c
-and B11b, and of the any-hits B9d and B11d on one CUDA card.
+and B11b, and of the any-hits B7, B9d, B11c and B11d on one CUDA card.
 
     python3 time_words.py [--tree DIR] [--reps N] [--only words|closest|anyhit]
     python3 time_words.py [--tree DIR] [--reps N] [--only closest|anyhit]
@@ -34,19 +34,25 @@ does not count (``device_ms``).
   summed per frame, and on chip_smoke.py's seeded shadow wavefront
   (``seeded_shadow_planes``); with each, the live rays and blocked share
   of every instance's wavefront, the kernel's bound on it (chip_smoke
-  ``walk_work``, from its plain version's walk, and ``anyhit_bytes``), B5 (one band) + B7 on
-  the same wavefronts on the same geometry's leaf tables and the
-  instanced fwd frame (CUDA events over 10 frames). The kernels'
-  verdicts and the tally of their warps are chip_smoke.py's (phases 5
-  and 7).
+  ``walk_work``, from its plain version's walk, and ``anyhit_bytes``)
+  and the instanced fwd frame (CUDA events over 10 frames). On the node
+  scenes' leaf-table twins (same geometry and BVH), B7 and B5 (one band)
+  + B7 on the same wavefronts, B7's bound (chip_smoke ``b7_work``) and
+  the twin's instanced fwd frame; on the leaf-64 scenes, B11c on the
+  fwd frame's shadow wavefront toward the bench light and (the terrain)
+  the low light, and on the bounce frame's three (its own calls,
+  chip_smoke ``bounce_shadow_calls``), summed and one by one, each with
+  its live rays, blocked share and bound, and the fat fwd and bounce
+  frames. The kernels' verdicts and the tally of their warps are
+  chip_smoke.py's (phases 3, 5 and 7).
 
 With ``--sweep``, times the closest hits (``--only closest``, the
 default) or the any-hits (``--only anyhit``: the kernels' times only) of
-copies of the
-tree's package in which B9c and B11b, or B9d and B11d, test a leaf lane
-per triangle where at most T lanes enter it (the constexprs
-``kWalkLaneTriMax`` / ``kFatLaneTriMax``, or ``kWalkAnyLaneTriMax`` /
-``kFatAnyLaneTriMax``, set to T), one copy per T in turn, each in a
+copies of the tree's package in which B9c and B11b, or B7, B9d, B11c and
+B11d, test a leaf lane per triangle where at most T lanes enter it (the
+constexprs ``kWalkLaneTriMax`` / ``kFatLaneTriMax``, or
+``kWlAnyLaneTriMax`` / ``kWalkAnyLaneTriMax`` / ``kFatShadowLaneTriMax``
+/ ``kFatAnyLaneTriMax``, set to T), one copy per T in turn, each in a
 process of its own; each JSON line then carries its ``lane_tri_max``.
 
 Prints the card (name and power limit, from nvidia-smi) and one JSON line
@@ -75,9 +81,11 @@ FRAMES = 10
 # the threshold constexprs of the staged leaf stages, by kernels and
 # source
 LANE_TRI_MAX = {
-    "closest": {"walk.cu": "kWalkLaneTriMax", "fat.cu": "kFatLaneTriMax"},
-    "anyhit": {"walk.cu": "kWalkAnyLaneTriMax",
-               "fat.cu": "kFatAnyLaneTriMax"}}
+    "closest": {"walk.cu": ("kWalkLaneTriMax",),
+                "fat.cu": ("kFatLaneTriMax",)},
+    "anyhit": {"walk.cu": ("kWalkAnyLaneTriMax",),
+               "fat.cu": ("kFatAnyLaneTriMax", "kFatShadowLaneTriMax"),
+               "worklist.cu": ("kWlAnyLaneTriMax",)}}
 # the any-hit scenes: (kind, size, leaf): node tables at the kind's leaf
 # (B9d; B5 + B7 on the same geometry's leaf tables), or leaf 64 (B11d)
 ANYHIT = (("city", 24, None), ("terrain", 724, None), ("city", 24, 64),
@@ -280,27 +288,123 @@ def anyhit_waves(kind: str, n: int, leaf):
     leaf ``leaf`` (64), the instanced grid of it, and the shadow
     wavefronts its instanced fwd frame gives its any-hit kernel
     (chip_smoke ``instanced_shadow_calls``): (node scene, twin or None,
-    instanced scene, camera, kernel name, [the kernel's arguments, one
-    call per instance])."""
+    camera, instanced scene, its camera, kernel name, [the kernel's
+    arguments, one call per instance])."""
     from snail_tpu_torch.scene.bench_scenes import (bench_scene,
                                                     bounce_materials)
     from snail_tpu_torch.scene.scene import make_traced_scene
 
     if leaf:
-        node, twin = bench_scene(kind, n, bounce=True, leaf=leaf)[0], None
+        node, cam = bench_scene(kind, n, bounce=True, leaf=leaf)[:2]
+        twin = None
     else:
-        twin, _, g, bvh = bench_scene(kind, n, bounce=True)
+        twin, cam, g, bvh = bench_scene(kind, n, bounce=True)
         node = make_traced_scene(g, bvh, bounce_materials(),
                                  lights=twin.lights, device=twin.device,
                                  walk=True)
-    return (node, twin, *smoke().instanced_shadow_calls(kind, node))
+    return (node, twin, cam, *smoke().instanced_shadow_calls(kind, node))
 
 
-def anyhit_extra(out, k, twin, isc, icam, waves, seeded, reps):
+def b7_times(out, kind, twin, waves, seeded, reps, quick):
+    """Adds to ``out`` B7 on the twin's leaf tables, on the rays of the
+    node scene's instanced wavefronts (summed and one by one) and seeded
+    one; unless ``quick`` also B5 + B7 on them, B7's bound on each
+    (chip_smoke ``b7_work``: live rays' planes only) and the leaf-table
+    instanced fwd frame."""
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.scene.bench_scenes import instanced_grid
+    from snail_tpu_torch.scene.instancing import render_instanced
+
+    sm = smoke()
+    lt, rows = twin.leaves, twin.tri_rows
+    b7, b57, bound = [], [], []
+    for o, d, tm, *_ in waves + [seeded]:
+        words = pt.words_general(o, d, tm, lt, 1)
+        b7.append(device_ms(lambda: pt.shadow_wl_g(o, d, tm, rows, lt,
+                                                   *words), reps))
+        if quick:
+            continue
+        b57.append(device_ms(lambda: pt.shadow_wl_g(
+            o, d, tm, rows, lt, *pt.words_general(o, d, tm, lt, 1)), reps))
+        kern = pt.shadow_wl_g(o, d, tm, rows, lt, *words)
+        bound.append(sm.entry(0.0, 0.0, 0.0, *sm.b7_work(
+            lt, rows, o, d, tm, *words, kern))["bound_ms"])
+    out.update({"instanced shadow_wl_g ms": sum(b7[:-1]),
+                "instanced shadow_wl_g ms by instance": b7[:-1],
+                "seeded shadow_wl_g ms": b7[-1]})
+    if quick:
+        return
+    isc, icam = instanced_grid(kind, twin, sm.INSTANCE_GRID[kind][0])
+    opts = RenderOpts(reflections=False, transparency=False, textures=False)
+    out.update({
+        "instanced words_general + shadow_wl_g ms": sum(b57[:-1]),
+        "seeded words_general + shadow_wl_g ms": b57[-1],
+        "instanced shadow_wl_g bound ms": sum(bound[:-1]),
+        "instanced shadow_wl_g bound ms by instance": bound[:-1],
+        "seeded shadow_wl_g bound ms": bound[-1],
+        "leaf-table instanced fwd frame ms": frame_ms(
+            lambda: render_instanced(isc, icam, WIDTH, HEIGHT, opts))})
+
+
+def b11c_times(out, kind, scene, cam, reps, quick):
+    """Adds to ``out`` B11c on the fat-leaf scene's own shadow wavefronts
+    (chip_smoke ``frame_shadow_calls``): the fwd frame's toward the bench
+    light and, where the kind has one, toward the low light; the bounce
+    frame's (light 0, or where it blocks no ray the low light:
+    chip_smoke ``bounce_shadow_calls``), summed and one by one; and unless
+    ``quick`` each one's live rays, blocked share and bound (live rays'
+    planes only) and the fat fwd and bounce frames."""
+    import dataclasses
+
+    from snail_tpu_torch.core.types import Light, RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops import traverse_ref as ref
+    from snail_tpu_torch.render.renderer import render_frame
+    from snail_tpu_torch.scene.bench_scenes import SCENES
+
+    sm = smoke()
+    fwd = RenderOpts(reflections=False, transparency=False, textures=False)
+    waves = {"bench light": sm.frame_shadow_calls(scene, cam, fwd)[0]}
+    if kind in sm.LOW_LIGHT:
+        low = dataclasses.replace(scene, lights=Light.make(
+            sm.LOW_LIGHT[kind], (1.0, 1.0, 1.0), SCENES[kind][3]))
+        waves["low light"] = sm.frame_shadow_calls(low, cam, fwd)[0]
+    light, bounce = sm.bounce_shadow_calls(kind, scene, cam)
+    for i, a in enumerate(bounce):
+        waves[f"bounce frame call {i + 1} of {len(bounce)}, {light}"] = a
+    ms = {w: device_ms(lambda: pt.fat_shadow(*a), reps)
+          for w, a in waves.items()}
+    out["fat_shadow ms"] = ms
+    out["fat_shadow bounce frame ms"] = sum(
+        v for w, v in ms.items() if w.startswith("bounce"))
+    if quick:
+        return
+    info = {}
+    for w, (orig, d, tm, signs, rows, nodes) in waves.items():
+        kern, work = pt.fat_shadow(orig, d, tm, signs, rows, nodes), {}
+        ref.fat_shadow_plain(orig, d, tm, signs, rows, nodes, work)
+        ops, tree_bytes = sm.walk_work("fat_shadow", nodes, rows, work)
+        n_bytes = (sm.nbytes(orig) + sm.anyhit_bytes((), d, tm, signs, kern)
+                   + tree_bytes)
+        live = tm >= 0
+        info[w] = {"live rays": int(live.sum()),
+                   "blocked share": float(kern[live].mean())
+                   if bool(live.any()) else 0.0,
+                   "bound ms": sm.entry(0.0, 0.0, 0.0, n_bytes,
+                                        ops)["bound_ms"]}
+    out["fat_shadow wavefronts"] = info
+    out["fat fwd frame ms"] = frame_ms(
+        lambda: render_frame(scene, cam, WIDTH, HEIGHT, fwd))
+    out["fat bounce frame ms"] = frame_ms(
+        lambda: render_frame(scene, cam, WIDTH, HEIGHT,
+                             RenderOpts(textures=False)))
+
+
+def anyhit_extra(out, k, isc, icam, waves, seeded):
     """Adds to ``out`` what ``--only anyhit`` gives beside the kernel's
     times: per instance the live rays, blocked share and bound of its
-    wavefront (and the seeded one's); B5 + B7 on the twin's leaf tables;
-    the instanced fwd frame."""
+    wavefront (and the seeded one's); the instanced fwd frame."""
     from snail_tpu_torch.core.types import RenderOpts
     from snail_tpu_torch.ops import traverse as pt
     from snail_tpu_torch.ops import traverse_ref as ref
@@ -327,27 +431,6 @@ def anyhit_extra(out, k, twin, isc, icam, waves, seeded, reps):
                 "instanced bound ms by instance": bound[:-1],
                 "seeded live rays": live[-1], "seeded blocked share":
                 share[-1], "seeded bound ms": bound[-1]})
-    if twin is not None:
-        lt, rows = twin.leaves, twin.tri_rows
-        b7 = b57 = 0.0
-        for o, d, tm, _, _ in waves:
-            words = pt.words_general(o, d, tm, lt, 1)
-            b7 += device_ms(lambda: pt.shadow_wl_g(o, d, tm, rows, lt,
-                                                   *words), reps)
-            b57 += device_ms(lambda: pt.shadow_wl_g(
-                o, d, tm, rows, lt, *pt.words_general(o, d, tm, lt, 1)),
-                reps)
-        o, d, tm, _, _ = seeded
-        words = pt.words_general(o, d, tm, lt, 1)
-        out.update({
-            "instanced shadow_wl_g ms": b7,
-            "instanced words_general + shadow_wl_g ms": b57,
-            "seeded shadow_wl_g ms": device_ms(
-                lambda: pt.shadow_wl_g(o, d, tm, rows, lt, *words), reps),
-            "seeded words_general + shadow_wl_g ms": device_ms(
-                lambda: pt.shadow_wl_g(o, d, tm, rows, lt,
-                                       *pt.words_general(o, d, tm, lt, 1)),
-                reps)})
     opts = RenderOpts(reflections=False, transparency=False, textures=False)
     out["instanced fwd frame ms"] = frame_ms(
         lambda: render_instanced(isc, icam, WIDTH, HEIGHT, opts))
@@ -355,13 +438,15 @@ def anyhit_extra(out, k, twin, isc, icam, waves, seeded, reps):
 
 def time_anyhit(tree, reps: int, quick: bool = False) -> None:
     """B9d and B11d on the ANYHIT scenes' instanced and seeded shadow
-    wavefronts: their times, and unless ``quick`` ``anyhit_extra``."""
+    wavefronts, B7 on the same rays on leaf tables (``b7_times``), B11c
+    on the leaf-64 scenes' own shadow wavefronts (``b11c_times``): their
+    times, and unless ``quick`` ``anyhit_extra``."""
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
 
     for kind, n, leaf in ANYHIT:
-        node, twin, isc, icam, k, waves = anyhit_waves(kind, n, leaf)
+        node, twin, cam, isc, icam, k, waves = anyhit_waves(kind, n, leaf)
         kern = getattr(pt, k)
         seed, o, d, tm, signs = smoke().seeded_shadow_planes(
             node, (WIDTH // pt.TILE) * (HEIGHT // pt.TILE))
@@ -373,8 +458,12 @@ def time_anyhit(tree, reps: int, quick: bool = False) -> None:
                "seed": seed, "instanced ms": sum(by),
                "instanced ms by instance": by,
                "seeded ms": device_ms(lambda: kern(*seeded), reps)}
+        if twin is not None:
+            b7_times(out, kind, twin, waves, seeded, reps, quick)
+        else:
+            b11c_times(out, kind, node, cam, reps, quick)
         if not quick:
-            anyhit_extra(out, k, twin, isc, icam, waves, seeded, reps)
+            anyhit_extra(out, k, isc, icam, waves, seeded)
         print(json.dumps(out), flush=True)
         del node, twin, isc, waves, seeded
         torch.cuda.empty_cache()
@@ -390,13 +479,14 @@ def sweep(tree: Path, only: str, values, reps: int) -> None:
             shutil.copytree(tree / "snail_tpu_torch", pkg,
                             ignore=shutil.ignore_patterns("build",
                                                           "__pycache__"))
-            for name, const in LANE_TRI_MAX[only].items():
+            for name, consts in LANE_TRI_MAX[only].items():
                 src = pkg / "csrc" / name
-                text, n = re.subn(rf"constexpr int {const} = \d+;",
-                                  f"constexpr int {const} = {t};",
-                                  src.read_text())
-                if n != 1:
-                    raise RuntimeError(f"{const} not found in {src}")
+                text = src.read_text()
+                for const in consts:
+                    text, n = re.subn(rf"constexpr int {const} = \d+;",
+                                      f"constexpr int {const} = {t};", text)
+                    if n != 1:
+                        raise RuntimeError(f"{const} not found in {src}")
                 src.write_text(text)
             res = subprocess.run(
                 [sys.executable, __file__, "--only", only, "--tree", tmp,
