@@ -29,10 +29,13 @@ Phases, each printed on its own line:
    clusters of 1, 2, 4 and 8 blocks per packet, each equal to the plain
    version and timed (the ``cluster`` lines); B2, B4 and B6 print what
    their warps are given to scan (``scan_counts``: populated words, the
-   words and blocks some lane enters, the leaves a warp cull keeps); B8a
-   and B8b must give B2's and B4's outputs bit for bit, and their
-   counters must equal the plain versions' simulation of every warp on a
-   few seeded packets;
+   words and blocks some lane enters, the leaves a warp cull keeps; B2's
+   warps 8 x 4 pixel tiles); B8a and B8b must give B2's and B4's outputs
+   bit for bit, and their counters must equal the plain versions'
+   simulation of every warp on a few seeded packets; B2's simulated
+   warps (ops/traverse.py ``camera_wl_sim``) must give its outputs bit
+   for bit, ties included, with the ``scan`` lines of their leaf visits
+   by entering lanes;
 4. the paths at 1024 x 1024 on both scenes, each with the launch count of
    every kernel during one run, a check against the CPU path at 64 x 64
    (the terrain's lit by the low light), and its time: render_frame
@@ -54,11 +57,13 @@ Phases, each printed on its own line:
    terrain's toward the low light), B9c on the frame's reflection rays and
    on a seeded wavefront, B9d on the instanced frame's own shadow
    wavefront (taken from the frame's calls: the first instance's with a
-   blocked ray) and on a seeded shadow wavefront with its own origins; on the reflection rays B9c's warps,
-   and on both shadow wavefronts B9d's, on a few seeded packets,
-   simulated (their outputs the kernel's bit for bit), with the tally of
-   their leaf visits by entering lanes (the ``scan`` lines; for B9d also
-   the rows its lanes tested up to their first occluder);
+   blocked ray) and on a seeded shadow wavefront with its own origins; on
+   the reflection rays B9c's warps, on B9b's shadow wavefronts its own
+   and on both of B9d's shadow wavefronts B9d's, on a few seeded
+   packets, simulated (their outputs the kernel's bit for bit), with the
+   tally of their leaf visits by entering lanes (the ``scan`` lines; for
+   the any-hits also the rows their lanes tested up to their first
+   occluder);
    closest hits equal bit for bit where the triangle agrees, the triangle
    differing only on a distance tie, verdicts identical; and the
    walk's counting kernels B9e/B9f on B9a's and B9b's inputs: their
@@ -647,6 +652,33 @@ def check_counters(name, stats, pk, sim):
           f"simulation: {sim[:, :5].tolist()}", flush=True)
 
 
+def camera_tally(name, cv, rows, lt, words, floors, kern, stats, seed=1):
+    """B2's (B8a's) warps on SIM_PACKETS seeded packets of the 1024 x 1024
+    primary wavefront whose warps tested triangles (``sample_packets`` of
+    B8a's counters ``stats``), simulated as the kernel scans
+    (ops/traverse.py ``camera_wl_sim``): their outputs must equal B2's,
+    ``kern``, bit for bit and their counters B8a's; prints ``scan`` lines
+    per warp (words at the leaf level, leaves its cull keeps, leaf visits
+    by entering lanes and their rows). Returns (the tally's sums, the
+    packets simulated)."""
+    import torch
+
+    from snail_tpu_torch.ops import traverse as pt
+
+    pk = sample_packets(stats, seed)
+    out, sim, tal = pt.camera_wl_sim(cv, WIDTH, HEIGHT, rows, lt,
+                                     words[pk], floors[pk], pk)
+    check_counters(f"{name} camera_wl_stats", stats, pk, sim)
+    if not all(torch.equal(a[pk], b) for a, b in zip(kern, out)):
+        fail(f"{name} camera_wl: the simulation's outputs on packets "
+             f"{pk.tolist()} differ from the kernel's")
+    tally = {"warps": tal.shape[1], "words": int(tal[0].sum()),
+             "leaves kept": int(sim[:, 1].sum()),
+             **dict(zip(pt.TALLY[1:], tal[1:].sum(1).tolist()))}
+    print_tally(name, "camera_wl", pk, tally, True)
+    return tally, len(pk)
+
+
 def check_kernels(name, kind, scene, cam):
     """Phase 3 on the frame's wavefronts: each kernel against its plain
     version on the card; returns {kernel: entry}."""
@@ -698,30 +730,33 @@ def check_kernels(name, kind, scene, cam):
         fail(f"{name} camera_wl: hit share {share}")
     ms = cuda_ms(lambda: pt.camera_wl(cv, w, h, rows, lt, words, summ,
                                       floors), KERNEL_REPS)
-    d, idir, t_exit = pt._camera_rays(cv, w, h, pids)
+    # each warp's rays as B2 takes them: an 8 x 4 pixel tile
+    tile = lambda x: x[:, pt.camera_wl_order().to(x.device)]
+    d, idir, t_exit = (tuple(map(tile, x)) if isinstance(x, list)
+                       else tile(x) for x in pt._camera_rays(cv, w, h, pids))
     o = cv[9:12].unbind()
     tally = scan_counts(lt, words, summ, o, d, idir, t_exit, t_exit)
     ops, leaf_bytes = needed_work("camera_wl", lt, rows, words, o, idir,
-                                  torch.where(kt >= 0, kd, t_exit),
+                                  tile(torch.where(kt >= 0, kd, t_exit)),
                                   tally=tally)
     print_scan(name, "camera_wl", tally)
     b2_bytes = nbytes(cv, words, summ, floors, *kern) + leaf_bytes
     out["camera_wl"] = entry(derr, ms, plain_ms, b2_bytes, ops, scan=tally)
 
-    # B8a on the same inputs: B2's outputs bit for bit, and the counters of
-    # a few seeded packets equal to the simulation of their warps
+    # B8a on the same inputs: B2's outputs bit for bit; the warps of a few
+    # seeded packets simulated (camera_wl_sim): B2's outputs bit for bit,
+    # B8a's counters, and the tally of their leaf visits
     *k8, st = pt.camera_wl_stats(cv, w, h, rows, lt, words, summ, floors)
     if not all(torch.equal(a, b) for a, b in zip(k8, kern)):
         fail(f"{name} camera_wl_stats: outputs differ from camera_wl's")
-    pk = sample_packets(st, 1)
-    (*_, sim), plain_ms = timed_plain(lambda: pt.camera_wl_stats_plain(
-        cv, w, h, rows, lt, words[pk], floors[pk], pk))
-    check_counters(f"{name} camera_wl_stats", st, pk, sim)
+    (sim_tally, n_sim), plain_ms = timed_plain(lambda: camera_tally(
+        name, cv, rows, lt, words, floors, kern, st))
+    out["camera_wl"]["sim_scan"] = sim_tally
     ms = cuda_ms(lambda: pt.camera_wl_stats(cv, w, h, rows, lt, words, summ,
                                             floors), KERNEL_REPS)
     out["camera_wl_stats"] = entry(derr, ms, plain_ms,
                                    b2_bytes + nbytes(st), ops,
-                                   plain_packets=len(pk))
+                                   plain_packets=n_sim)
 
     # B3, B4 and B8b on the shadow rays the frame casts from these hits
     # toward its light 0, and toward the scene's low light where it has one
@@ -1524,8 +1559,10 @@ def check_walk_shadow(name, scene, primary, lp, need_blocked):
     against its own (``check_fat_shadow``), on the frame's shadow rays
     from the ``primary`` hits toward the light at ``lp``: verdicts
     identical, some rays unblocked and, with ``need_blocked``, some
-    blocked; B9f's verdicts B9b's bit for bit and its counters of a few
-    seeded packets the simulation's. Returns {kernel: entry}."""
+    blocked, and B9b's tally on a few packets (``warp_tally``); B9f's
+    verdicts B9b's bit for bit and its counters of a few seeded packets
+    the simulation's. Returns {kernel: entry}; B9b's bound counts the d
+    planes of the live rays only (``anyhit_bytes``)."""
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
@@ -1554,10 +1591,13 @@ def check_walk_shadow(name, scene, primary, lp, need_blocked):
     if (n_diff or bool(kern[~live].any()) or frac >= 0.98
             or (need_blocked and frac <= 0.02)):
         fail(f"{name} {k}: {n_diff} verdicts differ, blocked share {frac}")
+    tally = warp_tally(name, k, orig, d, tm, rows, nodes, None, kern,
+                       by_live=True)
     ms = cuda_ms(call, KERNEL_REPS)
     ops, tree_bytes = walk_work(k, nodes, rows, work)
-    out = {k: entry(0.0, ms, plain_ms, nbytes(orig, *d, tm, kern)
-                    + tree_bytes, ops)}
+    out = {k: entry(0.0, ms, plain_ms, nbytes(orig)
+                    + anyhit_bytes((), d, tm, None, kern) + tree_bytes, ops,
+                    scan=tally)}
     # B9f: B9b's verdicts bit for bit, and the simulated counters
     blocked, st = pt.walk_shadow_stats(orig, d, tm, rows, nodes)
     if not torch.equal(blocked, kern):
@@ -1615,18 +1655,27 @@ def check_fat_shadow(name, orig, d, tm, signs, rows, nodes, need_blocked,
 
 
 def frame_shadow_calls(scene, cam, opts):
-    """The arguments of every B11c call (``fat_shadow``) of a 1024 x 1024
-    ``render_frame`` of the fat-leaf ``scene`` with ``opts``, in the
-    order of the frame's calls (``captured``; with bounces, the bounce
-    wavefronts' shadow rays come first, the primary hits' last)."""
+    """The arguments of every shared-origin any-hit call (B11c
+    ``fat_shadow`` on a fat-leaf scene, B9b ``walk_shadow`` on node
+    tables) of a 1024 x 1024 ``render_frame`` of ``scene`` with ``opts``,
+    in the order of the frame's calls (``captured``; with bounces, the
+    bounce wavefronts' shadow rays come first, the primary hits' last)."""
     from snail_tpu_torch.render.renderer import render_frame
 
-    return captured("fat_shadow", lambda: render_frame(scene, cam, WIDTH,
-                                                       HEIGHT, opts))
+    return captured(shared_kernel(scene), lambda: render_frame(
+        scene, cam, WIDTH, HEIGHT, opts))
+
+
+def shared_kernel(scene) -> str:
+    """The shared-origin any-hit of a node-table scene: B11c or B9b."""
+    from snail_tpu_torch.ops import traverse as pt
+
+    return "fat_shadow" if pt.is_fat(scene) else "walk_shadow"
 
 
 def bounce_shadow_calls(kind, scene, cam):
-    """The fat bounce frame's B11c calls (``frame_shadow_calls``) and the
+    """The bounce frame's shared-origin any-hit calls
+    (``frame_shadow_calls``: B11c's, or B9b's on node tables) and the
     name of the light: light 0's if one of its wavefronts blocks a live
     ray, else (the terrain's overhead light blocks none) those of the
     same frame lit by the kind's low light."""
@@ -1636,7 +1685,8 @@ def bounce_shadow_calls(kind, scene, cam):
 
     opts = RenderOpts(textures=False)
     calls = frame_shadow_calls(scene, cam, opts)
-    if any(bool(pt.fat_shadow(*a)[a[2] >= 0].any()) for a in calls) or (
+    kern = getattr(pt, shared_kernel(scene))
+    if any(bool(kern(*a)[a[2] >= 0].any()) for a in calls) or (
             kind not in LOW_LIGHT):
         return "light 0", calls
     low = dataclasses.replace(scene, lights=Light.make(
@@ -1708,9 +1758,11 @@ def warp_tally(name, kernel, o, d, tm, rows, nodes, signs, kern, seed=6,
                by_live=False):
     """The warps of a closest hit (B9c, or B11b with ``signs``) or of an
     any-hit (B9d, or B11c/B11d with ``signs``; B11c's shared origin given
-    as planes) on SIM_PACKETS seeded packets of the planes ``o``, ``d``,
-    ``tm`` with live rays (``draw_packets``, its ``by_live``), simulated
-    (ops/traverse_ref.py ``closest_g_sim`` / ``shadow_g_sim``): their
+    as planes; B9b, ``walk_shadow``, with ``o`` its origin (3,) and
+    shared-origin ``rows``) on SIM_PACKETS seeded packets of the planes
+    ``o``, ``d``, ``tm`` with live rays (``draw_packets``, its
+    ``by_live``), simulated (ops/traverse_ref.py ``closest_g_sim`` /
+    ``shadow_g_sim`` / ``shadow_sim``): their
     outputs must equal the kernel's, ``kern``, bit for bit; prints
     ``scan`` lines of their tally per warp (node steps, leaf visits, the
     lanes entering them and their rows, the rows tested up to a stop) and
@@ -1730,9 +1782,13 @@ def warp_tally(name, kernel, o, d, tm, rows, nodes, signs, kern, seed=6,
     pk = draw_packets(tm, seed, by_live)
     sel = lambda c: c.index_select(0, pk).contiguous()
     closest = "closest" in kernel
-    sim = ref.closest_g_sim if closest else ref.shadow_g_sim
-    out, _, tal = sim(tuple(map(sel, o)), tuple(map(sel, d)), sel(tm), rows,
-                      nodes, None if signs is None else sel(signs))
+    if kernel == "walk_shadow":
+        out, _, tal = ref.shadow_sim(o, tuple(map(sel, d)), sel(tm), rows,
+                                     nodes)
+    else:
+        sim = ref.closest_g_sim if closest else ref.shadow_g_sim
+        out, _, tal = sim(tuple(map(sel, o)), tuple(map(sel, d)), sel(tm),
+                          rows, nodes, None if signs is None else sel(signs))
     if closest:
         same = all(torch.equal(a, sel(b)) for a, b in zip(out, kern))
     else:

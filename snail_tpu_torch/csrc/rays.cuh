@@ -193,8 +193,8 @@ __device__ __forceinline__ void leaf_closest(const float* rows, int first,
 
 // Whether one of the ``cnt`` shared-origin rows from ``first`` occludes
 // the ray along ``d`` before ``limit``; the ray stops at its first
-// blocker. ``tested`` counts the triangles it tested. (The any-hits on raw
-// rows test their leaves through leaf_blocks_staged below.)
+// blocker. ``tested`` counts the triangles it tested. (B4 and B8b; the
+// other any-hits test their leaves through leaf_blocks_staged below.)
 __device__ __forceinline__ bool leaf_blocks(const float* rows, int first,
                                             int cnt, const float d[3],
                                             float limit, int& tested) {
@@ -215,7 +215,10 @@ __device__ __forceinline__ bool leaf_blocks(const float* rows, int first,
 // lanes reading consecutive rows 16 bytes at a time meet no bank
 // conflict: 48 B is 12 banks, and the 8 lanes of each quarter-warp phase
 // cover the 32 banks once. Used by walk.cuh's closest-hit stage (B9c,
-// B11b) and the any-hit stage below (B7, B9d, B11c, B11d).
+// B11b) and the any-hit stage below (B7, B9b, B9d, B11c, B11d), and by
+// worklist.cu's two-slot stage of B2 (B8a), whose copies overlap its
+// tests. A shared-origin row's 48-byte prefix holds n, c1, c2 and tmul,
+// so the same copy and bank pattern serve it.
 
 constexpr int kStageVec = 3;  // float4 of a staged row
 
@@ -247,12 +250,13 @@ __device__ __forceinline__ RawRow staged_row(const float4* stage, int j) {
   return RawRow{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w};
 }
 
-// --- The staged any-hit leaf stage of B7, B9d, B11c and B11d ---------------
+// --- The staged any-hit leaf stage of B7, B9b, B9d, B11c and B11d ---------
 //
 // An any-hit needs one occluder, and its verdict does not depend on the
 // order in which a ray tests the rows: every (ray, row) test is the same
-// ``occludes(moller_raw(...), limit)``. So at a leaf some unblocked lane
-// enters, the warp stages the leaf's rows (stage_leaf, as walk.cuh's
+// ``occludes(moller_raw(...), limit)`` (B9b's and B9f's on shared-origin
+// rows: ``occludes(moller_sh(...), limit)``). So at a leaf some unblocked
+// lane enters, the warp stages the leaf's rows (stage_leaf, as walk.cuh's
 // closest-hit stage) and tests them one of two ways, by how many lanes
 // entered:
 // - few (at most LANE_TRI_MAX): lane per triangle. The warp takes the
@@ -268,33 +272,59 @@ __device__ __forceinline__ RawRow staged_row(const float4* stage, int j) {
 // because every form of one tried changed the register allocation of
 // B11b (fat_closest_kernel), whose SASS stays as it was (PERF.md).
 
+// A staged shared-origin row (ops/traverse.py shared_rows): its 48-byte
+// prefix holds n, c1, c2 and tmul.
+__device__ __forceinline__ TriRow staged_tri_row(const float4* stage, int j) {
+  const float4 a = stage[kStageVec * j], b = stage[kStageVec * j + 1],
+               c = stage[kStageVec * j + 2];
+  return TriRow{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y};
+}
+
+// The Moller terms of staged row j against one ray: raw rows with the
+// ray's origin ``o``, or (RAW false) shared-origin rows.
+template <bool RAW>
+__device__ __forceinline__ Moller staged_moller(const float4* stage, int j,
+                                                const float o[3],
+                                                const float d[3]) {
+  if constexpr (RAW)
+    return moller_raw(o, d, staged_row(stage, j));
+  else
+    return moller_sh(d, staged_tri_row(stage, j));
+}
+
 // Whether this lane's ray, if it entered the leaf (``enter``) of ``count``
 // (<= MAX_ROWS) rows from ``first``, is occluded before ``limit`` by one
 // of them; every lane of the warp calls it, and a lane that did not enter
-// gets false.
-template <int MAX_ROWS, int LANE_TRI_MAX>
+// gets false. RAW false: shared-origin rows, ``o`` unused. With COUNT
+// (leaves of at most 32 rows), ``*tested`` becomes the rows this lane's
+// ray needs up to its first occluder, the leaf_blocks loop's count, in
+// either way of testing (a lane that did not enter keeps its value).
+template <int MAX_ROWS, int LANE_TRI_MAX, bool RAW = true, bool COUNT = false>
 __device__ __forceinline__ bool leaf_blocks_staged(
     const float* rows, float4* stage, int first, int count, bool enter,
-    const float o[3], const float d[3], float limit) {
+    const float o[3], const float d[3], float limit, int* tested = nullptr) {
   static_assert(MAX_ROWS % 32 == 0, "rows are tested 32 a step");
+  static_assert(!COUNT || MAX_ROWS == 32, "a count is one ballot a ray");
   const int lane = threadIdx.x & 31;
   stage_leaf(rows, first, count, stage);
   const unsigned in = __ballot_sync(kFull, enter);
   bool hit = false;
   if (__popc(in) > LANE_TRI_MAX) {
     if (enter)
-      for (int j = 0; j < count; ++j)
-        if (occludes(moller_raw(o, d, staged_row(stage, j)), limit)) {
+      for (int j = 0; j < count; ++j) {
+        if constexpr (COUNT) ++*tested;
+        if (occludes(staged_moller<RAW>(stage, j, o, d), limit)) {
           hit = true;
           break;
         }
+      }
     return hit;
   }
   for (unsigned m = in; m; m &= m - 1) {
     const int src = __ffs(m) - 1;
     float ro[3], rd[3];
     for (int k = 0; k < 3; ++k) {
-      ro[k] = __shfl_sync(kFull, o[k], src);
+      if constexpr (RAW) ro[k] = __shfl_sync(kFull, o[k], src);
       rd[k] = __shfl_sync(kFull, d[k], src);
     }
     const float rl = __shfl_sync(kFull, limit, src);
@@ -302,12 +332,19 @@ __device__ __forceinline__ bool leaf_blocks_staged(
 #pragma unroll
     for (int r = 0; r < MAX_ROWS / 32; ++r) {
       const int j = lane + 32 * r;
-      occ = occ ||
-            (j < count &&
-             occludes(moller_raw(ro, rd, staged_row(stage, j)), rl));
+      occ = occ || (j < count &&
+                    occludes(staged_moller<RAW>(stage, j, ro, rd), rl));
     }
-    const bool any = __any_sync(kFull, occ);
-    if (lane == src) hit = any;
+    if constexpr (COUNT) {
+      const unsigned om = __ballot_sync(kFull, occ);
+      if (lane == src) {
+        hit = om != 0;
+        *tested = om ? __ffs(om) : count;
+      }
+    } else {
+      const bool any = __any_sync(kFull, occ);
+      if (lane == src) hit = any;
+    }
   }
   return hit;
 }

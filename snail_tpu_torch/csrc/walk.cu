@@ -27,10 +27,11 @@
 // enter it (walk.cuh leaf_closest_staged): on reflection rays a warp's
 // lanes scatter, and a visit has a handful of entering lanes. Its walk
 // tests both children of a node in one step (walk.cuh walk_pairs), the
-// same leaves in the same order in fewer dependent steps. B9d walks so
-// too, and stages its leaves and tests them lane per triangle where few
-// lanes enter, each lane per ray up to its first occluder where many do
-// (rays.cuh leaf_blocks_staged). Any-hit
+// same leaves in the same order in fewer dependent steps. B9d and B9b
+// walk so too, and stage their leaves and test them lane per triangle
+// where few lanes enter, each lane per ray up to its first occluder where
+// many do (rays.cuh leaf_blocks_staged; B9b's on shared-origin rows,
+// whose shared light makes a visit's lanes few on the terrain). Any-hit
 // warps stop once every live lane is blocked (_shadow_ival_drain's exit,
 // :1698). B9e/B9f are B9a/B9b with
 // STATS: the walk counts what each warp did (walk.cuh WalkCounts) and lane
@@ -54,10 +55,10 @@
 // memory or float rate; the card hides the latency with many warps (8 per
 // block, blocks limited by registers). The shared-memory stack costs a few
 // hundred bytes per warp; the counters five registers and five atomics per
-// warp. B9c's and B9d's leaf stage adds 8 warps x 32 rows x 48 B = 12 KB
-// a block at leaf 32: the SM's 228 KB would hold 18 such blocks, more
-// than its 2,048 threads (8 blocks) or its registers let in, so it costs
-// no occupancy, only some of the L1 that shares the SM's 256 KB.
+// warp. B9b's, B9c's and B9d's leaf stage adds 8 warps x 32 rows x 48 B
+// = 12 KB a block at leaf 32: the SM's 228 KB would hold 18 such blocks,
+// more than its 2,048 threads (8 blocks) or its registers let in, so it
+// costs no occupancy, only some of the L1 that shares the SM's 256 KB.
 
 #include "walk.cuh"
 
@@ -72,6 +73,10 @@ constexpr int kWalkLaneTriMax = 12;
 // most kWalkAnyLaneTriMax lanes enter (set by a sweep on the H100,
 // PERF.md).
 constexpr int kWalkAnyLaneTriMax = 12;
+// B9b's (and B9f's) leaf stage on shared-origin rows: the same leaves,
+// tested lane per triangle where at most kWalkShadowLaneTriMax lanes
+// enter.
+constexpr int kWalkShadowLaneTriMax = 12;
 
 // B9a / B10a: camera raygen + closest hit on the shared-origin rows. A
 // ray's bound starts at its root-box exit (0 when it misses the box);
@@ -115,7 +120,13 @@ walk_camera_kernel(const float* __restrict__ cam,
 }
 
 // B9b / B10b: any-hit from a shared origin on the shared-origin rows;
-// blocked as 1.0f, a masked ray (tmax < 0) never blocked. B9f with STATS.
+// blocked as 1.0f, a masked ray (tmax < 0) never blocked. Leaves go
+// through the staged any-hit leaf stage on shared-origin rows (rays.cuh
+// leaf_blocks_staged), lane per triangle where at most
+// kWalkShadowLaneTriMax lanes enter; B9b walks with walk_pairs (both
+// children of a node in one step). B9f (STATS) walks with ``walk``, whose
+// node steps its counters count: the same leaves in the same order, with
+// the same lanes entering them, so its verdicts are B9b's.
 template <bool STATS>
 __global__ void __launch_bounds__(kWalkThreads)
 walk_shadow_kernel(const float* __restrict__ orig,
@@ -123,7 +134,7 @@ walk_shadow_kernel(const float* __restrict__ orig,
                    const float* __restrict__ dz, const float* __restrict__ tm,
                    const float* __restrict__ rows,
                    const float4* __restrict__ nodes, int stack_cap,
-                   float* __restrict__ out_blocked,
+                   int leaf_max, float* __restrict__ out_blocked,
                    int32_t* __restrict__ stats) {
   const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const float o[3] = {orig[0], orig[1], orig[2]};
@@ -131,19 +142,31 @@ walk_shadow_kernel(const float* __restrict__ orig,
   const float idir[3] = {1.0f / (d[0] + kInvEps), 1.0f / (d[1] + kInvEps),
                          1.0f / (d[2] + kInvEps)};
   const float limit = tm[g] >= 0.0f ? tm[g] : -kBig;
+  float4* stage = warp_stage(stack_cap, leaf_max);
   bool blocked = false;
-  WalkCounts wc;
-  walk<STATS>(nodes, warp_stack(stack_cap), o, idir,
-              warp_signs(idir, limit > 0.0f),
-              [&] { return blocked ? -kBig : limit; },
-              [&](bool enter, int first, int count, int& tested) {
-                if (enter)
-                  blocked = leaf_blocks(rows, first, count, d, limit,
-                                        tested);
-                return __all_sync(kFull, blocked || !(limit > 0.0f));
-              },
-              wc);
-  if constexpr (STATS) wc.add_to(stats + 8 * (int)(g / kPacketR));
+  const Signs sg = warp_signs(idir, limit > 0.0f);
+  auto bound = [&] { return blocked ? -kBig : limit; };
+  auto leaf = [&](bool enter, int first, int count, int* tested) {
+    if (leaf_blocks_staged<kWalkLeafRows, kWalkShadowLaneTriMax, false,
+                           STATS>(rows, stage, first, count, enter, o, d,
+                                  limit, tested))
+      blocked = true;
+    return __all_sync(kFull, blocked || !(limit > 0.0f));
+  };
+  if constexpr (STATS) {
+    WalkCounts wc;
+    walk<true>(nodes, warp_stack(stack_cap), o, idir, sg, bound,
+               [&](bool enter, int first, int count, int& tested) {
+                 return leaf(enter, first, count, &tested);
+               },
+               wc);
+    wc.add_to(stats + 8 * (int)(g / kPacketR));
+  } else {
+    walk_pairs(nodes, warp_stack(stack_cap), o, idir, sg, bound,
+               [&](bool enter, int first, int count) {
+                 return leaf(enter, first, count, nullptr);
+               });
+  }
   out_blocked[g] = blocked ? 1.0f : 0.0f;
 }
 
@@ -248,18 +271,20 @@ int snail_walk_camera(const float* cam, const float* rows, const float* nodes,
 }
 
 // ``stats``: null for B9b, a zeroed (P, 8) int32 row per packet for B9f.
+// ``leaf_max``: as snail_walk_closest_g's.
 int snail_walk_shadow(const float* orig, const float* dx, const float* dy,
                       const float* dz, const float* tm, const float* rows,
                       const float* nodes, int n_nodes, int stack_cap,
-                      int n_packets, float* blocked, int32_t* stats,
-                      void* stream) {
-  if (!walk_args_ok(n_nodes, stack_cap, n_packets))
+                      int leaf_max, int n_packets, float* blocked,
+                      int32_t* stats, void* stream) {
+  if (!walk_args_ok(n_nodes, stack_cap, n_packets, leaf_max) ||
+      leaf_max < 1 || leaf_max > kWalkLeafRows)
     return (int)cudaErrorInvalidValue;
   auto kernel = stats ? walk_shadow_kernel<true> : walk_shadow_kernel<false>;
-  kernel<<<walk_blocks(n_packets), kWalkThreads, walk_smem(stack_cap),
-           (cudaStream_t)stream>>>(orig, dx, dy, dz, tm, rows,
-                                   reinterpret_cast<const float4*>(nodes),
-                                   stack_cap, blocked, stats);
+  kernel<<<walk_blocks(n_packets), kWalkThreads,
+           walk_smem(stack_cap, leaf_max), (cudaStream_t)stream>>>(
+      orig, dx, dy, dz, tm, rows, reinterpret_cast<const float4*>(nodes),
+      stack_cap, leaf_max, blocked, stats);
   return (int)cudaGetLastError();
 }
 

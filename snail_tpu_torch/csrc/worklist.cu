@@ -44,11 +44,16 @@
 //   reads the same word), tests a word's 32 leaves in parallel against
 //   the interval and segment box of its own 32 rays, then culls each
 //   surviving leaf box against each ray and runs the Moller test only in
-//   lanes whose ray passed; triangle rows are 64 B, read as three float4
-//   broadcast loads. Bound by the serial per-leaf loop (latency of
-//   dependent loads) and divergence; no block barriers. The TPU's grid
-//   ran in order and kept a leaf ring and the leaf table staged across
-//   grid steps; here all state is per warp.
+//   lanes whose ray passed. B2 (B8a) takes a warp's rays from an 8 x 4
+//   pixel tile, not a 32 x 1 row, and stages its leaves: the word's ballot
+//   gives a warp its kept leaves up front, so it copies the next one's
+//   rows (48 B each) into one slot of a two-slot stage with cp.async
+//   while it tests the current one from the other, reads each leaf's box
+//   from a word table its lanes filled, and tests lane per ray (lane per
+//   triangle where few lanes enter). Bound by the serial per-leaf loop
+//   (latency of dependent loads) and divergence; no block barriers. The
+//   TPU's grid ran in order and kept a leaf ring and the leaf table
+//   staged across grid steps; here all state is per warp.
 // - B4, B6 and B7 (and B8b) scan with scan_boxes: ahead of the leaf level a
 //   warp skips each 1024-leaf block and each 32-leaf word whose box
 //   (LeafTables bbox/wbox, built once per scene) no lane's ray enters
@@ -94,6 +99,13 @@ constexpr int kBins = 32;
 constexpr int kMaxBands = 8;
 constexpr int kWordsThreads = 256;
 constexpr int kTraceThreads = 256;
+// The most rows of a leaf: IVAL_LEAF (leaf tables hold no larger one:
+// ops/traverse.py pack_leaf_tables); the rows of a warp's leaf stage.
+constexpr int kWlLeafRows = 32;
+// B2's (B8a's) leaf stage: a leaf is tested lane per triangle where at
+// most kCamLaneTriMax lanes enter it, lane per ray above (set by a sweep
+// on the H100, PERF.md).
+constexpr int kCamLaneTriMax = 12;
 // The words passes' dynamic shared memory at most: the 48 KB a block may
 // hold without opting in, less room for its static shared memory.
 constexpr int kWordsSmem = 44 * 1024;
@@ -600,17 +612,18 @@ __device__ __forceinline__ void count_leaf(Counters& c, bool go,
 // or above the floor. Each word's 32 leaves are first tested in parallel,
 // one per lane, against the warp's cull ``wc`` with its current bound (a
 // packet whose direction interval spans zero can pass every leaf of a
-// scene; its warps' culls do not); leaf_fn(l) then runs for the
-// survivors, in order, and returns true to end the scan. With STATS the
-// scan counts into ``st`` (chunks, nodes, leaves; leaf_fn the rest).
-template <bool STATS = false, typename BoundFn, typename LeafFn>
+// scene; its warps' culls do not); word_fn(w, kept) then runs for a word
+// with survivors, ``kept`` their bits (leaf 32w + j for bit j), and tests
+// them in order. With STATS the scan counts into ``st`` (chunks, nodes,
+// leaves; word_fn the rest).
+template <bool STATS = false, typename BoundFn, typename WordFn>
 __device__ __forceinline__ void scan_words(const int32_t* words,
                                            const int32_t* summ,
                                            const float* floors, int k_bands,
                                            int nw, int ns, const float* box,
                                            int lp, WarpCull& wc,
                                            Counters& st, BoundFn bound_fn,
-                                           LeafFn leaf_fn) {
+                                           WordFn word_fn) {
   const int lane = threadIdx.x & 31;
   for (int b = 0; b < k_bands; ++b) {
     const float bound = bound_fn();
@@ -630,11 +643,7 @@ __device__ __forceinline__ void scan_words(const int32_t* words,
                         warp_keeps<false>(box, lp, w * 32 + lane, wc);
         word = __ballot_sync(kFull, ok);
         if constexpr (STATS) st.leaves += __popc(word);
-        while (word) {
-          const int l = w * 32 + __ffs(word) - 1;
-          word &= word - 1;
-          if (leaf_fn(l)) return;
-        }
+        if (word) word_fn(w, word);
       }
     }
   }
@@ -783,10 +792,126 @@ __device__ __forceinline__ void scan_boxes(
   }
 }
 
+// cp.async group fence: all but the newest ``N`` groups of this thread
+// have landed.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// --- B2's (B8a's) leaf stage: two slots, the next leaf's copy in flight
+// while the warp tests the current one ---------------------------------
+//
+// The word's ballot gives the warp its kept leaves before it tests any of
+// them, and lane j has just read leaf 32w + j's box for its cull. So lane
+// j writes that box, the leaf's first row and its count into the warp's
+// word table in shared memory (coalesced loads, one set a word), the warp
+// copies the first kept leaf's rows into slot 0 of its stage
+// (stage_rows: 48-byte prefixes, cp.async), and for each kept leaf in
+// order it starts the copy of the next one into the other slot before it
+// waits for and tests the current one. The leaf loop reads boxes and rows
+// from shared memory only: no scattered box or row loads are left in it.
+// (Holding the box in lane j's registers and taking it by __shfl_sync
+// spilled 28 bytes at the same 80 registers.) The entering lanes then
+// test the staged rows lane per ray (leaf_closest's loop, in row order),
+// or lane per triangle where at most kCamLaneTriMax enter (walk.cuh
+// leaf_closest_staged's argmin, on shared-origin rows of at most 32;
+// kept apart from it so that B9c's and B11b's SASS stays as it was):
+// both keep the first strictly nearer hit, so dist, u, v and tri are the
+// loop's bit for bit.
+
+// Starts the copy of rows first .. first + count - 1 (<= kWlLeafRows) of
+// the shared-origin ``rows`` into ``slot`` as one cp.async group; every
+// lane of the warp calls it.
+__device__ __forceinline__ void stage_rows(const float* rows, int first,
+                                           int count, float4* slot,
+                                           int lane) {
+  const float4* src =
+      reinterpret_cast<const float4*>(rows) + (size_t)first * 4;
+  for (int c = lane; c < count * kStageVec; c += 32) {
+    const int r = c / kStageVec;
+    cp_async16(slot + c, src + 4 * r + (c - kStageVec * r));
+  }
+  cp_async_commit();
+}
+
+// The closest hit of this lane's ray over the ``count`` staged rows of
+// ``slot`` (tri ids from ``first``), if it entered the leaf (``go``);
+// every lane of the warp calls it. Updates best, tri, bu and bv as
+// leaf_closest<false>.
+__device__ __forceinline__ void staged_closest_sh(
+    const float4* slot, int first, int count, bool go, const float d[3],
+    float& best, int& tri, float& bu, float& bv, int lane) {
+  const unsigned in = __ballot_sync(kFull, go);
+  if (__popc(in) > kCamLaneTriMax) {
+    if (go)
+      for (int j = 0; j < count; ++j) {
+        float dist, u, v;
+        if (closer_hit(moller_sh(d, staged_tri_row(slot, j)), best, dist, u,
+                       v)) {
+          best = dist;
+          tri = first + j;
+          bu = u;
+          bv = v;
+        }
+      }
+    return;
+  }
+  for (unsigned m = in; m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    float rd[3];
+    for (int k = 0; k < 3; ++k) rd[k] = __shfl_sync(kFull, d[k], src);
+    const float rb = __shfl_sync(kFull, best, src);
+    // row ``lane``'s hit below rb: a hit's distance is > 0, so its bits
+    // order as the floats do, and no hit is ~0u
+    unsigned key = ~0u;
+    float hu = 0.0f, hv = 0.0f;
+    float dist, u, v;
+    if (lane < count &&
+        closer_hit(moller_sh(rd, staged_tri_row(slot, lane)), rb, dist, u,
+                   v)) {
+      key = __float_as_uint(dist);
+      hu = u;
+      hv = v;
+    }
+    const unsigned kmin = __reduce_min_sync(kFull, key);
+    if (kmin == ~0u) continue;
+    const unsigned jmin =
+        __reduce_min_sync(kFull, key == kmin ? (unsigned)lane : ~0u);
+    const float wu = __shfl_sync(kFull, hu, jmin),
+                wv = __shfl_sync(kFull, hv, jmin);
+    if (lane == src) {
+      best = __uint_as_float(kmin);
+      tri = first + (int)jmin;
+      bu = wu;
+      bv = wv;
+    }
+  }
+}
+
+// The ray (packet-order index, camera_ray's k) of thread ``t`` of a packet
+// in B2 (B8a): each warp takes an 8 x 4 pixel tile of its 32 x 32
+// quarter, 4 tiles across and 8 down (lane l: pixel (l % 8, l / 8) of
+// its tile), where the other kernels' warps take a 32 x 1 row. Its rays'
+// directions span less, so its cull keeps fewer leaves and more of its
+// lanes enter each (ops/traverse.py camera_wl_order).
+__device__ __forceinline__ int tile_ray(int t) {
+  const int q = t >> 10, w = (t >> 5) & 31, l = t & 31;
+  return (q << 10) | ((((w >> 2) << 2) + (l >> 3)) << 5) |
+         (((w & 3) << 3) + (l & 7));
+}
+
 // B2 (B8a with STATS): camera raygen + closest hit, one thread per ray;
-// STATS adds the packet's counters to ``out_stats`` (P, 8).
+// STATS adds the packet's counters to ``out_stats`` (P, 8). A warp's rays
+// are an 8 x 4 pixel tile (tile_ray); each thread writes its own ray's
+// slot. Each warp's leaf stage is two slots of kWlLeafRows staged rows
+// (3 KB) and its word table 1 KB: 32 KB a block of 8 warps. Asked for 4
+// blocks an SM, as its 63 registers gave it before the stage, ptxas gives
+// B2 64 registers and spills 48 bytes; with no minimum it took 80 and 3
+// blocks and was 1-2 % slower, with 2 blocks 27 % slower. B8a, 3 blocks:
+// 80 registers, 12 bytes spilled, 2-3 % faster than at 4 (PERF.md).
 template <bool STATS>
-__global__ void __launch_bounds__(kTraceThreads)
+__global__ void __launch_bounds__(kTraceThreads, STATS ? 3 : 4)
 camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
                  const float* __restrict__ box,
                  const int32_t* __restrict__ lfirst,
@@ -798,9 +923,19 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
                  float* __restrict__ out_v, int32_t* __restrict__ out_tri,
                  float* __restrict__ out_dx, float* __restrict__ out_dy,
                  float* __restrict__ out_dz, int32_t* __restrict__ out_stats) {
-  const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int pid = (int)(g / kPacketR), k = (int)(g % kPacketR);
+  constexpr int kSlotVec = kWlLeafRows * kStageVec;
+  constexpr int kWarps = kTraceThreads / 32;
+  __shared__ float4 s_stage[kWarps * 2 * kSlotVec];
+  // the word's leaves, one column a lane: box planes lo.xyz, hi.xyz,
+  // then first row and count (as float bits)
+  __shared__ float s_word[kWarps * 8 * 32];
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int pid = (int)(t / kPacketR), k = tile_ray((int)(t % kPacketR));
+  const size_t g = (size_t)pid * kPacketR + k;
+  const int lane = threadIdx.x & 31;
   const int nw = lp / 32, ns = lp / kLeafBlock;
+  float4* stage = s_stage + (threadIdx.x >> 5) * 2 * kSlotVec;
+  float* leaf = s_word + (threadIdx.x >> 5) * 8 * 32;
   const PrimaryRay r = camera_ray(cam, pid, k);
   const float o[3] = {cam[9], cam[10], cam[11]};
   float best = r.t_exit, bu = 0.0f, bv = 0.0f;
@@ -813,15 +948,49 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
       words + (size_t)pid * k_bands * nw, summ + (size_t)pid * k_bands * ns,
       floors + (size_t)pid * k_bands, k_bands, nw, ns, box, lp, wc, st,
       [&] { return warp_max(fmaxf(best, 0.0f)); },
-      [&](int l) {
-        bool pass;
-        const float tn = ray_slab(box, lp, l, o, r.idir, pass);
-        const bool go = pass && tn < best;
-        if constexpr (STATS) count_leaf(st, go, go ? __ldg(lcount + l) : 0);
-        if (go)
-          leaf_closest<false>(rows, __ldg(lfirst + l), __ldg(lcount + l), o,
-                              r.d, best, tri, bu, bv);
-        return false;
+      [&](int w, unsigned kept) {
+        __syncwarp();  // every lane is done with the last word's leaves
+        const int c = w * 32 + lane;
+        for (int q = 0; q < 6; ++q)
+          leaf[q * 32 + lane] = __ldg(box + q * lp + c);
+        leaf[6 * 32 + lane] = __int_as_float(__ldg(lfirst + c));
+        leaf[7 * 32 + lane] = __int_as_float(__ldg(lcount + c));
+        __syncwarp();
+        const auto first = [&](int i) {
+          return __float_as_int(leaf[6 * 32 + i]);
+        };
+        const auto count = [&](int i) {
+          return __float_as_int(leaf[7 * 32 + i]);
+        };
+        int j = __ffs(kept) - 1, slot = 0;
+        stage_rows(rows, first(j), count(j), stage, lane);
+        for (;;) {
+          kept &= kept - 1;
+          const int jn = kept ? __ffs(kept) - 1 : -1;
+          if (jn >= 0) {
+            stage_rows(rows, first(jn), count(jn),
+                       stage + (slot ^ 1) * kSlotVec, lane);
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncwarp();  // every lane's copies of the current leaf landed
+          float lo[3], hi[3], tf;
+          for (int q = 0; q < 3; ++q) {
+            lo[q] = leaf[q * 32 + j];
+            hi[q] = leaf[(3 + q) * 32 + j];
+          }
+          bool pass;
+          const float tn = slab_entry(lo, hi, o, r.idir, tf, pass);
+          const bool go = pass && tn < best;
+          if constexpr (STATS) count_leaf(st, go, go ? count(j) : 0);
+          staged_closest_sh(stage + slot * kSlotVec, first(j), count(j), go,
+                            r.d, best, tri, bu, bv, lane);
+          if (jn < 0) break;
+          __syncwarp();  // every lane is done with this slot's rows
+          j = jn;
+          slot ^= 1;
+        }
       });
 
   out_dist[g] = tri >= 0 ? best : kBig;
@@ -945,11 +1114,9 @@ closest_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   out_tri[g] = max(tri, 0);
 }
 
-// B7's leaf stage: leaves of at most IVAL_LEAF = 32 rows (leaf tables
-// hold no larger one: ops/traverse.py pack_leaf_tables), tested lane per
+// B7's leaf stage: leaves of at most kWlLeafRows rows, tested lane per
 // triangle where at most kWlAnyLaneTriMax lanes enter (set by a sweep on
 // the H100, PERF.md).
-constexpr int kWlLeafRows = 32;
 constexpr int kWlAnyLaneTriMax = 12;
 
 // B7: any-hit of rays with their own origins, one thread per ray, on the

@@ -311,6 +311,18 @@ def kernel_ray_index(width: int, height: int) -> np.ndarray:
     return (py * width + px).reshape(-1).numpy()
 
 
+def camera_wl_order() -> torch.Tensor:
+    """int64 (PACKET_R,): the packet-order ray of each thread of a B2 (B8a)
+    packet (``csrc/worklist.cu`` ``tile_ray``): warp w of quarter q takes
+    the 8 x 4 pixel tile (w % 4, w // 4) of the quarter's 32 x 32, lane l
+    its pixel (l % 8, l // 8), so ``x[..., camera_wl_order()]`` gives each
+    warp's rays as 32 consecutive lanes."""
+    t = torch.arange(PACKET_R)
+    q, w, lane = t >> 10, (t >> 5) & 31, t & 31
+    return (q << 10) | (((w >> 2) * 4 + (lane >> 3)) << 5) | (
+        (w & 3) * 8 + (lane & 7))
+
+
 def _pixel_xy(width: int, height: int, pids: torch.Tensor, device):
     """int64 (len(pids), PACKET_R) pixel coordinates of packets ``pids``."""
     tiles_x = width // TILE
@@ -971,36 +983,99 @@ def camera_wl_stats_plain(cam, width: int, height: int, rows,
                           pids: torch.Tensor):
     """Plain B8a: :func:`camera_wl_plain`'s outputs for packets ``pids``
     and their counters, int32 (len(pids), 8), from a simulation of every
-    warp's scan (``words``/``floors`` those of ``pids``)."""
+    warp's scan (``words``/``floors`` those of ``pids``;
+    :func:`camera_wl_sim`)."""
     out = camera_wl_plain(cam, width, height, rows, tables, words, pids)
+    _, stats, _ = camera_wl_sim(cam, width, height, rows, tables, words,
+                                floors, pids)
+    return (*out, stats)
+
+
+def camera_wl_sim(cam, width: int, height: int, rows, tables: LeafTables,
+                  words, floors, pids: torch.Tensor):
+    """B2 (B8a) on packets ``pids`` (``words``/``floors`` theirs),
+    simulated warp by warp as the kernel scans (``scan_words``: each
+    warp's cull, then its kept leaves in order, each lane testing a leaf
+    it enters before its current best; a warp's rays an 8 x 4 pixel tile,
+    :func:`camera_wl_order`). Returns (B2's outputs (dist, u,
+    v, tri, dx, dy, dz), each (len(pids), PACKET_R), in the kernel's
+    order: at a distance tie the first hit of the scan, where
+    :func:`camera_wl_plain` takes the lowest id; the counters, int32
+    (len(pids), 8), as :func:`camera_wl_stats` gives them; the tally of
+    the leaf visits, int64 (len(TALLY), len(pids) * WARPS):
+    :data:`TALLY`'s rows, ``nodes`` the words that reach the leaf level,
+    an entering lane testing every row of its leaf, none blocked). The
+    leaves each warp's cull keeps are the counters' ``leaves``."""
     d, idir, t_exit = _camera_rays(cam, width, height, pids)
     o = cam[9:12]
-    stats = []
+    first, count = tables.first.tolist(), tables.count.tolist()
+    order = camera_wl_order().to(t_exit.device)
+    lanes = lambda c: c[order].reshape(WARPS, WARP)
+    outs, stats, tallies = [], [], []
     for i in range(len(pids)):
-        wd = [c[i].reshape(WARPS, WARP) for c in d]
-        wi = [c[i].reshape(WARPS, WARP) for c in idir]
-        best = t_exit[i].reshape(WARPS, WARP).clone()
+        wd = [lanes(c[i]) for c in d]
+        wi = [lanes(c[i]) for c in idir]
+        flat_d = [c.reshape(-1) for c in wd]
+        best = lanes(t_exit[i]).clone()
+        tri = torch.full_like(best, -1, dtype=torch.int64)
+        bu = torch.zeros_like(best)
+        bv = torch.zeros_like(best)
         cull = _warp_cull_sim(o, wd, wi, best)
+        calls = []  # (go, rows) of each leaf call
 
         def leaf(l, proc):
             tn, pas = _box_slab(tables.box, l, o, wi)
             go = proc[:, None] & pas & (tn < best)
-            t, cnt = _leaf_rows(tables, rows, l)
-            det, u, v, tmul = _moller_sh(t, [c.reshape(-1) for c in wd])
+            cnt = count[l]
+            det, u, v, tmul = _moller_sh(rows[first[l]:first[l] + cnt],
+                                         flat_d)
             duv = det - u - v
             side = ((torch.maximum(u, torch.maximum(v, duv)) <= 0.0)
                     | (torch.minimum(u, torch.minimum(v, duv)) >= 0.0))
-            dist = tmul * (1.0 / torch.where(det == 0.0, 1e-30, det))
+            idet = 1.0 / torch.where(det == 0.0, 1e-30, det)
+            dist = tmul * idet
             ok = side & (det != 0.0) & (dist > 0.0)
-            m = torch.where(ok, dist, float("inf")).amin(1).reshape(best.shape)
-            best.copy_(torch.where(go & (m < best), m, best))
+            dist = torch.where(ok, dist, float("inf"))
+            m = dist.amin(1)
+            # the loop's first strictly nearer hit: the first row of the
+            # nearest distance
+            j = torch.where(ok & (dist == m[:, None]),
+                            torch.arange(cnt, device=dist.device),
+                            cnt).amin(1).clamp_max(max(cnt - 1, 0))
+            upd = go & (m.reshape(best.shape) < best)
+            pick = lambda a: a.gather(1, j[:, None])[:, 0].reshape(
+                best.shape)
+            best.copy_(torch.where(upd, m.reshape(best.shape), best))
+            tri.copy_(torch.where(upd, first[l] + j.reshape(best.shape),
+                                  tri))
+            bu.copy_(torch.where(upd, pick(u * idet), bu))
+            bv.copy_(torch.where(upd, pick(v * idet), bv))
+            calls.append((go, cnt))
             anyg = go.any(1)
             return anyg, anyg * cnt, None
 
-        stats.append(_stats_row(_scan_sim(
-            tables, words[i], floors[i], o, cull,
-            lambda: torch.clamp_min(best, 0.0).amax(1), leaf)))
-    return (*out, torch.stack(stats))
+        cnt = _scan_sim(tables, words[i], floors[i], o, cull,
+                        lambda: torch.clamp_min(best, 0.0).amax(1), leaf,
+                        per_warp=True)
+        if calls:
+            go, n_rows = zip(*calls)
+            go = torch.stack(go)
+            n_rows = torch.tensor(n_rows, device=go.device)
+            tal = _tally_visits(go, go * n_rows[:, None, None],
+                                torch.zeros_like(go), n_rows)
+        else:
+            tal = torch.zeros((len(TALLY), WARPS), dtype=torch.int64,
+                              device=best.device)
+        tal[0] = cnt[0]
+        # each thread's results back to its ray's slot
+        slot = lambda x: torch.empty_like(x.reshape(-1)).index_copy_(
+            0, order, x.reshape(-1))
+        outs.append((slot(torch.where(tri >= 0, best, BIG)), slot(bu),
+                     slot(bv), slot(tri.to(torch.int32))))
+        stats.append(_stats_row(cnt[:5].sum(1)))
+        tallies.append(tal)
+    out = tuple(torch.stack(c) for c in zip(*outs))
+    return ((*out, *d), torch.stack(stats), torch.cat(tallies, 1))
 
 
 def shadow_wl_stats_plain(orig, d, tm, rows, tables: LeafTables, words,
@@ -1528,11 +1603,16 @@ def _walk_shadow_launch(orig, d, tm, rows, nodes, stats):
     _check_planes((*d, tm), p, dev)
     _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
     _check_nodes(nodes, dev)
+    if nodes.leaf_max > IVAL_LEAF:
+        raise ValueError(f"leaf of {nodes.leaf_max} triangles > IVAL_LEAF "
+                         f"({IVAL_LEAF}): walk_shadow stages leaves of up "
+                         f"to {IVAL_LEAF}; use fat_shadow")
     blocked = torch.empty((p, PACKET_R), dtype=torch.float32, device=dev)
     _launched(library().snail_walk_shadow(
         _ptr(orig), *(_ptr(t) for t in (*d, tm)), _ptr(rows),
-        _ptr(nodes.node), nodes.n_nodes, nodes.stack_cap, p, _ptr(blocked),
-        None if stats is None else _ptr(stats), _stream()), "walk_shadow")
+        _ptr(nodes.node), nodes.n_nodes, nodes.stack_cap, nodes.leaf_max, p,
+        _ptr(blocked), None if stats is None else _ptr(stats), _stream()),
+        "walk_shadow")
     return blocked
 
 
@@ -1540,7 +1620,9 @@ def walk_shadow(orig, d, tm, rows, nodes: NodeTables):
     """B9b: any-hit from the shared origin ``orig`` through the node tree
     on the shared-origin ``rows`` (replaces ``_shadow_ival_kernel`` and
     ``_shadow_ival_kernel_paged``); ``d`` three and ``tm`` one (P,
-    PACKET_R) planes. Returns blocked float32 (P, PACKET_R)."""
+    PACKET_R) planes. Returns blocked float32 (P, PACKET_R). The kernel
+    stages leaves of up to IVAL_LEAF rows; a tree with larger ones is the
+    fat-leaf kernels' (:func:`fat_shadow`)."""
     if not _on_cuda(tm):
         from .traverse_ref import walk_shadow_plain
 

@@ -501,11 +501,25 @@ def walk_camera_stats_plain(cam, width: int, height: int, rows,
 def walk_shadow_stats_plain(orig, d, tm, rows, nodes: NodeTables):
     """Plain B9f: :func:`walk_shadow_plain`'s blocked planes and their
     counters, int32 (P, 8), from a simulation of every warp's walk."""
+    blocked, stats, _ = shadow_sim(orig, d, tm, rows, nodes)
+    return blocked, stats
+
+
+def shadow_sim(orig, d, tm, rows, nodes: NodeTables):
+    """B9b (and B9f) from ``orig`` (3,) on the planes ``d`` (three) and
+    ``tm`` (P, PACKET_R), on the shared-origin ``rows``, simulated warp by
+    warp. Returns (blocked float32 (P, PACKET_R), as
+    :func:`walk_shadow_plain` gives it; B9f's counters, int32 (P, 8); the
+    tally ``_WarpWalk.tally`` (len(TALLY), P * WARPS)). A warp stops
+    after a leaf once every live lane is blocked; an entering lane tests
+    the leaf's rows up to its first occluder. The simulation walks as
+    ``walk`` does (B9f); B9b (``walk_pairs``) visits the same leaves with
+    the same lanes, in fewer node steps than the tally's."""
     limit = torch.where(tm >= 0.0, tm, -BIG).reshape(-1)
     w = _WarpWalk(nodes, orig.unbind(), [c.reshape(-1) for c in d], limit,
                   rows, False, False)
     stats = w.run()
-    return w.blocked.float().reshape(tm.shape), stats
+    return w.blocked.float().reshape(tm.shape), stats, w.tally
 
 
 def closest_g_sim(o, d, tm, rows, nodes: NodeTables, signs=None):

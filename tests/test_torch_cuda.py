@@ -362,6 +362,31 @@ def test_camera_wl_stats_kernel_matches_b2_and_simulation(which):
 
 
 @pytest.mark.parametrize("which", SCENES)
+def test_camera_wl_kernels_match_simulation_exactly(which):
+    """B2 and B8a on a whole frame of primary rays against the plain
+    simulation of their warps (``camera_wl_sim``: each warp's scan, its
+    kept leaves in order, the loop's first strictly nearer hit): dist, u,
+    v, tri and the directions bit for bit, tri included at distance ties,
+    and B8a's counters, whichever way the leaf stage tested a leaf."""
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which)
+    cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h)
+    kern = pt.camera_wl(cv, w, h, rows, scene.leaves, words, summ, floors)
+    *out, stats = pt.camera_wl_stats(cv, w, h, rows, scene.leaves, words,
+                                     summ, floors)
+    torch.cuda.synchronize()
+    sim_out, sim, tally = pt.camera_wl_sim(
+        cv, w, h, rows, scene.leaves, words, floors,
+        torch.arange(words.shape[0], device="cuda"))
+    assert all(torch.equal(a, b) for a, b in zip(kern, sim_out))
+    assert all(torch.equal(a, b) for a, b in zip(out, kern))
+    assert torch.equal(stats, sim), (stats, sim)
+    t = dict(zip(pt.TALLY, tally.sum(1).tolist()))
+    assert t["visits"] == int(stats[:, 2].sum()) > 0
+    assert float((kern[0] < BIG).float().mean()) > 0.3
+
+
+@pytest.mark.parametrize("which", SCENES)
 def test_shadow_wl_stats_kernel_matches_b4_and_simulation(which):
     _need_cuda()
     scene, _, _, _, light = _scene(which)
@@ -1246,27 +1271,41 @@ def _shared_blocker_rays(n_leaves, seed=37):
 @pytest.mark.parametrize("kind,row", [
     ("walk", 0), ("walk", 16), ("walk", 31), ("fat", 0), ("fat", 31),
     ("fat", 63), ("wl", 0), ("wl", 16), ("wl", 31), ("fat_shared", 0),
-    ("fat_shared", 31), ("fat_shared", 63)])
+    ("fat_shared", 31), ("fat_shared", 63), ("walk_shared", 0),
+    ("walk_shared", 16), ("walk_shared", 31)])
 def test_staged_any_hit_kernel_matches_plain_exactly(kind, row):
     """B9d (``walk``), B11d (``fat``), B7 (``wl``: the same leaves on leaf
-    tables, B5's words) and B11c (``fat_shared``: rays from one origin,
-    ``_shared_blocker_rays``), whose leaf stage stages a whole leaf and
-    tests it lane per triangle (lane j: rows j and j + 32) where at most a
-    threshold of unblocked lanes enter it and lane per ray above: verdicts
-    equal to the plain version's and to what the rays must get, with 1 to
-    32 lanes entering a leaf (both ways, whatever the threshold), leaves
-    of 1, 31, 32, 17, 2 (B9d, B7) and 33, 63, 64, 48, 40 rows (B11d,
-    B11c) whose only blocker is row 0, 16 or 31 (B9d, B7) or row 0, 31 or
-    63 (B11d, B11c; on a leaf of more than 32 rows, row 63 is the second
-    row some lane tests), each leaf's last where it has fewer rows, tmax
-    just short of and just past the blocker, lanes blocked in one leaf
-    whose segment runs on into the next, masked rays with garbage planes
-    and live misses."""
+    tables, B5's words), B11c (``fat_shared``: rays from one origin,
+    ``_shared_blocker_rays``) and B9b (``walk_shared``: the same rays on
+    the shared-origin rows, with B9f), whose leaf stage stages a whole
+    leaf and tests it lane per triangle (lane j: rows j and j + 32) where
+    at most a threshold of unblocked lanes enter it and lane per ray
+    above: verdicts equal to the plain version's and to what the rays
+    must get, with 1 to 32 lanes entering a leaf (both ways, whatever the
+    threshold), leaves of 1, 31, 32, 17, 2 (B9d, B7, B9b) and 33, 63, 64,
+    48, 40 rows (B11d, B11c) whose only blocker is row 0, 16 or 31 (B9d,
+    B7, B9b) or row 0, 31 or 63 (B11d, B11c; on a leaf of more than 32
+    rows, row 63 is the second row some lane tests), each leaf's last
+    where it has fewer rows, tmax just short of and just past the blocker,
+    lanes blocked in one leaf whose segment runs on into the next, masked
+    rays with garbage planes and live misses; B9f's verdicts B9b's and
+    its counters (rows tested up to a stop, either way of testing) the
+    simulation's."""
     _need_cuda()
-    sizes = STAGED_LEAVES["walk" if kind in ("walk", "wl") else "fat"]
+    sizes = STAGED_LEAVES["walk" if kind in ("walk", "wl", "walk_shared")
+                          else "fat"]
     scene = _traced(_blocker_fields(sizes, row), "cuda", walk=kind != "wl")
     rows, nodes = scene.tri_rows, scene.nodes
-    if kind == "fat_shared":
+    if kind == "walk_shared":
+        orig, d, tm, want = _shared_blocker_rays(len(sizes))
+        orig, d, tm = orig.cuda(), tuple(c.cuda() for c in d), tm.cuda()
+        srows = pt.shared_rows(rows, orig)
+        kern = pt.walk_shadow(orig, d, tm, srows, nodes)
+        plain = walk_shadow_plain(orig, d, tm, srows, nodes)
+        blocked, stats = pt.walk_shadow_stats(orig, d, tm, srows, nodes)
+        _, sim = walk_shadow_stats_plain(orig, d, tm, srows, nodes)
+        assert torch.equal(blocked, kern) and torch.equal(stats, sim)
+    elif kind == "fat_shared":
         orig, d, tm, want = _shared_blocker_rays(len(sizes))
         orig, d, tm = orig.cuda(), tuple(c.cuda() for c in d), tm.cuda()
         signs = pt.packet_signs(d)

@@ -272,13 +272,14 @@ def test_camera_counters_with_skips(monkeypatch, city4, which):
     _check_invariants(stats, words)
     sim = pt._scan_sim
 
-    def with_skips(tables, words_p, floors_p, o, cull, bound_fn, leaf_fn):
+    def with_skips(tables, words_p, floors_p, o, cull, bound_fn, leaf_fn,
+                   **kw):
         # the lanes' inverse directions and bests that the leaf function
-        # of camera_wl_stats_plain reads and updates
+        # of camera_wl_sim reads and updates
         env = dict(zip(leaf_fn.__code__.co_freevars,
                        (c.cell_contents for c in leaf_fn.__closure__)))
         return sim(tables, words_p, floors_p, o, cull, bound_fn, leaf_fn,
-                   lambda: (env["wi"], env["best"]))
+                   lambda: (env["wi"], env["best"]), **kw)
 
     with monkeypatch.context() as m:
         m.setattr(pt, "_scan_sim", with_skips)

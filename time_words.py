@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Device time of the words passes B1, B3 and B5, of the closest hits B9c
-and B11b, and of the any-hits B7, B9d, B11c and B11d on one CUDA card.
+and B11b, of the any-hits B7, B9d, B11c and B11d, and of the
+shared-origin scans B2, B8a, B9b and B9f on one CUDA card.
 
-    python3 time_words.py [--tree DIR] [--reps N] [--only words|closest|anyhit]
-    python3 time_words.py [--tree DIR] [--reps N] [--only closest|anyhit]
-                          --sweep T[,T...]
+    python3 time_words.py [--tree DIR] [--reps N]
+                          [--only words|closest|anyhit|shared]
+    python3 time_words.py [--tree DIR] [--reps N]
+                          [--only closest|anyhit|shared] --sweep T[,T...]
 
 Imports ``snail_tpu_torch`` from DIR (default: the directory of this
 script), so that one command can time another commit's kernels from a
@@ -45,21 +47,35 @@ does not count (``device_ms``).
   its live rays, blocked share and bound, and the fat fwd and bounce
   frames. The kernels' verdicts and the tally of their warps are
   chip_smoke.py's (phases 3, 5 and 7).
+- shared: on city_24 and terrain_724 with leaf tables, B2 and B8a on
+  the 1024 x 1024 primary wavefront; on the same geometry with node
+  tables, B9b and B9f on the fwd frame's shadow wavefront toward the
+  bench light and (the terrain) the low light, and on the walk bounce
+  frame's three (its own calls), summed and one by one; each with a
+  digest of its outputs, so two trees' can be compared bit for bit, its
+  bound, live rays and blocked share; the fwd and counter frames on both
+  table kinds and the walk bounce frame; with ``--scan``, the ``scan``
+  lines of its warps on a few packets (chip_smoke ``camera_tally``,
+  ``warp_tally``, on the tree's simulations).
 
 With ``--sweep``, times the closest hits (``--only closest``, the
-default) or the any-hits (``--only anyhit``: the kernels' times only) of
-copies of the tree's package in which B9c and B11b, or B7, B9d, B11c and
-B11d, test a leaf lane per triangle where at most T lanes enter it (the
-constexprs ``kWalkLaneTriMax`` / ``kFatLaneTriMax``, or
-``kWlAnyLaneTriMax`` / ``kWalkAnyLaneTriMax`` / ``kFatShadowLaneTriMax``
-/ ``kFatAnyLaneTriMax``, set to T), one copy per T in turn, each in a
-process of its own; each JSON line then carries its ``lane_tri_max``.
+default), the any-hits (``--only anyhit``: the kernels' times only) or
+the shared-origin scans (``--only shared``: their times and digests) of
+copies of the tree's package in which B9c and B11b, B7, B9d, B11c and
+B11d, or B2/B8a and B9b/B9f test a leaf lane per triangle where at most
+T lanes enter it (the constexprs ``kWalkLaneTriMax`` /
+``kFatLaneTriMax``, ``kWlAnyLaneTriMax`` / ``kWalkAnyLaneTriMax`` /
+``kFatShadowLaneTriMax`` / ``kFatAnyLaneTriMax``, or ``kCamLaneTriMax``
+/ ``kWalkShadowLaneTriMax``, set to T), one copy per T in turn, each in
+a process of its own; each JSON line then carries its
+``lane_tri_max``.
 
 Prints the card (name and power limit, from nvidia-smi) and one JSON line
 per scene. Exits non-zero without a card.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import inspect
 import json
@@ -85,7 +101,9 @@ LANE_TRI_MAX = {
                 "fat.cu": ("kFatLaneTriMax",)},
     "anyhit": {"walk.cu": ("kWalkAnyLaneTriMax",),
                "fat.cu": ("kFatAnyLaneTriMax", "kFatShadowLaneTriMax"),
-               "worklist.cu": ("kWlAnyLaneTriMax",)}}
+               "worklist.cu": ("kWlAnyLaneTriMax",)},
+    "shared": {"walk.cu": ("kWalkShadowLaneTriMax",),
+               "worklist.cu": ("kCamLaneTriMax",)}}
 # the any-hit scenes: (kind, size, leaf): node tables at the kind's leaf
 # (B9d; B5 + B7 on the same geometry's leaf tables), or leaf 64 (B11d)
 ANYHIT = (("city", 24, None), ("terrain", 724, None), ("city", 24, 64),
@@ -469,6 +487,146 @@ def time_anyhit(tree, reps: int, quick: bool = False) -> None:
         torch.cuda.empty_cache()
 
 
+def digest(*tensors) -> str:
+    """A short hash of the tensors' bytes: outputs of two trees compared
+    bit for bit within one call."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def shared_waves(kind, scene, cam):
+    """B9b's wavefronts on the node-table scene: {name: the arguments of
+    its call}: the 1024 x 1024 fwd frame's toward the bench light and
+    (the terrain) the low light, and the bounce frame's three (light 0,
+    or where it blocks no live ray the low light: chip_smoke
+    ``bounce_shadow_calls``), each taken from the frame's own calls."""
+    import dataclasses
+
+    from snail_tpu_torch.core.types import Light, RenderOpts
+    from snail_tpu_torch.scene.bench_scenes import SCENES
+
+    sm = smoke()
+    fwd = RenderOpts(reflections=False, transparency=False, textures=False)
+    waves = {"bench light": sm.frame_shadow_calls(scene, cam, fwd)[0]}
+    if kind in sm.LOW_LIGHT:
+        low = dataclasses.replace(scene, lights=Light.make(
+            sm.LOW_LIGHT[kind], (1.0, 1.0, 1.0), SCENES[kind][3]))
+        waves["low light"] = sm.frame_shadow_calls(low, cam, fwd)[0]
+    light, bounce = sm.bounce_shadow_calls(kind, scene, cam)
+    for i, a in enumerate(bounce):
+        waves[f"bounce frame call {i + 1} of {len(bounce)}, {light}"] = a
+    return waves
+
+
+def time_shared(tree, reps: int, quick: bool = False,
+                scan: bool = False) -> None:
+    """B2 and B8a on the primary wavefront of city_24 and terrain_724
+    (leaf tables), B9b and B9f on the same geometry's node tables
+    (``shared_waves``): their times and a digest of their outputs (B8a's
+    and B9f's: their counters) per wavefront; unless ``quick``, each
+    one's bound (chip_smoke ``needed_work``; ``walk_work`` and
+    ``anyhit_bytes``: live rays' planes only), live rays and blocked
+    share, the fwd and counter frames on both table kinds and the walk
+    bounce frame; with ``scan``, the ``scan`` lines of their warps on a
+    few packets (chip_smoke ``camera_tally``, ``warp_tally``: the tree's
+    simulations, ops/traverse.py ``camera_wl_sim`` and
+    ops/traverse_ref.py ``shadow_sim``)."""
+    import torch
+
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops import traverse_ref as ref
+    from snail_tpu_torch.render.fast import render_frame_fast_stats
+    from snail_tpu_torch.render.renderer import render_frame
+    from snail_tpu_torch.scene.bench_scenes import (BENCH_N, bench_scene,
+                                                    bounce_materials)
+    from snail_tpu_torch.scene.scene import make_traced_scene
+
+    sm = smoke()
+    w, h = WIDTH, HEIGHT
+    fwd = RenderOpts(reflections=False, transparency=False, textures=False)
+    for kind in ("city", "terrain"):
+        n = BENCH_N[kind]
+        scene, cam, g, bvh = bench_scene(kind, n, bounce=True)
+        node = make_traced_scene(g, bvh, bounce_materials(),
+                                 lights=scene.lights, device=scene.device,
+                                 walk=True)
+        lt = scene.leaves
+        cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h)
+        b2 = lambda: pt.camera_wl(cv, w, h, rows, lt, words, summ, floors)
+        b8 = lambda: pt.camera_wl_stats(cv, w, h, rows, lt, words, summ,
+                                        floors)
+        kern, st = b2(), b8()[-1]
+        out = {"scene": f"{kind}_{n}", "tree": str(tree),
+               "camera_wl ms": device_ms(b2, reps),
+               "camera_wl_stats ms": device_ms(b8, reps),
+               "camera_wl digest": digest(*kern),
+               "camera_wl_stats digest": digest(st)}
+        waves = shared_waves(kind, node, cam)
+        out["walk_shadow ms"] = {k: device_ms(lambda: pt.walk_shadow(*a),
+                                              reps)
+                                 for k, a in waves.items()}
+        out["walk_shadow bounce frame ms"] = sum(
+            v for k, v in out["walk_shadow ms"].items()
+            if k.startswith("bounce"))
+        out["walk_shadow_stats ms"] = {
+            k: device_ms(lambda: pt.walk_shadow_stats(*a), reps)
+            for k, a in waves.items()}
+        out["walk_shadow digest"] = {k: digest(pt.walk_shadow(*a))
+                                     for k, a in waves.items()}
+        out["walk_shadow_stats digest"] = {
+            k: digest(pt.walk_shadow_stats(*a)[1]) for k, a in waves.items()}
+        if not quick:
+            pids = torch.arange(words.shape[0], device=cv.device)
+            d, idir, t_exit = pt._camera_rays(cv, w, h, pids)
+            ops, leaf_bytes = sm.needed_work(
+                "camera_wl", lt, rows, words, cv[9:12].unbind(), idir,
+                torch.where(kern[3] >= 0, kern[0], t_exit))
+            n_bytes = sm.nbytes(cv, words, summ, floors, *kern) + leaf_bytes
+            out["camera_wl bound ms"] = sm.entry(0.0, 0.0, 0.0, n_bytes,
+                                                 ops)["bound_ms"]
+            out["camera_wl_stats bound ms"] = sm.entry(
+                0.0, 0.0, 0.0, n_bytes + sm.nbytes(st), ops)["bound_ms"]
+            if scan:
+                out["camera_wl scan"], _ = sm.camera_tally(
+                    f"{kind}_{n}", cv, rows, lt, words, floors, kern, st)
+            info = {}
+            for k, (orig, d, tm, srows, nodes) in waves.items():
+                blocked, work = pt.walk_shadow(orig, d, tm, srows, nodes), {}
+                ref.walk_shadow_plain(orig, d, tm, srows, nodes, work)
+                ops, tree_bytes = sm.walk_work("walk_shadow", nodes, srows,
+                                               work)
+                n_bytes = (sm.nbytes(orig) + tree_bytes
+                           + sm.anyhit_bytes((), d, tm, None, blocked))
+                live = tm >= 0
+                info[k] = {
+                    "live rays": int(live.sum()),
+                    "blocked share": float(blocked[live].mean())
+                    if bool(live.any()) else 0.0,
+                    "bound ms": sm.entry(0.0, 0.0, 0.0, n_bytes,
+                                         ops)["bound_ms"]}
+                if scan:
+                    info[k]["scan"] = sm.warp_tally(
+                        f"{kind}_{n} nodes {k}", "walk_shadow", orig, d, tm,
+                        srows, nodes, None, blocked, by_live=True)
+            out["walk_shadow wavefronts"] = info
+            out["frame ms"] = {
+                "fwd": frame_ms(lambda: render_frame(scene, cam, w, h, fwd)),
+                "stats": frame_ms(lambda: render_frame_fast_stats(
+                    scene, cam, w, h, fwd)),
+                "walk fwd": frame_ms(lambda: render_frame(node, cam, w, h,
+                                                          fwd)),
+                "walk bounce": frame_ms(lambda: render_frame(
+                    node, cam, w, h, RenderOpts(textures=False))),
+                "walk stats": frame_ms(lambda: render_frame_fast_stats(
+                    node, cam, w, h, fwd))}
+        print(json.dumps(out), flush=True)
+        del scene, node, waves, kern
+        torch.cuda.empty_cache()
+
+
 def sweep(tree: Path, only: str, values, reps: int) -> None:
     """The closest hits or any-hits (``only``) of ``tree``'s package with
     each lane-per-triangle threshold in ``values``: a copy of the package
@@ -505,10 +663,14 @@ def main() -> None:
     ap.add_argument("--tree", type=Path,
                     default=Path(__file__).resolve().parent)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=("words", "closest", "anyhit"))
+    ap.add_argument("--only", choices=("words", "closest", "anyhit",
+                                       "shared"))
     ap.add_argument("--sweep", type=lambda v: [int(t) for t in v.split(",")])
     # the any-hits' times only (what a sweep's copies print)
     ap.add_argument("--quick", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--scan", action="store_true",
+                    help="with --only shared, the scan lines of the warps "
+                         "(the tree's simulations)")
     args = ap.parse_args()
     sys.path.insert(0, str(args.tree.resolve()))
     import torch
@@ -523,7 +685,8 @@ def main() -> None:
     if args.sweep:
         only = args.only or "closest"
         if only not in LANE_TRI_MAX:
-            ap.error("--sweep times --only closest (the default) or anyhit")
+            ap.error("--sweep times --only closest (the default), anyhit "
+                     "or shared")
         sweep(args.tree.resolve(), only, args.sweep, args.reps)
         return
     if args.only in (None, "words"):
@@ -532,6 +695,8 @@ def main() -> None:
         time_closest(args.tree, args.reps)
     if args.only in (None, "anyhit"):
         time_anyhit(args.tree, args.reps, args.quick)
+    if args.only in (None, "shared"):
+        time_shared(args.tree, args.reps, args.quick, args.scan)
 
 
 if __name__ == "__main__":
