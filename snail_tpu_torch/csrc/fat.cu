@@ -27,13 +27,13 @@
 //   returns its best: a live miss with a finite tmax returns tmax (:655,
 //   :665); B11c/B11d use the one-sided rule with limit tmax, or -BIG when
 //   masked, and a warp stops once every live lane is blocked (:711-713).
-// B11a: one lane loops over its leaf's up to 64 rows from global memory
-// (rays.cuh leaf_closest). B11b copies each leaf it visits into the
-// warp's shared memory once and tests it lane per triangle, two rows a
-// lane, where few lanes enter it (walk.cuh leaf_closest_staged); B11c
-// and B11d stage their leaves too and test them lane per triangle where
-// few lanes enter, lane per ray up to each ray's first occluder where
-// many do (rays.cuh leaf_blocks_staged).
+// B11a and B11b copy each leaf they visit into the warp's shared memory
+// once and test it lane per triangle, two rows a lane, where few lanes
+// enter it (walk.cuh leaf_closest_staged); B11a's warps take 8 x 4 pixel
+// tiles (rays.cuh tile_ray), as B2's. B11c and B11d stage their leaves
+// too and test them lane per triangle where few lanes enter, lane per
+// ray up to each ray's first occluder where many do (rays.cuh
+// leaf_blocks_staged).
 //
 // What the TPU kernels needed and these do not: the 64-row leaf DMA into
 // VMEM per visited leaf, STACK_CAP = 96 (here depth + 2, from the tree),
@@ -42,10 +42,10 @@
 // falls to its jnp reference; here the same kernels serve any tree size).
 //
 // What bounds them on this card: as the walk kernels, the latency of each
-// warp's chain of node loads, and here more the leaf tests: for B11a a
-// leaf of up to 64 raw rows is 64 dependent 48-byte loads per lane, with
-// the lanes that enter the leaf diverging from those that do not; B11b-d
-// copy it once per warp and test it from shared memory.
+// warp's chain of node loads, and here more the leaf tests: a leaf of up
+// to 64 raw rows would be 64 dependent 48-byte loads per entering lane,
+// with the lanes that enter the leaf diverging from those that do not;
+// B11a-d copy it once per warp and test it from shared memory.
 
 #include "walk.cuh"
 
@@ -64,34 +64,46 @@ constexpr int kFatAnyLaneTriMax = 16;
 // most kFatShadowLaneTriMax lanes enter (set by a sweep on the H100,
 // PERF.md).
 constexpr int kFatShadowLaneTriMax = 24;
+// B11a's leaf stage: the same leaves, tested lane per triangle where at
+// most kFatCamLaneTriMax lanes enter (set by a sweep on the H100,
+// PERF.md).
+constexpr int kFatCamLaneTriMax = 16;
 
 // B11a: camera raygen + closest hit on the raw rows. Outputs dist, u, v,
-// tri, dx, dy, dz; a miss has dist BIG and tri 0.
+// tri, dx, dy, dz; a miss has dist BIG and tri 0. A warp's rays are an 8
+// x 4 pixel tile (rays.cuh tile_ray); each thread writes its own ray's
+// slot. The near child comes from the packet's signs, so the leaves a ray
+// enters, and their order, do not depend on which rays share its warp:
+// the outputs are those of any footprint. Leaves go through the staged
+// leaf stage (walk.cuh leaf_closest_staged), lane per triangle where at
+// most kFatCamLaneTriMax lanes enter. It walks with walk_pairs (both
+// children of a node in one step), 2 % faster here than ``walk``, where
+// B11b was slower on it. ptxas gives it 61 registers; asked for at least
+// 2 blocks an SM, 69, and it ran 2-3 % slower (PERF.md).
 __global__ void __launch_bounds__(kWalkThreads)
 fat_camera_kernel(const float* __restrict__ cam,
                   const int32_t* __restrict__ signs,
                   const float* __restrict__ rows,
                   const float4* __restrict__ nodes, int stack_cap,
-                  float* __restrict__ out_dist, float* __restrict__ out_u,
-                  float* __restrict__ out_v, int32_t* __restrict__ out_tri,
-                  float* __restrict__ out_dx, float* __restrict__ out_dy,
-                  float* __restrict__ out_dz) {
-  const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int pid = (int)(g / kPacketR), k = (int)(g % kPacketR);
+                  int leaf_max, float* __restrict__ out_dist,
+                  float* __restrict__ out_u, float* __restrict__ out_v,
+                  int32_t* __restrict__ out_tri, float* __restrict__ out_dx,
+                  float* __restrict__ out_dy, float* __restrict__ out_dz) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int pid = (int)(t / kPacketR), k = tile_ray((int)(t % kPacketR));
+  const size_t g = (size_t)pid * kPacketR + k;
   const PrimaryRay r = camera_ray(cam, pid, k);
   const float o[3] = {cam[9], cam[10], cam[11]};
   float best = kBig, bu = 0.0f, bv = 0.0f;
   int tri = -1;
-  WalkCounts wc;
-  walk<false>(nodes, warp_stack(stack_cap), o, r.idir,
-              packet_signs(signs, pid), [&] { return best; },
-              [&](bool enter, int first, int count, int&) {
-                if (enter)
-                  leaf_closest<true>(rows, first, count, o, r.d, best, tri,
-                                     bu, bv);
-                return false;
-              },
-              wc);
+  float4* stage = warp_stage(stack_cap, leaf_max);
+  walk_pairs(nodes, warp_stack(stack_cap), o, r.idir,
+             packet_signs(signs, pid), [&] { return best; },
+             [&](bool enter, int first, int count) {
+               leaf_closest_staged<kFatLeafRows, kFatCamLaneTriMax>(
+                   rows, stage, first, count, enter, o, r.d, best, tri, bu,
+                   bv);
+             });
   out_dist[g] = best;
   out_u[g] = bu;
   out_v[g] = bv;
@@ -221,17 +233,19 @@ fat_shadow_g_kernel(const float* __restrict__ ox,
 
 extern "C" {
 
+// ``leaf_max``: as snail_fat_closest's.
 int snail_fat_camera(const float* cam, const int32_t* signs,
                      const float* rows, const float* nodes, int n_nodes,
-                     int stack_cap, int n_packets, float* dist, float* u,
-                     float* v, int32_t* tri, float* dx, float* dy, float* dz,
-                     void* stream) {
-  if (!walk_args_ok(n_nodes, stack_cap, n_packets))
+                     int stack_cap, int leaf_max, int n_packets, float* dist,
+                     float* u, float* v, int32_t* tri, float* dx, float* dy,
+                     float* dz, void* stream) {
+  if (!walk_args_ok(n_nodes, stack_cap, n_packets, leaf_max) ||
+      leaf_max < 1 || leaf_max > kFatLeafRows)
     return (int)cudaErrorInvalidValue;
   fat_camera_kernel<<<walk_blocks(n_packets), kWalkThreads,
-                      walk_smem(stack_cap), (cudaStream_t)stream>>>(
+                      walk_smem(stack_cap, leaf_max), (cudaStream_t)stream>>>(
       cam, signs, rows, reinterpret_cast<const float4*>(nodes), stack_cap,
-      dist, u, v, tri, dx, dy, dz);
+      leaf_max, dist, u, v, tri, dx, dy, dz);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,11 @@
 // Ray, warp and triangle helpers shared by the worklist kernels
 // (worklist.cu), the walk kernels (walk.cu) and the fat-leaf kernels
-// (fat.cu), with the staged any-hit leaf stage. Every function here is the
-// arithmetic that the plain PyTorch versions in snail_tpu_torch/ops repeat
-// operation for operation; the sources are compiled with --fmad=false, so
-// every product and sum is rounded on its own, as there.
+// (fat.cu), with the camera kernels' 8 x 4 pixel warps, the staged
+// any-hit leaf stage and the staged shared-origin closest-hit stage.
+// Every function here is the arithmetic that the plain PyTorch versions
+// in snail_tpu_torch/ops repeat operation for operation; the sources are
+// compiled with --fmad=false, so every product and sum is rounded on its
+// own, as there.
 
 #pragma once
 
@@ -79,6 +81,19 @@ __device__ __forceinline__ PrimaryRay camera_ray(const float* cam, int pid,
   return r;
 }
 
+// The ray (packet-order index, camera_ray's k) of thread ``t`` of a packet
+// in the camera kernels B2 (B8a), B9a (B9e) and B11a: each warp takes an
+// 8 x 4 pixel tile of its 32 x 32 quarter, 4 tiles across and 8 down
+// (lane l: pixel (l % 8, l / 8) of its tile), where the other kernels'
+// warps take 32 consecutive rays. Its rays' directions span less, so
+// fewer leaves are visited and more of its lanes enter each
+// (ops/traverse.py camera_wl_order).
+__device__ __forceinline__ int tile_ray(int t) {
+  const int q = t >> 10, w = (t >> 5) & 31, l = t & 31;
+  return (q << 10) | ((((w >> 2) << 2) + (l >> 3)) << 5) |
+         (((w & 3) << 3) + (l & 7));
+}
+
 __device__ __forceinline__ float warp_min(float v) {
   for (int s = 16; s; s >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, s));
   return v;
@@ -141,17 +156,6 @@ __device__ __forceinline__ Moller moller_raw(const float o[3],
   return m;
 }
 
-// Triangle t of ``rows`` against one ray: shared-origin rows, or raw rows
-// with the ray's origin ``o``.
-template <bool RAW>
-__device__ __forceinline__ Moller moller(const float* rows, int t,
-                                         const float o[3], const float d[3]) {
-  if constexpr (RAW)
-    return moller_raw(o, d, load_raw_row(rows, t));
-  else
-    return moller_sh(d, load_row(rows, t));
-}
-
 // The closest-hit rule, two-sided: u, v and det - u - v share a sign, the
 // hit lies in front and strictly nearer than ``best`` (the first hit found
 // keeps a tie). Gives the hit's distance and barycentrics.
@@ -174,15 +178,18 @@ __device__ __forceinline__ bool occludes(const Moller& m, float limit) {
          m.tmul < limit * m.det;
 }
 
-// Closest hit of one ray over the ``cnt`` triangles from ``first``.
-template <bool RAW>
+// Closest hit of one ray over the ``cnt`` raw rows from ``first``, each
+// loaded from global memory (B6; the other closest hits test a staged
+// copy of the leaf: walk.cuh leaf_closest_staged, staged_closest_sh
+// below).
 __device__ __forceinline__ void leaf_closest(const float* rows, int first,
                                              int cnt, const float o[3],
                                              const float d[3], float& best,
                                              int& tri, float& bu, float& bv) {
   for (int j = 0; j < cnt; ++j) {
     float dist, u, v;
-    if (closer_hit(moller<RAW>(rows, first + j, o, d), best, dist, u, v)) {
+    if (closer_hit(moller_raw(o, d, load_raw_row(rows, first + j)), best,
+                   dist, u, v)) {
       best = dist;
       tri = first + j;
       bu = u;
@@ -215,7 +222,8 @@ __device__ __forceinline__ bool leaf_blocks(const float* rows, int first,
 // lanes reading consecutive rows 16 bytes at a time meet no bank
 // conflict: 48 B is 12 banks, and the 8 lanes of each quarter-warp phase
 // cover the 32 banks once. Used by walk.cuh's closest-hit stage (B9c,
-// B11b) and the any-hit stage below (B7, B9b, B9d, B11c, B11d), and by
+// B11a, B11b), the any-hit stage below (B7, B9b, B9d, B11c, B11d) and
+// the shared-origin closest-hit stage at the end (B9a, B9e), and by
 // worklist.cu's two-slot stage of B2 (B8a), whose copies overlap its
 // tests. A shared-origin row's 48-byte prefix holds n, c1, c2 and tmul,
 // so the same copy and bank pattern serve it.
@@ -347,6 +355,72 @@ __device__ __forceinline__ bool leaf_blocks_staged(
     }
   }
   return hit;
+}
+
+// --- The staged shared-origin closest-hit stage of B2, B8a, B9a and B9e --
+//
+// The closest hit of this lane's ray over the ``count`` (<= 32) staged
+// shared-origin rows of ``slot`` (tri ids from ``first``), if it entered
+// the leaf (``go``); every lane of the warp calls it. Updates best, tri,
+// bu and bv as a serial loop over the rows would: where at most
+// LANE_TRI_MAX lanes
+// entered, lane per triangle (the warp takes the entering rays one at a
+// time, broadcasts the ray's direction and best, lane j tests row j, and
+// a warp argmin over (distance, row) picks the hit, the lower row on a
+// tie), else lane per ray over the staged rows. Both keep the serial
+// loop's first strictly nearer hit. The stage is the caller's: B2's
+// two-slot stage (worklist.cu), B9a's stage_leaf (walk.cu). A
+// shared-origin row holds the origin's terms, so no origin is
+// broadcast.
+template <int LANE_TRI_MAX>
+__device__ __forceinline__ void staged_closest_sh(
+    const float4* slot, int first, int count, bool go, const float d[3],
+    float& best, int& tri, float& bu, float& bv, int lane) {
+  const unsigned in = __ballot_sync(kFull, go);
+  if (__popc(in) > LANE_TRI_MAX) {
+    if (go)
+      for (int j = 0; j < count; ++j) {
+        float dist, u, v;
+        if (closer_hit(moller_sh(d, staged_tri_row(slot, j)), best, dist, u,
+                       v)) {
+          best = dist;
+          tri = first + j;
+          bu = u;
+          bv = v;
+        }
+      }
+    return;
+  }
+  for (unsigned m = in; m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    float rd[3];
+    for (int k = 0; k < 3; ++k) rd[k] = __shfl_sync(kFull, d[k], src);
+    const float rb = __shfl_sync(kFull, best, src);
+    // row ``lane``'s hit below rb: a hit's distance is > 0, so its bits
+    // order as the floats do, and no hit is ~0u
+    unsigned key = ~0u;
+    float hu = 0.0f, hv = 0.0f;
+    float dist, u, v;
+    if (lane < count &&
+        closer_hit(moller_sh(rd, staged_tri_row(slot, lane)), rb, dist, u,
+                   v)) {
+      key = __float_as_uint(dist);
+      hu = u;
+      hv = v;
+    }
+    const unsigned kmin = __reduce_min_sync(kFull, key);
+    if (kmin == ~0u) continue;
+    const unsigned jmin =
+        __reduce_min_sync(kFull, key == kmin ? (unsigned)lane : ~0u);
+    const float wu = __shfl_sync(kFull, hu, jmin),
+                wv = __shfl_sync(kFull, hv, jmin);
+    if (lane == src) {
+      best = __uint_as_float(kmin);
+      tri = first + (int)jmin;
+      bu = wu;
+      bv = wv;
+    }
+  }
 }
 
 }  // namespace

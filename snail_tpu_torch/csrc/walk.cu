@@ -31,9 +31,12 @@
 // walk so too, and stage their leaves and test them lane per triangle
 // where few lanes enter, each lane per ray up to its first occluder where
 // many do (rays.cuh leaf_blocks_staged; B9b's on shared-origin rows,
-// whose shared light makes a visit's lanes few on the terrain). Any-hit
-// warps stop once every live lane is blocked (_shadow_ival_drain's exit,
-// :1698). B9e/B9f are B9a/B9b with
+// whose shared light makes a visit's lanes few on the terrain). B9a
+// stages its leaves too and tests them lane per triangle where few lanes
+// enter (rays.cuh staged_closest_sh, B2's, on shared-origin rows), on
+// walk_pairs, its warps on 8 x 4 pixel tiles (rays.cuh tile_ray), as
+// B2's. Any-hit warps stop once every live lane is blocked
+// (_shadow_ival_drain's exit, :1698). B9e/B9f are B9a/B9b with
 // STATS: the walk counts what each warp did (walk.cuh WalkCounts) and lane
 // 0 adds it to the packet's (P, 8) int32 row with integer atomics, so the
 // counts do not depend on the order the warps run in; with STATS false the
@@ -55,7 +58,7 @@
 // memory or float rate; the card hides the latency with many warps (8 per
 // block, blocks limited by registers). The shared-memory stack costs a few
 // hundred bytes per warp; the counters five registers and five atomics per
-// warp. B9b's, B9c's and B9d's leaf stage adds 8 warps x 32 rows x 48 B
+// warp. Each kernel's leaf stage adds 8 warps x 32 rows x 48 B
 // = 12 KB a block at leaf 32: the SM's 228 KB would hold 18 such blocks,
 // more than its 2,048 threads (8 blocks) or its registers let in, so it
 // costs no occupancy, only some of the L1 that shares the SM's 256 KB.
@@ -77,39 +80,66 @@ constexpr int kWalkAnyLaneTriMax = 12;
 // tested lane per triangle where at most kWalkShadowLaneTriMax lanes
 // enter.
 constexpr int kWalkShadowLaneTriMax = 12;
+// B9a's (and B9e's) leaf stage on shared-origin rows: the same leaves,
+// tested lane per triangle where at most kWalkCamLaneTriMax lanes enter
+// (set by a sweep on the H100, PERF.md).
+constexpr int kWalkCamLaneTriMax = 12;
 
 // B9a / B10a: camera raygen + closest hit on the shared-origin rows. A
 // ray's bound starts at its root-box exit (0 when it misses the box);
-// outputs as camera_wl_kernel's: a miss has dist BIG and tri -1. B9e with
-// STATS, counting into ``stats`` (P, 8).
+// outputs as camera_wl_kernel's: a miss has dist BIG and tri -1. A warp's
+// rays are an 8 x 4 pixel tile (rays.cuh tile_ray), whose near-child
+// signs are its own (warp_signs); each thread writes its own ray's slot.
+// Leaves go through the staged shared-origin closest-hit stage (rays.cuh
+// stage_leaf into the warp's stage, then staged_closest_sh), lane per
+// triangle where at most kWalkCamLaneTriMax lanes enter. B9a walks with
+// walk_pairs (both children of a node in one step). B9e (STATS) walks
+// with ``walk``, whose node steps its counters count, into ``stats`` (P,
+// 8): the same leaves in the same order with the same lanes entering
+// them, and a closest hit changes only on a strictly nearer hit, so its
+// outputs are B9a's. Asked for at least 2 blocks an SM, ptxas gives B9a
+// 50 registers and spills none (48 and 4 bytes spilled with no minimum)
+// and B9e 64: B9e 2 % faster, B9a within 1 %; at 3 or 4 blocks both
+// were slower (PERF.md).
 template <bool STATS>
-__global__ void __launch_bounds__(kWalkThreads)
+__global__ void __launch_bounds__(kWalkThreads, 2)
 walk_camera_kernel(const float* __restrict__ cam,
                    const float* __restrict__ rows,
                    const float4* __restrict__ nodes, int stack_cap,
-                   float* __restrict__ out_dist, float* __restrict__ out_u,
-                   float* __restrict__ out_v, int32_t* __restrict__ out_tri,
-                   float* __restrict__ out_dx, float* __restrict__ out_dy,
-                   float* __restrict__ out_dz, int32_t* __restrict__ stats) {
-  const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int pid = (int)(g / kPacketR), k = (int)(g % kPacketR);
+                   int leaf_max, float* __restrict__ out_dist,
+                   float* __restrict__ out_u, float* __restrict__ out_v,
+                   int32_t* __restrict__ out_tri, float* __restrict__ out_dx,
+                   float* __restrict__ out_dy, float* __restrict__ out_dz,
+                   int32_t* __restrict__ stats) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int pid = (int)(t / kPacketR), k = tile_ray((int)(t % kPacketR));
+  const size_t g = (size_t)pid * kPacketR + k;
+  const int lane = threadIdx.x & 31;
   const PrimaryRay r = camera_ray(cam, pid, k);
   const float o[3] = {cam[9], cam[10], cam[11]};
   float best = r.t_exit, bu = 0.0f, bv = 0.0f;
   int tri = -1;
-  WalkCounts wc;
-  walk<STATS>(nodes, warp_stack(stack_cap), o, r.idir,
-              warp_signs(r.idir, best > 0.0f), [&] { return best; },
-              [&](bool enter, int first, int count, int& tested) {
-                if (enter) {
-                  leaf_closest<false>(rows, first, count, o, r.d, best, tri,
-                                      bu, bv);
-                  tested = count;
-                }
-                return false;
-              },
-              wc);
-  if constexpr (STATS) wc.add_to(stats + 8 * pid);
+  float4* stage = warp_stage(stack_cap, leaf_max);
+  const Signs sg = warp_signs(r.idir, best > 0.0f);
+  auto bound = [&] { return best; };
+  auto leaf = [&](bool enter, int first, int count) {
+    stage_leaf(rows, first, count, stage);
+    staged_closest_sh<kWalkCamLaneTriMax>(stage, first, count, enter, r.d,
+                                          best, tri, bu, bv, lane);
+  };
+  if constexpr (STATS) {
+    WalkCounts wc;
+    walk<true>(nodes, warp_stack(stack_cap), o, r.idir, sg, bound,
+               [&](bool enter, int first, int count, int& tested) {
+                 leaf(enter, first, count);
+                 if (enter) tested = count;
+                 return false;
+               },
+               wc);
+    wc.add_to(stats + 8 * pid);
+  } else {
+    walk_pairs(nodes, warp_stack(stack_cap), o, r.idir, sg, bound, leaf);
+  }
   out_dist[g] = tri >= 0 ? best : kBig;
   out_u[g] = bu;
   out_v[g] = bv;
@@ -255,18 +285,20 @@ walk_shadow_g_kernel(const float* __restrict__ ox,
 extern "C" {
 
 // ``stats``: null for B9a, a zeroed (P, 8) int32 row per packet for B9e.
+// ``leaf_max``: as snail_walk_closest_g's.
 int snail_walk_camera(const float* cam, const float* rows, const float* nodes,
-                      int n_nodes, int stack_cap, int n_packets, float* dist,
-                      float* u, float* v, int32_t* tri, float* dx, float* dy,
-                      float* dz, int32_t* stats, void* stream) {
-  if (!walk_args_ok(n_nodes, stack_cap, n_packets))
+                      int n_nodes, int stack_cap, int leaf_max, int n_packets,
+                      float* dist, float* u, float* v, int32_t* tri,
+                      float* dx, float* dy, float* dz, int32_t* stats,
+                      void* stream) {
+  if (!walk_args_ok(n_nodes, stack_cap, n_packets, leaf_max) ||
+      leaf_max < 1 || leaf_max > kWalkLeafRows)
     return (int)cudaErrorInvalidValue;
   auto kernel = stats ? walk_camera_kernel<true> : walk_camera_kernel<false>;
-  kernel<<<walk_blocks(n_packets), kWalkThreads, walk_smem(stack_cap),
-           (cudaStream_t)stream>>>(cam, rows,
-                                   reinterpret_cast<const float4*>(nodes),
-                                   stack_cap, dist, u, v, tri, dx, dy, dz,
-                                   stats);
+  kernel<<<walk_blocks(n_packets), kWalkThreads,
+           walk_smem(stack_cap, leaf_max), (cudaStream_t)stream>>>(
+      cam, rows, reinterpret_cast<const float4*>(nodes), stack_cap, leaf_max,
+      dist, u, v, tri, dx, dy, dz, stats);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,8 @@
 // The warp walk of the node tree, shared by the walk kernels (walk.cu,
 // B9a-f) and the fat-leaf kernels (fat.cu, B11a-d): the node row, the
 // near-child signs, the walk loop, its counters, B9c's walk that tests a
-// node's two children at once, the staged closest-hit leaf stage of B9c
-// and B11b, the staged any-hit leaf stage of B9d and B11d, and the launch
-// geometry.
+// node's two children at once, the staged closest-hit leaf stage of B9c,
+// B11a and B11b, and the launch geometry.
 //
 // One warp walks the tree for its 32 rays with warp-uniform control flow:
 // it pops a node, each lane slab-tests the node against its own ray and
@@ -149,8 +148,8 @@ __device__ __forceinline__ void walk(const float4* nodes, int* stack,
 // ``walk`` tests it then. ``leaf(enter, first, count)`` runs at every leaf
 // some lane enters; where it returns a bool (an any-hit), true ends the
 // warp's walk, as ``walk``'s leaf function does. On the H100 it took
-// B9c 3-18 % and B9d 2-7 % less time than ``walk``; on B11b, whose leaves
-// are larger, it was slower (PERF.md).
+// B9c 3-18 %, B9d 2-7 %, B9a 4-5 % and B11a 2 % less time than ``walk``;
+// on B11b, whose leaves are larger, it was slower (PERF.md).
 template <typename BoundFn, typename LeafFn>
 __device__ __forceinline__ void walk_pairs(const float4* nodes, int* stack,
                                            const float o[3],
@@ -212,7 +211,7 @@ __device__ __forceinline__ int* warp_stack(int stack_cap) {
   return s_stack + (threadIdx.x >> 5) * stack_cap;
 }
 
-// --- The staged closest-hit leaf stage of B9c and B11b --------------------
+// --- The staged closest-hit leaf stage of B9c, B11a and B11b -------------
 //
 // At a leaf some lane enters, the warp first copies the leaf's rows into
 // its own slice of shared memory (rays.cuh stage_leaf: 48-byte rows, one
@@ -240,7 +239,7 @@ __device__ __forceinline__ float4* warp_stage(int stack_cap, int leaf_max) {
 
 // The closest hit of this lane's ray over the ``count`` (<= MAX_ROWS) rows
 // from ``first`` of a leaf, if it entered it (``enter``); every lane of
-// the warp calls it. Updates best, tri, bu and bv as leaf_closest<true>.
+// the warp calls it. Updates best, tri, bu and bv as leaf_closest.
 template <int MAX_ROWS, int LANE_TRI_MAX>
 __device__ __forceinline__ void leaf_closest_staged(
     const float* rows, float4* stage, int first, int count, bool enter,

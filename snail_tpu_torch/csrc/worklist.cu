@@ -814,11 +814,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // (Holding the box in lane j's registers and taking it by __shfl_sync
 // spilled 28 bytes at the same 80 registers.) The entering lanes then
 // test the staged rows lane per ray (leaf_closest's loop, in row order),
-// or lane per triangle where at most kCamLaneTriMax enter (walk.cuh
-// leaf_closest_staged's argmin, on shared-origin rows of at most 32;
-// kept apart from it so that B9c's and B11b's SASS stays as it was):
-// both keep the first strictly nearer hit, so dist, u, v and tri are the
-// loop's bit for bit.
+// or lane per triangle where at most kCamLaneTriMax enter (rays.cuh
+// staged_closest_sh, which B9a and B9e share): both keep the first
+// strictly nearer hit, so dist, u, v and tri are the loop's bit for bit.
 
 // Starts the copy of rows first .. first + count - 1 (<= kWlLeafRows) of
 // the shared-origin ``rows`` into ``slot`` as one cp.async group; every
@@ -835,76 +833,10 @@ __device__ __forceinline__ void stage_rows(const float* rows, int first,
   cp_async_commit();
 }
 
-// The closest hit of this lane's ray over the ``count`` staged rows of
-// ``slot`` (tri ids from ``first``), if it entered the leaf (``go``);
-// every lane of the warp calls it. Updates best, tri, bu and bv as
-// leaf_closest<false>.
-__device__ __forceinline__ void staged_closest_sh(
-    const float4* slot, int first, int count, bool go, const float d[3],
-    float& best, int& tri, float& bu, float& bv, int lane) {
-  const unsigned in = __ballot_sync(kFull, go);
-  if (__popc(in) > kCamLaneTriMax) {
-    if (go)
-      for (int j = 0; j < count; ++j) {
-        float dist, u, v;
-        if (closer_hit(moller_sh(d, staged_tri_row(slot, j)), best, dist, u,
-                       v)) {
-          best = dist;
-          tri = first + j;
-          bu = u;
-          bv = v;
-        }
-      }
-    return;
-  }
-  for (unsigned m = in; m; m &= m - 1) {
-    const int src = __ffs(m) - 1;
-    float rd[3];
-    for (int k = 0; k < 3; ++k) rd[k] = __shfl_sync(kFull, d[k], src);
-    const float rb = __shfl_sync(kFull, best, src);
-    // row ``lane``'s hit below rb: a hit's distance is > 0, so its bits
-    // order as the floats do, and no hit is ~0u
-    unsigned key = ~0u;
-    float hu = 0.0f, hv = 0.0f;
-    float dist, u, v;
-    if (lane < count &&
-        closer_hit(moller_sh(rd, staged_tri_row(slot, lane)), rb, dist, u,
-                   v)) {
-      key = __float_as_uint(dist);
-      hu = u;
-      hv = v;
-    }
-    const unsigned kmin = __reduce_min_sync(kFull, key);
-    if (kmin == ~0u) continue;
-    const unsigned jmin =
-        __reduce_min_sync(kFull, key == kmin ? (unsigned)lane : ~0u);
-    const float wu = __shfl_sync(kFull, hu, jmin),
-                wv = __shfl_sync(kFull, hv, jmin);
-    if (lane == src) {
-      best = __uint_as_float(kmin);
-      tri = first + (int)jmin;
-      bu = wu;
-      bv = wv;
-    }
-  }
-}
-
-// The ray (packet-order index, camera_ray's k) of thread ``t`` of a packet
-// in B2 (B8a): each warp takes an 8 x 4 pixel tile of its 32 x 32
-// quarter, 4 tiles across and 8 down (lane l: pixel (l % 8, l / 8) of
-// its tile), where the other kernels' warps take a 32 x 1 row. Its rays'
-// directions span less, so its cull keeps fewer leaves and more of its
-// lanes enter each (ops/traverse.py camera_wl_order).
-__device__ __forceinline__ int tile_ray(int t) {
-  const int q = t >> 10, w = (t >> 5) & 31, l = t & 31;
-  return (q << 10) | ((((w >> 2) << 2) + (l >> 3)) << 5) |
-         (((w & 3) << 3) + (l & 7));
-}
-
 // B2 (B8a with STATS): camera raygen + closest hit, one thread per ray;
 // STATS adds the packet's counters to ``out_stats`` (P, 8). A warp's rays
-// are an 8 x 4 pixel tile (tile_ray); each thread writes its own ray's
-// slot. Each warp's leaf stage is two slots of kWlLeafRows staged rows
+// are an 8 x 4 pixel tile (rays.cuh tile_ray); each thread writes its own
+// ray's slot. Each warp's leaf stage is two slots of kWlLeafRows staged rows
 // (3 KB) and its word table 1 KB: 32 KB a block of 8 warps. Asked for 4
 // blocks an SM, as its 63 registers gave it before the stage, ptxas gives
 // B2 64 registers and spills 48 bytes; with no minimum it took 80 and 3
@@ -984,8 +916,9 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
           const float tn = slab_entry(lo, hi, o, r.idir, tf, pass);
           const bool go = pass && tn < best;
           if constexpr (STATS) count_leaf(st, go, go ? count(j) : 0);
-          staged_closest_sh(stage + slot * kSlotVec, first(j), count(j), go,
-                            r.d, best, tri, bu, bv, lane);
+          staged_closest_sh<kCamLaneTriMax>(stage + slot * kSlotVec,
+                                            first(j), count(j), go, r.d,
+                                            best, tri, bu, bv, lane);
           if (jn < 0) break;
           __syncwarp();  // every lane is done with this slot's rows
           j = jn;
@@ -1102,8 +1035,8 @@ closest_wl_g_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
       [&] { return best; },
       [&](int l, float tn, bool pass) {
         if (pass && tn < best)
-          leaf_closest<true>(rows, __ldg(lfirst + l), __ldg(lcount + l), o, d,
-                             best, tri, bu, bv);
+          leaf_closest(rows, __ldg(lfirst + l), __ldg(lcount + l), o, d,
+                       best, tri, bu, bv);
         return false;
       });
   cp_async_wait_all();

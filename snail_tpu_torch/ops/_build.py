@@ -45,11 +45,11 @@ _SIGNATURES = {
     "snail_words_general": [_P] * 9 + [_I] * 5 + [_P] * 4,
     "snail_closest_wl_g": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 5,
     "snail_shadow_wl_g": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 2,
-    "snail_walk_camera": [_P] * 3 + [_I] * 3 + [_P] * 9,
+    "snail_walk_camera": [_P] * 3 + [_I] * 4 + [_P] * 9,
     "snail_walk_shadow": [_P] * 7 + [_I] * 4 + [_P] * 3,
     "snail_walk_closest_g": [_P] * 9 + [_I] * 4 + [_P] * 5,
     "snail_walk_shadow_g": [_P] * 9 + [_I] * 4 + [_P] * 2,
-    "snail_fat_camera": [_P] * 4 + [_I] * 3 + [_P] * 8,
+    "snail_fat_camera": [_P] * 4 + [_I] * 4 + [_P] * 8,
     "snail_fat_closest": [_P] * 10 + [_I] * 4 + [_P] * 5,
     "snail_fat_shadow": [_P] * 8 + [_I] * 4 + [_P] * 2,
     "snail_fat_shadow_g": [_P] * 10 + [_I] * 4 + [_P] * 2,

@@ -312,8 +312,9 @@ def kernel_ray_index(width: int, height: int) -> np.ndarray:
 
 
 def camera_wl_order() -> torch.Tensor:
-    """int64 (PACKET_R,): the packet-order ray of each thread of a B2 (B8a)
-    packet (``csrc/worklist.cu`` ``tile_ray``): warp w of quarter q takes
+    """int64 (PACKET_R,): the packet-order ray of each thread of a packet
+    of the camera kernels B2 (B8a), B9a (B9e) and B11a (``csrc/rays.cuh``
+    ``tile_ray``): warp w of quarter q takes
     the 8 x 4 pixel tile (w % 4, w // 4) of the quarter's 32 x 32, lane l
     its pixel (l % 8, l // 8), so ``x[..., camera_wl_order()]`` gives each
     warp's rays as 32 consecutive lanes."""
@@ -1546,14 +1547,18 @@ def _walk_camera_launch(cam, width, height, rows, nodes, stats):
     _check(cam, "cam", torch.float32, (22,), dev)
     _check(rows, "rows", torch.float32, (rows.shape[0], TRI_ROW), dev)
     _check_nodes(nodes, dev)
+    if nodes.leaf_max > IVAL_LEAF:
+        raise ValueError(f"leaf of {nodes.leaf_max} triangles > IVAL_LEAF "
+                         f"({IVAL_LEAF}): walk_camera stages leaves of up "
+                         f"to {IVAL_LEAF}; use fat_camera")
     dist, u, v, dx, dy, dz = (torch.empty((p, PACKET_R), dtype=torch.float32,
                                           device=dev) for _ in range(6))
     tri = torch.empty((p, PACKET_R), dtype=torch.int32, device=dev)
     _launched(library().snail_walk_camera(
         _ptr(cam), _ptr(rows), _ptr(nodes.node), nodes.n_nodes,
-        nodes.stack_cap, p, _ptr(dist), _ptr(u), _ptr(v), _ptr(tri),
-        _ptr(dx), _ptr(dy), _ptr(dz), None if stats is None else _ptr(stats),
-        _stream()), "walk_camera")
+        nodes.stack_cap, nodes.leaf_max, p, _ptr(dist), _ptr(u), _ptr(v),
+        _ptr(tri), _ptr(dx), _ptr(dy), _ptr(dz),
+        None if stats is None else _ptr(stats), _stream()), "walk_camera")
     return dist, u, v, tri, dx, dy, dz
 
 
@@ -1562,7 +1567,10 @@ def walk_camera(cam, width: int, height: int, rows, nodes: NodeTables):
     through the node tree on the shared-origin ``rows`` (replaces
     ``_camera_ival_kernel`` and the paged ``_camera_ival_kernel_paged``).
     Returns B2's outputs: (dist, u, v, tri, dx, dy, dz), each (P,
-    PACKET_R); a miss has dist BIG and tri -1."""
+    PACKET_R); a miss has dist BIG and tri -1. Its warps take B2's 8 x 4
+    pixel tiles (:func:`camera_wl_order`), each with its own near-child
+    signs. The kernel stages leaves of up to IVAL_LEAF rows; a tree with
+    larger ones is the fat-leaf kernels' (:func:`fat_camera`)."""
     if not _on_cuda(cam):
         from .traverse_ref import walk_camera_plain
 
@@ -1748,7 +1756,9 @@ def fat_camera(cam, width: int, height: int, signs, rows, nodes: NodeTables):
     through a fat-leaf node tree on the raw triangle ``rows`` (replaces
     ``_camera_kernel``), near children by ``signs`` (:func:`camera_signs`).
     Returns (dist, u, v, tri, dx, dy, dz), each (P, PACKET_R): every ray
-    starts at BIG with no root-box clip, and a miss has dist BIG, tri 0."""
+    starts at BIG with no root-box clip, and a miss has dist BIG, tri 0.
+    Its warps take B2's 8 x 4 pixel tiles; with the packets' signs, a
+    ray's result does not depend on its warp."""
     p = (width // TILE) * (height // TILE)
     if not _on_cuda(cam):
         from .traverse_ref import fat_camera_plain
@@ -1767,8 +1777,8 @@ def fat_camera(cam, width: int, height: int, signs, rows, nodes: NodeTables):
     tri = torch.empty((p, PACKET_R), dtype=torch.int32, device=dev)
     _launched(library().snail_fat_camera(
         _ptr(cam), _ptr(signs), _ptr(rows), _ptr(nodes.node), nodes.n_nodes,
-        nodes.stack_cap, p, _ptr(dist), _ptr(u), _ptr(v), _ptr(tri),
-        _ptr(dx), _ptr(dy), _ptr(dz), _stream()), "fat_camera")
+        nodes.stack_cap, nodes.leaf_max, p, _ptr(dist), _ptr(u), _ptr(v),
+        _ptr(tri), _ptr(dx), _ptr(dy), _ptr(dz), _stream()), "fat_camera")
     fat_camera.launches += 1
     return dist, u, v, tri, dx, dy, dz
 

@@ -3,7 +3,8 @@ stack walk over the node tree on tensors, and the plain versions of the
 walk kernels B9a-d (``csrc/walk.cu``) and of the fat-leaf kernels B11a-d
 (``csrc/fat.cu``) built on it; and a simulation of every warp's walk, the
 plain versions of the counting walk kernels B9e/B9f, which also tallies
-the leaf visits of B9c's and B11b's warps (:func:`closest_g_sim`).
+the leaf visits of B9c's and B11b's warps (:func:`closest_g_sim`) and
+of B9a's and B11a's (:func:`camera_sim`).
 
 Each ray keeps its own stack of ``NodeTables.stack_cap`` = depth + 2
 entries, sized from the tree (the JAX oracle clamps at 66 entries,
@@ -12,10 +13,12 @@ per live ray, slab-tests it against the ray's current bound (its best, or
 its shadow limit), tests the triangles of an entered leaf, and at an
 entered inner node pushes the far child and goes on with the near one.
 Near is decided as the kernels decide it: for B9, by the near-child sign
-of the ray's warp (32 consecutive rays), the sign of the midpoint of its
-live rays' inverse directions; for B11, by the signs of its packet's ray
-0 (``traverse.camera_signs`` / ``packet_signs``), so that a ray meets its
-leaves in the kernel's order and closest-hit ties resolve alike. The
+of the ray's warp (32 consecutive rays; B9a's primary rays are taken in
+the order of its threads, so that a warp is an 8 x 4 pixel tile), the
+sign of the midpoint of its live rays' inverse directions; for B11, by
+the signs of its packet's ray 0 (``traverse.camera_signs`` /
+``packet_signs``), so that a ray meets its leaves in the kernel's order,
+whatever its warp, and closest-hit ties resolve alike. The
 intersection arithmetic is each kernel's, operation for operation:
 shared-origin rows (``traverse.shared_rows``) for B9a/B9b, the full
 Moller test on raw rows for B9c/B9d and B11a-d (as
@@ -31,7 +34,7 @@ import torch
 from ..core.vecmath import BIG, INV_EPS
 from .traverse import (_BIN_EDGES, CHUNK_ROWS, LANE_BINS, PACKET_R, TALLY,
                        WARP, WARPS, NodeTables, _camera_rays, _slab,
-                       _stats_row)
+                       _stats_row, camera_wl_order)
 
 LEAF_RAYS = 65536  # rays per step of the leaf tests
 
@@ -230,19 +233,35 @@ def walk_plain(nodes: NodeTables, o, d, bound0, rows, raw: bool,
     return w.blocked
 
 
+def _tiles(c, order):
+    """A (P, PACKET_R) plane in the order of the camera kernels' threads
+    (``order``: :func:`traverse.camera_wl_order` on its device), flat: 32
+    consecutive rays are a warp's 8 x 4 pixel tile."""
+    return c[:, order].reshape(-1)
+
+
+def _untiled(x, order, shape):
+    """The inverse of :func:`_tiles`: each thread's result back to its
+    ray's slot, ``shape`` (P, PACKET_R)."""
+    return torch.empty(shape, dtype=x.dtype, device=x.device).index_copy_(
+        1, order, x.reshape(shape))
+
+
 def walk_camera_plain(cam, width: int, height: int, rows, nodes: NodeTables,
                       pids: torch.Tensor, work=None):
     """Plain B9a: closest hit of the primary rays of packets ``pids``, each
-    ray's bound starting at its root-box exit. Returns (dist, u, v, tri,
-    dx, dy, dz), each (len(pids), PACKET_R): a miss has dist BIG, tri -1."""
+    ray's bound starting at its root-box exit, near children by the signs
+    of its warp, an 8 x 4 pixel tile (``camera_wl_order``). Returns (dist,
+    u, v, tri, dx, dy, dz), each (len(pids), PACKET_R): a miss has dist
+    BIG, tri -1."""
     d, _, t_exit = _camera_rays(cam, width, height, pids)
-    flat = [c.reshape(-1) for c in d]
-    best, tri, u, v = walk_plain(nodes, cam[9:12].unbind(), flat,
-                                 t_exit.reshape(-1), rows, False, True, work)
+    order = camera_wl_order().to(t_exit.device)
     shape = t_exit.shape
-    dist = torch.where(tri >= 0, best, BIG).reshape(shape)
-    return (dist, u.reshape(shape), v.reshape(shape),
-            tri.to(torch.int32).reshape(shape), *d)
+    best, tri, u, v = (_untiled(x, order, shape) for x in walk_plain(
+        nodes, cam[9:12].unbind(), [_tiles(c, order) for c in d],
+        _tiles(t_exit, order), rows, False, True, work))
+    dist = torch.where(tri >= 0, best, BIG)
+    return dist, u, v, tri.to(torch.int32), *d
 
 
 def walk_shadow_plain(orig, d, tm, rows, nodes: NodeTables, work=None):
@@ -487,15 +506,40 @@ def walk_camera_stats_plain(cam, width: int, height: int, rows,
                             nodes: NodeTables, pids: torch.Tensor):
     """Plain B9e: :func:`walk_camera_plain`'s outputs for packets ``pids``
     and their counters, int32 (len(pids), 8), from a simulation of every
-    warp's walk."""
+    warp's walk (:func:`camera_sim`)."""
+    out, stats, _ = camera_sim(cam, width, height, rows, nodes, pids)
+    return (*out, stats)
+
+
+def camera_sim(cam, width: int, height: int, rows, nodes: NodeTables,
+               pids: torch.Tensor, signs=None):
+    """B9a (B9e) or, with ``signs`` (P, 3) and the raw ``rows``, B11a on
+    the primary rays of packets ``pids``, simulated warp by warp as
+    ``walk`` runs them, a warp's rays an 8 x 4 pixel tile
+    (:func:`traverse.camera_wl_order`). Returns (the outputs (dist, u, v, tri, dx, dy, dz) as
+    :func:`walk_camera_plain` / :func:`fat_camera_plain` give them, the
+    counters int32 (len(pids), 8) as B9e's, the tally ``_WarpWalk.tally``
+    (len(TALLY), len(pids) * WARPS)). B9a (``walk_pairs``) visits the
+    same leaves with the same lanes, in fewer node steps than the
+    tally's."""
     d, _, t_exit = _camera_rays(cam, width, height, pids)
-    w = _WarpWalk(nodes, cam[9:12].unbind(), [c.reshape(-1) for c in d],
-                  t_exit.reshape(-1), rows, False, True)
-    stats = w.run()
+    order = camera_wl_order().to(t_exit.device)
     shape = t_exit.shape
-    dist = torch.where(w.tri >= 0, w.bound, BIG).reshape(shape)
-    return (dist, w.bu.reshape(shape), w.bv.reshape(shape),
-            w.tri.to(torch.int32).reshape(shape), *d, stats)
+    if signs is None:
+        bound0, raw, rs = _tiles(t_exit, order), False, None
+    else:
+        bound0 = torch.full_like(t_exit.reshape(-1), BIG)
+        raw, rs = True, _ray_signs(signs[pids.to(signs.device)], PACKET_R)
+    w = _WarpWalk(nodes, cam[9:12].unbind(), [_tiles(c, order) for c in d],
+                  bound0, rows, raw, True, rs)
+    stats = w.run()
+    best, tri, u, v = (_untiled(x, order, shape)
+                       for x in (w.bound, w.tri, w.bu, w.bv))
+    if signs is None:
+        dist = torch.where(tri >= 0, best, BIG)
+    else:
+        dist, tri = best, tri.clamp_min(0)
+    return (dist, u, v, tri.to(torch.int32), *d), stats, w.tally
 
 
 def walk_shadow_stats_plain(orig, d, tm, rows, nodes: NodeTables):

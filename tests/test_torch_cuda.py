@@ -18,7 +18,8 @@ from snail_tpu_torch.bvh.build import BVH
 from snail_tpu_torch.core.types import Camera, Light, RenderOpts
 from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
-from snail_tpu_torch.ops.traverse_ref import (fat_camera_plain,
+from snail_tpu_torch.ops.traverse_ref import (camera_sim,
+                                              fat_camera_plain,
                                               fat_closest_plain,
                                               fat_shadow_g_plain,
                                               fat_shadow_plain,
@@ -1220,6 +1221,71 @@ def test_staged_closest_kernel_matches_plain_exactly(kind):
     assert int(hit.sum()) == 2 * pt.WARPS * (pt.WARP + 1) // 2
     assert torch.equal(scene.tri_a[kt[hit].long(), 2],
                        torch.zeros_like(kd[hit]))
+
+
+# the camera's distance from the leaves of the staged camera tests: near,
+# most leaf visits have all 32 lanes of a warp entering; far, more of
+# them few
+CAMERA_VIEWS = {"near": 3.0, "far": 20.0}
+
+
+@pytest.mark.parametrize("view", list(CAMERA_VIEWS))
+@pytest.mark.parametrize("kind", list(STAGED_LEAVES))
+def test_staged_camera_kernels_match_plain_exactly(kind, view):
+    """B9a with B9e (``walk``) and B11a (``fat``), whose warps take 8 x 4
+    pixel tiles and whose leaf stage tests a leaf lane per triangle where
+    at most a threshold of lanes enter it and lane per ray above, on
+    ``_leaf_scene``'s leaves of 1-32 (B9a) and 33-64 rows (B11a), each
+    with two identical nearest rows (exact distance ties), from a camera
+    3 or 20 units away, turned so that the leaves' edges cross its warps:
+    every output equal to the plain version's bit for bit, tri included;
+    every hit on a nearest row the lower of its leaf's two, as in the
+    serial loop; visits with one lane entering and with 17-32 (the warps'
+    simulation, ``camera_sim``) in each wavefront, so both ways of testing
+    a leaf run whatever the threshold; B9e's outputs B9a's and its
+    counters the simulation's."""
+    _need_cuda()
+    sizes = STAGED_LEAVES[kind]
+    scene = _leaf_scene(sizes, "cuda")
+    cam = Camera.look_at((6.0, 1.2, -CAMERA_VIEWS[view]), (7.0, 1.0, 0.0),
+                         up=(0.3, 1.0, 0.0))
+    w = h = 256
+    pids = torch.arange((w // pt.TILE) * (h // pt.TILE), device="cuda")
+    nodes = scene.nodes
+    if kind == "fat":
+        cv = pt._camera_vec(scene, cam, w, h)
+        rows, signs = scene.tri_rows, pt.camera_signs(cam, w, h)
+        kern = pt.fat_camera(cv, w, h, signs, rows, nodes)
+        plain = fat_camera_plain(cv, w, h, signs, rows, nodes, pids)
+        hit = kern[0] < BIG
+        assert bool((kern[3][~hit] == 0).all())
+    else:
+        cv, rows = pt._camera_setup(scene, cam, w, h)
+        signs = None
+        kern = pt.walk_camera(cv, w, h, rows, nodes)
+        *b9e, stats = pt.walk_camera_stats(cv, w, h, rows, nodes)
+        plain = walk_camera_plain(cv, w, h, rows, nodes, pids)
+        hit = kern[3] >= 0
+    sim, sim_stats, tally = camera_sim(cv, w, h, rows, nodes, pids, signs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+    assert all(torch.equal(a, b) for a, b in zip(sim, plain))
+    if kind == "walk":
+        assert all(torch.equal(a, b) for a, b in zip(b9e, kern))
+        assert torch.equal(stats, sim_stats), (stats, sim_stats)
+    assert 0.02 < float(hit.float().mean()) < 0.9
+    # a hit on a nearest row (z = 0) is the lower of its leaf's two
+    a = scene.tri_a
+    leaf_of = (a[:, 0] / 3.0).long()
+    z0 = a[:, 2] == 0.0
+    lowest = torch.stack([torch.nonzero(z0 & (leaf_of == i)).min()
+                          for i in range(len(sizes))])
+    tri = kern[3][hit].long()
+    on0 = z0[tri]
+    assert bool(on0.any())
+    assert torch.equal(tri[on0], lowest[leaf_of[tri[on0]]])
+    bins = dict(zip(pt.TALLY, tally.sum(1).tolist()))
+    assert bins["1"] > 0 and bins["17-32"] > 0, bins
 
 
 def _shared_blocker_rays(n_leaves, seed=37):

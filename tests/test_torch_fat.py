@@ -45,11 +45,12 @@ from snail_tpu_torch.core.types import Camera, RenderOpts
 from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
 from snail_tpu_torch.ops.traverse_ref import (LANE_BINS, TALLY,
-                                              closest_g_sim,
+                                              _ray_signs, closest_g_sim,
+                                              fat_camera_plain,
                                               fat_closest_plain,
                                               fat_shadow_g_plain,
                                               fat_shadow_plain,
-                                              shadow_g_sim)
+                                              shadow_g_sim, walk_plain)
 from snail_tpu_torch.render.fast import (render_frame_fast,
                                          render_frame_fast_diff,
                                          render_frame_fast_stats,
@@ -74,6 +75,19 @@ FIELDS = ("node_lo", "node_hi", "node_child", "node_count", "node_axis",
 FWD = dict(reflections=False, transparency=False, textures=False)
 BOUNCE = dict(textures=False)
 W, H = 64, 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The warp simulations here are Python loops of small tensor ops. On
+    a machine whose cores other test workers keep busy, PyTorch's
+    intra-op thread pool makes each of them wait (a simulation took over
+    200 s there against 3 s on one thread), so they run on one thread;
+    the results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _scenes(bounce: bool):
@@ -193,6 +207,35 @@ def test_fat_camera_trace_matches_jax(scenes):
     signs = pt.camera_signs(pcam, w, h)
     ray0 = np.stack([pdx, pdy, pdz], 1).reshape(-1, pt.PACKET_R, 3)[:, 0]
     np.testing.assert_array_equal(signs.numpy(), ray0 < 0)
+
+
+def test_fat_camera_rays_in_any_warp_order_give_the_same_hits(scenes):
+    """B11a's warps take 8 x 4 pixel tiles (``camera_wl_order``) and its
+    near children come from each packet's ray 0: so each packet's rays,
+    permuted into tiles or at random before the walk and put back after
+    it, give ``fat_camera_plain``'s outputs bit for bit (one packet of
+    the 128 x 64 frame)."""
+    _, ps, _, pcam = scenes
+    w, h = 128, 64
+    cam = pt._camera_vec(ps, pcam, w, h)
+    signs = pt.camera_signs(pcam, w, h)
+    pids = torch.arange(1, 2)
+    want = fat_camera_plain(cam, w, h, signs, ps.tri_rows, ps.nodes, pids)
+    assert bool((want[0] < BIG).any()) and bool((want[0] == BIG).any())
+    d, _, _ = pt._camera_rays(cam, w, h, pids)
+    gen = torch.Generator().manual_seed(3)
+    for order in (pt.camera_wl_order(),
+                  torch.randperm(pt.PACKET_R, generator=gen)):
+        best, tri, u, v = walk_plain(
+            ps.nodes, cam[9:12].unbind(), [c[:, order].reshape(-1)
+                                           for c in d],
+            torch.full((pt.PACKET_R,), BIG), ps.tri_rows, True, True,
+            signs=_ray_signs(signs[pids], pt.PACKET_R))
+        back = lambda x: torch.empty_like(x.reshape(1, -1)).index_copy_(
+            1, order, x.reshape(1, -1))
+        got = (back(best), back(u), back(v),
+               back(tri).clamp_min(0).to(torch.int32))
+        assert all(torch.equal(a, b) for a, b in zip(got, want[:4]))
 
 
 def _bounce_rays(js, seed=7):

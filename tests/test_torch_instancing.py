@@ -41,6 +41,19 @@ FIELDS = ("node_lo", "node_hi", "node_child", "node_count", "tri_a", "tri_ba",
           "mat_specular", "mat_reflect", "mat_dissolve")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The warp simulations here are Python loops of small tensor ops. On
+    a machine whose cores other test workers keep busy, PyTorch's
+    intra-op thread pool makes each of them wait (a simulation took over
+    200 s there against 3 s on one thread), so they run on one thread;
+    the results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def city():
     g = jproc.city_scene(4).flatten()

@@ -36,6 +36,19 @@ FIELDS = ("node_lo", "node_hi", "node_child", "node_count", "node_axis",
 NO_WL = dict(wl_boxrows=None, wl_lfc=None, lf_boxv=None)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The warp simulations here are Python loops of small tensor ops. On
+    a machine whose cores other test workers keep busy, PyTorch's
+    intra-op thread pool makes each of them wait (a simulation took over
+    200 s there against 3 s on one thread), so they run on one thread;
+    the results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def city24():
     """city_scene(24) at leaf 16 lit by the bench light: the JAX scene with

@@ -38,6 +38,19 @@ LIGHT = ((0.0, 3.5, 0.0), (1.0, 0.9, 0.8), 30.0)
 POS, TARGET = (0.0, 2.0, 6.0), (0.0, 1.5, 0.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The warp simulations here are Python loops of small tensor ops. On
+    a machine whose cores other test workers keep busy, PyTorch's
+    intra-op thread pool makes each of them wait (a simulation took over
+    200 s there against 3 s on one thread), so they run on one thread;
+    the results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_stats_frame_matches_render_frame_and_jax():
     """The cornell golden configuration at 64 x 64: the port's counter
     frame is its forward frame bit for bit, and within 2e-3 of the JAX

@@ -43,9 +43,10 @@ from snail_tpu_torch.ops import traverse as pt
 from snail_tpu_torch.ops.intersect import (intersect_any_brute_force,
                                            intersect_brute_force)
 from snail_tpu_torch.ops.traverse_ref import (LANE_BINS, TALLY,
-                                              closest_g_sim,
+                                              _warp_signs, closest_g_sim,
                                               fat_shadow_g_plain,
                                               shadow_g_sim,
+                                              walk_camera_plain,
                                               walk_camera_stats_plain,
                                               walk_closest_g_plain,
                                               walk_plain,
@@ -66,6 +67,19 @@ FIELDS = ("node_lo", "node_hi", "node_child", "node_count", "node_axis",
           "mat_pack", "mat_diffuse", "mat_specular", "mat_reflect",
           "mat_dissolve")
 NO_WL = dict(wl_boxrows=None, wl_lfc=None, lf_boxv=None)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The warp simulations here are Python loops of small tensor ops. On
+    a machine whose cores other test workers keep busy, PyTorch's
+    intra-op thread pool makes each of them wait (a simulation took over
+    200 s there against 3 s on one thread), so they run on one thread;
+    the results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _walk_only(js):
@@ -409,10 +423,49 @@ def test_walk_camera_trace_stats_matches_jax(scenes):
     *_, sim = walk_camera_stats_plain(cam, W, H, rows, ps.nodes,
                                       torch.arange(1))
     assert torch.equal(stats, sim)
-    d, _, t_exit = pt._camera_rays(cam, W, H, torch.arange(1))
     work = {}
-    walk_plain(ps.nodes, cam[9:12].unbind(), [c.reshape(-1) for c in d],
-               t_exit.reshape(-1), rows, False, True, work)
+    walk_camera_plain(cam, W, H, rows, ps.nodes, torch.arange(1), work)
+    _assert_counters_hold(stats, work, True)
+
+
+def test_walk_camera_warps_are_pixel_tiles(scenes):
+    """B9a's (and B9e's) warps are 8 x 4 pixel tiles, each with the
+    near-child signs of its live rays: ``walk_camera_plain`` equals the
+    per-ray walk given those signs, the tiles found from the pixels'
+    coordinates, bit for bit, ties included, and the simulation of the
+    warps behind ``walk_camera_stats_plain`` gives the same outputs. On
+    this frame the signs of 32 consecutive rays differ from the tiles'."""
+    _, _, ps, _, pcam = scenes
+    w, h = 128, 64
+    cam, rows = pt._camera_setup(ps, pcam, w, h)
+    pids = torch.arange(2)
+    d, idir, t_exit = pt._camera_rays(cam, w, h, pids)
+    px, py = pt._pixel_xy(w, h, pids, "cpu")
+    tile = ((py // 4) * (w // 8) + px // 8).reshape(-1)
+    live = t_exit.reshape(-1) > 0.0
+    n = int(tile.max()) + 1
+    signs = []
+    for c in (c.reshape(-1) for c in idir):
+        lo = torch.full((n,), BIG).scatter_reduce(
+            0, tile, torch.where(live, c, BIG), "amin")
+        hi = torch.full((n,), -BIG).scatter_reduce(
+            0, tile, torch.where(live, c, -BIG), "amax")
+        signs.append((lo + hi < 0.0)[tile].long())
+    signs = torch.stack(signs, 1)
+    assert not torch.equal(signs, _warp_signs([c.reshape(-1) for c in idir],
+                                              live))
+    best, tri, u, v = walk_plain(ps.nodes, cam[9:12].unbind(),
+                                 [c.reshape(-1) for c in d],
+                                 t_exit.reshape(-1), rows, False, True,
+                                 signs=signs)
+    want = (torch.where(tri >= 0, best, BIG), u, v, tri.to(torch.int32))
+    got = walk_camera_plain(cam, w, h, rows, ps.nodes, pids)
+    assert bool((got[3] >= 0).any()) and bool((got[3] < 0).any())
+    assert all(torch.equal(a.reshape(-1), b) for a, b in zip(got, want))
+    *sim, stats = walk_camera_stats_plain(cam, w, h, rows, ps.nodes, pids)
+    assert all(torch.equal(a, b) for a, b in zip(sim, got))
+    work = {}
+    walk_camera_plain(cam, w, h, rows, ps.nodes, pids, work)
     _assert_counters_hold(stats, work, True)
 
 

@@ -30,6 +30,19 @@ LIGHTS = {"city": ((0.0, 30.0, 0.0), 120.0),
           "terrain": ((-40.0, 10.0, 0.0), 200.0)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The warp simulations here are Python loops of small tensor ops. On
+    a machine whose cores other test workers keep busy, PyTorch's
+    intra-op thread pool makes each of them wait (a simulation took over
+    200 s there against 3 s on one thread), so they run on one thread;
+    the results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _build(kind, n):
     g = (pproc.city_scene if kind == "city" else pproc.terrain_scene)(n)
     g = g.flatten()

@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Device time of the words passes B1, B3 and B5, of the closest hits B9c
-and B11b, of the any-hits B7, B9d, B11c and B11d, and of the
-shared-origin scans B2, B8a, B9b and B9f on one CUDA card.
+and B11b, of the any-hits B7, B9d, B11c and B11d, of the shared-origin
+scans B2, B8a, B9b and B9f, and of the camera walks B9a, B9e and B11a on
+one CUDA card.
 
     python3 time_words.py [--tree DIR] [--reps N]
-                          [--only words|closest|anyhit|shared]
+                          [--only words|closest|anyhit|shared|camera]
+                          [--scan]
     python3 time_words.py [--tree DIR] [--reps N]
-                          [--only closest|anyhit|shared] --sweep T[,T...]
+                          [--only closest|anyhit|shared|camera]
+                          --sweep T[,T...]
+    python3 time_words.py [--tree DIR] [--reps N] --only camera
+                          --variant NAME[,NAME...]
 
 Imports ``snail_tpu_torch`` from DIR (default: the directory of this
 script), so that one command can time another commit's kernels from a
@@ -57,18 +62,35 @@ does not count (``device_ms``).
   table kinds and the walk bounce frame; with ``--scan``, the ``scan``
   lines of its warps on a few packets (chip_smoke ``camera_tally``,
   ``warp_tally``, on the tree's simulations).
+- camera: B9a and B9e on the 1024 x 1024 primary wavefront of city_24
+  and terrain_724 with node tables, B11a on that of city_24 and
+  terrain_530 at leaf 64, each called as the frame's ``camera_trace``
+  calls it; with each, a digest of its outputs (B9e: and its counters;
+  B9e's outputs must be B9a's), its bound (chip_smoke ``walk_work``,
+  ``stats_entry``) and the walk fwd and counter frames or the fat fwd
+  frame; with ``--scan``, the ``scan`` lines of the warps on a few
+  packets, simulated with either warp footprint, 32 consecutive rays and
+  an 8 x 4 pixel tile (``camera_scan``).
 
 With ``--sweep``, times the closest hits (``--only closest``, the
-default), the any-hits (``--only anyhit``: the kernels' times only) or
-the shared-origin scans (``--only shared``: their times and digests) of
-copies of the tree's package in which B9c and B11b, B7, B9d, B11c and
-B11d, or B2/B8a and B9b/B9f test a leaf lane per triangle where at most
-T lanes enter it (the constexprs ``kWalkLaneTriMax`` /
-``kFatLaneTriMax``, ``kWlAnyLaneTriMax`` / ``kWalkAnyLaneTriMax`` /
-``kFatShadowLaneTriMax`` / ``kFatAnyLaneTriMax``, or ``kCamLaneTriMax``
-/ ``kWalkShadowLaneTriMax``, set to T), one copy per T in turn, each in
-a process of its own; each JSON line then carries its
-``lane_tri_max``.
+default), the any-hits (``--only anyhit``: the kernels' times only), the
+shared-origin scans (``--only shared``: their times and digests) or the
+camera walks (``--only camera``: their times and digests) of copies of
+the tree's package in which B9c and B11b, B7, B9d, B11c and B11d,
+B2/B8a and B9b/B9f, or B9a/B9e and B11a test a leaf lane per triangle
+where at most T lanes enter it (the constexprs of ``LANE_TRI_MAX``:
+``kWalkLaneTriMax`` / ``kFatLaneTriMax``, ``kWlAnyLaneTriMax`` /
+``kWalkAnyLaneTriMax`` / ``kFatShadowLaneTriMax`` /
+``kFatAnyLaneTriMax``, ``kCamLaneTriMax`` / ``kWalkShadowLaneTriMax``,
+or ``kWalkCamLaneTriMax`` / ``kFatCamLaneTriMax``, set to T), one copy
+per T in turn, each in a process of its own; each JSON line then
+carries its ``lane_tri_max``. With ``--variant``, the camera walks'
+times and digests in copies of the tree's package edited as
+``VARIANTS`` says (warps on 32 consecutive rays, ``walk`` in place of
+``walk_pairs``, the shared origin not broadcast, launch bounds), in
+turn; ``none`` is the
+tree as it is, so ``--variant none,rows,rows,none`` times the two in
+turns; each JSON line carries its ``variant``.
 
 Prints the card (name and power limit, from nvidia-smi) and one JSON line
 per scene. Exits non-zero without a card.
@@ -103,7 +125,59 @@ LANE_TRI_MAX = {
                "fat.cu": ("kFatAnyLaneTriMax", "kFatShadowLaneTriMax"),
                "worklist.cu": ("kWlAnyLaneTriMax",)},
     "shared": {"walk.cu": ("kWalkShadowLaneTriMax",),
-               "worklist.cu": ("kCamLaneTriMax",)}}
+               "worklist.cu": ("kCamLaneTriMax",)},
+    "camera": {"walk.cu": ("kWalkCamLaneTriMax",),
+               "fat.cu": ("kFatCamLaneTriMax",)}}
+_CAM_K = "k = tile_ray((int)(t % kPacketR));"
+_FAT_PAIRS = """  walk_pairs(nodes, warp_stack(stack_cap), o, r.idir,
+             packet_signs(signs, pid), [&] { return best; },
+             [&](bool enter, int first, int count) {
+               leaf_closest_staged<kFatLeafRows, kFatCamLaneTriMax>(
+                   rows, stage, first, count, enter, o, r.d, best, tri, bu,
+                   bv);
+             });"""
+_FAT_WALK = """  WalkCounts wc;
+  walk<false>(nodes, warp_stack(stack_cap), o, r.idir,
+              packet_signs(signs, pid), [&] { return best; },
+              [&](bool enter, int first, int count, int&) {
+                leaf_closest_staged<kFatLeafRows, kFatCamLaneTriMax>(
+                    rows, stage, first, count, enter, o, r.d, best, tri, bu,
+                    bv);
+                return false;
+              },
+              wc);"""
+# the variants of the camera kernels B9a (B9e) and B11a that ``--variant``
+# times: {name: [(source in csrc, text, replacement)]}, each text found
+# once in the tree's source
+VARIANTS = {
+    # warps on 32 consecutive rays, as before the 8 x 4 tiles
+    "rows": [("walk.cu", _CAM_K, "k = (int)(t % kPacketR);"),
+             ("fat.cu", _CAM_K, "k = (int)(t % kPacketR);")],
+    # B9a and B11a on ``walk`` in place of ``walk_pairs``
+    "walk": [
+        ("walk.cu",
+         "walk_pairs(nodes, warp_stack(stack_cap), o, r.idir, sg, bound, "
+         "leaf);",
+         "WalkCounts wc; walk<false>(nodes, warp_stack(stack_cap), o, "
+         "r.idir, sg, bound, [&](bool e, int f, int c, int&) { leaf(e, f, "
+         "c); return false; }, wc);"),
+        ("fat.cu", _FAT_PAIRS, _FAT_WALK)],
+    # B11a's lane-per-triangle tests with the shared origin as the lane
+    # holds it, not broadcast (the copy's B11b, which needs the broadcast,
+    # is wrong there and is not timed)
+    "sharedo": [("walk.cuh", "ro[k] = __shfl_sync(kFull, o[k], src);",
+                 "ro[k] = o[k];")],
+    # B9a (B9e) and B11a asked for at least N blocks an SM (0: no
+    # minimum)
+    **{f"blocks{n}": [
+        ("walk.cu", "__launch_bounds__(kWalkThreads, 2)\nwalk_camera_kernel(",
+         f"__launch_bounds__(kWalkThreads{f', {n}' if n else ''})\n"
+         "walk_camera_kernel("),
+        ("fat.cu", "__launch_bounds__(kWalkThreads)\nfat_camera_kernel(",
+         f"__launch_bounds__(kWalkThreads{f', {n}' if n else ''})\n"
+         "fat_camera_kernel(")]
+       for n in (0, 2, 3, 4)},
+}
 # the any-hit scenes: (kind, size, leaf): node tables at the kind's leaf
 # (B9d; B5 + B7 on the same geometry's leaf tables), or leaf 64 (B11d)
 ANYHIT = (("city", 24, None), ("terrain", 724, None), ("city", 24, 64),
@@ -627,35 +701,201 @@ def time_shared(tree, reps: int, quick: bool = False,
         torch.cuda.empty_cache()
 
 
-def sweep(tree: Path, only: str, values, reps: int) -> None:
-    """The closest hits or any-hits (``only``) of ``tree``'s package with
-    each lane-per-triangle threshold in ``values``: a copy of the package
-    per value, timed by this script in a process of its own."""
-    for t in values:
+# the camera kernels' scenes: (kind, size, leaf): node tables at the
+# kind's leaf (B9a, B9e) or leaf 64 (B11a)
+CAMERA = (("city", 24, None), ("terrain", 724, None), ("city", 24, 64),
+          ("terrain", 530, 64))
+
+
+def camera_scan(name, kernel, cv, rows, nodes, signs, kern, stats=None,
+                seed=1):
+    """The warps of B9a (B9e) or, with ``signs``, of B11a on SIM_PACKETS
+    seeded packets of the 1024 x 1024 primary wavefront with hits,
+    simulated as ``walk`` runs them (ops/traverse_ref.py ``_WarpWalk``)
+    once with each warp footprint: 32 consecutive rays, and an 8 x 4
+    pixel tile (ops/traverse.py ``camera_wl_order``). Prints the ``scan``
+    lines of each (chip_smoke ``print_tally``: node steps, leaf visits,
+    the lanes entering them and their rows) and whether the simulated
+    outputs equal the kernel's, ``kern``, on those packets (dist, and
+    every output) and its counters B9e's, ``stats``; the footprint of the
+    tree's kernel is the one they equal. It drives ``_WarpWalk`` itself,
+    as ops/traverse_ref.py ``camera_sim`` does, so that it also scans a
+    tree older than ``camera_sim``. Returns {footprint: tally}."""
+    import numpy as np
+    import torch
+
+    from snail_tpu_torch.core.vecmath import BIG
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops import traverse_ref as ref
+
+    sm = smoke()
+    busy = np.flatnonzero((kern[0] < BIG).any(1).cpu().numpy())
+    pk = torch.from_numpy(np.sort(np.random.default_rng(seed).choice(
+        busy, min(sm.SIM_PACKETS, len(busy)), replace=False))).to(cv.device)
+    d, _, t_exit = pt._camera_rays(cv, WIDTH, HEIGHT, pk)
+    out = {}
+    for foot, order in (("32 x 1", torch.arange(pt.PACKET_R)),
+                        ("8 x 4", pt.camera_wl_order())):
+        order = order.to(cv.device)
+        tiles = lambda c: c[:, order].reshape(-1)
+        if signs is None:
+            bound0, raw, rs = tiles(t_exit), False, None
+        else:
+            bound0 = torch.full_like(tiles(t_exit), BIG)
+            raw, rs = True, ref._ray_signs(signs[pk], pt.PACKET_R)
+        w = ref._WarpWalk(nodes, cv[9:12].unbind(), [tiles(c) for c in d],
+                          bound0, rows, raw, True, rs)
+        counts = w.run()
+        back = lambda x: torch.empty(t_exit.shape, dtype=x.dtype,
+                                     device=x.device).index_copy_(
+            1, order, x.reshape(t_exit.shape))
+        best, tri, u, v = (back(x) for x in (w.bound, w.tri, w.bu, w.bv))
+        if signs is None:
+            dist = torch.where(tri >= 0, best, BIG)
+        else:
+            dist, tri = best, tri.clamp_min(0)
+        sim = (dist, u, v, tri.to(torch.int32))
+        same = [torch.equal(a[pk], b) for a, b in zip(kern, sim)]
+        tally = {"warps": w.tally.shape[1],
+                 **dict(zip(pt.TALLY, w.tally.sum(1).tolist()))}
+        sm.print_tally(f"{name} {foot}", kernel, pk, tally, True)
+        print(f"scan {name} {foot} {kernel}: simulated dist equal to the "
+              f"kernel's {same[0]}, every output {all(same)}"
+              + ("" if stats is None else ", counters equal to B9e's "
+                 f"{torch.equal(counts, stats[pk])}"), flush=True)
+        out[foot] = {**tally, "dist equal": same[0],
+                     "outputs equal": all(same)}
+    return out
+
+
+def time_camera(tree, reps: int, quick: bool = False,
+                scan: bool = False) -> None:
+    """B9a and B9e on the 1024 x 1024 primary wavefront of city_24 and
+    terrain_724 with node tables, B11a on city_24 and terrain_530 at leaf
+    64, each as the frame's ``camera_trace`` calls it: their device ms and
+    a digest of their outputs (B9e's: its counters too); unless ``quick``,
+    each one's bound (chip_smoke ``walk_work`` on its plain version's walk;
+    B9e's with its counters' bytes, chip_smoke ``stats_entry``) and the
+    walk fwd and counter frames or the fat fwd frame (CUDA events over 10
+    frames); with ``scan``, ``camera_scan``'s lines."""
+    import torch
+
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops import traverse_ref as ref
+    from snail_tpu_torch.render.fast import render_frame_fast_stats
+    from snail_tpu_torch.render.renderer import render_frame
+    from snail_tpu_torch.scene.bench_scenes import bench_scene
+
+    sm = smoke()
+    w, h = WIDTH, HEIGHT
+    fwd = RenderOpts(reflections=False, transparency=False, textures=False)
+    pids = torch.arange((w // pt.TILE) * (h // pt.TILE), device="cuda")
+    for kind, n, leaf in CAMERA:
+        scene, cam, _, _ = bench_scene(kind, n, bounce=True,
+                                       walk=leaf is None, leaf=leaf)
+        nodes = scene.nodes
+        out = {"scene": f"{kind}_{n} {'leaf 64' if leaf else 'nodes'}",
+               "tree": str(tree)}
+        if leaf:
+            cv = pt._camera_vec(scene, cam, w, h)
+            rows, signs = scene.tri_rows, pt.camera_signs(cam, w, h)
+            k, ins = "fat_camera", (cv, signs)
+            call = lambda: pt.fat_camera(cv, w, h, signs, rows, nodes)
+            plain = lambda work: ref.fat_camera_plain(cv, w, h, signs, rows,
+                                                      nodes, pids, work)
+        else:
+            cv, rows = pt._camera_setup(scene, cam, w, h)
+            signs, k, ins = None, "walk_camera", (cv,)
+            call = lambda: pt.walk_camera(cv, w, h, rows, nodes)
+            plain = lambda work: ref.walk_camera_plain(cv, w, h, rows, nodes,
+                                                       pids, work)
+            b9e = lambda: pt.walk_camera_stats(cv, w, h, rows, nodes)
+        kern = call()
+        out[f"{k} ms"] = device_ms(call, reps)
+        out[f"{k} digest"] = digest(*kern)
+        out[f"{k} dist digest"] = digest(kern[0])
+        st = None
+        if not leaf:
+            *e_out, st = b9e()
+            out["walk_camera_stats ms"] = device_ms(b9e, reps)
+            out["walk_camera_stats digest"] = digest(*e_out, st)
+            out["walk_camera_stats equals walk_camera"] = all(
+                torch.equal(a, b) for a, b in zip(e_out, kern))
+        if not quick:
+            work = {}
+            plain(work)
+            ops, tree_bytes = sm.walk_work(k, nodes, rows, work)
+            base = sm.entry(0.0, 0.0, 0.0, sm.nbytes(*ins, *kern)
+                            + tree_bytes, ops)
+            out[f"{k} bound ms"] = base["bound_ms"]
+            out[f"{k} bound by"] = base["bound_by"]
+            if st is not None:
+                out["walk_camera_stats bound ms"] = sm.stats_entry(
+                    base, 0.0, 0.0, st, 0)["bound_ms"]
+            if scan:
+                out[f"{k} scan"] = camera_scan(
+                    out["scene"], k, cv, rows, nodes, signs, kern[:4], st)
+            frames = {("fat fwd" if leaf else "walk fwd"): lambda:
+                      render_frame(scene, cam, w, h, fwd)}
+            if not leaf:
+                frames["walk stats"] = lambda: render_frame_fast_stats(
+                    scene, cam, w, h, fwd)
+            out["frame ms"] = {f: frame_ms(fn) for f, fn in frames.items()}
+        print(json.dumps(out), flush=True)
+        del scene, kern, call, plain
+        torch.cuda.empty_cache()
+
+
+def copies(tree: Path, only: str, runs, reps: int) -> None:
+    """Times ``only``'s kernels (``--quick``) in copies of ``tree``'s
+    package, one per run of ``runs`` in turn, each by this script in a
+    process of its own: ``runs`` is [(label, edits)], ``edits`` [(source
+    in csrc, regex, replacement)], each regex matching once; each JSON
+    line printed carries its label."""
+    for label, edits in runs:
         with tempfile.TemporaryDirectory() as tmp:
             pkg = Path(tmp) / "snail_tpu_torch"
             shutil.copytree(tree / "snail_tpu_torch", pkg,
                             ignore=shutil.ignore_patterns("build",
                                                           "__pycache__"))
-            for name, consts in LANE_TRI_MAX[only].items():
+            for name, pattern, repl in edits:
                 src = pkg / "csrc" / name
-                text = src.read_text()
-                for const in consts:
-                    text, n = re.subn(rf"constexpr int {const} = \d+;",
-                                      f"constexpr int {const} = {t};", text)
-                    if n != 1:
-                        raise RuntimeError(f"{const} not found in {src}")
+                text, n = re.subn(pattern, lambda m: repl, src.read_text())
+                if n != 1:
+                    raise RuntimeError(f"{pattern!r} matched {n} times in "
+                                       f"{src}")
                 src.write_text(text)
             res = subprocess.run(
                 [sys.executable, __file__, "--only", only, "--tree", tmp,
                  "--reps", str(reps), "--quick"], capture_output=True,
                 text=True)
             if res.returncode:
-                raise RuntimeError(f"lane_tri_max {t}: {res.stderr}")
+                raise RuntimeError(f"{label}: {res.stderr}")
             for line in res.stdout.splitlines():
                 if line.startswith("{"):
-                    print(json.dumps({"lane_tri_max": t,
-                                      **json.loads(line)}), flush=True)
+                    print(json.dumps({**label, **json.loads(line)}),
+                          flush=True)
+
+
+def sweep(tree: Path, only: str, values, reps: int) -> None:
+    """The kernels of ``only`` with each lane-per-triangle threshold in
+    ``values`` (LANE_TRI_MAX's constexprs set to it)."""
+    copies(tree, only, [
+        ({"lane_tri_max": t},
+         [(name, rf"constexpr int {const} = \d+;",
+           f"constexpr int {const} = {t};")
+          for name, consts in LANE_TRI_MAX[only].items()
+          for const in consts]) for t in values], reps)
+
+
+def variants(tree: Path, names, reps: int) -> None:
+    """The camera kernels with each of the VARIANTS ``names`` in turn
+    ("none": the tree as it is)."""
+    copies(tree, "camera", [
+        ({"variant": v}, [(name, re.escape(old), new)
+                          for name, old, new in VARIANTS.get(v, ())])
+        for v in names], reps)
 
 
 def main() -> None:
@@ -664,14 +904,21 @@ def main() -> None:
                     default=Path(__file__).resolve().parent)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", choices=("words", "closest", "anyhit",
-                                       "shared"))
+                                       "shared", "camera"))
     ap.add_argument("--sweep", type=lambda v: [int(t) for t in v.split(",")])
-    # the any-hits' times only (what a sweep's copies print)
+    ap.add_argument("--variant", type=lambda v: v.split(","),
+                    help="with --only camera, time these VARIANTS in turn "
+                         "(none: the tree as it is)")
+    # the kernels' times only (what the copies of a sweep print)
     ap.add_argument("--quick", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--scan", action="store_true",
-                    help="with --only shared, the scan lines of the warps "
-                         "(the tree's simulations)")
+                    help="with --only shared or camera, the scan lines of "
+                         "the warps (the tree's simulations)")
     args = ap.parse_args()
+    if args.variant and (args.only != "camera" or args.sweep or not set(
+            args.variant) <= set(VARIANTS) | {"none"}):
+        ap.error(f"--variant takes --only camera and names of "
+                 f"{sorted(VARIANTS)} or none")
     sys.path.insert(0, str(args.tree.resolve()))
     import torch
 
@@ -685,9 +932,12 @@ def main() -> None:
     if args.sweep:
         only = args.only or "closest"
         if only not in LANE_TRI_MAX:
-            ap.error("--sweep times --only closest (the default), anyhit "
-                     "or shared")
+            ap.error("--sweep times --only closest (the default), anyhit, "
+                     "shared or camera")
         sweep(args.tree.resolve(), only, args.sweep, args.reps)
+        return
+    if args.variant:
+        variants(args.tree.resolve(), args.variant, args.reps)
         return
     if args.only in (None, "words"):
         time_passes(args.tree, args.reps)
@@ -697,6 +947,8 @@ def main() -> None:
         time_anyhit(args.tree, args.reps, args.quick)
     if args.only in (None, "shared"):
         time_shared(args.tree, args.reps, args.quick, args.scan)
+    if args.only in (None, "camera"):
+        time_camera(args.tree, args.reps, args.quick, args.scan)
 
 
 if __name__ == "__main__":
