@@ -36,6 +36,30 @@ def _f32(x, device) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class Rays:
+    """A wavefront of rays: origin and dir float32 (..., 3), tmax float32
+    (...), a negative tmax masking the ray (the reference's sentinel,
+    ray_group.h:382)."""
+
+    origin: torch.Tensor
+    dir: torch.Tensor
+    tmax: torch.Tensor
+
+    @property
+    def idir(self) -> torch.Tensor:
+        from .vecmath import safe_inv
+
+        return safe_inv(self.dir)
+
+    @property
+    def active(self) -> torch.Tensor:
+        return self.tmax >= 0.0
+
+    def count(self) -> int:
+        return self.tmax.numel()
+
+
+@dataclasses.dataclass(frozen=True)
 class Camera:
     """Pinhole camera basis (reference src/camera.h:7-14).
 
@@ -114,4 +138,4 @@ class RenderOpts:
     photon_exposure: float = 1.0
 
 
-__all__ = ["Camera", "Light", "RenderOpts", "resolve_device"]
+__all__ = ["Camera", "Light", "Rays", "RenderOpts", "resolve_device"]

@@ -198,16 +198,25 @@ __device__ __forceinline__ void leaf_closest(const float* rows, int first,
   }
 }
 
-// Whether one of the ``cnt`` shared-origin rows from ``first`` occludes
-// the ray along ``d`` before ``limit``; the ray stops at its first
-// blocker. ``tested`` counts the triangles it tested. (B4 and B8b; the
-// other any-hits test their leaves through leaf_blocks_staged below.)
+// Whether one of the ``cnt`` rows from ``first`` occludes the ray from
+// ``o`` along ``d`` before ``limit``: shared-origin rows (``o`` unused),
+// or with RAW raw rows and the full Moller test; the ray stops at its
+// first blocker. ``tested`` counts the triangles it tested. (B4 and B8b,
+// B4 raw; the other any-hits test their leaves through
+// leaf_blocks_staged below.)
+template <bool RAW = false>
 __device__ __forceinline__ bool leaf_blocks(const float* rows, int first,
-                                            int cnt, const float d[3],
-                                            float limit, int& tested) {
+                                            int cnt, const float o[3],
+                                            const float d[3], float limit,
+                                            int& tested) {
   for (int j = 0; j < cnt; ++j) {
     ++tested;
-    if (occludes(moller_sh(d, load_row(rows, first + j)), limit)) return true;
+    Moller m;
+    if constexpr (RAW)
+      m = moller_raw(o, d, load_raw_row(rows, first + j));
+    else
+      m = moller_sh(d, load_row(rows, first + j));
+    if (occludes(m, limit)) return true;
   }
   return false;
 }
@@ -360,28 +369,30 @@ __device__ __forceinline__ bool leaf_blocks_staged(
 // --- The staged shared-origin closest-hit stage of B2, B8a, B9a and B9e --
 //
 // The closest hit of this lane's ray over the ``count`` (<= 32) staged
-// shared-origin rows of ``slot`` (tri ids from ``first``), if it entered
-// the leaf (``go``); every lane of the warp calls it. Updates best, tri,
-// bu and bv as a serial loop over the rows would: where at most
-// LANE_TRI_MAX lanes
+// rows of ``slot`` (tri ids from ``first``), if it entered the leaf
+// (``go``); every lane of the warp calls it. The rays share the origin
+// ``o``: the rows are shared-origin rows (``o`` unused), or with RAW raw
+// rows tested with the full Moller test from ``o`` (B2 raw). Updates
+// best, tri, bu and bv as a serial loop over the rows would: where at
+// most LANE_TRI_MAX lanes
 // entered, lane per triangle (the warp takes the entering rays one at a
 // time, broadcasts the ray's direction and best, lane j tests row j, and
 // a warp argmin over (distance, row) picks the hit, the lower row on a
 // tie), else lane per ray over the staged rows. Both keep the serial
 // loop's first strictly nearer hit. The stage is the caller's: B2's
-// two-slot stage (worklist.cu), B9a's stage_leaf (walk.cu). A
-// shared-origin row holds the origin's terms, so no origin is
-// broadcast.
-template <int LANE_TRI_MAX>
+// two-slot stage (worklist.cu), B9a's stage_leaf (walk.cu). Every lane
+// holds the same origin, so no origin is broadcast.
+template <int LANE_TRI_MAX, bool RAW = false>
 __device__ __forceinline__ void staged_closest_sh(
-    const float4* slot, int first, int count, bool go, const float d[3],
-    float& best, int& tri, float& bu, float& bv, int lane) {
+    const float4* slot, int first, int count, bool go, const float o[3],
+    const float d[3], float& best, int& tri, float& bu, float& bv,
+    int lane) {
   const unsigned in = __ballot_sync(kFull, go);
   if (__popc(in) > LANE_TRI_MAX) {
     if (go)
       for (int j = 0; j < count; ++j) {
         float dist, u, v;
-        if (closer_hit(moller_sh(d, staged_tri_row(slot, j)), best, dist, u,
+        if (closer_hit(staged_moller<RAW>(slot, j, o, d), best, dist, u,
                        v)) {
           best = dist;
           tri = first + j;
@@ -402,8 +413,7 @@ __device__ __forceinline__ void staged_closest_sh(
     float hu = 0.0f, hv = 0.0f;
     float dist, u, v;
     if (lane < count &&
-        closer_hit(moller_sh(rd, staged_tri_row(slot, lane)), rb, dist, u,
-                   v)) {
+        closer_hit(staged_moller<RAW>(slot, lane, o, rd), rb, dist, u, v)) {
       key = __float_as_uint(dist);
       hu = u;
       hv = v;

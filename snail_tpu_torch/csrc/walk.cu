@@ -124,8 +124,8 @@ walk_camera_kernel(const float* __restrict__ cam,
   auto bound = [&] { return best; };
   auto leaf = [&](bool enter, int first, int count) {
     stage_leaf(rows, first, count, stage);
-    staged_closest_sh<kWalkCamLaneTriMax>(stage, first, count, enter, r.d,
-                                          best, tri, bu, bv, lane);
+    staged_closest_sh<kWalkCamLaneTriMax>(stage, first, count, enter, o,
+                                          r.d, best, tri, bu, bv, lane);
   };
   if constexpr (STATS) {
     WalkCounts wc;

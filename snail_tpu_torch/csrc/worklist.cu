@@ -11,6 +11,8 @@
 //   shadow_wl_g_kernel    <- _shadow_wl_kernel_g   (B7)
 //   camera_wl_kernel<true> <- _camera_wl_kernel_stats (B8a)
 //   shadow_wl_kernel<true> <- _shadow_wl_kernel_stats (B8b)
+//   camera_wl_kernel<false, true> <- _camera_wl_kernel, raw=True (B2 raw)
+//   shadow_wl_kernel<false, true> <- _shadow_wl_kernel, raw=True (B4 raw)
 // The plain PyTorch versions are in snail_tpu_torch/ops/traverse.py, which
 // documents the word layout. The file has a plain C interface (bottom) and
 // is loaded with ctypes; it is compiled with --fmad=false so every product
@@ -82,11 +84,20 @@
 //   few lanes at a time, and an unblocked lane tests every row, so one
 //   coalesced copy of the leaf and a lane per triangle replace each
 //   entering lane's chain of dependent row loads.
+// - B2 raw and B4 raw (template RAW) are B2 and B4 on the raw triangle
+//   rows: the full Moller test from the shared origin in place of the
+//   per-frame shared-origin table (ops/traverse.py shared_rows), which a
+//   scene of more than 2^31 / 512 rows does not build (ops/traverse.py
+//   raw_rows, the JAX package's _wl_raw_tris). ~2x the flops a test and
+//   the same 48 staged bytes a row; no table of T x 64 bytes written and
+//   read each frame and light.
 // - B8a/B8b are B2/B4 with counters (template STATS; with STATS=false no
-//   counting code is compiled in). Every counter is warp-uniform, kept in
-//   registers and added to the packet's row by one integer atomicAdd per
-//   counter and warp at the end: order-free, so deterministic. Their cost
-//   is a few warp votes per word and leaf.
+//   counting code is compiled in). They keep shared-origin rows at every
+//   size, as the JAX package's counter frame does (:3665). Every
+//   counter is warp-uniform, kept in registers and added to the packet's
+//   row by one integer atomicAdd per counter and warp at the end:
+//   order-free, so deterministic. Their cost is a few warp votes per word
+//   and leaf.
 
 #include <cooperative_groups.h>
 
@@ -819,8 +830,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // strictly nearer hit, so dist, u, v and tri are the loop's bit for bit.
 
 // Starts the copy of rows first .. first + count - 1 (<= kWlLeafRows) of
-// the shared-origin ``rows`` into ``slot`` as one cp.async group; every
-// lane of the warp calls it.
+// ``rows`` (shared-origin or, for B2 raw, raw rows) into ``slot`` as one
+// cp.async group; every lane of the warp calls it.
 __device__ __forceinline__ void stage_rows(const float* rows, int first,
                                            int count, float4* slot,
                                            int lane) {
@@ -834,7 +845,11 @@ __device__ __forceinline__ void stage_rows(const float* rows, int first,
 }
 
 // B2 (B8a with STATS): camera raygen + closest hit, one thread per ray;
-// STATS adds the packet's counters to ``out_stats`` (P, 8). A warp's rays
+// STATS adds the packet's counters to ``out_stats`` (P, 8). RAW (B2 raw,
+// without STATS): ``rows`` are the raw triangle rows, staged as the
+// shared-origin rows are (their 48-byte prefix: a, ba, ca, n) and tested
+// with the full Moller test from the camera position; the same stage,
+// warps, lane-per-triangle threshold and tie rule. A warp's rays
 // are an 8 x 4 pixel tile (rays.cuh tile_ray); each thread writes its own
 // ray's slot. Each warp's leaf stage is two slots of kWlLeafRows staged rows
 // (3 KB) and its word table 1 KB: 32 KB a block of 8 warps. Asked for 4
@@ -842,7 +857,7 @@ __device__ __forceinline__ void stage_rows(const float* rows, int first,
 // B2 64 registers and spills 48 bytes; with no minimum it took 80 and 3
 // blocks and was 1-2 % slower, with 2 blocks 27 % slower. B8a, 3 blocks:
 // 80 registers, 12 bytes spilled, 2-3 % faster than at 4 (PERF.md).
-template <bool STATS>
+template <bool STATS, bool RAW = false>
 __global__ void __launch_bounds__(kTraceThreads, STATS ? 3 : 4)
 camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
                  const float* __restrict__ box,
@@ -916,9 +931,10 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
           const float tn = slab_entry(lo, hi, o, r.idir, tf, pass);
           const bool go = pass && tn < best;
           if constexpr (STATS) count_leaf(st, go, go ? count(j) : 0);
-          staged_closest_sh<kCamLaneTriMax>(stage + slot * kSlotVec,
-                                            first(j), count(j), go, r.d,
-                                            best, tri, bu, bv, lane);
+          staged_closest_sh<kCamLaneTriMax, RAW>(stage + slot * kSlotVec,
+                                                 first(j), count(j), go, o,
+                                                 r.d, best, tri, bu, bv,
+                                                 lane);
           if (jn < 0) break;
           __syncwarp();  // every lane is done with this slot's rows
           j = jn;
@@ -938,7 +954,10 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
 
 // B4 (B8b with STATS): any-hit from a shared origin, one thread per ray,
 // over scan_boxes; a warp stops once every live ray in it is blocked.
-template <bool STATS>
+// RAW (B4 raw, without STATS): ``rows`` are the raw triangle rows, each
+// tested with the full Moller test from ``orig`` (leaf_blocks<true>), the
+// one-sided rule unchanged.
+template <bool STATS, bool RAW = false>
 __global__ void __launch_bounds__(kTraceThreads)
 shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
                  const float* __restrict__ dy, const float* __restrict__ dz,
@@ -976,8 +995,8 @@ shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
         const bool go = pass && tn < (blocked ? -kBig : limit);
         int tested = 0;
         if (go)
-          blocked = leaf_blocks(rows, __ldg(lfirst + l), __ldg(lcount + l),
-                                d, limit, tested);
+          blocked = leaf_blocks<RAW>(rows, __ldg(lfirst + l),
+                                     __ldg(lcount + l), o, d, limit, tested);
         if constexpr (STATS) count_leaf(st, go, tested);
         return __all_sync(kFull, blocked || !(limit > 0.0f));
       });
@@ -1192,17 +1211,25 @@ int snail_words_general(const float* ox, const float* oy, const float* oz,
                                words, summ, floors, stream);
 }
 
-// B2, or B8a when ``stats`` (P, 8) int32, zeroed by the caller, is given.
+// B2, or B8a when ``stats`` (P, 8) int32, zeroed by the caller, is given;
+// with ``raw`` (no stats), B2 raw on the raw triangle rows.
 int snail_camera_wl(const float* cam, const float* rows, const float* box,
                     const int32_t* lfirst, const int32_t* lcount, int lp,
                     const int32_t* words, const int32_t* summ,
                     const float* floors, int k_bands, int n_packets,
                     float* dist, float* u, float* v, int32_t* tri, float* dx,
-                    float* dy, float* dz, int32_t* stats, void* stream) {
-  if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0)
+                    float* dy, float* dz, int32_t* stats, int raw,
+                    void* stream) {
+  if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0 ||
+      (raw && stats))
     return (int)cudaErrorInvalidValue;
   const int blocks = n_packets * (kPacketR / kTraceThreads);
-  if (stats)
+  if (raw)
+    camera_wl_kernel<false, true><<<blocks, kTraceThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        cam, rows, box, lfirst, lcount, lp, words, summ, floors, k_bands,
+        dist, u, v, tri, dx, dy, dz, nullptr);
+  else if (stats)
     camera_wl_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(
         cam, rows, box, lfirst, lcount, lp, words, summ, floors, k_bands,
         dist, u, v, tri, dx, dy, dz, stats);
@@ -1214,7 +1241,8 @@ int snail_camera_wl(const float* cam, const float* rows, const float* box,
   return (int)cudaGetLastError();
 }
 
-// B4, or B8b when ``stats`` (P, 8) int32, zeroed by the caller, is given.
+// B4, or B8b when ``stats`` (P, 8) int32, zeroed by the caller, is given;
+// with ``raw`` (no stats), B4 raw on the raw triangle rows.
 // ``wbox``/``bbox``: the word and block boxes (ops/traverse.py LeafTables).
 int snail_shadow_wl(const float* orig, const float* dx, const float* dy,
                     const float* dz, const float* tm, const float* rows,
@@ -1222,11 +1250,17 @@ int snail_shadow_wl(const float* orig, const float* dx, const float* dy,
                     const int32_t* lfirst, const int32_t* lcount, int lp,
                     const int32_t* words, const int32_t* summ,
                     const float* floors, int k_bands, int n_packets,
-                    float* blocked, int32_t* stats, void* stream) {
-  if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0)
+                    float* blocked, int32_t* stats, int raw, void* stream) {
+  if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0 ||
+      (raw && stats))
     return (int)cudaErrorInvalidValue;
   const int blocks = n_packets * (kPacketR / kTraceThreads);
-  if (stats)
+  if (raw)
+    shadow_wl_kernel<false, true><<<blocks, kTraceThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        orig, dx, dy, dz, tm, rows, box, wbox, bbox, lfirst, lcount, lp,
+        words, summ, floors, k_bands, blocked, nullptr);
+  else if (stats)
     shadow_wl_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(
         orig, dx, dy, dz, tm, rows, box, wbox, bbox, lfirst, lcount, lp,
         words, summ, floors, k_bands, blocked, stats);

@@ -32,3 +32,45 @@ def diff_closest_hit(scene, orig, dirn, tmax):
     dist = torch.where(hit, d, dist0)
     bary = torch.where(hit[:, None], torch.stack([u, v], -1), bary0)
     return dist, tri, bary
+
+
+def _flatten(tree):
+    """The tensors of ``tree`` (a tensor, or a dict, list or tuple of
+    trees) in order, and a function that rebuilds the tree from a list of
+    as many."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda xs: xs[0]
+    if isinstance(tree, dict):
+        keys = list(tree)
+        parts = [_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        parts = [_flatten(v) for v in tree]
+    else:
+        raise TypeError(f"not a tensor, dict, list or tuple: {type(tree)}")
+    sizes = [len(leaves) for leaves, _ in parts]
+
+    def rebuild(xs):
+        out, i = [], 0
+        for (_, fn), n in zip(parts, sizes):
+            out.append(fn(xs[i:i + n]))
+            i += n
+        if keys is not None:
+            return dict(zip(keys, out))
+        return type(tree)(out)
+
+    return [x for leaves, _ in parts for x in leaves], rebuild
+
+
+def render_loss_and_grads(render_fn, params, loss_fn):
+    """The value of ``loss_fn(render_fn(params))`` and its gradient with
+    respect to every tensor of ``params`` (a tensor, or a dict, list or
+    tuple of them, nested), in the same structure: the JAX package's
+    ``jax.value_and_grad`` of it, on ``torch.autograd``. A tensor the loss
+    does not depend on gets zeros; ``params`` themselves are not changed."""
+    flat, rebuild = _flatten(params)
+    leaves = [p.detach().requires_grad_() for p in flat]
+    loss = loss_fn(render_fn(rebuild(leaves)))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), rebuild([torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(leaves, grads)])

@@ -29,6 +29,10 @@ Each wavefront runs two kernels:
    with the shared-origin Moller terms of :func:`shared_rows` (B2, B4) or
    the full Moller test on the raw triangle rows (B6, B7). B8a/B8b are
    B2/B4 that also count what each packet's warps did (:data:`STATS`).
+   B2 and B4 also have a raw form (``raw=True``; the JAX package's
+   ``raw``): the full Moller test from the shared origin on the raw rows,
+   which the entry points take for a scene of more than :data:`RAW_ROWS`
+   rows (:func:`raw_rows`) in place of the per-frame shared-origin table.
 
 Word layout, per packet: ``words`` int32 (P, K, Lp/32), bit p of word w =
 leaf 32*w + p; ``summ`` int32 (P, K, Lp/1024), bit j of word s = word
@@ -69,6 +73,10 @@ WARPS = PACKET_R // WARP  # warps per packet
 # The most leaf slots of leaf tables; a scene with more gets node tables,
 # and the words passes (csrc/worklist.cu kMaxLp) refuse larger tables.
 WL_MAX_LP = 429_056
+# The most triangle rows whose shared-origin table B2 and B4 build each
+# frame: above it they trace the raw rows (raw_rows). The JAX package's
+# rule (``_wl_raw_tris``): its 512-B rows take more than 2^31 bytes.
+RAW_ROWS = 2**31 // 512
 # Blocks per packet of the words passes B1, B3 and B5, one thread block
 # cluster (1, 2, 4 or 8): the fastest of the four on terrain_724's frame
 # wavefronts at 1024 x 1024 on an H100 (time_words.py, PERF.md). More
@@ -622,10 +630,23 @@ def _moller_sh(rows, d):
 _PLAIN_TRIS = 2048  # triangles per step of the plain trace versions
 
 
+def _moller_o(rows, o, d, raw: bool):
+    """Moller terms of rays ``d`` (three (R,)) from one origin ``o``
+    (three 0-d) against ``rows`` (n, 16): the shared-origin rows of
+    :func:`shared_rows`, or with ``raw`` the raw rows, the origin
+    broadcast into the full test (the JAX package's
+    ``_closest_ival_drain_sh_raw``). det, u, v, tmul, each (R, n)."""
+    if raw:
+        return _moller_g(rows, [c.reshape(1) for c in o], d)
+    return _moller_sh(rows, d)
+
+
 def camera_wl_plain(cam, width: int, height: int, rows, tables: LeafTables,
-                    words, pids: torch.Tensor):
+                    words, pids: torch.Tensor, raw: bool = False):
     """Plain B2: closest hit of the primary rays of packets ``pids`` over
-    the leaves set in their ``words`` (len(pids), K, Lp/32).
+    the leaves set in their ``words`` (len(pids), K, Lp/32); ``rows`` the
+    shared-origin rows of the camera position, or with ``raw`` (B2 raw)
+    the raw triangle rows.
 
     Returns (dist, u, v, tri, dx, dy, dz), each (len(pids), PACKET_R).
     Closest is strict: a hit must be nearer than the root-box exit and
@@ -644,7 +665,7 @@ def camera_wl_plain(cam, width: int, height: int, rows, tables: LeafTables,
         slab = (tn <= tf) & (tf > 0.0)
         for s in range(0, len(tri), _PLAIN_TRIS):
             t = tri[s:s + _PLAIN_TRIS]
-            det, u, v, tmul = _moller_sh(rows[t], dp)
+            det, u, v, tmul = _moller_o(rows[t], o, dp, raw)
             duv = det - u - v
             side = ((torch.maximum(u, torch.maximum(v, duv)) <= 0.0)
                     | (torch.minimum(u, torch.minimum(v, duv)) >= 0.0))
@@ -744,11 +765,14 @@ def closest_wl_g_plain(o, d, tm, rows, tables: LeafTables, words):
     return dist, bu, bv, btri.clamp_min(0).to(torch.int32)
 
 
-def shadow_wl_plain(orig, d, tm, rows, tables: LeafTables, words):
+def shadow_wl_plain(orig, d, tm, rows, tables: LeafTables, words,
+                    raw: bool = False):
     """Plain B4: any-hit of rays from ``orig`` over the leaves set in
-    ``words``; ``d`` three and ``tm`` one (P, PACKET_R) planes. Returns
-    blocked float32 (P, PACKET_R), 1 where an occluder lies in
-    (0, tmax), with the kernel's one-sided test (intersect.py:80-89)."""
+    ``words``; ``d`` three and ``tm`` one (P, PACKET_R) planes, ``rows``
+    the shared-origin rows of ``orig``, or with ``raw`` (B4 raw) the raw
+    triangle rows. Returns blocked float32 (P, PACKET_R), 1 where an
+    occluder lies in (0, tmax), with the kernel's one-sided test
+    (intersect.py:80-89)."""
     idir = [1.0 / (c + INV_EPS) for c in d]
     limit = torch.where(tm >= 0.0, tm, -BIG)
     blocked = torch.zeros_like(tm)
@@ -760,7 +784,8 @@ def shadow_wl_plain(orig, d, tm, rows, tables: LeafTables, words):
         slab = (tn <= tf) & (tf > 0.0) & (tn < lim)
         occ_any = torch.zeros_like(tm[i], dtype=torch.bool)
         for s in range(0, len(tri), _PLAIN_TRIS):
-            det, u, v, tmul = _moller_sh(rows[tri[s:s + _PLAIN_TRIS]], dp)
+            det, u, v, tmul = _moller_o(rows[tri[s:s + _PLAIN_TRIS]],
+                                        orig.unbind(), dp, raw)
             occ = ((torch.minimum(u, v) >= 0.0) & (u + v <= det)
                    & (tmul > 0.0) & (tmul < lim * det)
                    & slab[:, owner[s:s + _PLAIN_TRIS]])
@@ -993,8 +1018,9 @@ def camera_wl_stats_plain(cam, width: int, height: int, rows,
 
 
 def camera_wl_sim(cam, width: int, height: int, rows, tables: LeafTables,
-                  words, floors, pids: torch.Tensor):
-    """B2 (B8a) on packets ``pids`` (``words``/``floors`` theirs),
+                  words, floors, pids: torch.Tensor, raw: bool = False):
+    """B2 (B8a; with ``raw``, B2 raw on the raw triangle ``rows``) on
+    packets ``pids`` (``words``/``floors`` theirs),
     simulated warp by warp as the kernel scans (``scan_words``: each
     warp's cull, then its kept leaves in order, each lane testing a leaf
     it enters before its current best; a warp's rays an 8 x 4 pixel tile,
@@ -1028,8 +1054,8 @@ def camera_wl_sim(cam, width: int, height: int, rows, tables: LeafTables,
             tn, pas = _box_slab(tables.box, l, o, wi)
             go = proc[:, None] & pas & (tn < best)
             cnt = count[l]
-            det, u, v, tmul = _moller_sh(rows[first[l]:first[l] + cnt],
-                                         flat_d)
+            det, u, v, tmul = _moller_o(rows[first[l]:first[l] + cnt], o,
+                                        flat_d, raw)
             duv = det - u - v
             side = ((torch.maximum(u, torch.maximum(v, duv)) <= 0.0)
                     | (torch.minimum(u, torch.minimum(v, duv)) >= 0.0))
@@ -1350,7 +1376,7 @@ def _check_words(words, summ, floors, p, lp, dev):
 
 
 def _camera_wl_launch(cam, width, height, rows, tables, words, summ,
-                      floors, stats):
+                      floors, stats, raw=False):
     from ._build import library
 
     p = (width // TILE) * (height // TILE)
@@ -1368,23 +1394,34 @@ def _camera_wl_launch(cam, width, height, rows, tables, words, summ,
         _ptr(tables.count), tables.lp, _ptr(words), _ptr(summ),
         _ptr(floors), words.shape[1], p, _ptr(dist), _ptr(u), _ptr(v),
         _ptr(tri), _ptr(dx), _ptr(dy), _ptr(dz),
-        None if stats is None else _ptr(stats), _stream()), "camera_wl")
+        None if stats is None else _ptr(stats), int(raw), _stream()),
+        "camera_wl_raw" if raw else "camera_wl")
     return dist, u, v, tri, dx, dy, dz
 
 
 def camera_wl(cam, width: int, height: int, rows, tables: LeafTables,
-              words, summ, floors):
+              words, summ, floors, raw: bool = False):
     """B2: closest hit of the primary rays over B1's words (replaces
     ``_camera_wl_kernel``). Returns (dist, u, v, tri, dx, dy, dz), each
-    (P, PACKET_R); a miss has dist BIG and tri -1."""
+    (P, PACKET_R); a miss has dist BIG and tri -1. ``rows``: the
+    shared-origin rows of the camera position (:func:`shared_rows`), or
+    with ``raw`` the raw triangle rows (B2 raw, ``raw=True`` of
+    ``_run_camera_wl``), whose launches count as :func:`camera_wl_raw`'s."""
     if not _on_cuda(cam):
         p = (width // TILE) * (height // TILE)
         return camera_wl_plain(cam, width, height, rows, tables, words,
-                               torch.arange(p))
+                               torch.arange(p), raw)
     out = _camera_wl_launch(cam, width, height, rows, tables, words, summ,
-                            floors, None)
-    camera_wl.launches += 1
+                            floors, None, raw)
+    (camera_wl_raw if raw else camera_wl).launches += 1
     return out
+
+
+def camera_wl_raw(cam, width: int, height: int, rows, tables: LeafTables,
+                  words, summ, floors):
+    """B2 raw: :func:`camera_wl` on the raw triangle rows."""
+    return camera_wl(cam, width, height, rows, tables, words, summ, floors,
+                     raw=True)
 
 
 def camera_wl_stats(cam, width: int, height: int, rows, tables: LeafTables,
@@ -1394,7 +1431,9 @@ def camera_wl_stats(cam, width: int, height: int, rows, tables: LeafTables,
     int32 (P, 8): per packet, summed over its 128 warps, the slots of
     :data:`STATS` — populated words a warp tests against its cull, leaves
     it keeps, (leaf, warp) pairs in which some lane intersects, triangles
-    tested per warp over those pairs, bands entered; slots 5-7 are 0."""
+    tested per warp over those pairs, bands entered; slots 5-7 are 0.
+    It takes shared-origin rows at every size, as the JAX package's
+    counter frame does (:3665): B8a has no raw form."""
     if not _on_cuda(cam):
         p = (width // TILE) * (height // TILE)
         return camera_wl_stats_plain(cam, width, height, rows, tables, words,
@@ -1408,7 +1447,7 @@ def camera_wl_stats(cam, width: int, height: int, rows, tables: LeafTables,
 
 
 def _shadow_wl_launch(orig, d, tm, rows, tables, words, summ, floors,
-                      stats):
+                      stats, raw=False):
     from ._build import library
 
     dev = tm.device
@@ -1424,19 +1463,31 @@ def _shadow_wl_launch(orig, d, tm, rows, tables, words, summ, floors,
         _ptr(rows), _ptr(tables.box), _ptr(tables.wbox), _ptr(tables.bbox),
         _ptr(tables.first), _ptr(tables.count), tables.lp, _ptr(words),
         _ptr(summ), _ptr(floors), words.shape[1], p, _ptr(blocked),
-        None if stats is None else _ptr(stats), _stream()), "shadow_wl")
+        None if stats is None else _ptr(stats), int(raw), _stream()),
+        "shadow_wl_raw" if raw else "shadow_wl")
     return blocked
 
 
-def shadow_wl(orig, d, tm, rows, tables: LeafTables, words, summ, floors):
+def shadow_wl(orig, d, tm, rows, tables: LeafTables, words, summ, floors,
+              raw: bool = False):
     """B4: any-hit from a shared origin over B3's words (replaces
-    ``_shadow_wl_kernel``). Returns blocked float32 (P, PACKET_R)."""
+    ``_shadow_wl_kernel``). Returns blocked float32 (P, PACKET_R).
+    ``rows``: the shared-origin rows of ``orig``, or with ``raw`` the raw
+    triangle rows (B4 raw, ``raw=True`` of ``_run_shadow_wl``), whose
+    launches count as :func:`shadow_wl_raw`'s."""
     if not _on_cuda(tm):
-        return shadow_wl_plain(orig, d, tm, rows, tables, words)
+        return shadow_wl_plain(orig, d, tm, rows, tables, words, raw)
     out = _shadow_wl_launch(orig, d, tm, rows, tables, words, summ, floors,
-                            None)
-    shadow_wl.launches += 1
+                            None, raw)
+    (shadow_wl_raw if raw else shadow_wl).launches += 1
     return out
+
+
+def shadow_wl_raw(orig, d, tm, rows, tables: LeafTables, words, summ,
+                  floors):
+    """B4 raw: :func:`shadow_wl` on the raw triangle rows."""
+    return shadow_wl(orig, d, tm, rows, tables, words, summ, floors,
+                     raw=True)
 
 
 def shadow_wl_stats(orig, d, tm, rows, tables: LeafTables, words, summ,
@@ -1446,7 +1497,8 @@ def shadow_wl_stats(orig, d, tm, rows, tables: LeafTables, words, summ,
     bit, and the counters of :func:`camera_wl_stats`, int32 (P, 8);
     ``nodes`` and ``leaves`` count the words left after B4's block and
     word skips, and ``tri_blocks`` counts, per (leaf, warp) pair, the
-    most triangles a lane tested before its first blocker."""
+    most triangles a lane tested before its first blocker. Shared-origin
+    rows at every size, as :func:`camera_wl_stats`: B8b has no raw form."""
     if not _on_cuda(tm):
         return shadow_wl_stats_plain(orig, d, tm, rows, tables, words,
                                      floors)
@@ -1875,6 +1927,7 @@ from .march import march  # noqa: E402
 
 KERNELS = (words_camera, camera_wl, words_shared, shadow_wl, words_general,
            closest_wl_g, shadow_wl_g, camera_wl_stats, shadow_wl_stats,
+           camera_wl_raw, shadow_wl_raw,
            walk_camera, walk_shadow, walk_closest_g, walk_shadow_g,
            walk_camera_stats, walk_shadow_stats, fat_camera, fat_closest,
            fat_shadow, fat_shadow_g, march)
@@ -1952,16 +2005,28 @@ def _camera_vec(scene, camera, width: int, height: int):
     return cam_vec(camera, width, height, scene.root_lo, scene.root_hi)
 
 
-def _camera_setup(scene, camera, width: int, height: int):
-    """The primary kernels' camera scalars and shared-origin rows."""
+def raw_rows(scene) -> bool:
+    """Whether B2 and B4 trace ``scene``'s raw triangle rows (B2 raw, B4
+    raw) in place of a shared-origin table a frame and light: more than
+    :data:`RAW_ROWS` rows, the JAX package's ``_wl_raw_tris`` (:3480).
+    The counter frame (B8a/B8b) and the walk kernels keep shared-origin
+    rows at every size, as there."""
+    return scene.tri_rows.shape[0] > RAW_ROWS
+
+
+def _camera_setup(scene, camera, width: int, height: int, raw=False):
+    """The primary kernels' camera scalars and rows: the camera's
+    shared-origin rows, or with ``raw`` the raw triangle rows."""
     cam = _camera_vec(scene, camera, width, height)
+    if raw:
+        return cam, scene.tri_rows
     return cam, shared_rows(scene.tri_rows, camera.pos)
 
 
-def _camera_words(scene, camera, width: int, height: int):
+def _camera_words(scene, camera, width: int, height: int, raw=False):
     """B1 for a full frame of primary rays: (cam, rows, words, summ,
-    floors) for B2/B8a."""
-    cam, rows = _camera_setup(scene, camera, width, height)
+    floors) for B2/B8a (with ``raw``, for B2 raw)."""
+    cam, rows = _camera_setup(scene, camera, width, height, raw)
     words, summ, floors = words_camera(cam, width, height, scene.leaves,
                                        WL_BANDS)
     return cam, rows, words, summ, floors
@@ -1975,7 +2040,8 @@ def camera_trace(scene, camera, width: int, height: int):
     Returns flat (R,) tensors dist, u, v, tri, dx, dy, dz in packet order
     (see :func:`kernel_ray_index`). Requires width and height to be
     multiples of TILE. A miss has dist BIG, and tri -1 (tri 0 from
-    B11a)."""
+    B11a). On leaf tables, a scene of more than :data:`RAW_ROWS` rows
+    takes B2 raw (:func:`raw_rows`)."""
     if is_fat(scene):
         cam = _camera_vec(scene, camera, width, height)
         out = fat_camera(cam, width, height,
@@ -1985,10 +2051,11 @@ def camera_trace(scene, camera, width: int, height: int):
         cam, rows = _camera_setup(scene, camera, width, height)
         out = walk_camera(cam, width, height, rows, scene.nodes)
     else:
+        raw = raw_rows(scene)
         cam, rows, words, summ, floors = _camera_words(scene, camera, width,
-                                                       height)
+                                                       height, raw)
         out = camera_wl(cam, width, height, rows, scene.leaves, words, summ,
-                        floors)
+                        floors, raw)
     _count_live(out[0])
     return tuple(a.reshape(-1) for a in out)
 
@@ -1997,7 +2064,9 @@ def camera_trace_stats(scene, camera, width: int, height: int):
     """:func:`camera_trace` through B8a, or B9e on a scene with node
     tables: its outputs, bit for bit, and the per-packet counters int32
     (P, 8) (see :func:`camera_wl_stats`, :func:`walk_camera_stats`). A
-    fat-leaf scene raises ValueError, as the JAX package asserts."""
+    fat-leaf scene raises ValueError, as the JAX package asserts. B8a
+    takes shared-origin rows at every size (:func:`raw_rows` aside, as the
+    JAX package's ``camera_trace_stats`` :3665)."""
     _no_fat_counters(scene)
     if walks(scene):
         cam, rows = _camera_setup(scene, camera, width, height)
@@ -2096,21 +2165,22 @@ def _light_planes(light_pos, d3, tmax):
             _pk(tm), n)
 
 
-def _shared_planes(scene, light_pos, d3, tmax):
+def _shared_planes(scene, light_pos, d3, tmax, raw=False):
     """:func:`_light_planes` with B3's words (one band: any-hit needs no
-    order) and the light's shared-origin rows: (orig, d, tm, n, words,
-    summ, floors, rows)."""
+    order) and the light's shared-origin rows, or with ``raw`` the raw
+    triangle rows: (orig, d, tm, n, words, summ, floors, rows)."""
     orig, d, tm, n = _light_planes(light_pos, d3, tmax)
     words, summ, floors = words_shared(orig, d, tm, scene.leaves, 1)
-    return orig, d, tm, n, words, summ, floors, shared_rows(scene.tri_rows,
-                                                            orig)
+    rows = scene.tri_rows if raw else shared_rows(scene.tri_rows, orig)
+    return orig, d, tm, n, words, summ, floors, rows
 
 
 def any_hit_shared(scene, light_pos, d3, tmax):
     """Shadow any-hit from a shared origin, B3 + B4 (B3's words in one
     band: any-hit needs no order), B9b or B11c. ``d3`` three flat (R,)
     direction components, ``tmax`` (R,) (negative = masked ray). Returns
-    blocked bool (R,)."""
+    blocked bool (R,). On leaf tables, a scene of more than
+    :data:`RAW_ROWS` rows takes B4 raw (:func:`raw_rows`)."""
     if walks(scene):
         orig, d, tm, n = _light_planes(light_pos, d3, tmax)
         if is_fat(scene):
@@ -2120,10 +2190,11 @@ def any_hit_shared(scene, light_pos, d3, tmax):
             out = walk_shadow(orig, d, tm, shared_rows(scene.tri_rows, orig),
                               scene.nodes)
     else:
+        raw = raw_rows(scene)
         orig, d, tm, n, words, summ, floors, rows = _shared_planes(
-            scene, light_pos, d3, tmax)
+            scene, light_pos, d3, tmax, raw)
         out = shadow_wl(orig, d, tm, rows, scene.leaves, words, summ,
-                        floors)
+                        floors, raw)
     return out.reshape(-1)[:n] > 0.0
 
 

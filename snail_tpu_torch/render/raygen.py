@@ -9,14 +9,16 @@ normalized with a correctly rounded rsqrt (as the camera kernels'
 raygen; the JAX package's CPU rsqrt is approximate, ROADMAP C).
 :func:`tile_rays` cuts the image into ray tiles, each a coherent block of
 rays, and :func:`untile_image` puts a tiled wavefront back into raster
-order.
+order; :func:`camera_rays_wavefront` gives the tiled rays as one
+wavefront.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.types import Camera
+from ..core.types import Camera, Rays
+from ..core.vecmath import BIG
 from ..ops.traverse import _rsqrt_rn
 
 TILE_W = 16
@@ -63,3 +65,15 @@ def untile_image(tiles: torch.Tensor, height: int, width: int,
                       *c_shape)
     t = t.permute(0, 2, 1, 3, *range(4, 4 + len(c_shape)))
     return t.reshape(height, width, *c_shape)
+
+
+def camera_rays_wavefront(camera: Camera, width: int, height: int,
+                          jitter=None) -> Rays:
+    """The primary rays as a flat wavefront (P * TILE_H * TILE_W,) of
+    tiles (:func:`tile_rays`), the shared origin broadcast and tmax BIG
+    (``snail_tpu.render.raygen.camera_rays_wavefront``)."""
+    origin, dirs = primary_rays(camera, width, height, jitter)
+    d = tile_rays(dirs).reshape(-1, 3)
+    return Rays(origin=origin.expand_as(d), dir=d,
+                tmax=torch.full(d.shape[:1], BIG, dtype=torch.float32,
+                                device=d.device))

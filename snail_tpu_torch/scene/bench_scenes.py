@@ -1,10 +1,14 @@
 """The benchmark scenes of ``bench.py``, built with the port's procedural
 copies and BVH builder, with their light and camera, the parameters of
-``bench.py``'s gradient step, and an instanced grid of a bench scene."""
+``bench.py``'s gradient step, and an instanced grid of a bench scene;
+and ``bench.py``'s 10 Mtri scene (``section_10m``), whose host build can
+run in a process of its own (:func:`save_host_build`)."""
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -24,10 +28,17 @@ SCENES = {
     # the large-scene row (bench.py:151-174)
     "terrain": (terrain_scene, 32, (0.0, 60.0, 0.0), 200.0,
                 (0.35, 0.25, 0.4)),
+    # the 10 Mtri row (bench.py:350-398), at leaf 32: the JAX row's leaf
+    # 127 with SNAIL_IVAL_LEAF=128 is a TPU tunable, and the port's leaf
+    # tables take leaves of at most 32 triangles (ops/traverse.py
+    # IVAL_LEAF); its light has radius 400 (bench.py:367)
+    "terrain_10m": (terrain_scene, 32, (0.0, 60.0, 0.0), 400.0,
+                    (0.35, 0.25, 0.4)),
 }
 
-# kind -> the size bench.py renders it at (terrain 724: ~1.05 Mtri)
-BENCH_N = {"city": 24, "terrain": 724}
+# kind -> the size bench.py renders it at (terrain 724: ~1.05 Mtri;
+# terrain_10m 2236: 9,999,392 triangles, 2 n^2)
+BENCH_N = {"city": 24, "terrain": 724, "terrain_10m": 2236}
 
 # the parameters bench.py's fwd+bwd step differentiates (bench.py:223-231)
 GRAD_PARAMS = ("tri_a", "tri_ba", "tri_ca", "mat_diffuse", "light_pos",
@@ -48,6 +59,20 @@ def bounce_materials() -> MaterialTable:
     return mats
 
 
+def host_build(kind: str, n: int, leaf: Optional[int] = None):
+    """The host half of a bench scene: ``kind``'s geometry at size ``n``
+    and its BVH at the kind's leaf size (or ``leaf``). Returns (geometry,
+    bvh, seconds), seconds {"gen_s", "build_s"} as bench.py's
+    ``section_10m`` records them (bench.py:358-366)."""
+    make, kind_leaf = SCENES[kind][:2]
+    t0 = time.perf_counter()
+    g = make(n).flatten()
+    t1 = time.perf_counter()
+    lo, hi = g.bounds()
+    bvh = build_bvh(lo, hi, leaf_size=kind_leaf if leaf is None else leaf)
+    return g, bvh, {"gen_s": t1 - t0, "build_s": time.perf_counter() - t1}
+
+
 def bench_scene(kind: str, n: int, device="cuda", bounce: bool = False,
                 walk: bool = False, leaf: Optional[int] = None,
                 textured: Optional[str] = None):
@@ -61,14 +86,8 @@ def bench_scene(kind: str, n: int, device="cuda", bounce: bool = False,
     scene (bench.py:130-148): ``textures.checker_atlas`` on every
     material, with its summed-area tables for "sat" (the filter itself
     is ``RenderOpts.tex_filter``)."""
-    make, kind_leaf, light, radius, offset = SCENES[kind]
-    g = make(n).flatten()
-    lo, hi = g.bounds()
-    bvh = build_bvh(lo, hi, leaf_size=kind_leaf if leaf is None else leaf)
-    scene = make_traced_scene(
-        g, bvh, bounce_materials() if bounce else None,
-        lights=Light.make(light, (1.0, 1.0, 1.0), radius, device=device),
-        device=device, walk=walk)
+    g, bvh, _ = host_build(kind, n, leaf)
+    scene, cam = traced_bench_scene(kind, g, bvh, device, bounce, walk)
     if textured is not None:
         from .scene import with_sat
         from .textures import checker_atlas
@@ -76,11 +95,89 @@ def bench_scene(kind: str, n: int, device="cuda", bounce: bool = False,
         scene = checker_atlas(scene)
         if textured == "sat":
             scene = with_sat(scene)
+    return scene, cam, g, bvh
+
+
+def traced_bench_scene(kind: str, g, bvh, device="cuda",
+                       bounce: bool = False, walk: bool = False):
+    """The device half of a bench scene: (scene, camera) of ``kind`` from
+    its host-built geometry ``g`` and ``bvh`` (:func:`host_build`), with
+    the kind's light, and its camera at the kind's offset from the root
+    box's centre, in units of its largest extent, looking at the centre
+    (bench.py:375-383); ``bounce`` and ``walk`` as :func:`bench_scene`."""
+    _, _, light, radius, offset = SCENES[kind]
+    scene = make_traced_scene(
+        g, bvh, bounce_materials() if bounce else None,
+        lights=Light.make(light, (1.0, 1.0, 1.0), radius, device=device),
+        device=device, walk=walk)
     c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
     ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
     cam = Camera.look_at(pos=tuple(c + np.array(offset) * ext),
                          target=tuple(c), device=device)
-    return scene, cam, g, bvh
+    return scene, cam
+
+
+# the options of bench.py's 10 Mtri row (bench.py:384-385): reflections,
+# transparency and textures off
+OPTS_10M = RenderOpts(reflections=False, transparency=False, textures=False)
+
+
+def scene_10m(n: int = BENCH_N["terrain_10m"], device="cuda",
+              walk: bool = False, built=None):
+    """bench.py's ``section_10m`` scene as the port runs it:
+    terrain_scene(n) (n = 2236: 9,999,392 triangles) at leaf 32, light (0,
+    60, 0) of colour 1 and power 400, the camera at centre + (0.35, 0.25,
+    0.4) x extent looking at the centre; render it with
+    :data:`OPTS_10M`. Leaf tables (B1-B4; above RAW_ROWS rows, B2 raw and
+    B4 raw), or with ``walk`` node tables (B9a/B9b, which cover the paged
+    B10a/B10b); a tree of more leaves than leaf tables hold gets node
+    tables either way (``scene.make_traced_scene``). ``built``: its
+    (geometry, bvh, seconds) from :func:`host_build` or
+    :func:`load_host_build`, else built here. Returns (scene, camera,
+    geometry, bvh, seconds), seconds {"gen_s", "build_s", "pack_s"} as
+    bench.py records them (bench.py:390-392)."""
+    g, bvh, secs = host_build("terrain_10m", n) if built is None else built
+    t0 = time.perf_counter()
+    scene, cam = traced_bench_scene("terrain_10m", g, bvh, device,
+                                    walk=walk)
+    if scene.device.type == "cuda":
+        torch.cuda.synchronize(scene.device)
+    return scene, cam, g, bvh, {**secs, "pack_s": time.perf_counter() - t0}
+
+
+def save_host_build(kind: str, n: int, directory) -> None:
+    """:func:`host_build` of ``kind`` at size ``n``, written into
+    ``directory`` as one ``.npy`` file per array (geometry ``g_*``, BVH
+    ``bvh_*``) and ``seconds.npy``; ``done`` is written last. For a
+    process of its own: ``python -c "from snail_tpu_torch.scene.bench_scenes
+    import save_host_build; save_host_build('terrain_10m', 2236, DIR)"``."""
+    from ..scene.base_scene import FlatGeometry
+
+    d = Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    g, bvh, secs = host_build(kind, n)
+    for f in dataclasses.fields(FlatGeometry):
+        np.save(d / f"g_{f.name}.npy", getattr(g, f.name))
+    for f in dataclasses.fields(bvh):
+        np.save(d / f"bvh_{f.name}.npy", np.asarray(getattr(bvh, f.name)))
+    np.save(d / "seconds.npy", np.array([secs["gen_s"], secs["build_s"]]))
+    (d / "done").write_text("")
+
+
+def load_host_build(directory):
+    """What :func:`save_host_build` wrote: (geometry, bvh, seconds)."""
+    from ..bvh.build import BVH
+    from ..scene.base_scene import FlatGeometry
+
+    d = Path(directory)
+    load = lambda name: np.load(d / f"{name}.npy")
+    g = FlatGeometry(**{f.name: load(f"g_{f.name}")
+                        for f in dataclasses.fields(FlatGeometry)})
+    fields = {f.name: load(f"bvh_{f.name}") for f in dataclasses.fields(BVH)}
+    fields["depth"] = int(fields["depth"])
+    gen_s, build_s = load("seconds")
+    return g, BVH(**fields), {"gen_s": float(gen_s),
+                              "build_s": float(build_s)}
 
 
 def instanced_grid(kind: str, base, grid: int = 4):

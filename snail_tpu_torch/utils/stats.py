@@ -25,6 +25,7 @@ as the render server does.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 from ..ops.traverse import RAYS_PER_TRI_BLOCK
 
@@ -58,6 +59,24 @@ class TreeStats:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+class Timer:
+    """Adds the milliseconds of its ``with`` block to ``stats.timers_ms``
+    under ``name`` (the reference's timer slots, tree_stats.h)."""
+
+    def __init__(self, stats: TreeStats, name: str):
+        self.stats = stats
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = (time.perf_counter() - self.t0) * 1e3
+        self.stats.timers_ms[self.name] = (
+            self.stats.timers_ms.get(self.name, 0.0) + dt)
 
 
 def tree_stats_from_counters(kstats: dict, n_lights: int) -> TreeStats:

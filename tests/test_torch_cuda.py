@@ -1085,11 +1085,11 @@ def _traced(fields, device, walk=True):
                              walk=walk)
 
 
-def _leaf_scene(sizes, device, seed=21):
+def _leaf_scene(sizes, device, seed=21, walk=True):
     """A scene of ``_leaf_fields`` leaves: leaf i holds sizes[i]
     triangles at z = 0.05 j in a seeded order, and two more of them at z
     = 0, the nearest (exact distance ties; rows j and j + 32 on a leaf of
-    more than 32)."""
+    more than 32); node tables, or leaf tables where ``walk`` is false."""
     rng = np.random.default_rng(seed)
     zs = []
     for s in sizes:
@@ -1098,7 +1098,7 @@ def _leaf_scene(sizes, device, seed=21):
             j = int(rng.integers(0, s - 32)) if s > 32 else 0
             z[[j, j + 32] if s > 32 else rng.choice(s, 2, replace=False)] = 0
         zs.append(z)
-    return _traced(_leaf_fields(zs), device)
+    return _traced(_leaf_fields(zs), device, walk=walk)
 
 
 def _blocker_fields(sizes, row):
@@ -1402,6 +1402,160 @@ def test_staged_any_hit_kernel_matches_plain_exactly(kind, row):
     torch.cuda.synchronize()
     assert torch.equal(kern, plain)
     assert torch.equal(kern.cpu() > 0, want)
+
+
+def _lowest_nearest_rows(scene, n_leaves):
+    """Each ``_leaf_scene`` leaf's lower row at z = 0, and per triangle
+    whether it lies at z = 0 and its leaf."""
+    a = scene.tri_a
+    leaf_of = (a[:, 0] / 3.0).long()
+    z0 = a[:, 2] == 0.0
+    lowest = torch.stack([torch.nonzero(z0 & (leaf_of == i)).min()
+                          for i in range(n_leaves)])
+    return lowest, z0, leaf_of
+
+
+@pytest.mark.parametrize("view", list(CAMERA_VIEWS))
+def test_staged_camera_raw_kernel_matches_plain_exactly(view):
+    """B2 raw (``camera_wl(raw=True)``: B2's two-slot stage, 8 x 4 pixel
+    warps and lane-per-triangle threshold on the raw triangle rows) on
+    ``_leaf_scene``'s leaves of 1-32 rows on leaf tables, each with two
+    identical nearest rows, from a camera 3 or 20 units away: every
+    output equal bit for bit to the plain B2 raw's and to its warps'
+    simulation (``camera_wl_sim(raw=True)``), tri included; every hit on
+    a nearest row the lower of its leaf's two; visits with one lane
+    entering and with 17-32 in each wavefront; the launch counted as
+    ``camera_wl_raw``'s."""
+    _need_cuda()
+    sizes = STAGED_LEAVES["walk"]
+    scene = _leaf_scene(sizes, "cuda", walk=False)
+    lt = scene.leaves
+    assert lt is not None and int(lt.count.max()) == max(sizes)
+    cam = Camera.look_at((6.0, 1.2, -CAMERA_VIEWS[view]), (7.0, 1.0, 0.0),
+                         up=(0.3, 1.0, 0.0))
+    w = h = 256
+    pids = torch.arange((w // pt.TILE) * (h // pt.TILE), device="cuda")
+    cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h,
+                                                     raw=True)
+    assert rows is scene.tri_rows
+    pt.reset_launch_counts()
+    kern = pt.camera_wl(cv, w, h, rows, lt, words, summ, floors, raw=True)
+    counts = pt.launch_counts()
+    assert counts["camera_wl_raw"] == 1 and counts["camera_wl"] == 0
+    plain = pt.camera_wl_plain(cv, w, h, rows, lt, words, pids, raw=True)
+    sim, _, tally = pt.camera_wl_sim(cv, w, h, rows, lt, words, floors, pids,
+                                     raw=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+    assert all(torch.equal(a, b) for a, b in zip(kern, sim))
+    hit = kern[3] >= 0
+    assert 0.02 < float(hit.float().mean()) < 0.9
+    lowest, z0, leaf_of = _lowest_nearest_rows(scene, len(sizes))
+    tri = kern[3][hit].long()
+    on0 = z0[tri]
+    assert bool(on0.any())
+    assert torch.equal(tri[on0], lowest[leaf_of[tri[on0]]])
+    bins = dict(zip(pt.TALLY, tally.sum(1).tolist()))
+    assert bins["1"] > 0 and bins["17-32"] > 0, bins
+
+
+@pytest.mark.parametrize("row", [0, 16, 31])
+def test_staged_shadow_raw_kernel_matches_plain_exactly(row):
+    """B4 raw (``shadow_wl(raw=True)``: the full Moller test from the light
+    on the raw rows) on ``_blocker_fields``' leaves of 1-32 rows on leaf
+    tables, one blocker a leaf at row 0, 16 or 31, with
+    ``_shared_blocker_rays`` (1 to 32 lanes entering a leaf, tmax just
+    short of and past the blocker, masked rays, live misses): verdicts
+    equal to the plain B4 raw's and to what the rays must get, and to B4's
+    on the shared-origin rows where the one-sided rule's edge is not in
+    play; the launch counted as ``shadow_wl_raw``'s."""
+    _need_cuda()
+    sizes = STAGED_LEAVES["walk"]
+    scene = _traced(_blocker_fields(sizes, row), "cuda", walk=False)
+    lt, rows = scene.leaves, scene.tri_rows
+    orig, d, tm, want = _shared_blocker_rays(len(sizes))
+    orig, d, tm = orig.cuda(), tuple(c.cuda() for c in d), tm.cuda()
+    words, summ, floors = pt.words_shared(orig, d, tm, lt, 1)
+    pt.reset_launch_counts()
+    kern = pt.shadow_wl(orig, d, tm, rows, lt, words, summ, floors, raw=True)
+    counts = pt.launch_counts()
+    assert counts["shadow_wl_raw"] == 1 and counts["shadow_wl"] == 0
+    plain = pt.shadow_wl_plain(orig, d, tm, rows, lt, words, raw=True)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, plain)
+    assert torch.equal(kern.cpu() > 0, want)
+    assert 0.1 < float(want.float().mean()) < 0.9
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_raw_kernels_match_plain_and_simulation(which):
+    """B2 raw and B4 raw on a whole frame's primary rays and on seeded
+    shadow rays of the bench scenes at leaf 4: B2 raw bit for bit its
+    warps' simulation (ties included) and, where the triangle agrees, the
+    plain B2 raw; B4 raw's verdicts the plain B4 raw's bit for bit."""
+    _need_cuda()
+    scene, cam, w, h, light = _scene(which)
+    lt = scene.leaves
+    cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h,
+                                                     raw=True)
+    kern = pt.camera_wl(cv, w, h, rows, lt, words, summ, floors, raw=True)
+    pids = torch.arange(words.shape[0], device="cuda")
+    sim, _, _ = pt.camera_wl_sim(cv, w, h, rows, lt, words, floors, pids,
+                                 raw=True)
+    plain = pt.camera_wl_plain(cv, w, h, rows, lt, words, pids, raw=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kern, sim))
+    same = kern[3] == plain[3]
+    assert float(same.float().mean()) > 0.999
+    assert all(torch.equal(a[same], b[same])
+               for a, b in zip(kern[:3], plain[:3]))
+    assert torch.allclose(kern[0][~same], plain[0][~same], rtol=1e-5,
+                          atol=0.0)
+    assert float((kern[0] < BIG).float().mean()) > 0.3
+
+    d, tm = _shadow_rays(scene, light, 6)
+    words, summ, floors = pt.words_shared(light, d, tm, lt, 1)
+    kb = pt.shadow_wl(light, d, tm, scene.tri_rows, lt, words, summ, floors,
+                      raw=True)
+    pb = pt.shadow_wl_plain(light, d, tm, scene.tri_rows, lt, words,
+                            raw=True)
+    torch.cuda.synchronize()
+    live = tm >= 0
+    assert torch.equal(kb, pb)
+    assert 0.02 < float(pb[live].mean()) < 0.98
+
+
+@pytest.mark.parametrize("which", SCENES)
+def test_frame_takes_raw_kernels_above_raw_rows(which, monkeypatch):
+    """The fwd frame on leaf tables with ``raw_rows`` true (a scene of
+    more than RAW_ROWS rows): B1, B2 raw, B3 and B4 raw launched, B2 and
+    B4 not; no shared-origin table built; the image within 2e-3 of the
+    frame on the shared-origin rows on >= 99.8 % of pixels. The counter
+    frame keeps B8a/B8b on shared-origin rows."""
+    _need_cuda()
+    scene, cam, w, h, _ = _scene(which)
+    ref = render_frame(scene, cam, w, h, OPTS)
+    monkeypatch.setattr(pt, "raw_rows", lambda s: True)
+    table = pt.shared_rows
+    calls = []
+    monkeypatch.setattr(pt, "shared_rows",
+                        lambda *a: calls.append(1) or table(*a))
+    pt.reset_launch_counts()
+    img = render_frame(scene, cam, w, h, OPTS)
+    torch.cuda.synchronize()
+    counts = pt.launch_counts()
+    assert not calls
+    assert all(counts[k] > 0 for k in ("words_camera", "camera_wl_raw",
+                                       "words_shared", "shadow_wl_raw"))
+    assert counts["camera_wl"] == 0 and counts["shadow_wl"] == 0, counts
+    err = (img - ref).abs().amax(-1)
+    assert float((err > 2e-3).float().mean()) <= 2e-3
+    pt.reset_launch_counts()
+    stats_img, _ = render_frame_fast_stats(scene, cam, w, h, OPTS)
+    counts = pt.launch_counts()
+    assert len(calls) == 2
+    assert counts["camera_wl_stats"] == 1 and counts["camera_wl_raw"] == 0
+    assert torch.equal(stats_img, ref)
 
 
 @pytest.mark.parametrize("kind", ["walk", "fat", "wl"])
