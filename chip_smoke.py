@@ -30,20 +30,14 @@ Phases, each printed on its own line:
    version and timed (the ``cluster`` lines); B2, B4 and B6 print what
    their warps are given to scan (``scan_counts``: populated words, the
    words and blocks some lane enters, the leaves a warp cull keeps; B2's
-   warps 8 x 4 pixel tiles); B8a and B8b must give B2's and B4's outputs
-   bit for bit, and their counters must equal the plain versions'
-   simulation of every warp on a few seeded packets; B2's simulated
-   warps (ops/traverse.py ``camera_wl_sim``) must give its outputs bit
-   for bit, ties included, with the ``scan`` lines of their leaf visits
-   by entering lanes; on the terrain also B2 raw and B4 raw (``raw=True``:
-   the raw triangle rows, which the entry points take above RAW_ROWS
-   rows): B2 raw over the whole primary wavefront against its plain
-   version (as B2) and its simulated warps on a few seeded packets (bit
-   for bit, ties included), B4 raw on the shadow rays toward the low light
-   (whole wavefront) and light 0 (seeded packets), verdicts bit for bit;
-   each bit for bit B2 or B4 on the shared-origin rows (the ``raw``
-   lines), and shared_rows, B2,
-   B2 raw, B4 and B4 raw timed in turns (the ``turns`` line);
+   warps 8 x 4 pixel tiles); B8a and B8b, on the shared-origin rows of
+   ``shared_rows`` where B2 and B4 take the raw triangle rows, must give
+   B2's and B4's outputs bit for bit (the ``raw`` lines), and their
+   counters must equal the plain versions' simulation of every warp on a
+   few seeded packets; B2's simulated warps (ops/traverse.py
+   ``camera_wl_sim``) must give its outputs bit for bit, ties included,
+   with the ``scan`` lines of their leaf visits by entering lanes; the
+   camera's ``shared_rows`` table is timed (the ``table`` line);
 4. the paths at 1024 x 1024 on both scenes, each with the launch count of
    every kernel during one run, a check against the CPU path at 64 x 64
    (the terrain's lit by the low light), and its time: render_frame
@@ -169,16 +163,15 @@ Phases, each printed on its own line:
    destroyed at the end;
 13. bench.py's 10 Mtri row (``section_10m``; bench_scenes.scene_10m):
    terrain_scene(2236), 9,999,392 triangles at leaf 32, its generation
-   and BVH built in a process of its own started with the script
-   (gen_s, build_s; pack_s of the device scene), on leaf tables, more
-   than RAW_ROWS rows, so B2 raw and B4 raw, and on node tables (B9a/B9b,
-   covering the paged B10a/B10b): B1, B2 raw, B3 and B4 raw against their
-   plain versions on 16 seeded packets (B4 raw toward light 0 and toward
-   the low light, where rays are blocked), B9a and B9b over their whole
-   wavefronts; 1,024 seeded primary rays against the brute force over
-   every triangle (tools/bench_big.py's oracle spot check); B2 raw and B4
-   raw bit for bit B2 and B4 on the shared-origin rows; shared_rows, B2 and
-   B2 raw, B4 and B4 raw in turns; then the fwd frame at 1024 x 1024 on
+   and BVH built on the host while no card phase runs (gen_s, build_s;
+   pack_s of the device scene), on leaf tables (B1-B4) and on node
+   tables (B9a/B9b, covering the paged B10a/B10b): B1, B2, B3 and B4
+   against their plain versions on 16 seeded packets (B4 toward light 0
+   and toward the low light, where rays are blocked), B9a and B9b over
+   their whole wavefronts; 1,024 seeded primary rays against the brute
+   force over every triangle (tools/bench_big.py's oracle spot check); B2
+   and B4 bit for bit B8a and B8b on the shared-origin rows, and the time
+   of a ``shared_rows`` table; then the fwd frame at 1024 x 1024 on
    each table kind, launching only its path's kernels, ms/frame by CUDA
    events around each of 10 frames (min/avg/max), MRays/s by bench.py's
    count (2 W H), peak memory, the two frames within 2e-3 of each other
@@ -186,7 +179,7 @@ Phases, each printed on its own line:
 
 The last two lines are a JSON object per kernel (all 19 traversal kernels
 of the port per scene, V1 in iso and mip mode, and the six of the 10 Mtri
-frames, B2 raw and B4 raw among them with their terrain_724 checks; the
+frames; the
 city_24 kernels' ``launches_by_path`` also count phases 11 and 12's
 paths: ``served``, ``served_stats``, ``rtracer``, ``sharded``,
 ``sharded_step``) and the result line.
@@ -224,17 +217,15 @@ VOL_REPLACES = "snail_tpu/volume/vtree.py:116"
 TPU = "snail_tpu/ops/traverse_pallas.py"
 REPLACES = {  # kernel -> line of the Pallas kernel it replaces
     "words_camera": f"{TPU}:2785",
-    "camera_wl": f"{TPU}:3150",
+    # B2 and B4: the kernels with raw=True, and their raw-row drains
+    "camera_wl": f"{TPU}:3150, {TPU}:2057",
     "words_shared": f"{TPU}:2822",
-    "shadow_wl": f"{TPU}:3208",
+    "shadow_wl": f"{TPU}:3208, {TPU}:2104",
     "words_general": f"{TPU}:2834",
     "closest_wl_g": f"{TPU}:3226",
     "shadow_wl_g": f"{TPU}:3272",
     "camera_wl_stats": f"{TPU}:3160",
     "shadow_wl_stats": f"{TPU}:3217",
-    # B2 and B4 with raw=True: the kernels and their raw-row drains
-    "camera_wl_raw": f"{TPU}:3150, {TPU}:2057",
-    "shadow_wl_raw": f"{TPU}:3208, {TPU}:2104",
     # the B9 kernel, and the paged B10 twin it also covers
     "walk_camera": f"{TPU}:1809, {TPU}:1828",
     "walk_shadow": f"{TPU}:1901, {TPU}:1918",
@@ -248,10 +239,6 @@ REPLACES = {  # kernel -> line of the Pallas kernel it replaces
     "fat_shadow_g": f"{TPU}:731",
 }
 FORWARD = ("words_camera", "camera_wl", "words_shared", "shadow_wl")
-# the fwd frame of a scene of more than RAW_ROWS triangle rows on leaf
-# tables (phase 13)
-FORWARD_RAW = ("words_camera", "camera_wl_raw", "words_shared",
-               "shadow_wl_raw")
 BOUNCE = FORWARD + ("words_general", "closest_wl_g")
 STATS = ("words_camera", "camera_wl_stats", "words_shared", "shadow_wl_stats")
 INSTANCED = ("words_general", "closest_wl_g", "shadow_wl_g")
@@ -334,13 +321,11 @@ SHARDED_SIZE = 512
 # phase 13: bench.py's 10 Mtri scene; seeded packets of its wavefronts
 # held against the plain B1-B4 versions (a plain pass over all 256 would
 # take minutes), primary rays of the brute-force spot check and the
-# triangles of each of its steps, the longest wait for the host build
-# (a process of its own, started with the script), and its share of
-# spot-check rays that must agree (tools/bench_big.py's rule)
+# triangles of each of its steps, and its share of spot-check rays that
+# must agree (tools/bench_big.py's rule)
 PACKETS_10M = 16
 ORACLE_RAYS = 1024
 ORACLE_TRIS = 1 << 16
-BUILD_10M_TIMEOUT_S = 900
 ORACLE_AGREE = 0.995
 # the loaded scene's materials: every 12 faces (a box) take the next
 LOADED_MTL = """newmtl concrete
@@ -367,8 +352,8 @@ F32_OPS_PER_MS = 67e9  # 67 TFLOP/s float32 outside the tensor cores
 LEAF_OPS = {"words_camera": 45, "words_shared": 45, "words_general": 87}
 RAY_OPS = {"words_camera": 61, "words_shared": 14, "words_general": 20}
 SLAB_OPS = 25
-TRI_OPS = {"camera_wl": 29, "shadow_wl": 22, "closest_wl_g": 56,
-           "shadow_wl_g": 49, "camera_wl_raw": 56, "shadow_wl_raw": 49}
+TRI_OPS = {"camera_wl": 56, "shadow_wl": 49, "closest_wl_g": 56,
+           "shadow_wl_g": 49, "camera_wl_stats": 29, "shadow_wl_stats": 22}
 # the walk and fat-leaf kernels test triangles with the same device
 # functions; every fat-leaf kernel on the raw rows
 TRI_OPS.update(walk_camera=29, walk_shadow=22, walk_closest_g=56,
@@ -724,7 +709,7 @@ def camera_tally(name, cv, rows, lt, words, floors, kern, stats, seed=1):
 
 def camera_work(name, kernel, cv, rows, lt, words, summ, floors, kern,
                 scan=True):
-    """B2's (B2 raw's) work on a whole 1024 x 1024 primary wavefront: (its
+    """B2's (B8a's) work on a whole 1024 x 1024 primary wavefront: (its
     float operations, its bytes, the ``scan_counts`` tally), each warp's
     rays an 8 x 4 pixel tile as the kernel takes them, each ray's tests
     up to its hit ``kern``; prints the ``scan`` line. Without ``scan``,
@@ -754,7 +739,7 @@ def camera_work(name, kernel, cv, rows, lt, words, summ, floors, kern,
 
 def shadow_work(name, kernel, orig, d, tm, rows, lt, words, summ, floors,
                 kern, scan=True):
-    """B4's (B4 raw's) work on a shadow wavefront from ``orig``: (its float
+    """B4's (B8b's) work on a shadow wavefront from ``orig``: (its float
     operations, its bytes, the ``scan_counts`` tally or None without
     ``scan``): each live unblocked ray's tests to its limit, one slab and
     one triangle test for each blocked ray; prints the ``scan`` line."""
@@ -763,7 +748,7 @@ def shadow_work(name, kernel, orig, d, tm, rows, lt, words, summ, floors,
     from snail_tpu_torch.ops import traverse as pt
 
     live = tm >= 0
-    idir = [1.0 / (c + pt.INV_EPS) for c in d]
+    idir = [pt.safe_inv(c) for c in d]
     blocked = kern > 0
     limit = torch.where(live, tm, -pt.BIG)
     tally = None
@@ -782,8 +767,7 @@ def shadow_work(name, kernel, orig, d, tm, rows, lt, words, summ, floors,
 
 def check_kernels(name, kind, scene, cam):
     """Phase 3 on the frame's wavefronts: each kernel against its plain
-    version on the card; on the terrain also B2 raw and B4 raw (under
-    ``raw``: ``check_raw``). Returns {kernel: entry}."""
+    version on the card. Returns {kernel: entry}."""
     import torch
 
     from snail_tpu_torch.core.vecmath import BIG
@@ -813,8 +797,8 @@ def check_kernels(name, kind, scene, cam):
         lambda c: pt.words_camera(cv, w, h, lt, cluster=c), plain)
     words, summ, floors = kern
 
-    # B2
-    rows = pt.shared_rows(scene.tri_rows, cam.pos)
+    # B2 on the raw triangle rows
+    rows = scene.tri_rows
     kern = pt.camera_wl(cv, w, h, rows, lt, words, summ, floors)
     plain, plain_ms = timed_plain(
         lambda: pt.camera_wl_plain(cv, w, h, rows, lt, words, pids))
@@ -836,20 +820,27 @@ def check_kernels(name, kind, scene, cam):
                                        words, summ, floors, kern)
     out["camera_wl"] = entry(derr, ms, plain_ms, b2_bytes, ops, scan=tally)
 
-    # B8a on the same inputs: B2's outputs bit for bit; the warps of a few
-    # seeded packets simulated (camera_wl_sim): B2's outputs bit for bit,
-    # B8a's counters, and the tally of their leaf visits
-    *k8, st = pt.camera_wl_stats(cv, w, h, rows, lt, words, summ, floors)
-    if not all(torch.equal(a, b) for a, b in zip(k8, kern)):
-        fail(f"{name} camera_wl_stats: outputs differ from camera_wl's")
+    # B8a on the same words and the camera's shared-origin rows: B2's
+    # outputs bit for bit (the shared-origin table rounds the origin's
+    # terms as B2's full test does); the warps of a few seeded packets
+    # simulated (camera_wl_sim): B2's outputs bit for bit, B8a's counters,
+    # and the tally of their leaf visits
+    srows = pt.shared_rows(rows, cam.pos)
+    print(f"table {name} shared_rows: "
+          f"{cuda_ms(lambda: pt.shared_rows(rows, cam.pos), KERNEL_REPS):.4f}"
+          f" ms a frame (B8a's, B9a's; B2 builds none)", flush=True)
+    *k8, st = pt.camera_wl_stats(cv, w, h, srows, lt, words, summ, floors)
+    raw_against_shared(f"{name} camera_wl", kern, k8)
     (sim_tally, n_sim), plain_ms = timed_plain(lambda: camera_tally(
         name, cv, rows, lt, words, floors, kern, st))
     out["camera_wl"]["sim_scan"] = sim_tally
-    ms = cuda_ms(lambda: pt.camera_wl_stats(cv, w, h, rows, lt, words, summ,
+    ms = cuda_ms(lambda: pt.camera_wl_stats(cv, w, h, srows, lt, words, summ,
                                             floors), KERNEL_REPS)
-    out["camera_wl_stats"] = entry(derr, ms, plain_ms,
-                                   b2_bytes + nbytes(st), ops,
-                                   plain_packets=n_sim)
+    ops, n_bytes, _ = camera_work(name, "camera_wl_stats", cv, srows, lt,
+                                  words, summ, floors, kern, scan=False)
+    out["camera_wl_stats"] = entry(derr, ms, plain_ms, n_bytes + nbytes(st),
+                                   ops, plain_packets=n_sim)
+    del srows
 
     # B3, B4 and B8b on the shadow rays the frame casts from these hits
     # toward its light 0, and toward the scene's low light where it has one
@@ -865,9 +856,6 @@ def check_kernels(name, kind, scene, cam):
                      torch.tensor(LOW_LIGHT[kind], device="cuda"), True)
     out.update(check_bounce(name, scene, primary))
     print_checks(name, out)
-    if kind == "terrain":
-        out["raw"] = check_raw(name, scene, cam, cv, (words, summ, floors),
-                               kern, rows, primary)
     return out
 
 
@@ -880,156 +868,48 @@ def seeded_packets(p, n, seed):
     return torch.from_numpy(np.sort(pick)).cuda()
 
 
-def camera_raw_plain(name, cv, rows, lt, words, kern, pk):
-    """B2 raw's outputs ``kern`` (the whole wavefront) against the plain B2
-    raw on packets ``pk``: directions bit for bit, misses as the plain
-    version's, dist, u and v bit for bit where the triangle agrees, which
-    may differ only on a distance tie (``closest_equal``). Returns
-    (max abs dist error, plain ms)."""
+def camera_plain_packets(name, cv, rows, lt, words, kern, pk):
+    """B2's outputs ``kern`` (the whole wavefront) against the plain B2 on
+    packets ``pk``: directions bit for bit, misses as the plain version's,
+    dist, u and v bit for bit where the triangle agrees, which may differ
+    only on a distance tie (``closest_equal``). Returns (max abs dist
+    error, plain ms)."""
     import torch
 
     from snail_tpu_torch.core.vecmath import BIG
     from snail_tpu_torch.ops import traverse as pt
 
     plain, plain_ms = timed_plain(lambda: pt.camera_wl_plain(
-        cv, WIDTH, HEIGHT, rows, lt, words[pk], pk, raw=True))
+        cv, WIDTH, HEIGHT, rows, lt, words[pk], pk))
     sub = [a[pk] for a in kern]
     hit = plain[0] < BIG
     if not bool((sub[3][~hit] == -1).all() and (sub[0][~hit] == BIG).all()):
-        fail(f"{name} camera_wl_raw: misses differ from the plain version")
+        fail(f"{name} camera_wl: misses differ from the plain version")
     if not all(torch.equal(a, b) for a, b in zip(sub[4:], plain[4:])):
-        fail(f"{name} camera_wl_raw: directions differ from the plain "
-             "version")
-    err, share = closest_equal(f"{name} camera_wl_raw packets "
-                               f"{len(pk)}", sub[:4], plain[:4],
-                               torch.ones_like(hit))
+        fail(f"{name} camera_wl: directions differ from the plain version")
+    err, share = closest_equal(f"{name} camera_wl packets {len(pk)}",
+                               sub[:4], plain[:4], torch.ones_like(hit))
     if share <= 0.3:
-        fail(f"{name} camera_wl_raw: hit share {share}")
+        fail(f"{name} camera_wl: hit share {share}")
     return err, plain_ms
 
 
 def raw_against_shared(name, raw, shared):
-    """B2 raw's (B4 raw's) outputs ``raw`` against B2's (B4's) ``shared``
-    on the shared-origin rows, on the same words: bit for bit, since
-    ``shared_rows`` computes the origin's terms with the products and
-    sums, in the same order, that the raw form's full test computes per
+    """B2's (B4's) outputs ``raw`` on the raw triangle rows against B8a's
+    (B8b's) ``shared`` on the shared-origin rows, on the same words: bit
+    for bit, since ``shared_rows`` computes the origin's terms with the
+    products and sums, in the same order, that the full test computes per
     ray. Prints and returns the values that differ."""
-    pairs = (list(zip(raw, shared)) if isinstance(raw, tuple)
+    pairs = (list(zip(raw, shared)) if isinstance(raw, (tuple, list))
              else [(raw, shared)])
     n_diff = sum(int((a != b).sum()) for a, b in pairs)
     print(f"raw {name}: raw rows against shared-origin rows on the same "
           f"words: {n_diff} of {sum(a.numel() for a, _ in pairs)} output "
           f"values differ", flush=True)
     if n_diff:
-        fail(f"{name}: the raw form differs from the shared-origin form")
+        fail(f"{name}: the raw rows' outputs differ from the shared-origin "
+             "rows'")
     return n_diff
-
-
-def in_turns(name, fns, card):
-    """Device ms (CUDA events over KERNEL_REPS calls) of each of ``fns``
-    ({label: fn}), in turns: in order, then in reverse; prints a
-    ``turns`` line. Returns {label: [ms, ms]}."""
-    times = {k: [] for k in fns}
-    for k in list(fns) + list(fns)[::-1]:
-        times[k].append(cuda_ms(fns[k], KERNEL_REPS))
-    print(f"turns {name}: " + ", ".join(
-        f"{k} {sum(t) / 2:.4f} ms (" + " / ".join(f"{x:.4f}" for x in t)
-        + ")" for k, t in times.items()) + f", on {card}", flush=True)
-    return times
-
-
-def check_raw(name, scene, cam, cv, words3, b2, srows, primary):
-    """B2 raw and B4 raw on terrain_724's 1024 x 1024 wavefronts (phase 3):
-    B2 raw over the whole primary wavefront against its plain version
-    (``camera_raw_plain`` on every packet) and against B2 (``b2``, on the
-    shared-origin rows ``srows``); its warps on SIM_PACKETS seeded packets
-    simulated (``camera_wl_sim(raw=True)``), outputs bit for bit, ties
-    included; B4 raw on the frame's shadow rays toward the low light
-    (whole wavefront) and toward light 0 (seeded packets), verdicts the
-    plain version's bit for bit and against B4's; then shared_rows, B2,
-    B2 raw, B4 and B4 raw in turns. Returns {kernel: entry, "turns":
-    ms}."""
-    import torch
-
-    from snail_tpu_torch.ops import traverse as pt
-    from snail_tpu_torch.render.fast import shadow_wavefront
-
-    w, h = WIDTH, HEIGHT
-    lt, rows = scene.leaves, scene.tri_rows
-    words, summ, floors = words3
-    p = words.shape[0]
-    call = lambda: pt.camera_wl(cv, w, h, rows, lt, words, summ, floors,
-                                raw=True)
-    kern = call()
-    err, plain_ms = camera_raw_plain(name, cv, rows, lt, words, kern,
-                                     torch.arange(p, device="cuda"))
-    raw_against_shared(f"{name} camera_wl_raw", kern, b2)
-    pk = seeded_packets(p, SIM_PACKETS, 9)
-    sim, _, tal = pt.camera_wl_sim(cv, w, h, rows, lt, words[pk], floors[pk],
-                                   pk, raw=True)
-    if not all(torch.equal(a[pk], b) for a, b in zip(kern, sim)):
-        fail(f"{name} camera_wl_raw: the simulation's outputs on packets "
-             f"{pk.tolist()} differ from the kernel's")
-    tally = {"warps": tal.shape[1], "words": int(tal[0].sum()),
-             **dict(zip(pt.TALLY[1:], tal[1:].sum(1).tolist()))}
-    print_tally(name, "camera_wl_raw", pk, tally, True)
-    ms = cuda_ms(call, KERNEL_REPS)
-    # the words and warps of B2's: its scan lines hold for B2 raw
-    ops, n_bytes, _ = camera_work(name, "camera_wl_raw", cv, rows, lt,
-                                  words, summ, floors, kern, scan=False)
-    out = {"camera_wl_raw": entry(err, ms, plain_ms, n_bytes, ops,
-                                  sim_scan=tally)}
-
-    pkp = lambda a: a.reshape(-1, pt.PACKET_R).contiguous()
-    for label, lp in (("low light", torch.tensor(LOW_LIGHT["terrain"],
-                                                 device="cuda")),
-                      ("light 0", scene.lights.pos[0])):
-        d, tm = shadow_wavefront(scene, *primary, lp)
-        orig, d, tm = lp.contiguous(), tuple(map(pkp, d)), pkp(tm)
-        sw = pt.words_shared(orig, d, tm, lt, 1)
-        kb = pt.shadow_wl(orig, d, tm, rows, lt, *sw, raw=True)
-        sel = (torch.arange(p, device="cuda") if label == "low light"
-               else seeded_packets(p, PACKETS_10M, 11))
-        plain, plain_ms = timed_plain(lambda: pt.shadow_wl_plain(
-            orig, tuple(c[sel] for c in d), tm[sel], rows, lt, sw[0][sel],
-            raw=True))
-        live = tm >= 0
-        frac = float(kb[live].mean())
-        n_diff = int((kb[sel] != plain).sum())
-        print(f"check {name} {label} shadow_wl_raw: {n_diff} verdicts differ "
-              f"on {len(sel)} packets, blocked share {frac} of "
-              f"{int(live.sum())} live rays", flush=True)
-        if n_diff or bool(kb[~live].any()) or (
-                label == "low light" and not 0.02 < frac < 0.98):
-            fail(f"{name} {label} shadow_wl_raw: {n_diff} verdicts differ, "
-                 f"blocked share {frac}")
-        b4 = pt.shadow_wl(orig, d, tm, pt.shared_rows(rows, orig), lt, *sw)
-        raw_against_shared(f"{name} {label} shadow_wl_raw", kb, b4)
-        ms = cuda_ms(lambda: pt.shadow_wl(orig, d, tm, rows, lt, *sw,
-                                          raw=True), KERNEL_REPS)
-        ops, n_bytes, _ = shadow_work(f"{name} {label}", "shadow_wl_raw",
-                                      orig, d, tm, rows, lt, *sw, kb,
-                                      scan=False)
-        e = entry(0.0, ms, plain_ms, n_bytes, ops, plain_packets=len(sel))
-        if label == "light 0":
-            out["shadow_wl_raw"] = {**e, "low light": out.pop("low")}
-            light_planes = (orig, d, tm, sw)
-        else:
-            out["low"] = e
-    print_checks(f"{name} raw", out)
-
-    # R10: the shared-origin table's cost beside the raw form's, in turns
-    orig, d, tm, sw = light_planes
-    lrows = pt.shared_rows(rows, orig)
-    out["turns"] = in_turns(f"{name} raw", {
-        "shared_rows": lambda: pt.shared_rows(rows, cam.pos),
-        "camera_wl": lambda: pt.camera_wl(cv, w, h, srows, lt, words, summ,
-                                          floors),
-        "camera_wl_raw": call,
-        "shadow_wl": lambda: pt.shadow_wl(orig, d, tm, lrows, lt, *sw),
-        "shadow_wl_raw": lambda: pt.shadow_wl(orig, d, tm, rows, lt, *sw,
-                                              raw=True)}, card_line())
-    return out
 
 
 def print_checks(name, out):
@@ -1073,10 +953,10 @@ def check_shadow(name, scene, primary, lp, need_blocked, sweep=False):
             lambda c: pt.words_shared(orig, d, tm, lt, 1, c), plain)
     words, summ, floors = kern
 
-    srows = pt.shared_rows(scene.tri_rows, orig)
-    kern = pt.shadow_wl(orig, d, tm, srows, lt, words, summ, floors)
+    rows = scene.tri_rows
+    kern = pt.shadow_wl(orig, d, tm, rows, lt, words, summ, floors)
     plain, plain_ms = timed_plain(
-        lambda: pt.shadow_wl_plain(orig, d, tm, srows, lt, words))
+        lambda: pt.shadow_wl_plain(orig, d, tm, rows, lt, words))
     live = tm >= 0
     agree = float((kern[live] == plain[live]).float().mean())
     frac = float(plain[live].mean())
@@ -1088,17 +968,18 @@ def check_shadow(name, scene, primary, lp, need_blocked, sweep=False):
             or (need_blocked and frac <= 0.02)):
         fail(f"{name} shadow_wl: {n_diff} verdicts differ, blocked share "
              f"{frac}")
-    ms = cuda_ms(lambda: pt.shadow_wl(orig, d, tm, srows, lt, words, summ,
+    ms = cuda_ms(lambda: pt.shadow_wl(orig, d, tm, rows, lt, words, summ,
                                       floors), KERNEL_REPS)
-    ops, b4_bytes, tally = shadow_work(name, "shadow_wl", orig, d, tm, srows,
+    ops, b4_bytes, tally = shadow_work(name, "shadow_wl", orig, d, tm, rows,
                                        lt, words, summ, floors, kern)
     out["shadow_wl"] = entry(float((kern - plain).abs().max()), ms, plain_ms,
                              b4_bytes, ops, scan=tally)
 
-    # B8b: B4's verdicts bit for bit, and the simulated counters
+    # B8b on the light's shared-origin rows: B4's verdicts bit for bit,
+    # and the simulated counters
+    srows = pt.shared_rows(rows, orig)
     k8, st = pt.shadow_wl_stats(orig, d, tm, srows, lt, words, summ, floors)
-    if not torch.equal(k8, kern):
-        fail(f"{name} shadow_wl_stats: verdicts differ from shadow_wl's")
+    raw_against_shared(f"{name} shadow_wl", kern, k8)
     pk = sample_packets(st, 2)
     (_, sim), plain_ms = timed_plain(lambda: pt.shadow_wl_stats_plain(
         orig, tuple(c[pk] for c in d), tm[pk], srows, lt, words[pk],
@@ -1106,7 +987,10 @@ def check_shadow(name, scene, primary, lp, need_blocked, sweep=False):
     check_counters(f"{name} shadow_wl_stats", st, pk, sim)
     ms = cuda_ms(lambda: pt.shadow_wl_stats(orig, d, tm, srows, lt, words,
                                             summ, floors), KERNEL_REPS)
-    out["shadow_wl_stats"] = entry(0.0, ms, plain_ms, b4_bytes + nbytes(st),
+    ops, n_bytes, _ = shadow_work(name, "shadow_wl_stats", orig, d, tm,
+                                  srows, lt, words, summ, floors, kern,
+                                  scan=False)
+    out["shadow_wl_stats"] = entry(0.0, ms, plain_ms, n_bytes + nbytes(st),
                                    ops, plain_packets=len(pk))
     return out
 
@@ -1230,7 +1114,7 @@ def check_general(name, scene, o, d, tm, sweep=False):
         fail(f"{name} closest_wl_g: {checks}, max dist err {derr}")
     ms = cuda_ms(lambda: pt.closest_wl_g(o, d, tm, rows, lt, words, summ,
                                          floors), KERNEL_REPS)
-    idir = [1.0 / (c + pt.INV_EPS) for c in d]
+    idir = [pt.safe_inv(c) for c in d]
     t_root = root_exit(lt, o, idir)
     reach = torch.where(hit, kd, torch.minimum(tm, t_root))
     best = torch.where(live, tm.clamp_max(BIG), -BIG)
@@ -1302,7 +1186,7 @@ def b7_work(lt, rows, o, d, tm, words, summ, floors, kern):
 
     from snail_tpu_torch.ops import traverse as pt
 
-    idir = [1.0 / (c + pt.INV_EPS) for c in d]
+    idir = [pt.safe_inv(c) for c in d]
     live, blocked = tm >= 0, kern > 0
     reach = torch.minimum(tm, root_exit(lt, o, idir))
     ops, leaf_bytes = needed_work(
@@ -3435,37 +3319,9 @@ def sharded_phase(card, name, scene, cam):
     return launches
 
 
-def start_build_10m():
-    """Phase 13's host build (``bench_scenes.save_host_build`` of
-    terrain_10m at its bench size: generation and BVH, ~1 minute) in a
-    process of its own, started with the script so that it runs while the
-    card phases do, into ``snail_tpu_torch/build/`` (ignored by git); the
-    process sees no card and is killed at exit if it still runs. Returns
-    (process, directory)."""
-    import atexit
-    import os
-    import shutil
-    from pathlib import Path
-
-    from snail_tpu_torch.ops._build import BUILD_DIR
-    from snail_tpu_torch.scene.bench_scenes import BENCH_N
-
-    n = BENCH_N["terrain_10m"]
-    d = BUILD_DIR / f"terrain_10m_{n}"
-    shutil.rmtree(d, ignore_errors=True)
-    code = ("from snail_tpu_torch.scene.bench_scenes import save_host_build; "
-            f"save_host_build('terrain_10m', {n}, {str(d)!r})")
-    proc = subprocess.Popen(
-        [sys.executable, "-c", code], cwd=str(Path(__file__).resolve().parent),
-        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    return proc, d
-
-
 def oracle_check(name, scene, cam, kern, seed=17):
     """tools/bench_big.py's oracle spot check: ORACLE_RAYS seeded primary
-    rays of the frame (``kern``: B2 raw's whole-wavefront outputs) against
+    rays of the frame (``kern``: B2's whole-wavefront outputs) against
     ``ops.intersect.intersect_brute_force``'s rule over every triangle of
     the scene, ORACLE_TRIS triangles a step on the card: the distance
     within 1e-3 relative (or both a miss) on >= ORACLE_AGREE of the rays;
@@ -3565,15 +3421,16 @@ def frame_10m(name, path, scene, cam, need, card):
 
 def kernels_10m(name, scene, walk, cam):
     """Phase 13's kernel checks on the 10 Mtri frame's wavefronts: B1 and
-    B3 against their plain versions on PACKETS_10M seeded packets, B2 raw
-    (``camera_raw_plain``) and B4 raw on seeded packets, each timed on
+    B3 against their plain versions on PACKETS_10M seeded packets, B2
+    (``camera_plain_packets``) and B4 on seeded packets, each timed on
     the whole wavefront beside its bound over the whole wavefront; the
-    brute-force spot check (``oracle_check``); B2 raw and B4 raw against
-    B2 and B4 on shared-origin rows (``raw_against_shared``); B4 raw also
-    toward the low light, where rays are blocked; B9a and B9b on the node
-    tables against their plain versions over their whole wavefronts; then
-    shared_rows, B2 and B2 raw in turns. Returns ({kernel: entry},
-    {what: numbers})."""
+    brute-force spot check (``oracle_check``); B2 and B4 bit for bit B8a
+    and B8b on the shared-origin rows (``raw_against_shared``), and the
+    time of each shared-origin table (``shared_rows``) that they build
+    and B2 and B4 do not; B4 also toward the low light, where rays are
+    blocked; B9a and B9b on the node tables against their plain versions
+    over their whole wavefronts. Returns ({kernel: entry}, {what:
+    numbers})."""
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
@@ -3603,32 +3460,31 @@ def kernels_10m(name, scene, walk, cam):
     out["words_camera"]["plain_packets"] = len(pk)
     words, summ, floors = kern
 
-    # B2 raw on the raw rows
-    call = lambda: pt.camera_wl(cv, w, h, rows, lt, words, summ, floors,
-                                raw=True)
-    b2r = call()
-    err, plain_ms = camera_raw_plain(name, cv, rows, lt, words, b2r, pk)
+    # B2 on the raw rows
+    call = lambda: pt.camera_wl(cv, w, h, rows, lt, words, summ, floors)
+    b2 = call()
+    err, plain_ms = camera_plain_packets(name, cv, rows, lt, words, b2, pk)
     ms = cuda_ms(call, KERNEL_REPS)
-    ops, n_bytes, _ = camera_work(name, "camera_wl_raw", cv, rows, lt, words,
-                                  summ, floors, b2r, scan=False)
-    out["camera_wl_raw"] = entry(err, ms, plain_ms, n_bytes, ops,
-                                 plain_packets=len(pk))
-    extra["oracle"] = oracle_check(name, scene, cam, b2r)
+    ops, n_bytes, _ = camera_work(name, "camera_wl", cv, rows, lt, words,
+                                  summ, floors, b2, scan=False)
+    out["camera_wl"] = entry(err, ms, plain_ms, n_bytes, ops,
+                             plain_packets=len(pk))
+    extra["oracle"] = oracle_check(name, scene, cam, b2)
     srows = pt.shared_rows(rows, cam.pos)
-    b2 = pt.camera_wl(cv, w, h, srows, lt, words, summ, floors)
-    extra["camera raw vs shared, values that differ"] = (
-        raw_against_shared(f"{name} camera_wl_raw", b2r, b2))
-    extra["turns camera"] = in_turns(f"{name} camera", {
-        "shared_rows": lambda: pt.shared_rows(rows, cam.pos),
-        "camera_wl": lambda: pt.camera_wl(cv, w, h, srows, lt, words, summ,
-                                          floors),
-        "camera_wl_raw": call}, card_line())
-    del srows, b2
+    extra["camera raw vs shared, values that differ"] = raw_against_shared(
+        f"{name} camera_wl", b2, pt.camera_wl_stats(cv, w, h, srows, lt,
+                                                    words, summ, floors)[:7])
+    extra["shared_rows ms"] = cuda_ms(lambda: pt.shared_rows(rows, cam.pos),
+                                      KERNEL_REPS)
+    print(f"table {name} shared_rows: {extra['shared_rows ms']:.4f} ms a "
+          f"frame and origin (B8a/B8b's, B9a/B9b's; B2 and B4 build none), "
+          f"on {card_line()}", flush=True)
+    del srows
 
-    # B3 and B4 raw toward light 0 (the frame's) and the low light
+    # B3 and B4 toward light 0 (the frame's) and the low light
     primary = ((cam.pos[0], cam.pos[1], cam.pos[2]),
-               tuple(c.reshape(-1) for c in b2r[4:7]),
-               *(c.reshape(-1) for c in b2r[:4]))
+               tuple(c.reshape(-1) for c in b2[4:7]),
+               *(c.reshape(-1) for c in b2[:4]))
     pkp = lambda a: a.reshape(-1, pt.PACKET_R).contiguous()
     for label, lp in (("light 0", scene.lights.pos[0]),
                       ("low light", torch.tensor(LOW_LIGHT["terrain"],
@@ -3642,22 +3498,24 @@ def kernels_10m(name, scene, walk, cam):
             lambda: pt.words_shared_plain(orig, *sub(), lt, 1))
         werr = words_err(tuple(a[pk] for a in sw), plain,
                          f"{name} {label} words_shared")
-        kb = pt.shadow_wl(orig, d, tm, rows, lt, *sw, raw=True)
+        kb = pt.shadow_wl(orig, d, tm, rows, lt, *sw)
         plain, plain_ms = timed_plain(lambda: pt.shadow_wl_plain(
-            orig, *sub(), rows, lt, sw[0][pk], raw=True))
+            orig, *sub(), rows, lt, sw[0][pk]))
         frac = float(kb[live].mean())
         n_diff = int((kb[pk] != plain).sum())
-        print(f"check {name} {label} shadow_wl_raw: {n_diff} verdicts differ "
+        print(f"check {name} {label} shadow_wl: {n_diff} verdicts differ "
               f"on {len(pk)} packets, blocked share {frac} of "
               f"{int(live.sum())} live rays", flush=True)
         if n_diff or bool(kb[~live].any()) or frac >= 0.98 or (
                 label == "low light" and frac <= 0.02):
-            fail(f"{name} {label} shadow_wl_raw: {n_diff} verdicts differ, "
+            fail(f"{name} {label} shadow_wl: {n_diff} verdicts differ, "
                  f"blocked share {frac}")
         lrows = pt.shared_rows(rows, orig)
         extra[f"{label} raw vs shared, values that differ"] = (
-            raw_against_shared(f"{name} {label} shadow_wl_raw", kb,
-                               pt.shadow_wl(orig, d, tm, lrows, lt, *sw)))
+            raw_against_shared(f"{name} {label} shadow_wl", kb,
+                               pt.shadow_wl_stats(orig, d, tm, lrows, lt,
+                                                  *sw)[0]))
+        del lrows
         if label != "light 0":
             continue
         ms, event_ms = words_ms(lambda: pt.words_shared(orig, d, tm, lt, 1))
@@ -3666,17 +3524,12 @@ def kernels_10m(name, scene, walk, cam):
             "words_shared", werr, ms, words_plain_ms, lt, (orig, *d, tm), sw,
             tested, event_ms)
         out["words_shared"]["plain_packets"] = len(pk)
-        b4r = lambda: pt.shadow_wl(orig, d, tm, rows, lt, *sw, raw=True)
-        ms = cuda_ms(b4r, KERNEL_REPS)
-        ops, n_bytes, _ = shadow_work(name, "shadow_wl_raw", orig, d, tm,
-                                      rows, lt, *sw, kb, scan=False)
-        out["shadow_wl_raw"] = entry(0.0, ms, plain_ms, n_bytes, ops,
-                                     plain_packets=len(pk))
-        extra["turns shadow"] = in_turns(f"{name} light 0 shadow", {
-            "shared_rows": lambda: pt.shared_rows(rows, orig),
-            "shadow_wl": lambda: pt.shadow_wl(orig, d, tm, lrows, lt, *sw),
-            "shadow_wl_raw": b4r}, card_line())
-        del lrows
+        ms = cuda_ms(lambda: pt.shadow_wl(orig, d, tm, rows, lt, *sw),
+                     KERNEL_REPS)
+        ops, n_bytes, _ = shadow_work(name, "shadow_wl", orig, d, tm, rows,
+                                      lt, *sw, kb, scan=False)
+        out["shadow_wl"] = entry(0.0, ms, plain_ms, n_bytes, ops,
+                                 plain_packets=len(pk))
 
     # B9a and B9b on the node tables, whole wavefronts
     nodes = walk.nodes
@@ -3722,35 +3575,18 @@ def kernels_10m(name, scene, walk, cam):
     return out, extra
 
 
-def run_10m(card, build, raw_724):
+def run_10m(card):
     """Phase 13 (see the module docstring): bench.py's 10 Mtri scene on
-    leaf tables (B1, B2 raw, B3, B4 raw) and on node tables (B9a, B9b)
-    from the host build ``build`` (``start_build_10m``); ``raw_724``,
-    phase 3's B2 raw and B4 raw entries on terrain_724, joins their
-    entries. Returns the kernels line's entries."""
+    leaf tables (B1-B4) and on node tables (B9a, B9b). Returns the kernels
+    line's entries."""
     import dataclasses
-    import shutil
 
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
     from snail_tpu_torch.scene import bench_scenes as bs
 
-    proc, d = build
-    t0 = time.perf_counter()
-    try:
-        log, _ = proc.communicate(timeout=BUILD_10M_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        fail(f"the 10 Mtri host build did not end in {BUILD_10M_TIMEOUT_S} s")
-    waited = time.perf_counter() - t0
-    if proc.returncode or not (d / "done").exists():
-        fail(f"the 10 Mtri host build failed ({proc.returncode}): {log}")
-    t0 = time.perf_counter()
-    built = bs.load_host_build(d)
-    load_s = time.perf_counter() - t0
-    shutil.rmtree(d, ignore_errors=True)
-    scene, cam, g, bvh, secs = bs.scene_10m(built=built)
+    scene, cam, g, bvh, secs = bs.scene_10m()
     name = f"terrain_10m_{bs.BENCH_N['terrain_10m']}"
     if scene.leaves is None:
         fail(f"{name}: {int((bvh.count > 0).sum())} leaves, more than leaf "
@@ -3758,15 +3594,11 @@ def run_10m(card, build, raw_724):
     print(f"scene {name}: {g.num_tris} tris, {scene.leaves.n_leaf} leaves "
           f"(leaf {bs.SCENES['terrain_10m'][1]}, leaf slots "
           f"{scene.leaves.lp} of at most {pt.WL_MAX_LP}), BVH depth "
-          f"{bvh.depth}, raw rows {pt.raw_rows(scene)} "
-          f"({scene.tri_rows.shape[0]} rows); gen_s {secs['gen_s']:.2f}, "
-          f"build_s {secs['build_s']:.2f}, pack_s {secs['pack_s']:.2f} "
-          f"(bench.py's three; generation and build in their own process, "
-          f"waited for {waited:.2f} s, its arrays loaded in {load_s:.2f} s), "
-          f"scene tensors {nbytes(*(t for t in vars(scene).values() if isinstance(t, torch.Tensor))) / 2**20:.1f} MiB",
+          f"{bvh.depth}, {scene.tri_rows.shape[0]} triangle rows; gen_s "
+          f"{secs['gen_s']:.2f}, build_s {secs['build_s']:.2f}, pack_s "
+          f"{secs['pack_s']:.2f} (bench.py's three; the host build alone, "
+          f"with no card phase running), scene tensors {nbytes(*(t for t in vars(scene).values() if isinstance(t, torch.Tensor))) / 2**20:.1f} MiB",
           flush=True)
-    if not pt.raw_rows(scene):
-        fail(f"{name}: {scene.tri_rows.shape[0]} rows, not above RAW_ROWS")
     t0 = time.perf_counter()
     walk = dataclasses.replace(scene, leaves=None, nodes=pt.pack_node_tables(
         bvh.node_lo, bvh.node_hi, bvh.child, bvh.count, bvh.axis,
@@ -3779,17 +3611,14 @@ def run_10m(card, build, raw_724):
           flush=True)
     checks, extra = kernels_10m(name, scene, walk, cam)
     launches = {}
-    img, launches["fwd"], fwd = frame_10m(name, "fwd", scene, cam,
-                                          FORWARD_RAW, card)
+    img, launches["fwd"], fwd = frame_10m(name, "fwd", scene, cam, FORWARD,
+                                          card)
     wimg, launches["walk_fwd"], wfwd = frame_10m(name, "walk fwd", walk, cam,
                                                  WALK_FWD, card)
     against_frame(name, "walk fwd", wimg, img)
     numbers = {**secs, "walk_pack_s": walk_pack_s, "fwd": fwd,
                "walk_fwd": wfwd, **extra}
     print(f"row {name}: {json.dumps(numbers)}", flush=True)
-    for k, e in (raw_724 or {}).items():
-        if k in checks:
-            checks[k]["terrain_724"] = e
     path = lambda k: "walk_fwd" if k in WALK else "fwd"
     return [{"name": f"{k}/{name}", "route": "cuda",
              "source": WALK_SRC if k in WALK else SRC,
@@ -3814,7 +3643,6 @@ def main() -> None:
         fail(f"snail_tpu_torch not found beside this script: {e}")
 
     card = card_line()
-    build_10m = start_build_10m()
     print(f"device: {torch.cuda.get_device_name(0)}, count "
           f"{torch.cuda.device_count()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
@@ -3832,7 +3660,6 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     kernels = []
-    raw_724 = None
     # (scene kind, n of the small CPU-path check)
     for kind, n_small in (("city", BENCH_N["city"]), ("terrain", 64)):
         n = BENCH_N[kind]
@@ -3846,7 +3673,6 @@ def main() -> None:
         small = (sscene, scam)
         stamp(f"{name} scenes")
         checks = check_kernels(name, kind, scene, cam)
-        raw_724 = checks.pop("raw", raw_724)
         stamp(f"{name} kernel checks")
         fwd = RenderOpts(reflections=False, transparency=False,
                          textures=False)
@@ -3925,7 +3751,7 @@ def main() -> None:
     stamp("apps phase")
     extra.update(run_distributed(card))
     stamp("distributed phase")
-    kernels += run_10m(card, build_10m, raw_724)
+    kernels += run_10m(card)
     stamp("10 Mtri phase")
     # the new phases' launches beside the city's other paths
     city = f"/city_{BENCH_N['city']}"

@@ -32,10 +32,16 @@ def length(v):
     return torch.sqrt(dot(v, v))
 
 
+def rsqrt_rn(x):
+    """Correctly rounded float32 1/sqrt (the kernels use __frsqrt_rn)."""
+    return torch.rsqrt(x.double()).float()
+
+
 def normalize(v):
     """v * rsqrt(v . v), as the reference normalizes a ray
-    (ray_generator.cpp:41-44)."""
-    return v * torch.rsqrt(vdot(v, v))
+    (ray_generator.cpp:41-44), with the kernels' correctly rounded
+    rsqrt."""
+    return v * rsqrt_rn(vdot(v, v))
 
 
 def safe_inv(v):

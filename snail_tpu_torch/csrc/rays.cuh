@@ -201,9 +201,9 @@ __device__ __forceinline__ void leaf_closest(const float* rows, int first,
 // Whether one of the ``cnt`` rows from ``first`` occludes the ray from
 // ``o`` along ``d`` before ``limit``: shared-origin rows (``o`` unused),
 // or with RAW raw rows and the full Moller test; the ray stops at its
-// first blocker. ``tested`` counts the triangles it tested. (B4 and B8b,
-// B4 raw; the other any-hits test their leaves through
-// leaf_blocks_staged below.)
+// first blocker. ``tested`` counts the triangles it tested. (B4 on raw
+// rows, B8b on shared-origin rows; the other any-hits test their leaves
+// through leaf_blocks_staged below.)
 template <bool RAW = false>
 __device__ __forceinline__ bool leaf_blocks(const float* rows, int first,
                                             int cnt, const float o[3],
@@ -372,7 +372,7 @@ __device__ __forceinline__ bool leaf_blocks_staged(
 // rows of ``slot`` (tri ids from ``first``), if it entered the leaf
 // (``go``); every lane of the warp calls it. The rays share the origin
 // ``o``: the rows are shared-origin rows (``o`` unused), or with RAW raw
-// rows tested with the full Moller test from ``o`` (B2 raw). Updates
+// rows tested with the full Moller test from ``o`` (B2). Updates
 // best, tri, bu and bv as a serial loop over the rows would: where at
 // most LANE_TRI_MAX lanes
 // entered, lane per triangle (the warp takes the entering rays one at a

@@ -5,14 +5,12 @@
 //   words_cluster_kernel<CAMERA>  <- _words_camera_kernel  (B1)
 //   words_cluster_kernel<SHARED>  <- _words_shared_kernel  (B3)
 //   words_cluster_kernel<GENERAL> <- _words_general_kernel (B5)
-//   camera_wl_kernel      <- _camera_wl_kernel     (B2)
-//   shadow_wl_kernel      <- _shadow_wl_kernel     (B4)
+//   camera_wl_kernel<false> <- _camera_wl_kernel, raw=True (B2)
+//   shadow_wl_kernel<false> <- _shadow_wl_kernel, raw=True (B4)
 //   closest_wl_g_kernel   <- _closest_wl_kernel_g  (B6)
 //   shadow_wl_g_kernel    <- _shadow_wl_kernel_g   (B7)
 //   camera_wl_kernel<true> <- _camera_wl_kernel_stats (B8a)
 //   shadow_wl_kernel<true> <- _shadow_wl_kernel_stats (B8b)
-//   camera_wl_kernel<false, true> <- _camera_wl_kernel, raw=True (B2 raw)
-//   shadow_wl_kernel<false, true> <- _shadow_wl_kernel, raw=True (B4 raw)
 // The plain PyTorch versions are in snail_tpu_torch/ops/traverse.py, which
 // documents the word layout. The file has a plain C interface (bottom) and
 // is loaded with ctypes; it is compiled with --fmad=false so every product
@@ -84,16 +82,16 @@
 //   few lanes at a time, and an unblocked lane tests every row, so one
 //   coalesced copy of the leaf and a lane per triangle replace each
 //   entering lane's chain of dependent row loads.
-// - B2 raw and B4 raw (template RAW) are B2 and B4 on the raw triangle
-//   rows: the full Moller test from the shared origin in place of the
-//   per-frame shared-origin table (ops/traverse.py shared_rows), which a
-//   scene of more than 2^31 / 512 rows does not build (ops/traverse.py
-//   raw_rows, the JAX package's _wl_raw_tris). ~2x the flops a test and
-//   the same 48 staged bytes a row; no table of T x 64 bytes written and
-//   read each frame and light.
+// - B2 and B4 test the raw triangle rows with the full Moller test from
+//   the shared origin (the JAX package's raw=True form, which it takes
+//   above 2^31 bytes of its 512-B rows): ~2x the flops of a test on a
+//   shared-origin row and the same 48 staged bytes a row, but no table of
+//   T x 64 bytes (ops/traverse.py shared_rows) written and read each frame
+//   and light; at every size the port measured that table cost more than
+//   the flops it saves (PERF.md).
 // - B8a/B8b are B2/B4 with counters (template STATS; with STATS=false no
-//   counting code is compiled in). They keep shared-origin rows at every
-//   size, as the JAX package's counter frame does (:3665). Every
+//   counting code is compiled in). They take shared-origin rows, as the
+//   JAX package's counter frame does at every size (:3665). Every
 //   counter is warp-uniform, kept in registers and added to the packet's
 //   row by one integer atomicAdd per counter and warp at the end:
 //   order-free, so deterministic. Their cost is a few warp votes per word
@@ -830,7 +828,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // strictly nearer hit, so dist, u, v and tri are the loop's bit for bit.
 
 // Starts the copy of rows first .. first + count - 1 (<= kWlLeafRows) of
-// ``rows`` (shared-origin or, for B2 raw, raw rows) into ``slot`` as one
+// ``rows`` (raw rows, or B8a's shared-origin rows) into ``slot`` as one
 // cp.async group; every lane of the warp calls it.
 __device__ __forceinline__ void stage_rows(const float* rows, int first,
                                            int count, float4* slot,
@@ -845,11 +843,11 @@ __device__ __forceinline__ void stage_rows(const float* rows, int first,
 }
 
 // B2 (B8a with STATS): camera raygen + closest hit, one thread per ray;
-// STATS adds the packet's counters to ``out_stats`` (P, 8). RAW (B2 raw,
-// without STATS): ``rows`` are the raw triangle rows, staged as the
-// shared-origin rows are (their 48-byte prefix: a, ba, ca, n) and tested
-// with the full Moller test from the camera position; the same stage,
-// warps, lane-per-triangle threshold and tie rule. A warp's rays
+// STATS adds the packet's counters to ``out_stats`` (P, 8). B2's ``rows``
+// are the raw triangle rows, staged by their 48-byte prefix (a, ba, ca,
+// n) and tested with the full Moller test from the camera position; B8a's
+// are the camera's shared-origin rows; the same stage, warps,
+// lane-per-triangle threshold and tie rule. A warp's rays
 // are an 8 x 4 pixel tile (rays.cuh tile_ray); each thread writes its own
 // ray's slot. Each warp's leaf stage is two slots of kWlLeafRows staged rows
 // (3 KB) and its word table 1 KB: 32 KB a block of 8 warps. Asked for 4
@@ -857,7 +855,7 @@ __device__ __forceinline__ void stage_rows(const float* rows, int first,
 // B2 64 registers and spills 48 bytes; with no minimum it took 80 and 3
 // blocks and was 1-2 % slower, with 2 blocks 27 % slower. B8a, 3 blocks:
 // 80 registers, 12 bytes spilled, 2-3 % faster than at 4 (PERF.md).
-template <bool STATS, bool RAW = false>
+template <bool STATS>
 __global__ void __launch_bounds__(kTraceThreads, STATS ? 3 : 4)
 camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
                  const float* __restrict__ box,
@@ -870,6 +868,7 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
                  float* __restrict__ out_v, int32_t* __restrict__ out_tri,
                  float* __restrict__ out_dx, float* __restrict__ out_dy,
                  float* __restrict__ out_dz, int32_t* __restrict__ out_stats) {
+  constexpr bool RAW = !STATS;
   constexpr int kSlotVec = kWlLeafRows * kStageVec;
   constexpr int kWarps = kTraceThreads / 32;
   __shared__ float4 s_stage[kWarps * 2 * kSlotVec];
@@ -954,10 +953,10 @@ camera_wl_kernel(const float* __restrict__ cam, const float* __restrict__ rows,
 
 // B4 (B8b with STATS): any-hit from a shared origin, one thread per ray,
 // over scan_boxes; a warp stops once every live ray in it is blocked.
-// RAW (B4 raw, without STATS): ``rows`` are the raw triangle rows, each
-// tested with the full Moller test from ``orig`` (leaf_blocks<true>), the
-// one-sided rule unchanged.
-template <bool STATS, bool RAW = false>
+// B4's ``rows`` are the raw triangle rows, each tested with the full
+// Moller test from ``orig`` (leaf_blocks<true>); B8b's the shared-origin
+// rows of ``orig``; the one-sided rule either way.
+template <bool STATS>
 __global__ void __launch_bounds__(kTraceThreads)
 shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
                  const float* __restrict__ dy, const float* __restrict__ dz,
@@ -995,8 +994,9 @@ shadow_wl_kernel(const float* __restrict__ orig, const float* __restrict__ dx,
         const bool go = pass && tn < (blocked ? -kBig : limit);
         int tested = 0;
         if (go)
-          blocked = leaf_blocks<RAW>(rows, __ldg(lfirst + l),
-                                     __ldg(lcount + l), o, d, limit, tested);
+          blocked = leaf_blocks<!STATS>(rows, __ldg(lfirst + l),
+                                        __ldg(lcount + l), o, d, limit,
+                                        tested);
         if constexpr (STATS) count_leaf(st, go, tested);
         return __all_sync(kFull, blocked || !(limit > 0.0f));
       });
@@ -1211,25 +1211,18 @@ int snail_words_general(const float* ox, const float* oy, const float* oz,
                                words, summ, floors, stream);
 }
 
-// B2, or B8a when ``stats`` (P, 8) int32, zeroed by the caller, is given;
-// with ``raw`` (no stats), B2 raw on the raw triangle rows.
+// B2 on the raw triangle rows, or B8a on the shared-origin rows when
+// ``stats`` (P, 8) int32, zeroed by the caller, is given.
 int snail_camera_wl(const float* cam, const float* rows, const float* box,
                     const int32_t* lfirst, const int32_t* lcount, int lp,
                     const int32_t* words, const int32_t* summ,
                     const float* floors, int k_bands, int n_packets,
                     float* dist, float* u, float* v, int32_t* tri, float* dx,
-                    float* dy, float* dz, int32_t* stats, int raw,
-                    void* stream) {
-  if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0 ||
-      (raw && stats))
+                    float* dy, float* dz, int32_t* stats, void* stream) {
+  if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = n_packets * (kPacketR / kTraceThreads);
-  if (raw)
-    camera_wl_kernel<false, true><<<blocks, kTraceThreads, 0,
-                                    (cudaStream_t)stream>>>(
-        cam, rows, box, lfirst, lcount, lp, words, summ, floors, k_bands,
-        dist, u, v, tri, dx, dy, dz, nullptr);
-  else if (stats)
+  if (stats)
     camera_wl_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(
         cam, rows, box, lfirst, lcount, lp, words, summ, floors, k_bands,
         dist, u, v, tri, dx, dy, dz, stats);
@@ -1241,8 +1234,8 @@ int snail_camera_wl(const float* cam, const float* rows, const float* box,
   return (int)cudaGetLastError();
 }
 
-// B4, or B8b when ``stats`` (P, 8) int32, zeroed by the caller, is given;
-// with ``raw`` (no stats), B4 raw on the raw triangle rows.
+// B4 on the raw triangle rows, or B8b on the shared-origin rows when
+// ``stats`` (P, 8) int32, zeroed by the caller, is given.
 // ``wbox``/``bbox``: the word and block boxes (ops/traverse.py LeafTables).
 int snail_shadow_wl(const float* orig, const float* dx, const float* dy,
                     const float* dz, const float* tm, const float* rows,
@@ -1250,17 +1243,11 @@ int snail_shadow_wl(const float* orig, const float* dx, const float* dy,
                     const int32_t* lfirst, const int32_t* lcount, int lp,
                     const int32_t* words, const int32_t* summ,
                     const float* floors, int k_bands, int n_packets,
-                    float* blocked, int32_t* stats, int raw, void* stream) {
-  if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0 ||
-      (raw && stats))
+                    float* blocked, int32_t* stats, void* stream) {
+  if (lp <= 0 || lp % kLeafBlock || k_bands < 1 || n_packets <= 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = n_packets * (kPacketR / kTraceThreads);
-  if (raw)
-    shadow_wl_kernel<false, true><<<blocks, kTraceThreads, 0,
-                                    (cudaStream_t)stream>>>(
-        orig, dx, dy, dz, tm, rows, box, wbox, bbox, lfirst, lcount, lp,
-        words, summ, floors, k_bands, blocked, nullptr);
-  else if (stats)
+  if (stats)
     shadow_wl_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(
         orig, dx, dy, dz, tm, rows, box, wbox, bbox, lfirst, lcount, lp,
         words, summ, floors, k_bands, blocked, stats);

@@ -40,10 +40,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "snail_words_camera": [_P] * 3 + [_I] * 5 + [_P] * 4,
     "snail_words_shared": [_P] * 7 + [_I] * 5 + [_P] * 4,
-    "snail_camera_wl": [_P] * 5 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 8
-    + [_I, _P],
-    "snail_shadow_wl": [_P] * 11 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 2
-    + [_I, _P],
+    "snail_camera_wl": [_P] * 5 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 9,
+    "snail_shadow_wl": [_P] * 11 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 3,
     "snail_words_general": [_P] * 9 + [_I] * 5 + [_P] * 4,
     "snail_closest_wl_g": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 5,
     "snail_shadow_wl_g": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 2 + [_P] * 2,

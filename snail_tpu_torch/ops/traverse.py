@@ -25,14 +25,12 @@ Each wavefront runs two kernels:
 2. a *trace* pass (B2 closest hit from the camera, B4 any-hit from a
    light, B6 closest hit and B7 any-hit from per-ray origins): the
    surviving leaf bits are scanned band by band; each ray culls the leaf
-   box against its own current best and intersects the leaf's triangles,
-   with the shared-origin Moller terms of :func:`shared_rows` (B2, B4) or
-   the full Moller test on the raw triangle rows (B6, B7). B8a/B8b are
-   B2/B4 that also count what each packet's warps did (:data:`STATS`).
-   B2 and B4 also have a raw form (``raw=True``; the JAX package's
-   ``raw``): the full Moller test from the shared origin on the raw rows,
-   which the entry points take for a scene of more than :data:`RAW_ROWS`
-   rows (:func:`raw_rows`) in place of the per-frame shared-origin table.
+   box against its own current best and intersects the leaf's triangles
+   with the full Moller test on the raw triangle rows (B2 and B4 from
+   their shared origin: the JAX package's ``raw=True`` form, with no
+   per-frame table). B8a/B8b are B2/B4 that also count what each
+   packet's warps did (:data:`STATS`), on the shared-origin Moller terms
+   of :func:`shared_rows`, as the JAX package's counter frame does.
 
 Word layout, per packet: ``words`` int32 (P, K, Lp/32), bit p of word w =
 leaf 32*w + p; ``summ`` int32 (P, K, Lp/1024), bit j of word s = word
@@ -56,7 +54,7 @@ import functools
 import numpy as np
 import torch
 
-from ..core.vecmath import BIG, INV_EPS
+from ..core.vecmath import BIG, rsqrt_rn, safe_inv
 
 TILE = 64  # square pixel tile per packet
 PACKET_R = TILE * TILE  # rays per packet
@@ -73,10 +71,6 @@ WARPS = PACKET_R // WARP  # warps per packet
 # The most leaf slots of leaf tables; a scene with more gets node tables,
 # and the words passes (csrc/worklist.cu kMaxLp) refuse larger tables.
 WL_MAX_LP = 429_056
-# The most triangle rows whose shared-origin table B2 and B4 build each
-# frame: above it they trace the raw rows (raw_rows). The JAX package's
-# rule (``_wl_raw_tris``): its 512-B rows take more than 2^31 bytes.
-RAW_ROWS = 2**31 // 512
 # Blocks per packet of the words passes B1, B3 and B5, one thread block
 # cluster (1, 2, 4 or 8): the fastest of the four on terrain_724's frame
 # wavefronts at 1024 x 1024 on an H100 (time_words.py, PERF.md). More
@@ -371,11 +365,6 @@ def pad_flat(x: torch.Tensor, fill: float = 0.0):
 # ---------------------------------------------------------------------------
 
 
-def _rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 1/sqrt (the kernels use __frsqrt_rn)."""
-    return torch.rsqrt(x.double()).float()
-
-
 def _camera_rays(cam, width: int, height: int, pids):
     """Primary dirs, inverse dirs and root-box exit distance of packets
     ``pids``: float32 (len(pids), PACKET_R) each (the in-kernel raygen)."""
@@ -384,9 +373,9 @@ def _camera_rays(cam, width: int, height: int, pids):
     x = (px + 0.5 - cam[12]) * cam[14]
     y = (cam[13] - py - 0.5) * cam[14]
     d = [cam[k] * x + cam[3 + k] * y + cam[6 + k] for k in range(3)]
-    inv_len = _rsqrt_rn(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    inv_len = rsqrt_rn(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
     d = [c * inv_len for c in d]
-    idir = [1.0 / (c + INV_EPS) for c in d]
+    idir = [safe_inv(c) for c in d]
     t1 = [(cam[16 + k] - cam[9 + k]) * idir[k] for k in range(3)]
     t2 = [(cam[19 + k] - cam[9 + k]) * idir[k] for k in range(3)]
     tn, tf = _slab(t1, t2)
@@ -514,7 +503,7 @@ def _camera_bounds(cam, width: int, height: int, pids):
 def _shared_bounds(orig, d, tm):
     """B3's packet bounds of rays from the one origin ``orig``: as
     :func:`_camera_bounds`, of the planes ``d`` and ``tm``."""
-    idir = [1.0 / (c + INV_EPS) for c in d]
+    idir = [safe_inv(c) for c in d]
     limit = torch.where(tm >= 0.0, tm, -BIG)
     return orig, orig, idir, limit.amax(1) * 1.0001 + 1e-30
 
@@ -536,7 +525,7 @@ def _general_bounds(o, d, tm):
     """B5's packet bounds of the planes ``o``, ``d``, ``tm``: the widened
     origin bounds (three (P, 1) each), the inverse directions (three (P,
     PACKET_R)) and the distance bound (P,)."""
-    idir = [1.0 / (c + INV_EPS) for c in d]
+    idir = [safe_inv(c) for c in d]
     limit = torch.where(tm >= 0.0, tm.clamp_max(BIG), -BIG)
     mb = limit.amax(1) * 1.0001 + 1e-30
     om, oM = zip(*[_widen(c.amin(1, keepdim=True), c.amax(1, keepdim=True))
@@ -630,23 +619,23 @@ def _moller_sh(rows, d):
 _PLAIN_TRIS = 2048  # triangles per step of the plain trace versions
 
 
-def _moller_o(rows, o, d, raw: bool):
+def _moller_o(rows, o, d, shared: bool):
     """Moller terms of rays ``d`` (three (R,)) from one origin ``o``
-    (three 0-d) against ``rows`` (n, 16): the shared-origin rows of
-    :func:`shared_rows`, or with ``raw`` the raw rows, the origin
+    (three 0-d) against ``rows`` (n, 16): the raw rows, the origin
     broadcast into the full test (the JAX package's
-    ``_closest_ival_drain_sh_raw``). det, u, v, tmul, each (R, n)."""
-    if raw:
-        return _moller_g(rows, [c.reshape(1) for c in o], d)
-    return _moller_sh(rows, d)
+    ``_closest_ival_drain_sh_raw``), or with ``shared`` the shared-origin
+    rows of :func:`shared_rows`. det, u, v, tmul, each (R, n)."""
+    if shared:
+        return _moller_sh(rows, d)
+    return _moller_g(rows, [c.reshape(1) for c in o], d)
 
 
 def camera_wl_plain(cam, width: int, height: int, rows, tables: LeafTables,
-                    words, pids: torch.Tensor, raw: bool = False):
+                    words, pids: torch.Tensor, shared: bool = False):
     """Plain B2: closest hit of the primary rays of packets ``pids`` over
     the leaves set in their ``words`` (len(pids), K, Lp/32); ``rows`` the
-    shared-origin rows of the camera position, or with ``raw`` (B2 raw)
-    the raw triangle rows.
+    raw triangle rows, or with ``shared`` (B8a) the shared-origin rows of
+    the camera position.
 
     Returns (dist, u, v, tri, dx, dy, dz), each (len(pids), PACKET_R).
     Closest is strict: a hit must be nearer than the root-box exit and
@@ -665,7 +654,7 @@ def camera_wl_plain(cam, width: int, height: int, rows, tables: LeafTables,
         slab = (tn <= tf) & (tf > 0.0)
         for s in range(0, len(tri), _PLAIN_TRIS):
             t = tri[s:s + _PLAIN_TRIS]
-            det, u, v, tmul = _moller_o(rows[t], o, dp, raw)
+            det, u, v, tmul = _moller_o(rows[t], o, dp, shared)
             duv = det - u - v
             side = ((torch.maximum(u, torch.maximum(v, duv)) <= 0.0)
                     | (torch.minimum(u, torch.minimum(v, duv)) >= 0.0))
@@ -717,7 +706,7 @@ def closest_wl_g_plain(o, d, tm, rows, tables: LeafTables, words):
     starts at min(tmax, BIG) and a hit must be strictly nearer; it
     returns BIG on a miss, a masked ray -BIG; tri is clamped at 0. The
     two-sided test and tie rule of :func:`camera_wl_plain`."""
-    idir = [1.0 / (c + INV_EPS) for c in d]
+    idir = [safe_inv(c) for c in d]
     active = tm >= 0.0
     best = torch.where(active, tm.clamp_max(BIG), -BIG)
     bu = torch.zeros_like(best)
@@ -766,14 +755,14 @@ def closest_wl_g_plain(o, d, tm, rows, tables: LeafTables, words):
 
 
 def shadow_wl_plain(orig, d, tm, rows, tables: LeafTables, words,
-                    raw: bool = False):
+                    shared: bool = False):
     """Plain B4: any-hit of rays from ``orig`` over the leaves set in
     ``words``; ``d`` three and ``tm`` one (P, PACKET_R) planes, ``rows``
-    the shared-origin rows of ``orig``, or with ``raw`` (B4 raw) the raw
-    triangle rows. Returns blocked float32 (P, PACKET_R), 1 where an
+    the raw triangle rows, or with ``shared`` (B8b) the shared-origin rows
+    of ``orig``. Returns blocked float32 (P, PACKET_R), 1 where an
     occluder lies in (0, tmax), with the kernel's one-sided test
     (intersect.py:80-89)."""
-    idir = [1.0 / (c + INV_EPS) for c in d]
+    idir = [safe_inv(c) for c in d]
     limit = torch.where(tm >= 0.0, tm, -BIG)
     blocked = torch.zeros_like(tm)
     for i in range(tm.shape[0]):
@@ -785,7 +774,7 @@ def shadow_wl_plain(orig, d, tm, rows, tables: LeafTables, words,
         occ_any = torch.zeros_like(tm[i], dtype=torch.bool)
         for s in range(0, len(tri), _PLAIN_TRIS):
             det, u, v, tmul = _moller_o(rows[tri[s:s + _PLAIN_TRIS]],
-                                        orig.unbind(), dp, raw)
+                                        orig.unbind(), dp, shared)
             occ = ((torch.minimum(u, v) >= 0.0) & (u + v <= det)
                    & (tmul > 0.0) & (tmul < lim * det)
                    & slab[:, owner[s:s + _PLAIN_TRIS]])
@@ -801,7 +790,7 @@ def shadow_wl_g_plain(o, d, tm, rows, tables: LeafTables, words):
     PACKET_R), 1 where an occluder lies in (0, tmax) by the one-sided
     test (``_shadow_ival_drain_g`` :2044-2050); a masked ray is never
     blocked."""
-    idir = [1.0 / (c + INV_EPS) for c in d]
+    idir = [safe_inv(c) for c in d]
     limit = torch.where(tm >= 0.0, tm, -BIG)
     blocked = torch.zeros_like(tm)
     for i in range(tm.shape[0]):
@@ -1011,16 +1000,17 @@ def camera_wl_stats_plain(cam, width: int, height: int, rows,
     and their counters, int32 (len(pids), 8), from a simulation of every
     warp's scan (``words``/``floors`` those of ``pids``;
     :func:`camera_wl_sim`)."""
-    out = camera_wl_plain(cam, width, height, rows, tables, words, pids)
+    out = camera_wl_plain(cam, width, height, rows, tables, words, pids,
+                          shared=True)
     _, stats, _ = camera_wl_sim(cam, width, height, rows, tables, words,
-                                floors, pids)
+                                floors, pids, shared=True)
     return (*out, stats)
 
 
 def camera_wl_sim(cam, width: int, height: int, rows, tables: LeafTables,
-                  words, floors, pids: torch.Tensor, raw: bool = False):
-    """B2 (B8a; with ``raw``, B2 raw on the raw triangle ``rows``) on
-    packets ``pids`` (``words``/``floors`` theirs),
+                  words, floors, pids: torch.Tensor, shared: bool = False):
+    """B2 on the raw triangle ``rows`` (with ``shared``, B8a on the
+    shared-origin rows) on packets ``pids`` (``words``/``floors`` theirs),
     simulated warp by warp as the kernel scans (``scan_words``: each
     warp's cull, then its kept leaves in order, each lane testing a leaf
     it enters before its current best; a warp's rays an 8 x 4 pixel tile,
@@ -1055,7 +1045,7 @@ def camera_wl_sim(cam, width: int, height: int, rows, tables: LeafTables,
             go = proc[:, None] & pas & (tn < best)
             cnt = count[l]
             det, u, v, tmul = _moller_o(rows[first[l]:first[l] + cnt], o,
-                                        flat_d, raw)
+                                        flat_d, shared)
             duv = det - u - v
             side = ((torch.maximum(u, torch.maximum(v, duv)) <= 0.0)
                     | (torch.minimum(u, torch.minimum(v, duv)) >= 0.0))
@@ -1109,8 +1099,8 @@ def shadow_wl_stats_plain(orig, d, tm, rows, tables: LeafTables, words,
                           floors):
     """Plain B8b: :func:`shadow_wl_plain`'s blocked planes and their
     counters, int32 (P, 8), from a simulation of every warp's scan."""
-    blocked = shadow_wl_plain(orig, d, tm, rows, tables, words)
-    idir = [1.0 / (c + INV_EPS) for c in d]
+    blocked = shadow_wl_plain(orig, d, tm, rows, tables, words, shared=True)
+    idir = [safe_inv(c) for c in d]
     limit_all = torch.where(tm >= 0.0, tm, -BIG)
     stats = []
     for i in range(tm.shape[0]):
@@ -1187,7 +1177,7 @@ def shadow_wl_g_sim(o, d, tm, rows, tables: LeafTables, words, floors):
     level). An entering lane tests a leaf's rows up to its first
     occluder, so ``tested`` counts what the any-hit needs of the rows the
     warp stages."""
-    idir = [1.0 / (c + INV_EPS) for c in d]
+    idir = [safe_inv(c) for c in d]
     limit_all = torch.where(tm >= 0.0, tm, -BIG)
     blocked = torch.zeros_like(tm)
     # the leaves' first rows and counts on the host: no sync per leaf
@@ -1376,7 +1366,7 @@ def _check_words(words, summ, floors, p, lp, dev):
 
 
 def _camera_wl_launch(cam, width, height, rows, tables, words, summ,
-                      floors, stats, raw=False):
+                      floors, stats):
     from ._build import library
 
     p = (width // TILE) * (height // TILE)
@@ -1394,34 +1384,24 @@ def _camera_wl_launch(cam, width, height, rows, tables, words, summ,
         _ptr(tables.count), tables.lp, _ptr(words), _ptr(summ),
         _ptr(floors), words.shape[1], p, _ptr(dist), _ptr(u), _ptr(v),
         _ptr(tri), _ptr(dx), _ptr(dy), _ptr(dz),
-        None if stats is None else _ptr(stats), int(raw), _stream()),
-        "camera_wl_raw" if raw else "camera_wl")
+        None if stats is None else _ptr(stats), _stream()), "camera_wl")
     return dist, u, v, tri, dx, dy, dz
 
 
 def camera_wl(cam, width: int, height: int, rows, tables: LeafTables,
-              words, summ, floors, raw: bool = False):
-    """B2: closest hit of the primary rays over B1's words (replaces
-    ``_camera_wl_kernel``). Returns (dist, u, v, tri, dx, dy, dz), each
-    (P, PACKET_R); a miss has dist BIG and tri -1. ``rows``: the
-    shared-origin rows of the camera position (:func:`shared_rows`), or
-    with ``raw`` the raw triangle rows (B2 raw, ``raw=True`` of
-    ``_run_camera_wl``), whose launches count as :func:`camera_wl_raw`'s."""
+              words, summ, floors):
+    """B2: closest hit of the primary rays over B1's words on the raw
+    triangle ``rows`` (replaces ``_camera_wl_kernel`` with ``raw=True``).
+    Returns (dist, u, v, tri, dx, dy, dz), each (P, PACKET_R); a miss has
+    dist BIG and tri -1."""
     if not _on_cuda(cam):
         p = (width // TILE) * (height // TILE)
         return camera_wl_plain(cam, width, height, rows, tables, words,
-                               torch.arange(p), raw)
+                               torch.arange(p))
     out = _camera_wl_launch(cam, width, height, rows, tables, words, summ,
-                            floors, None, raw)
-    (camera_wl_raw if raw else camera_wl).launches += 1
+                            floors, None)
+    camera_wl.launches += 1
     return out
-
-
-def camera_wl_raw(cam, width: int, height: int, rows, tables: LeafTables,
-                  words, summ, floors):
-    """B2 raw: :func:`camera_wl` on the raw triangle rows."""
-    return camera_wl(cam, width, height, rows, tables, words, summ, floors,
-                     raw=True)
 
 
 def camera_wl_stats(cam, width: int, height: int, rows, tables: LeafTables,
@@ -1432,8 +1412,9 @@ def camera_wl_stats(cam, width: int, height: int, rows, tables: LeafTables,
     :data:`STATS` — populated words a warp tests against its cull, leaves
     it keeps, (leaf, warp) pairs in which some lane intersects, triangles
     tested per warp over those pairs, bands entered; slots 5-7 are 0.
-    It takes shared-origin rows at every size, as the JAX package's
-    counter frame does (:3665): B8a has no raw form."""
+    ``rows``: the shared-origin rows of the camera position
+    (:func:`shared_rows`), as the JAX package's counter frame takes them
+    (:3665)."""
     if not _on_cuda(cam):
         p = (width // TILE) * (height // TILE)
         return camera_wl_stats_plain(cam, width, height, rows, tables, words,
@@ -1447,7 +1428,7 @@ def camera_wl_stats(cam, width: int, height: int, rows, tables: LeafTables,
 
 
 def _shadow_wl_launch(orig, d, tm, rows, tables, words, summ, floors,
-                      stats, raw=False):
+                      stats):
     from ._build import library
 
     dev = tm.device
@@ -1463,31 +1444,20 @@ def _shadow_wl_launch(orig, d, tm, rows, tables, words, summ, floors,
         _ptr(rows), _ptr(tables.box), _ptr(tables.wbox), _ptr(tables.bbox),
         _ptr(tables.first), _ptr(tables.count), tables.lp, _ptr(words),
         _ptr(summ), _ptr(floors), words.shape[1], p, _ptr(blocked),
-        None if stats is None else _ptr(stats), int(raw), _stream()),
-        "shadow_wl_raw" if raw else "shadow_wl")
+        None if stats is None else _ptr(stats), _stream()), "shadow_wl")
     return blocked
 
 
-def shadow_wl(orig, d, tm, rows, tables: LeafTables, words, summ, floors,
-              raw: bool = False):
-    """B4: any-hit from a shared origin over B3's words (replaces
-    ``_shadow_wl_kernel``). Returns blocked float32 (P, PACKET_R).
-    ``rows``: the shared-origin rows of ``orig``, or with ``raw`` the raw
-    triangle rows (B4 raw, ``raw=True`` of ``_run_shadow_wl``), whose
-    launches count as :func:`shadow_wl_raw`'s."""
+def shadow_wl(orig, d, tm, rows, tables: LeafTables, words, summ, floors):
+    """B4: any-hit from a shared origin over B3's words on the raw
+    triangle ``rows`` (replaces ``_shadow_wl_kernel`` with ``raw=True``).
+    Returns blocked float32 (P, PACKET_R)."""
     if not _on_cuda(tm):
-        return shadow_wl_plain(orig, d, tm, rows, tables, words, raw)
+        return shadow_wl_plain(orig, d, tm, rows, tables, words)
     out = _shadow_wl_launch(orig, d, tm, rows, tables, words, summ, floors,
-                            None, raw)
-    (shadow_wl_raw if raw else shadow_wl).launches += 1
+                            None)
+    shadow_wl.launches += 1
     return out
-
-
-def shadow_wl_raw(orig, d, tm, rows, tables: LeafTables, words, summ,
-                  floors):
-    """B4 raw: :func:`shadow_wl` on the raw triangle rows."""
-    return shadow_wl(orig, d, tm, rows, tables, words, summ, floors,
-                     raw=True)
 
 
 def shadow_wl_stats(orig, d, tm, rows, tables: LeafTables, words, summ,
@@ -1497,8 +1467,8 @@ def shadow_wl_stats(orig, d, tm, rows, tables: LeafTables, words, summ,
     bit, and the counters of :func:`camera_wl_stats`, int32 (P, 8);
     ``nodes`` and ``leaves`` count the words left after B4's block and
     word skips, and ``tri_blocks`` counts, per (leaf, warp) pair, the
-    most triangles a lane tested before its first blocker. Shared-origin
-    rows at every size, as :func:`camera_wl_stats`: B8b has no raw form."""
+    most triangles a lane tested before its first blocker. ``rows``: the
+    shared-origin rows of ``orig``, as :func:`camera_wl_stats`'s."""
     if not _on_cuda(tm):
         return shadow_wl_stats_plain(orig, d, tm, rows, tables, words,
                                      floors)
@@ -1927,7 +1897,6 @@ from .march import march  # noqa: E402
 
 KERNELS = (words_camera, camera_wl, words_shared, shadow_wl, words_general,
            closest_wl_g, shadow_wl_g, camera_wl_stats, shadow_wl_stats,
-           camera_wl_raw, shadow_wl_raw,
            walk_camera, walk_shadow, walk_closest_g, walk_shadow_g,
            walk_camera_stats, walk_shadow_stats, fat_camera, fat_closest,
            fat_shadow, fat_shadow_g, march)
@@ -2005,31 +1974,20 @@ def _camera_vec(scene, camera, width: int, height: int):
     return cam_vec(camera, width, height, scene.root_lo, scene.root_hi)
 
 
-def raw_rows(scene) -> bool:
-    """Whether B2 and B4 trace ``scene``'s raw triangle rows (B2 raw, B4
-    raw) in place of a shared-origin table a frame and light: more than
-    :data:`RAW_ROWS` rows, the JAX package's ``_wl_raw_tris`` (:3480).
-    The counter frame (B8a/B8b) and the walk kernels keep shared-origin
-    rows at every size, as there."""
-    return scene.tri_rows.shape[0] > RAW_ROWS
-
-
-def _camera_setup(scene, camera, width: int, height: int, raw=False):
-    """The primary kernels' camera scalars and rows: the camera's
-    shared-origin rows, or with ``raw`` the raw triangle rows."""
+def _camera_setup(scene, camera, width: int, height: int):
+    """The camera scalars and the camera's shared-origin rows (B8a, B9a,
+    B9e)."""
     cam = _camera_vec(scene, camera, width, height)
-    if raw:
-        return cam, scene.tri_rows
     return cam, shared_rows(scene.tri_rows, camera.pos)
 
 
-def _camera_words(scene, camera, width: int, height: int, raw=False):
-    """B1 for a full frame of primary rays: (cam, rows, words, summ,
-    floors) for B2/B8a (with ``raw``, for B2 raw)."""
-    cam, rows = _camera_setup(scene, camera, width, height, raw)
+def _camera_words(scene, camera, width: int, height: int):
+    """B1 for a full frame of primary rays: (cam, words, summ, floors)
+    for B2/B8a."""
+    cam = _camera_vec(scene, camera, width, height)
     words, summ, floors = words_camera(cam, width, height, scene.leaves,
                                        WL_BANDS)
-    return cam, rows, words, summ, floors
+    return cam, words, summ, floors
 
 
 def camera_trace(scene, camera, width: int, height: int):
@@ -2040,8 +1998,7 @@ def camera_trace(scene, camera, width: int, height: int):
     Returns flat (R,) tensors dist, u, v, tri, dx, dy, dz in packet order
     (see :func:`kernel_ray_index`). Requires width and height to be
     multiples of TILE. A miss has dist BIG, and tri -1 (tri 0 from
-    B11a). On leaf tables, a scene of more than :data:`RAW_ROWS` rows
-    takes B2 raw (:func:`raw_rows`)."""
+    B11a)."""
     if is_fat(scene):
         cam = _camera_vec(scene, camera, width, height)
         out = fat_camera(cam, width, height,
@@ -2051,11 +2008,10 @@ def camera_trace(scene, camera, width: int, height: int):
         cam, rows = _camera_setup(scene, camera, width, height)
         out = walk_camera(cam, width, height, rows, scene.nodes)
     else:
-        raw = raw_rows(scene)
-        cam, rows, words, summ, floors = _camera_words(scene, camera, width,
-                                                       height, raw)
-        out = camera_wl(cam, width, height, rows, scene.leaves, words, summ,
-                        floors, raw)
+        cam, words, summ, floors = _camera_words(scene, camera, width,
+                                                 height)
+        out = camera_wl(cam, width, height, scene.tri_rows, scene.leaves,
+                        words, summ, floors)
     _count_live(out[0])
     return tuple(a.reshape(-1) for a in out)
 
@@ -2065,18 +2021,19 @@ def camera_trace_stats(scene, camera, width: int, height: int):
     tables: its outputs, bit for bit, and the per-packet counters int32
     (P, 8) (see :func:`camera_wl_stats`, :func:`walk_camera_stats`). A
     fat-leaf scene raises ValueError, as the JAX package asserts. B8a
-    takes shared-origin rows at every size (:func:`raw_rows` aside, as the
-    JAX package's ``camera_trace_stats`` :3665)."""
+    takes shared-origin rows, as the JAX package's ``camera_trace_stats``
+    (:3665)."""
     _no_fat_counters(scene)
     if walks(scene):
         cam, rows = _camera_setup(scene, camera, width, height)
         *out, stats = walk_camera_stats(cam, width, height, rows,
                                         scene.nodes)
     else:
-        cam, rows, words, summ, floors = _camera_words(scene, camera, width,
-                                                       height)
-        *out, stats = camera_wl_stats(cam, width, height, rows, scene.leaves,
-                                      words, summ, floors)
+        cam, words, summ, floors = _camera_words(scene, camera, width,
+                                                 height)
+        *out, stats = camera_wl_stats(
+            cam, width, height, shared_rows(scene.tri_rows, camera.pos),
+            scene.leaves, words, summ, floors)
     _count_live(out[0])
     return (*(a.reshape(-1) for a in out), stats)
 
@@ -2165,22 +2122,19 @@ def _light_planes(light_pos, d3, tmax):
             _pk(tm), n)
 
 
-def _shared_planes(scene, light_pos, d3, tmax, raw=False):
+def _shared_planes(scene, light_pos, d3, tmax):
     """:func:`_light_planes` with B3's words (one band: any-hit needs no
-    order) and the light's shared-origin rows, or with ``raw`` the raw
-    triangle rows: (orig, d, tm, n, words, summ, floors, rows)."""
+    order): (orig, d, tm, n, words, summ, floors)."""
     orig, d, tm, n = _light_planes(light_pos, d3, tmax)
     words, summ, floors = words_shared(orig, d, tm, scene.leaves, 1)
-    rows = scene.tri_rows if raw else shared_rows(scene.tri_rows, orig)
-    return orig, d, tm, n, words, summ, floors, rows
+    return orig, d, tm, n, words, summ, floors
 
 
 def any_hit_shared(scene, light_pos, d3, tmax):
     """Shadow any-hit from a shared origin, B3 + B4 (B3's words in one
     band: any-hit needs no order), B9b or B11c. ``d3`` three flat (R,)
     direction components, ``tmax`` (R,) (negative = masked ray). Returns
-    blocked bool (R,). On leaf tables, a scene of more than
-    :data:`RAW_ROWS` rows takes B4 raw (:func:`raw_rows`)."""
+    blocked bool (R,)."""
     if walks(scene):
         orig, d, tm, n = _light_planes(light_pos, d3, tmax)
         if is_fat(scene):
@@ -2190,11 +2144,10 @@ def any_hit_shared(scene, light_pos, d3, tmax):
             out = walk_shadow(orig, d, tm, shared_rows(scene.tri_rows, orig),
                               scene.nodes)
     else:
-        raw = raw_rows(scene)
-        orig, d, tm, n, words, summ, floors, rows = _shared_planes(
-            scene, light_pos, d3, tmax, raw)
-        out = shadow_wl(orig, d, tm, rows, scene.leaves, words, summ,
-                        floors, raw)
+        orig, d, tm, n, words, summ, floors = _shared_planes(
+            scene, light_pos, d3, tmax)
+        out = shadow_wl(orig, d, tm, scene.tri_rows, scene.leaves, words,
+                        summ, floors)
     return out.reshape(-1)[:n] > 0.0
 
 
@@ -2211,10 +2164,11 @@ def any_hit_shared_stats(scene, light_pos, d3, tmax):
                                        shared_rows(scene.tri_rows, orig),
                                        scene.nodes)
     else:
-        orig, d, tm, n, words, summ, floors, rows = _shared_planes(
+        orig, d, tm, n, words, summ, floors = _shared_planes(
             scene, light_pos, d3, tmax)
-        out, stats = shadow_wl_stats(orig, d, tm, rows, scene.leaves, words,
-                                     summ, floors)
+        out, stats = shadow_wl_stats(orig, d, tm,
+                                     shared_rows(scene.tri_rows, orig),
+                                     scene.leaves, words, summ, floors)
     return out.reshape(-1)[:n] > 0.0, stats
 
 

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.vecmath import BIG, INV_EPS
+from ..core.vecmath import BIG, safe_inv
 from .traverse import (_BIN_EDGES, CHUNK_ROWS, LANE_BINS, PACKET_R, TALLY,
                        WARP, WARPS, NodeTables, _camera_rays, _slab,
                        _stats_row, camera_wl_order)
@@ -97,7 +97,7 @@ class _Walk:
         self.o, self.d, self.rows = o, d, rows
         self.raw, self.closest, self.work = raw, closest, work
         self.shared = o[0].dim() == 0
-        self.idir = [1.0 / (c + INV_EPS) for c in d]
+        self.idir = [safe_inv(c) for c in d]
         self.signs = (_warp_signs(self.idir, bound0 > 0.0) if signs is None
                       else signs)
         self.stack = torch.zeros((r, self.cap), dtype=torch.int64, device=dev)

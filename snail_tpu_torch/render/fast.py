@@ -43,11 +43,11 @@ from typing import Optional
 import torch
 
 from ..core.types import Camera, RenderOpts
-from ..core.vecmath import BIG
-from ..ops.traverse import (QX, STATS, TILE, _pixel_xy, _rsqrt_rn,
-                            any_hit_shared, any_hit_shared_stats,
-                            camera_trace, camera_trace_stats, closest_hit_c,
-                            is_fat, substitute_masked)
+from ..core.vecmath import BIG, rsqrt_rn
+from ..ops.traverse import (QX, STATS, TILE, _pixel_xy, any_hit_shared,
+                            any_hit_shared_stats, camera_trace,
+                            camera_trace_stats, closest_hit_c, is_fat,
+                            substitute_masked)
 from ..scene.textures import sample_diffuse
 
 DIFF_ROWS = 42  # sh_pack (32) | tri_a | tri_ba | tri_ca (9) | mat id
@@ -310,7 +310,7 @@ def _primary_dirs_planar(camera: Camera, width: int, height: int):
     y = ((height * 0.5 - py.float() - 0.5) * inv_h).reshape(-1)
     f = camera.front * camera.plane_dist
     d = [camera.right[k] * x + camera.up[k] * y + f[k] for k in range(3)]
-    inv_len = _rsqrt_rn(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    inv_len = rsqrt_rn(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
     return tuple(c * inv_len for c in d)
 
 

@@ -18,8 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..core.types import Camera, Rays
-from ..core.vecmath import BIG
-from ..ops.traverse import _rsqrt_rn
+from ..core.vecmath import BIG, normalize
 
 TILE_W = 16
 TILE_H = 16
@@ -40,7 +39,7 @@ def primary_rays(camera: Camera, width: int, height: int, jitter=None):
         y = y - jy / height
     d = (camera.right * x[None, :, None] + camera.up * y[:, None, None]
          + camera.front * camera.plane_dist)
-    d = d * _rsqrt_rn((d * d).sum(-1, keepdim=True))
+    d = normalize(d)
     return camera.pos, d
 
 

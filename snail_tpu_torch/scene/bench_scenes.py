@@ -1,14 +1,12 @@
 """The benchmark scenes of ``bench.py``, built with the port's procedural
 copies and BVH builder, with their light and camera, the parameters of
 ``bench.py``'s gradient step, and an instanced grid of a bench scene;
-and ``bench.py``'s 10 Mtri scene (``section_10m``), whose host build can
-run in a process of its own (:func:`save_host_build`)."""
+and ``bench.py``'s 10 Mtri scene (``section_10m``)."""
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -123,61 +121,24 @@ OPTS_10M = RenderOpts(reflections=False, transparency=False, textures=False)
 
 
 def scene_10m(n: int = BENCH_N["terrain_10m"], device="cuda",
-              walk: bool = False, built=None):
+              walk: bool = False):
     """bench.py's ``section_10m`` scene as the port runs it:
     terrain_scene(n) (n = 2236: 9,999,392 triangles) at leaf 32, light (0,
     60, 0) of colour 1 and power 400, the camera at centre + (0.35, 0.25,
     0.4) x extent looking at the centre; render it with
-    :data:`OPTS_10M`. Leaf tables (B1-B4; above RAW_ROWS rows, B2 raw and
-    B4 raw), or with ``walk`` node tables (B9a/B9b, which cover the paged
-    B10a/B10b); a tree of more leaves than leaf tables hold gets node
-    tables either way (``scene.make_traced_scene``). ``built``: its
-    (geometry, bvh, seconds) from :func:`host_build` or
-    :func:`load_host_build`, else built here. Returns (scene, camera,
+    :data:`OPTS_10M`. Leaf tables (B1-B4), or with ``walk`` node tables
+    (B9a/B9b, which cover the paged B10a/B10b); a tree of more leaves than
+    leaf tables hold gets node tables either way
+    (``scene.make_traced_scene``). Returns (scene, camera,
     geometry, bvh, seconds), seconds {"gen_s", "build_s", "pack_s"} as
     bench.py records them (bench.py:390-392)."""
-    g, bvh, secs = host_build("terrain_10m", n) if built is None else built
+    g, bvh, secs = host_build("terrain_10m", n)
     t0 = time.perf_counter()
     scene, cam = traced_bench_scene("terrain_10m", g, bvh, device,
                                     walk=walk)
     if scene.device.type == "cuda":
         torch.cuda.synchronize(scene.device)
     return scene, cam, g, bvh, {**secs, "pack_s": time.perf_counter() - t0}
-
-
-def save_host_build(kind: str, n: int, directory) -> None:
-    """:func:`host_build` of ``kind`` at size ``n``, written into
-    ``directory`` as one ``.npy`` file per array (geometry ``g_*``, BVH
-    ``bvh_*``) and ``seconds.npy``; ``done`` is written last. For a
-    process of its own: ``python -c "from snail_tpu_torch.scene.bench_scenes
-    import save_host_build; save_host_build('terrain_10m', 2236, DIR)"``."""
-    from ..scene.base_scene import FlatGeometry
-
-    d = Path(directory)
-    d.mkdir(parents=True, exist_ok=True)
-    g, bvh, secs = host_build(kind, n)
-    for f in dataclasses.fields(FlatGeometry):
-        np.save(d / f"g_{f.name}.npy", getattr(g, f.name))
-    for f in dataclasses.fields(bvh):
-        np.save(d / f"bvh_{f.name}.npy", np.asarray(getattr(bvh, f.name)))
-    np.save(d / "seconds.npy", np.array([secs["gen_s"], secs["build_s"]]))
-    (d / "done").write_text("")
-
-
-def load_host_build(directory):
-    """What :func:`save_host_build` wrote: (geometry, bvh, seconds)."""
-    from ..bvh.build import BVH
-    from ..scene.base_scene import FlatGeometry
-
-    d = Path(directory)
-    load = lambda name: np.load(d / f"{name}.npy")
-    g = FlatGeometry(**{f.name: load(f"g_{f.name}")
-                        for f in dataclasses.fields(FlatGeometry)})
-    fields = {f.name: load(f"bvh_{f.name}") for f in dataclasses.fields(BVH)}
-    fields["depth"] = int(fields["depth"])
-    gen_s, build_s = load("seconds")
-    return g, BVH(**fields), {"gen_s": float(gen_s),
-                              "build_s": float(build_s)}
 
 
 def instanced_grid(kind: str, base, grid: int = 4):

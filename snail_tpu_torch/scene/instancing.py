@@ -25,7 +25,7 @@ import dataclasses
 
 import torch
 
-from ..core.vecmath import BIG
+from ..core.vecmath import BIG, safe_inv
 from ..ops import dispatch
 
 
@@ -89,7 +89,7 @@ def _ray_hits_box(o3, d3, tmax, lo, hi):
     tn = torch.zeros_like(tmax)
     tf = torch.where(tmax >= 0.0, tmax.clamp_max(BIG), -BIG)
     for k in range(3):
-        ic = 1.0 / (d3[k] + 1e-8)
+        ic = safe_inv(d3[k])
         t1 = (lo[k] - o3[k]) * ic
         t2 = (hi[k] - o3[k]) * ic
         tn = torch.maximum(tn, torch.minimum(t1, t2))

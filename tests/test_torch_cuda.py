@@ -130,7 +130,7 @@ def test_camera_wl_kernel_matches_plain(which):
     scene, cam, w, h, _ = _scene(which)
     cv = pt.cam_vec(cam, w, h, scene.root_lo, scene.root_hi)
     words, summ, floors = pt.words_camera(cv, w, h, scene.leaves)
-    rows = pt.shared_rows(scene.tri_rows, cam.pos)
+    rows = scene.tri_rows
     kern = pt.camera_wl(cv, w, h, rows, scene.leaves, words, summ, floors)
     torch.cuda.synchronize()
     p = (w // pt.TILE) * (h // pt.TILE)
@@ -159,7 +159,7 @@ def test_shadow_wl_kernel_matches_plain(which):
     scene, _, _, _, light = _scene(which)
     d, tm = _shadow_rays(scene, light, 6)
     words, summ, floors = pt.words_shared(light, d, tm, scene.leaves, 1)
-    rows = pt.shared_rows(scene.tri_rows, light)
+    rows = scene.tri_rows
     kern = pt.shadow_wl(light, d, tm, rows, scene.leaves, words, summ,
                         floors)
     torch.cuda.synchronize()
@@ -345,14 +345,17 @@ def test_shadow_wl_g_kernel_matches_plain(which):
 
 @pytest.mark.parametrize("which", SCENES)
 def test_camera_wl_stats_kernel_matches_b2_and_simulation(which):
-    """B8a: B2's outputs bit for bit, and every packet's counters equal to
-    the plain version's simulation of its warps."""
+    """B8a on the shared-origin rows: B2's outputs on the raw rows bit for
+    bit, and every packet's counters equal to the plain version's
+    simulation of its warps."""
     _need_cuda()
     scene, cam, w, h, _ = _scene(which)
-    cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h)
+    cv, words, summ, floors = pt._camera_words(scene, cam, w, h)
+    rows = pt.shared_rows(scene.tri_rows, cam.pos)
     *out, stats = pt.camera_wl_stats(cv, w, h, rows, scene.leaves, words,
                                      summ, floors)
-    ref = pt.camera_wl(cv, w, h, rows, scene.leaves, words, summ, floors)
+    ref = pt.camera_wl(cv, w, h, scene.tri_rows, scene.leaves, words, summ,
+                       floors)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     *_, sim = pt.camera_wl_stats_plain(
@@ -371,10 +374,12 @@ def test_camera_wl_kernels_match_simulation_exactly(which):
     and B8a's counters, whichever way the leaf stage tested a leaf."""
     _need_cuda()
     scene, cam, w, h, _ = _scene(which)
-    cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h)
+    cv, words, summ, floors = pt._camera_words(scene, cam, w, h)
+    rows = scene.tri_rows
     kern = pt.camera_wl(cv, w, h, rows, scene.leaves, words, summ, floors)
-    *out, stats = pt.camera_wl_stats(cv, w, h, rows, scene.leaves, words,
-                                     summ, floors)
+    *out, stats = pt.camera_wl_stats(cv, w, h,
+                                     pt.shared_rows(rows, cam.pos),
+                                     scene.leaves, words, summ, floors)
     torch.cuda.synchronize()
     sim_out, sim, tally = pt.camera_wl_sim(
         cv, w, h, rows, scene.leaves, words, floors,
@@ -396,7 +401,8 @@ def test_shadow_wl_stats_kernel_matches_b4_and_simulation(which):
     rows = pt.shared_rows(scene.tri_rows, light)
     blocked, stats = pt.shadow_wl_stats(light, d, tm, rows, scene.leaves,
                                         words, summ, floors)
-    ref = pt.shadow_wl(light, d, tm, rows, scene.leaves, words, summ, floors)
+    ref = pt.shadow_wl(light, d, tm, scene.tri_rows, scene.leaves, words,
+                       summ, floors)
     torch.cuda.synchronize()
     assert torch.equal(blocked, ref)
     _, sim = pt.shadow_wl_stats_plain(light, d, tm, rows, scene.leaves, words,
@@ -413,7 +419,7 @@ def _skipped_blocks(lt, summ, o, d, lim):
     for i in range(lim.shape[0]):
         lanes = lambda x: x[i].reshape(pt.WARPS, pt.WARP)
         oi = [c if c.dim() == 0 else lanes(c) for c in o]
-        idir = [lanes(1.0 / (c + pt.INV_EPS)) for c in d]
+        idir = [lanes(pt.safe_inv(c)) for c in d]
         for s in torch.nonzero(summ[i].ne(0).any(0)).flatten().tolist():
             tn, pas = pt._box_slab(lt.bbox, s, oi, idir)
             n += int((~(pas & (tn < lanes(lim))).any(1)).sum())
@@ -461,8 +467,10 @@ def test_wl_kernels_skip_whole_blocks_exactly(rays):
         cam = Camera.look_at(pos=tuple(c + np.array([0.45, 0.35, 0.9]) * ext),
                              target=tuple(c))
         w = h = 256
-        cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h)
-        kern = pt.camera_wl(cv, w, h, rows, lt, words, summ, floors)
+        cv, words, summ, floors = pt._camera_words(scene, cam, w, h)
+        rows = pt.shared_rows(scene.tri_rows, cam.pos)
+        kern = pt.camera_wl(cv, w, h, scene.tri_rows, lt, words, summ,
+                            floors)
         *out, stats = pt.camera_wl_stats(cv, w, h, rows, lt, words, summ,
                                          floors)
         pids = torch.arange(words.shape[0], device="cuda")
@@ -479,7 +487,8 @@ def test_wl_kernels_skip_whole_blocks_exactly(rays):
         d, tm = _warp_shadow_rays(scene, light, 6)
         words, summ, floors = pt.words_shared(light, d, tm, lt, 1)
         rows = pt.shared_rows(scene.tri_rows, light)
-        kern = pt.shadow_wl(light, d, tm, rows, lt, words, summ, floors)
+        kern = pt.shadow_wl(light, d, tm, scene.tri_rows, lt, words, summ,
+                            floors)
         blocked, stats = pt.shadow_wl_stats(light, d, tm, rows, lt, words,
                                             summ, floors)
         plain, sim = pt.shadow_wl_stats_plain(light, d, tm, rows, lt, words,
@@ -1417,15 +1426,14 @@ def _lowest_nearest_rows(scene, n_leaves):
 
 @pytest.mark.parametrize("view", list(CAMERA_VIEWS))
 def test_staged_camera_raw_kernel_matches_plain_exactly(view):
-    """B2 raw (``camera_wl(raw=True)``: B2's two-slot stage, 8 x 4 pixel
-    warps and lane-per-triangle threshold on the raw triangle rows) on
+    """B2 (``camera_wl``: its two-slot stage, 8 x 4 pixel warps and
+    lane-per-triangle threshold on the raw triangle rows) on
     ``_leaf_scene``'s leaves of 1-32 rows on leaf tables, each with two
     identical nearest rows, from a camera 3 or 20 units away: every
-    output equal bit for bit to the plain B2 raw's and to its warps'
-    simulation (``camera_wl_sim(raw=True)``), tri included; every hit on
-    a nearest row the lower of its leaf's two; visits with one lane
-    entering and with 17-32 in each wavefront; the launch counted as
-    ``camera_wl_raw``'s."""
+    output equal bit for bit to the plain B2's and to its warps'
+    simulation (``camera_wl_sim``), tri included; every hit on a nearest
+    row the lower of its leaf's two; visits with one lane entering and
+    with 17-32 in each wavefront; one launch counted."""
     _need_cuda()
     sizes = STAGED_LEAVES["walk"]
     scene = _leaf_scene(sizes, "cuda", walk=False)
@@ -1435,16 +1443,13 @@ def test_staged_camera_raw_kernel_matches_plain_exactly(view):
                          up=(0.3, 1.0, 0.0))
     w = h = 256
     pids = torch.arange((w // pt.TILE) * (h // pt.TILE), device="cuda")
-    cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h,
-                                                     raw=True)
-    assert rows is scene.tri_rows
+    cv, words, summ, floors = pt._camera_words(scene, cam, w, h)
+    rows = scene.tri_rows
     pt.reset_launch_counts()
-    kern = pt.camera_wl(cv, w, h, rows, lt, words, summ, floors, raw=True)
-    counts = pt.launch_counts()
-    assert counts["camera_wl_raw"] == 1 and counts["camera_wl"] == 0
-    plain = pt.camera_wl_plain(cv, w, h, rows, lt, words, pids, raw=True)
-    sim, _, tally = pt.camera_wl_sim(cv, w, h, rows, lt, words, floors, pids,
-                                     raw=True)
+    kern = pt.camera_wl(cv, w, h, rows, lt, words, summ, floors)
+    assert pt.launch_counts()["camera_wl"] == 1
+    plain = pt.camera_wl_plain(cv, w, h, rows, lt, words, pids)
+    sim, _, tally = pt.camera_wl_sim(cv, w, h, rows, lt, words, floors, pids)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(kern, plain))
     assert all(torch.equal(a, b) for a, b in zip(kern, sim))
@@ -1461,14 +1466,13 @@ def test_staged_camera_raw_kernel_matches_plain_exactly(view):
 
 @pytest.mark.parametrize("row", [0, 16, 31])
 def test_staged_shadow_raw_kernel_matches_plain_exactly(row):
-    """B4 raw (``shadow_wl(raw=True)``: the full Moller test from the light
-    on the raw rows) on ``_blocker_fields``' leaves of 1-32 rows on leaf
-    tables, one blocker a leaf at row 0, 16 or 31, with
-    ``_shared_blocker_rays`` (1 to 32 lanes entering a leaf, tmax just
-    short of and past the blocker, masked rays, live misses): verdicts
-    equal to the plain B4 raw's and to what the rays must get, and to B4's
-    on the shared-origin rows where the one-sided rule's edge is not in
-    play; the launch counted as ``shadow_wl_raw``'s."""
+    """B4 (``shadow_wl``: the full Moller test from the light on the raw
+    rows) on ``_blocker_fields``' leaves of 1-32 rows on leaf tables, one
+    blocker a leaf at row 0, 16 or 31, with ``_shared_blocker_rays`` (1 to
+    32 lanes entering a leaf, tmax just short of and past the blocker,
+    masked rays, live misses): verdicts equal to the plain B4's, to what
+    the rays must get and to B8b's on the shared-origin rows; one launch
+    counted."""
     _need_cuda()
     sizes = STAGED_LEAVES["walk"]
     scene = _traced(_blocker_fields(sizes, row), "cuda", walk=False)
@@ -1477,32 +1481,32 @@ def test_staged_shadow_raw_kernel_matches_plain_exactly(row):
     orig, d, tm = orig.cuda(), tuple(c.cuda() for c in d), tm.cuda()
     words, summ, floors = pt.words_shared(orig, d, tm, lt, 1)
     pt.reset_launch_counts()
-    kern = pt.shadow_wl(orig, d, tm, rows, lt, words, summ, floors, raw=True)
-    counts = pt.launch_counts()
-    assert counts["shadow_wl_raw"] == 1 and counts["shadow_wl"] == 0
-    plain = pt.shadow_wl_plain(orig, d, tm, rows, lt, words, raw=True)
+    kern = pt.shadow_wl(orig, d, tm, rows, lt, words, summ, floors)
+    assert pt.launch_counts()["shadow_wl"] == 1
+    plain = pt.shadow_wl_plain(orig, d, tm, rows, lt, words)
+    b8, _ = pt.shadow_wl_stats(orig, d, tm, pt.shared_rows(rows, orig), lt,
+                               words, summ, floors)
     torch.cuda.synchronize()
-    assert torch.equal(kern, plain)
+    assert torch.equal(kern, plain) and torch.equal(kern, b8)
     assert torch.equal(kern.cpu() > 0, want)
     assert 0.1 < float(want.float().mean()) < 0.9
 
 
 @pytest.mark.parametrize("which", SCENES)
 def test_raw_kernels_match_plain_and_simulation(which):
-    """B2 raw and B4 raw on a whole frame's primary rays and on seeded
-    shadow rays of the bench scenes at leaf 4: B2 raw bit for bit its
+    """B2 and B4 on the raw rows on a whole frame's primary rays and on
+    seeded shadow rays of the bench scenes at leaf 4: B2 bit for bit its
     warps' simulation (ties included) and, where the triangle agrees, the
-    plain B2 raw; B4 raw's verdicts the plain B4 raw's bit for bit."""
+    plain B2; B4's verdicts the plain B4's bit for bit."""
     _need_cuda()
     scene, cam, w, h, light = _scene(which)
     lt = scene.leaves
-    cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h,
-                                                     raw=True)
-    kern = pt.camera_wl(cv, w, h, rows, lt, words, summ, floors, raw=True)
+    cv, words, summ, floors = pt._camera_words(scene, cam, w, h)
+    rows = scene.tri_rows
+    kern = pt.camera_wl(cv, w, h, rows, lt, words, summ, floors)
     pids = torch.arange(words.shape[0], device="cuda")
-    sim, _, _ = pt.camera_wl_sim(cv, w, h, rows, lt, words, floors, pids,
-                                 raw=True)
-    plain = pt.camera_wl_plain(cv, w, h, rows, lt, words, pids, raw=True)
+    sim, _, _ = pt.camera_wl_sim(cv, w, h, rows, lt, words, floors, pids)
+    plain = pt.camera_wl_plain(cv, w, h, rows, lt, words, pids)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(kern, sim))
     same = kern[3] == plain[3]
@@ -1515,10 +1519,8 @@ def test_raw_kernels_match_plain_and_simulation(which):
 
     d, tm = _shadow_rays(scene, light, 6)
     words, summ, floors = pt.words_shared(light, d, tm, lt, 1)
-    kb = pt.shadow_wl(light, d, tm, scene.tri_rows, lt, words, summ, floors,
-                      raw=True)
-    pb = pt.shadow_wl_plain(light, d, tm, scene.tri_rows, lt, words,
-                            raw=True)
+    kb = pt.shadow_wl(light, d, tm, rows, lt, words, summ, floors)
+    pb = pt.shadow_wl_plain(light, d, tm, rows, lt, words)
     torch.cuda.synchronize()
     live = tm >= 0
     assert torch.equal(kb, pb)
@@ -1526,16 +1528,12 @@ def test_raw_kernels_match_plain_and_simulation(which):
 
 
 @pytest.mark.parametrize("which", SCENES)
-def test_frame_takes_raw_kernels_above_raw_rows(which, monkeypatch):
-    """The fwd frame on leaf tables with ``raw_rows`` true (a scene of
-    more than RAW_ROWS rows): B1, B2 raw, B3 and B4 raw launched, B2 and
-    B4 not; no shared-origin table built; the image within 2e-3 of the
-    frame on the shared-origin rows on >= 99.8 % of pixels. The counter
-    frame keeps B8a/B8b on shared-origin rows."""
+def test_fwd_frame_builds_no_shared_rows(which, monkeypatch):
+    """The fwd frame on leaf tables: B1, B2, B3 and B4 launched and no
+    shared-origin table built; the counter frame builds the camera's and
+    the light's for B8a/B8b, and its image is the fwd frame's."""
     _need_cuda()
     scene, cam, w, h, _ = _scene(which)
-    ref = render_frame(scene, cam, w, h, OPTS)
-    monkeypatch.setattr(pt, "raw_rows", lambda s: True)
     table = pt.shared_rows
     calls = []
     monkeypatch.setattr(pt, "shared_rows",
@@ -1545,17 +1543,14 @@ def test_frame_takes_raw_kernels_above_raw_rows(which, monkeypatch):
     torch.cuda.synchronize()
     counts = pt.launch_counts()
     assert not calls
-    assert all(counts[k] > 0 for k in ("words_camera", "camera_wl_raw",
-                                       "words_shared", "shadow_wl_raw"))
-    assert counts["camera_wl"] == 0 and counts["shadow_wl"] == 0, counts
-    err = (img - ref).abs().amax(-1)
-    assert float((err > 2e-3).float().mean()) <= 2e-3
+    assert all(counts[k] > 0 for k in ("words_camera", "camera_wl",
+                                       "words_shared", "shadow_wl")), counts
     pt.reset_launch_counts()
     stats_img, _ = render_frame_fast_stats(scene, cam, w, h, OPTS)
     counts = pt.launch_counts()
-    assert len(calls) == 2
-    assert counts["camera_wl_stats"] == 1 and counts["camera_wl_raw"] == 0
-    assert torch.equal(stats_img, ref)
+    assert len(calls) == 1 + len(scene.lights)
+    assert counts["camera_wl_stats"] == 1 and counts["camera_wl"] == 0
+    assert torch.equal(stats_img, img)
 
 
 @pytest.mark.parametrize("kind", ["walk", "fat", "wl"])

@@ -1,17 +1,17 @@
-"""The raw-row forms of B2 and B4 (the JAX package's ``raw=True`` of
-``_run_camera_wl`` / ``_run_shadow_wl``) and bench.py's 10 Mtri scene.
+"""B2 and B4 on the raw triangle rows (the JAX package's ``raw=True`` of
+``_run_camera_wl`` / ``_run_shadow_wl``, the port's only form of them)
+and bench.py's 10 Mtri scene.
 
-- ``raw_rows`` against the JAX rule ``_wl_raw_tris`` on stub scenes at
-  and around 2^31 / 512 rows;
-- ``camera_trace`` and ``any_hit_shared`` with the raw form forced (the
-  port's ``raw_rows`` and the JAX ``_wl_raw_tris`` patched to true in the
-  test) against the JAX package's raw kernels in interpret mode, on
-  city_scene(6) at leaf 4 (tests/test_torch_traverse.py's scene); the
-  port's raw form calls no ``shared_rows``, and its counter frame keeps
-  the shared-origin rows;
-- B2 raw's warps simulated (``camera_wl_sim(raw=True)``, what the card's
-  kernel is held to bit for bit) against the plain B2 raw;
-- the raw fwd frame against the JAX frame on the same forced form;
+- ``camera_trace`` and ``any_hit_shared`` against the JAX package's raw
+  kernels in interpret mode (its ``_wl_raw_tris`` patched to true in the
+  test), on city_scene(6) at leaf 4 (tests/test_torch_traverse.py's
+  scene); the port calls no ``shared_rows`` there, and its counter frame
+  keeps the shared-origin rows;
+- B2 and B4 on the raw rows bit for bit B8a and B8b on the shared-origin
+  rows, on several scenes: the two forms round alike;
+- B2's warps simulated (``camera_wl_sim``, what the card's kernel is held
+  to bit for bit) against the plain B2;
+- the fwd frame against the JAX frame on its raw form;
 - the 10 Mtri configuration (``scene_10m``) at a small size against
   bench.py's ``section_10m``: geometry, camera, light and options.
 """
@@ -19,7 +19,6 @@
 import dataclasses
 import os
 import re
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -36,6 +35,7 @@ from snail_tpu.render.fast import render_frame_fast as j_render_frame_fast
 from snail_tpu.scene import procedural as jproc
 from snail_tpu.scene.scene import make_traced_scene as j_make_traced_scene
 
+from snail_tpu_torch.bvh import build_bvh
 from snail_tpu_torch.core.types import Camera, Light, RenderOpts
 from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
@@ -67,25 +67,12 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("rows", [1_000, 4_194_304, 4_194_305, 10_000_000])
-def test_raw_rows_is_the_jax_rule(rows):
-    """The port takes the raw form above 2^31 / 512 = 4,194,304 rows, as
-    ``_wl_raw_tris`` does above 2^31 bytes of its 512-B rows."""
-    jax_raw = tp._wl_raw_tris(SimpleNamespace(
-        pk_tris=SimpleNamespace(size=rows * 128)))
-    port_raw = pt.raw_rows(SimpleNamespace(
-        tri_rows=SimpleNamespace(shape=(rows, pt.TRI_ROW))))
-    assert port_raw == jax_raw == (rows > 4_194_304)
-    assert pt.RAW_ROWS == 4_194_304
-
-
 @pytest.fixture
 def forced_raw(monkeypatch):
-    """Both packages on their raw forms: the JAX ``_wl_raw_tris`` and the
-    port's ``raw_rows`` true, and the port's ``shared_rows`` refusing to
-    run (the raw form builds no shared-origin table)."""
+    """The JAX package on its raw form (``_wl_raw_tris`` true), and the
+    port's ``shared_rows`` refusing to run (B2 and B4 build no
+    shared-origin table)."""
     monkeypatch.setattr(tp, "_wl_raw_tris", lambda scene: True)
-    monkeypatch.setattr(pt, "raw_rows", lambda scene: True)
 
     def no_table(*args):
         raise AssertionError("shared_rows called on the raw form")
@@ -132,7 +119,7 @@ def _check_closest(pd, pu, pv, ptri, jd, ju, jv, jt):
 
 
 def test_camera_trace_raw_matches_jax(scenes, forced_raw):
-    """B2 raw's plain version through ``camera_trace`` against the JAX
+    """B2's plain version through ``camera_trace`` against the JAX
     package's ``_camera_wl_kernel`` with ``raw=True`` (interpret mode):
     the full Moller test from the camera position on the raw rows, both
     sides. The directions differ by the JAX CPU rsqrt's rounding (ROADMAP
@@ -166,7 +153,7 @@ def shadow_rays(scenes):
 
 
 def test_any_hit_shared_raw_matches_jax(scenes, shadow_rays, forced_raw):
-    """B4 raw's plain version through ``any_hit_shared`` against the JAX
+    """B4's plain version through ``any_hit_shared`` against the JAX
     package's ``_shadow_wl_kernel`` with ``raw=True`` (interpret mode):
     the same one-sided test on the same floats, so the verdicts are
     equal."""
@@ -184,72 +171,110 @@ def test_any_hit_shared_raw_matches_jax(scenes, shadow_rays, forced_raw):
     np.testing.assert_array_equal(pb, jb)
 
 
-def test_raw_and_shared_forms_agree(scenes, shadow_rays):
-    """On the port's own plain versions, B2 raw and B4 raw against B2 and
-    B4 on the shared-origin rows, on the same words: every output bit for
-    bit the same. ``shared_rows`` computes the origin's terms with the
-    products and sums, in the same order, that the full test of the raw
-    form computes per ray, so the two forms round alike."""
-    _, ps, _, pcam = scenes
-    cam, rows, words, summ, floors = pt._camera_words(ps, pcam, W, H)
-    sh = pt.camera_wl(cam, W, H, rows, ps.leaves, words, summ, floors)
+def _raw_against_shared(ps, pcam, d, tm):
+    """B2 and B4 (raw rows) against B8a and B8b (shared-origin rows) on
+    ``ps`` at W x H and on the shadow rays ``d``/``tm`` from LIGHT: every
+    output bit for bit the same. Returns (B2's hit share, B4's blocked
+    share of the live rays)."""
+    cam, words, summ, floors = pt._camera_words(ps, pcam, W, H)
     raw = pt.camera_wl(cam, W, H, ps.tri_rows, ps.leaves, words, summ,
-                       floors, raw=True)
-    assert all(torch.equal(a, b) for a, b in zip(sh, raw))
-    assert float((raw[0] < BIG).float().mean()) > 0.3
-
-    d, tm = shadow_rays
+                       floors)
+    sh = pt.camera_wl_stats(cam, W, H, pt.shared_rows(ps.tri_rows, pcam.pos),
+                            ps.leaves, words, summ, floors)
+    assert all(torch.equal(a, b) for a, b in zip(sh[:7], raw))
     orig = torch.from_numpy(LIGHT)
     d3 = tuple(torch.from_numpy(d[:, k]).reshape(-1, pt.PACKET_R)
                for k in range(3))
     tmp = torch.from_numpy(tm).reshape(-1, pt.PACKET_R)
     w, s, f = pt.words_shared(orig, d3, tmp, ps.leaves, 1)
-    b_sh = pt.shadow_wl(orig, d3, tmp, pt.shared_rows(ps.tri_rows, orig),
-                        ps.leaves, w, s, f)
-    b_raw = pt.shadow_wl(orig, d3, tmp, ps.tri_rows, ps.leaves, w, s, f,
-                         raw=True)
+    b_raw = pt.shadow_wl(orig, d3, tmp, ps.tri_rows, ps.leaves, w, s, f)
+    b_sh, _ = pt.shadow_wl_stats(orig, d3, tmp,
+                                 pt.shared_rows(ps.tri_rows, orig),
+                                 ps.leaves, w, s, f)
     assert torch.equal(b_sh, b_raw)
     live = tmp >= 0
-    assert 0.05 < float(b_raw[live].mean()) < 0.95
+    return (float((raw[0] < BIG).float().mean()),
+            float(b_raw[live].mean()))
+
+
+def test_raw_and_shared_forms_agree(scenes, shadow_rays):
+    """On the port's own plain versions, B2 and B4 on the raw rows against
+    B8a and B8b on the shared-origin rows, on the same words: every output
+    bit for bit the same. ``shared_rows`` computes the origin's terms with
+    the products and sums, in the same order, that the full test computes
+    per ray, so the two forms round alike."""
+    _, ps, _, pcam = scenes
+    hit, blocked = _raw_against_shared(ps, pcam, *shadow_rays)
+    assert hit > 0.3 and 0.05 < blocked < 0.95
+
+
+@pytest.mark.parametrize("kind,n,leaf", [("city", 4, 8), ("city", 8, 16),
+                                         ("city", 10, 32),
+                                         ("terrain", 16, 4),
+                                         ("terrain", 24, 32)])
+def test_raw_and_shared_forms_agree_on_bench_kinds(kind, n, leaf):
+    """B2/B4 on the raw rows against B8a/B8b on the shared-origin rows, bit
+    for bit, on small scenes of both bench kinds at several leaf sizes:
+    bench.py's camera, and shadow rays from LIGHT to seeded points of the
+    root box (every 97th masked)."""
+    make = {"city": pproc.city_scene, "terrain": pproc.terrain_scene}[kind]
+    g = make(n).flatten()
+    lo, hi = g.bounds()
+    bvh = build_bvh(lo, hi, leaf_size=leaf)
+    ps = make_traced_scene(g, bvh, device="cpu")
+    c = (bvh.node_lo[0] + bvh.node_hi[0]) * 0.5
+    ext = float(np.max(bvh.node_hi[0] - bvh.node_lo[0]))
+    pcam = Camera.look_at(pos=tuple(c + np.array([0.45, 0.35, 0.9]) * ext),
+                          target=tuple(c), device="cpu")
+    rng = np.random.default_rng(n)
+    tgt = rng.uniform(bvh.node_lo[0], bvh.node_hi[0],
+                      (2 * pt.PACKET_R, 3)).astype(np.float32)
+    d = tgt - LIGHT
+    ld = np.linalg.norm(d, axis=-1)
+    tm = (ld * 0.9999).astype(np.float32)
+    tm[::97] = -BIG
+    hit, blocked = _raw_against_shared(
+        ps, pcam, (d / ld[:, None]).astype(np.float32), tm)
+    assert hit > 0.2 and blocked < 0.98
 
 
 def test_camera_wl_sim_raw_matches_plain(scenes):
-    """B2 raw's warps simulated as the kernel scans (its 8 x 4 pixel warps,
-    its kept leaves in band order, the first strictly nearer hit) against
-    the plain B2 raw on both packets: dist, u and v bit for bit where the
-    triangle agrees, the triangle differing only on a distance tie; the
-    directions bit for bit; and the simulation's counters those of B2's
-    own simulation on the shared-origin rows, which test the same
+    """B2's warps simulated as the kernel scans (its 8 x 4 pixel warps, its
+    kept leaves in band order, the first strictly nearer hit) against the
+    plain B2 on both packets, on the raw rows: dist, u and v bit for bit
+    where the triangle agrees, the triangle differing only on a distance
+    tie; the directions bit for bit; and the simulation's counters those
+    of B8a's simulation on the shared-origin rows, which test the same
     leaves."""
     _, ps, _, pcam = scenes
-    cam, rows, words, summ, floors = pt._camera_words(ps, pcam, W, H)
+    cam, words, summ, floors = pt._camera_words(ps, pcam, W, H)
     pids = torch.arange(words.shape[0])
     plain = pt.camera_wl_plain(cam, W, H, ps.tri_rows, ps.leaves, words,
-                               pids, raw=True)
+                               pids)
     sim, stats, tally = pt.camera_wl_sim(cam, W, H, ps.tri_rows, ps.leaves,
-                                         words, floors, pids, raw=True)
+                                         words, floors, pids)
     assert all(torch.equal(a, b) for a, b in zip(sim[4:], plain[4:]))
     same = sim[3] == plain[3]
     for a, b in zip(sim[:3], plain[:3]):
         assert torch.equal(a[same], b[same])
     assert torch.allclose(sim[0][~same], plain[0][~same], rtol=1e-5, atol=0)
     assert float(same.float().mean()) > 0.999
-    _, stats_sh, _ = pt.camera_wl_sim(cam, W, H, rows, ps.leaves, words,
-                                      floors, pids)
+    _, stats_sh, _ = pt.camera_wl_sim(
+        cam, W, H, pt.shared_rows(ps.tri_rows, pcam.pos), ps.leaves, words,
+        floors, pids, shared=True)
     # the cull and the leaves kept do not depend on the rows' form
     assert torch.equal(stats[:, [0, 1, 4]], stats_sh[:, [0, 1, 4]])
     assert tally.shape == (len(pt.TALLY), len(pids) * pt.WARPS)
 
 
 def test_counter_frame_keeps_shared_rows(scenes, monkeypatch):
-    """The counter frame (B8a/B8b) takes the shared-origin rows at every
-    size, as the JAX package's ``camera_trace_stats`` (:3665): with the
-    raw form forced, it still builds the tables, and its image is the fwd
-    frame's."""
+    """The counter frame (B8a/B8b) takes the shared-origin rows, as the
+    JAX package's ``camera_trace_stats`` (:3665): it builds the camera's
+    and the light's tables, the fwd frame (B2/B4 on the raw rows) none,
+    and its image is the fwd frame's."""
     _, ps, _, pcam = scenes
     ps = dataclasses.replace(ps, lights=Light.make(LIGHT, (1.0, 1.0, 1.0),
                                                    120.0, device="cpu"))
-    monkeypatch.setattr(pt, "raw_rows", lambda scene: True)
     calls = []
     table = pt.shared_rows
     monkeypatch.setattr(pt, "shared_rows",
@@ -267,7 +292,7 @@ def test_counter_frame_keeps_shared_rows(scenes, monkeypatch):
 
 def test_raw_fwd_frame_matches_jax(forced_raw):
     """The fwd frame of city_scene(4) at leaf 16 and 128 x 128 (bench.py's
-    camera) with both packages on the raw form: within 2e-3 on >= 99.8 %
+    camera), the JAX package's on its raw form: within 2e-3 on >= 99.8 %
     of pixels (ROADMAP's image rule). The JAX frame runs eagerly, its
     ``__wrapped__`` body, so that the patched rule is read."""
     g = jproc.city_scene(4).flatten()
@@ -305,9 +330,9 @@ def test_scene_10m_is_bench_py_section_10m():
     (2236), the light, the camera offset and the options; then built at a
     small size (terrain_scene(40)) on the CPU: the geometry the JAX
     package's, the camera the one bench.py's lines give on the JAX
-    package's root box, leaf tables by default (B2 raw/B4 raw above
-    RAW_ROWS) and node tables with ``walk``, leaves of at most 32
-    triangles, and the three seconds bench.py records."""
+    package's root box, leaf tables by default and node tables with
+    ``walk``, leaves of at most 32 triangles, and the three seconds
+    bench.py records."""
     src = _section_10m_source()
     n = int(re.search(r"\bn = (\d+)", src).group(1))
     assert n == bs.BENCH_N["terrain_10m"] == 2236
@@ -350,29 +375,6 @@ def test_scene_10m_is_bench_py_section_10m():
     np.testing.assert_array_equal(lights.radius.numpy(), [400.0])
     assert scene.leaves is not None and scene.nodes is None
     assert int(scene.leaves.count.max()) <= pt.IVAL_LEAF
-    assert not pt.raw_rows(scene)  # 3,264 rows: the shared-origin form
-    walk, _, _, _, _ = bs.scene_10m(small, device="cpu", walk=True,
-                                    built=(g, bvh, secs))
+    walk, _, _, _, _ = bs.scene_10m(small, device="cpu", walk=True)
     assert walk.leaves is None and walk.nodes is not None
     assert torch.equal(walk.tri_rows, scene.tri_rows)
-
-
-def test_host_build_round_trip(tmp_path):
-    """``save_host_build`` (the smoke's build process) and
-    ``load_host_build``: the same geometry, BVH and seconds, and the same
-    scene from them."""
-    bs.save_host_build("terrain_10m", 24, tmp_path)
-    assert (tmp_path / "done").exists()
-    g, bvh, secs = bs.load_host_build(tmp_path)
-    g0, bvh0, _ = bs.host_build("terrain_10m", 24)
-    for f in dataclasses.fields(g0):
-        np.testing.assert_array_equal(getattr(g, f.name),
-                                      getattr(g0, f.name))
-    for f in dataclasses.fields(bvh0):
-        np.testing.assert_array_equal(getattr(bvh, f.name),
-                                      getattr(bvh0, f.name))
-    assert isinstance(bvh.depth, int) and set(secs) == {"gen_s", "build_s"}
-    a, _, _, _, _ = bs.scene_10m(24, device="cpu", built=(g, bvh, secs))
-    b, _, _, _, _ = bs.scene_10m(24, device="cpu")
-    assert torch.equal(a.tri_rows, b.tri_rows)
-    assert torch.equal(a.leaves.box, b.leaves.box)

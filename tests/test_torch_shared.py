@@ -138,7 +138,8 @@ def test_camera_wl_sim_matches_plain(city24):
     c, ext = (lo + hi) * 0.5, float(np.max(hi - lo))
     cam = Camera.look_at(pos=tuple(c + np.array([0.45, 0.35, 0.9]) * ext),
                          target=tuple(c), device="cpu")
-    cv, rows, words, summ, floors = pt._camera_words(leaf, cam, w, h)
+    cv, words, summ, floors = pt._camera_words(leaf, cam, w, h)
+    rows = leaf.tri_rows
     pids = torch.arange(words.shape[0])
     out, stats, tally = pt.camera_wl_sim(cv, w, h, rows, leaf.leaves, words,
                                          floors, pids)

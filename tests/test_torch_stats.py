@@ -112,10 +112,12 @@ def _check_invariants(stats, words):
 def test_camera_counters_invariants(city):
     scene, cam = city
     w = h = 128
-    cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h)
-    *out, stats = pt.camera_wl_stats(cv, w, h, rows, scene.leaves, words,
-                                     summ, floors)
-    ref = pt.camera_wl(cv, w, h, rows, scene.leaves, words, summ, floors)
+    cv, words, summ, floors = pt._camera_words(scene, cam, w, h)
+    *out, stats = pt.camera_wl_stats(cv, w, h,
+                                     pt.shared_rows(scene.tri_rows, cam.pos),
+                                     scene.leaves, words, summ, floors)
+    ref = pt.camera_wl(cv, w, h, scene.tri_rows, scene.leaves, words, summ,
+                       floors)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert stats.shape == (4, 8)
     _check_invariants(stats, words)
@@ -130,12 +132,14 @@ def test_shadow_counters_invariants(city):
     lp = scene.lights.pos[0]
     fl3, ldist, _, mask = _toward_light(p3, n3, hit, lp)
     d3, tm = _shadow_rays(fl3, ldist, mask)
-    orig, d, tm, n, words, summ, floors, rows = pt._shared_planes(
-        scene, lp, d3, tm)
-    blocked, stats = pt.shadow_wl_stats(orig, d, tm, rows, scene.leaves,
-                                        words, summ, floors)
-    assert torch.equal(blocked, pt.shadow_wl(orig, d, tm, rows, scene.leaves,
-                                             words, summ, floors))
+    orig, d, tm, n, words, summ, floors = pt._shared_planes(scene, lp, d3,
+                                                            tm)
+    blocked, stats = pt.shadow_wl_stats(orig, d, tm,
+                                        pt.shared_rows(scene.tri_rows, orig),
+                                        scene.leaves, words, summ, floors)
+    assert torch.equal(blocked, pt.shadow_wl(orig, d, tm, scene.tri_rows,
+                                             scene.leaves, words, summ,
+                                             floors))
     live = tm >= 0
     assert 0.02 < float(blocked[live].mean()) < 0.98
     _check_invariants(stats, words)

@@ -190,8 +190,9 @@ def _shadow_stats(scene, cam, w=128):
     lp = scene.lights.pos[0]
     fl3, ldist, _, mask = _toward_light(p3, n3, hit, lp)
     d3, tm = _shadow_rays(fl3, ldist, mask)
-    orig, d, tm, _, words, summ, floors, rows = pt._shared_planes(
-        scene, lp, d3, tm)
+    orig, d, tm, _, words, summ, floors = pt._shared_planes(scene, lp, d3,
+                                                            tm)
+    rows = pt.shared_rows(scene.tri_rows, orig)
     blocked, stats = pt.shadow_wl_stats_plain(orig, d, tm, rows,
                                               scene.leaves, words, floors)
     return blocked, stats, words, (orig, d, tm, rows, words, floors)
@@ -262,7 +263,8 @@ def test_hand_counted_quad_under_a_light():
 def _camera_stats(scene, cam, w):
     """B8a's plain version on a w x w frame's primary rays: (outputs,
     counters, words, its arguments)."""
-    cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, w)
+    cv, words, summ, floors = pt._camera_words(scene, cam, w, w)
+    rows = pt.shared_rows(scene.tri_rows, cam.pos)
     args = (cv, w, w, rows, scene.leaves, words, floors,
             torch.arange(words.shape[0]))
     *out, stats = pt.camera_wl_stats_plain(*args)
@@ -297,7 +299,7 @@ def test_camera_counters_with_skips(monkeypatch, city4, which):
     with monkeypatch.context() as m:
         m.setattr(pt, "_scan_sim", with_skips)
         # the outputs do not depend on the scan: only the counters are new
-        m.setattr(pt, "camera_wl_plain", lambda *a: out)
+        m.setattr(pt, "camera_wl_plain", lambda *a, **k: out)
         *_, skip = pt.camera_wl_stats_plain(*args)
     _check_invariants(skip, words)
     new, old = skip[:, :5].sum(0), stats[:, :5].sum(0)

@@ -53,15 +53,19 @@ does not count (``device_ms``).
   frames. The kernels' verdicts and the tally of their warps are
   chip_smoke.py's (phases 3, 5 and 7).
 - shared: on city_24 and terrain_724 with leaf tables, B2 and B8a on
-  the 1024 x 1024 primary wavefront; on the same geometry with node
-  tables, B9b and B9f on the fwd frame's shadow wavefront toward the
-  bench light and (the terrain) the low light, and on the walk bounce
-  frame's three (its own calls), summed and one by one; each with a
-  digest of its outputs, so two trees' can be compared bit for bit, its
-  bound, live rays and blocked share; the fwd and counter frames on both
-  table kinds and the walk bounce frame; with ``--scan``, the ``scan``
-  lines of its warps on a few packets (chip_smoke ``camera_tally``,
-  ``warp_tally``, on the tree's simulations).
+  the 1024 x 1024 primary wavefront, B4 on the fwd frame's shadow
+  wavefront toward the bench light and (the terrain) the low light (its
+  own calls, on the rows the tree gives B2 and B4: raw, or shared-origin
+  in a tree from before PR 17) and the camera's ``shared_rows`` table; on
+  the same geometry with node tables, B9b and B9f on the fwd frame's
+  shadow wavefront toward the bench light and (the terrain) the low
+  light, and on the walk bounce frame's three (its own calls), summed
+  and one by one; each with a digest of its outputs, so two trees' can
+  be compared bit for bit, its bound, live rays and blocked share; the
+  fwd frame (the terrain's also under the low light) and counter frame
+  on both table kinds and the walk bounce frame; with ``--scan``, the
+  ``scan`` lines of its warps on a few packets (chip_smoke
+  ``camera_tally``, ``warp_tally``, on the tree's simulations).
 - camera: B9a and B9e on the 1024 x 1024 primary wavefront of city_24
   and terrain_724 with node tables, B11a on that of city_24 and
   terrain_530 at leaf 64, each called as the frame's ``camera_trace``
@@ -597,8 +601,11 @@ def shared_waves(kind, scene, cam):
 def time_shared(tree, reps: int, quick: bool = False,
                 scan: bool = False) -> None:
     """B2 and B8a on the primary wavefront of city_24 and terrain_724
-    (leaf tables), B9b and B9f on the same geometry's node tables
-    (``shared_waves``): their times and a digest of their outputs (B8a's
+    (leaf tables), B4 on the fwd frame's shadow wavefront toward the bench
+    light and (the terrain) the low light, each on the rows the tree's
+    frame gives it (a tree from before PR 17: the shared-origin rows), and
+    one ``shared_rows`` table; B9b and B9f on the same geometry's node
+    tables (``shared_waves``): their times and a digest of their outputs (B8a's
     and B9f's: their counters) per wavefront; unless ``quick``, each
     one's bound (chip_smoke ``needed_work``; ``walk_work`` and
     ``anyhit_bytes``: live rays' planes only), live rays and blocked
@@ -607,14 +614,17 @@ def time_shared(tree, reps: int, quick: bool = False,
     few packets (chip_smoke ``camera_tally``, ``warp_tally``: the tree's
     simulations, ops/traverse.py ``camera_wl_sim`` and
     ops/traverse_ref.py ``shadow_sim``)."""
+    import dataclasses
+
     import torch
 
-    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.core.types import Light, RenderOpts
     from snail_tpu_torch.ops import traverse as pt
     from snail_tpu_torch.ops import traverse_ref as ref
     from snail_tpu_torch.render.fast import render_frame_fast_stats
     from snail_tpu_torch.render.renderer import render_frame
-    from snail_tpu_torch.scene.bench_scenes import (BENCH_N, bench_scene,
+    from snail_tpu_torch.scene.bench_scenes import (BENCH_N, SCENES,
+                                                    bench_scene,
                                                     bounce_materials)
     from snail_tpu_torch.scene.scene import make_traced_scene
 
@@ -628,16 +638,41 @@ def time_shared(tree, reps: int, quick: bool = False,
                                  lights=scene.lights, device=scene.device,
                                  walk=True)
         lt = scene.leaves
-        cv, rows, words, summ, floors = pt._camera_words(scene, cam, w, h)
+        srows = pt.shared_rows(scene.tri_rows, cam.pos)
+        res = pt._camera_words(scene, cam, w, h)
+        if len(res) == 5:
+            # a tree whose B2 takes the shared-origin rows (before PR 17)
+            cv, _, words, summ, floors = res
+            rows, b2_form = srows, "camera_wl_stats"
+        else:
+            cv, words, summ, floors = res
+            rows, b2_form = scene.tri_rows, "camera_wl"
         b2 = lambda: pt.camera_wl(cv, w, h, rows, lt, words, summ, floors)
-        b8 = lambda: pt.camera_wl_stats(cv, w, h, rows, lt, words, summ,
+        b8 = lambda: pt.camera_wl_stats(cv, w, h, srows, lt, words, summ,
                                         floors)
         kern, st = b2(), b8()[-1]
+        # B4 on the fwd frame's shadow wavefronts, each on the rows the
+        # tree's frame gives it (taken from the frame's own calls)
+        b4_waves = {"bench light": sm.captured("shadow_wl", lambda: (
+            render_frame(scene, cam, w, h, fwd)))[0]}
+        if kind in sm.LOW_LIGHT:
+            low = dataclasses.replace(scene, lights=Light.make(
+                sm.LOW_LIGHT[kind], (1.0, 1.0, 1.0), SCENES[kind][3]))
+            b4_waves["low light"] = sm.captured("shadow_wl", lambda: (
+                render_frame(low, cam, w, h, fwd)))[0]
         out = {"scene": f"{kind}_{n}", "tree": str(tree),
+               "camera_wl rows": ("raw" if b2_form == "camera_wl"
+                                  else "shared-origin"),
                "camera_wl ms": device_ms(b2, reps),
                "camera_wl_stats ms": device_ms(b8, reps),
+               "shared_rows ms": device_ms(
+                   lambda: pt.shared_rows(scene.tri_rows, cam.pos), reps),
+               "shadow_wl ms": {k: device_ms(lambda: pt.shadow_wl(*a), reps)
+                                for k, a in b4_waves.items()},
                "camera_wl digest": digest(*kern),
-               "camera_wl_stats digest": digest(st)}
+               "camera_wl_stats digest": digest(st),
+               "shadow_wl digest": {k: digest(pt.shadow_wl(*a))
+                                    for k, a in b4_waves.items()}}
         waves = shared_waves(kind, node, cam)
         out["walk_shadow ms"] = {k: device_ms(lambda: pt.walk_shadow(*a),
                                               reps)
@@ -655,14 +690,16 @@ def time_shared(tree, reps: int, quick: bool = False,
         if not quick:
             pids = torch.arange(words.shape[0], device=cv.device)
             d, idir, t_exit = pt._camera_rays(cv, w, h, pids)
-            ops, leaf_bytes = sm.needed_work(
-                "camera_wl", lt, rows, words, cv[9:12].unbind(), idir,
-                torch.where(kern[3] >= 0, kern[0], t_exit))
-            n_bytes = sm.nbytes(cv, words, summ, floors, *kern) + leaf_bytes
-            out["camera_wl bound ms"] = sm.entry(0.0, 0.0, 0.0, n_bytes,
-                                                 ops)["bound_ms"]
-            out["camera_wl_stats bound ms"] = sm.entry(
-                0.0, 0.0, 0.0, n_bytes + sm.nbytes(st), ops)["bound_ms"]
+            reach = torch.where(kern[3] >= 0, kern[0], t_exit)
+            for k in ("camera_wl", "camera_wl_stats"):
+                ops, leaf_bytes = sm.needed_work(
+                    b2_form if k == "camera_wl" else k, lt, rows, words,
+                    cv[9:12].unbind(), idir, reach)
+                n_bytes = (sm.nbytes(cv, words, summ, floors, *kern)
+                           + leaf_bytes + (sm.nbytes(st) if k != "camera_wl"
+                                           else 0))
+                out[f"{k} bound ms"] = sm.entry(0.0, 0.0, 0.0, n_bytes,
+                                                ops)["bound_ms"]
             if scan:
                 out["camera_wl scan"], _ = sm.camera_tally(
                     f"{kind}_{n}", cv, rows, lt, words, floors, kern, st)
@@ -688,6 +725,8 @@ def time_shared(tree, reps: int, quick: bool = False,
             out["walk_shadow wavefronts"] = info
             out["frame ms"] = {
                 "fwd": frame_ms(lambda: render_frame(scene, cam, w, h, fwd)),
+                "fwd low light": frame_ms(lambda: render_frame(
+                    low, cam, w, h, fwd)) if kind in sm.LOW_LIGHT else None,
                 "stats": frame_ms(lambda: render_frame_fast_stats(
                     scene, cam, w, h, fwd)),
                 "walk fwd": frame_ms(lambda: render_frame(node, cam, w, h,
@@ -697,7 +736,7 @@ def time_shared(tree, reps: int, quick: bool = False,
                 "walk stats": frame_ms(lambda: render_frame_fast_stats(
                     node, cam, w, h, fwd))}
         print(json.dumps(out), flush=True)
-        del scene, node, waves, kern
+        del scene, node, waves, kern, srows, b4_waves
         torch.cuda.empty_cache()
 
 
