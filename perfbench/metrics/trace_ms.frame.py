@@ -1,0 +1,12 @@
+"""Device time a frame (ms) in the program's own CUDA kernels (the
+traversal kernels of its csrc)."""
+
+
+def read(run):
+    tr = run.trace
+    if (run.kind != "frame" or tr is None or not tr.iters
+            or not tr.device_ops):
+        return None
+    us = sum(dur for name, cat, _, dur in tr.device_ops
+             if cat == "kernel" and tr.is_port_kernel(name))
+    return us / tr.iters / 1e3
