@@ -1259,18 +1259,19 @@ def run_path(name, path, need, frame, scene, cam, small, card, rays,
     import torch
 
     from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.utils import trace
 
     width, height = size
     torch.cuda.synchronize()
     pt.reset_launch_counts()
-    with pt.count_live_rays() as live:
+    with trace.tracing():
         img = frame(scene, cam, width, height)
     torch.cuda.synchronize()
     launches = launched(name, path, need)
     if only is not None and any(n for k, n in launches.items()
                                 if k not in only):
         fail(f"{name} {path}: a kernel outside {only} ran: {launches}")
-    traced = sum(int(n) for n in live)
+    live = trace.counters()
     if tuple(img.shape) != (height, width, 3):
         fail(f"{name} {path}: image shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()) or not float(img.abs().max()) > 0:
@@ -1284,7 +1285,8 @@ def run_path(name, path, need, frame, scene, cam, small, card, rays,
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"frame {name} {path} {width}x{height}: {ms:.3f} ms/frame, "
           f"{rays / ms / 1e3:.2f} MRays/s ({rays} rays as bench.py counts; "
-          f"{traced} live rays traced in {len(live)} wavefronts), peak "
+          f"{live.get('rays.live', 0)} live rays of "
+          f"{live.get('rays.traced', 0)} traced), peak "
           f"memory {peak:.1f} MiB, on {card}", flush=True)
     return launches
 
@@ -1444,15 +1446,16 @@ def run_step(name, scene, cam, small, card, path="fwd_bwd", need=BOUNCE,
     from snail_tpu_torch.ops import traverse as pt
     from snail_tpu_torch.render.renderer import render_frame
     from snail_tpu_torch.scene.bench_scenes import STEP_OPTS, bench_step
+    from snail_tpu_torch.utils import trace
 
     target = render_frame(scene, cam, WIDTH, HEIGHT, STEP_OPTS)
     torch.cuda.synchronize()
     pt.reset_launch_counts()
-    with pt.count_live_rays() as live:
+    with trace.tracing():
         loss, grads = bench_step(scene, cam, target, WIDTH, HEIGHT)
     torch.cuda.synchronize()
     launches = launched(name, path, need)
-    traced = sum(int(n) for n in live)
+    live = trace.counters()
     bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
     loss = float(loss)
     if not np.isfinite(loss) or bad:
@@ -1500,7 +1503,8 @@ def run_step(name, scene, cam, small, card, path="fwd_bwd", need=BOUNCE,
     rays = WIDTH * HEIGHT * (1 + len(scene.lights))
     print(f"step {name} {path} {WIDTH}x{HEIGHT}: {ms:.3f} ms/step, "
           f"{rays / ms / 1e3:.2f} MRays/s ({rays} rays as bench.py counts; "
-          f"{traced} live rays traced in {len(live)} wavefronts), peak "
+          f"{live.get('rays.live', 0)} live rays of "
+          f"{live.get('rays.traced', 0)} traced), peak "
           f"memory {peak:.1f} MiB, on {card}", flush=True)
     return launches
 

@@ -15,6 +15,7 @@ import torch
 from ..core.vecmath import BIG
 from ..ops import dispatch
 from ..ops.intersect import intersect_dist_bary
+from ..utils import trace
 
 
 def diff_closest_hit(scene, orig, dirn, tmax):
@@ -70,7 +71,9 @@ def render_loss_and_grads(render_fn, params, loss_fn):
     does not depend on gets zeros; ``params`` themselves are not changed."""
     flat, rebuild = _flatten(params)
     leaves = [p.detach().requires_grad_() for p in flat]
-    loss = loss_fn(render_fn(rebuild(leaves)))
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with trace.span("snail.forward"):
+        loss = loss_fn(render_fn(rebuild(leaves)))
+    with trace.span("snail.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), rebuild([torch.zeros_like(p) if g is None else g
                                    for p, g in zip(leaves, grads)])

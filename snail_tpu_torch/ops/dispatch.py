@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..core.vecmath import BIG
+from ..utils import trace
 from .traverse import (any_hit_aos, any_hit_shared, closest_hit_aos,
                        pad_flat, substitute_masked)
 
@@ -36,10 +37,12 @@ def any_hit_from(scene, origin, dirn, tmax):
     are substituted by their packet's mean live direction first, so they
     cannot widen the packet's direction interval."""
     n = dirn.shape[0]
-    tm, _ = pad_flat(tmax, -BIG)
-    d = substitute_masked(tuple(pad_flat(dirn[:, k], 1.0)[0]
-                                for k in range(3)), tm, unit_fallback=True)
-    return any_hit_shared(scene, origin, d, tm)[:n] & (tmax >= 0.0)
+    with trace.span("snail.shadow"):
+        tm, _ = pad_flat(tmax, -BIG)
+        d = substitute_masked(tuple(pad_flat(dirn[:, k], 1.0)[0]
+                                    for k in range(3)), tm,
+                              unit_fallback=True)
+        return any_hit_shared(scene, origin, d, tm)[:n] & (tmax >= 0.0)
 
 
 @torch.no_grad()

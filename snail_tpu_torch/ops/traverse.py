@@ -46,7 +46,6 @@ wrapper counts its kernel launches in ``launches``.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -55,6 +54,7 @@ import numpy as np
 import torch
 
 from ..core.vecmath import BIG, rsqrt_rn, safe_inv
+from ..utils import trace
 
 TILE = 64  # square pixel tile per packet
 PACKET_R = TILE * TILE  # rays per packet
@@ -1913,25 +1913,13 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-_live_rays = None
-
-
-@contextlib.contextmanager
-def count_live_rays():
-    """Within the block, every wavefront traced appends its live rays
-    (every primary ray; tmax >= 0 otherwise) to the yielded list, as 0-d
-    tensors on its device (no host sync)."""
-    global _live_rays
-    _live_rays = []
-    try:
-        yield _live_rays
-    finally:
-        _live_rays = None
-
-
-def _count_live(tmax: torch.Tensor) -> None:
-    if _live_rays is not None:
-        _live_rays.append((tmax >= 0.0).sum())
+def _count_rays(tmax: torch.Tensor) -> None:
+    """A wavefront's counters while tracing is on: its rays as handed to
+    the kernels (``rays.traced``) and its live ones (``rays.live``: tmax
+    >= 0; a primary wavefront passes its dist, so every ray)."""
+    if trace.active():
+        trace.count("rays.traced", tmax.numel())
+        trace.count("rays.live", (tmax >= 0.0).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -1999,21 +1987,22 @@ def camera_trace(scene, camera, width: int, height: int):
     (see :func:`kernel_ray_index`). Requires width and height to be
     multiples of TILE. A miss has dist BIG, and tri -1 (tri 0 from
     B11a)."""
-    if is_fat(scene):
-        cam = _camera_vec(scene, camera, width, height)
-        out = fat_camera(cam, width, height,
-                         camera_signs(camera, width, height), scene.tri_rows,
-                         scene.nodes)
-    elif walks(scene):
-        cam, rows = _camera_setup(scene, camera, width, height)
-        out = walk_camera(cam, width, height, rows, scene.nodes)
-    else:
-        cam, words, summ, floors = _camera_words(scene, camera, width,
-                                                 height)
-        out = camera_wl(cam, width, height, scene.tri_rows, scene.leaves,
-                        words, summ, floors)
-    _count_live(out[0])
-    return tuple(a.reshape(-1) for a in out)
+    with trace.span("snail.camera"):
+        if is_fat(scene):
+            cam = _camera_vec(scene, camera, width, height)
+            out = fat_camera(cam, width, height,
+                             camera_signs(camera, width, height),
+                             scene.tri_rows, scene.nodes)
+        elif walks(scene):
+            cam, rows = _camera_setup(scene, camera, width, height)
+            out = walk_camera(cam, width, height, rows, scene.nodes)
+        else:
+            cam, words, summ, floors = _camera_words(scene, camera, width,
+                                                     height)
+            out = camera_wl(cam, width, height, scene.tri_rows,
+                            scene.leaves, words, summ, floors)
+        _count_rays(out[0])
+        return tuple(a.reshape(-1) for a in out)
 
 
 def camera_trace_stats(scene, camera, width: int, height: int):
@@ -2024,18 +2013,19 @@ def camera_trace_stats(scene, camera, width: int, height: int):
     takes shared-origin rows, as the JAX package's ``camera_trace_stats``
     (:3665)."""
     _no_fat_counters(scene)
-    if walks(scene):
-        cam, rows = _camera_setup(scene, camera, width, height)
-        *out, stats = walk_camera_stats(cam, width, height, rows,
-                                        scene.nodes)
-    else:
-        cam, words, summ, floors = _camera_words(scene, camera, width,
-                                                 height)
-        *out, stats = camera_wl_stats(
-            cam, width, height, shared_rows(scene.tri_rows, camera.pos),
-            scene.leaves, words, summ, floors)
-    _count_live(out[0])
-    return (*(a.reshape(-1) for a in out), stats)
+    with trace.span("snail.camera"):
+        if walks(scene):
+            cam, rows = _camera_setup(scene, camera, width, height)
+            *out, stats = walk_camera_stats(cam, width, height, rows,
+                                            scene.nodes)
+        else:
+            cam, words, summ, floors = _camera_words(scene, camera, width,
+                                                     height)
+            *out, stats = camera_wl_stats(
+                cam, width, height, shared_rows(scene.tri_rows, camera.pos),
+                scene.leaves, words, summ, floors)
+        _count_rays(out[0])
+        return (*(a.reshape(-1) for a in out), stats)
 
 
 def substitute_masked(comps, tm, unit_fallback: bool = False):
@@ -2092,22 +2082,23 @@ def closest_hit_c(scene, o3, d3, tmax):
     for B11b, which takes them as they are (:3857). Returns flat (R,)
     dist, u, v, tri: a masked ray has dist -BIG, tri is clamped at 0, and
     a miss has dist BIG, or min(tmax, BIG) from B11b (ROADMAP C13)."""
-    if is_fat(scene):
-        o, d, tm, n = padded_planes(o3, d3, tmax)
-        _count_live(tm)
-        out = fat_closest(o, d, tm, packet_signs(d), scene.tri_rows,
-                          scene.nodes)
+    with trace.span("snail.closest"):
+        if is_fat(scene):
+            o, d, tm, n = padded_planes(o3, d3, tmax)
+            _count_rays(tm)
+            out = fat_closest(o, d, tm, packet_signs(d), scene.tri_rows,
+                              scene.nodes)
+            return tuple(a.reshape(-1)[:n] for a in out)
+        o, d, tm, n = general_planes(o3, d3, tmax)
+        _count_rays(tm)
+        if walks(scene):
+            out = walk_closest_g(o, d, tm, scene.tri_rows, scene.nodes)
+        else:
+            words, summ, floors = words_general(o, d, tm, scene.leaves,
+                                                WL_BANDS)
+            out = closest_wl_g(o, d, tm, scene.tri_rows, scene.leaves,
+                               words, summ, floors)
         return tuple(a.reshape(-1)[:n] for a in out)
-    o, d, tm, n = general_planes(o3, d3, tmax)
-    _count_live(tm)
-    if walks(scene):
-        out = walk_closest_g(o, d, tm, scene.tri_rows, scene.nodes)
-    else:
-        words, summ, floors = words_general(o, d, tm, scene.leaves,
-                                            WL_BANDS)
-        out = closest_wl_g(o, d, tm, scene.tri_rows, scene.leaves, words,
-                           summ, floors)
-    return tuple(a.reshape(-1)[:n] for a in out)
 
 
 def _light_planes(light_pos, d3, tmax):
@@ -2117,7 +2108,7 @@ def _light_planes(light_pos, d3, tmax):
     dy, _ = pad_flat(d3[1], 1.0)
     dz, _ = pad_flat(d3[2], 1.0)
     tm, _ = pad_flat(tmax, -BIG)
-    _count_live(tm)
+    _count_rays(tm)
     return (light_pos.float().contiguous(), (_pk(dx), _pk(dy), _pk(dz)),
             _pk(tm), n)
 
@@ -2135,20 +2126,22 @@ def any_hit_shared(scene, light_pos, d3, tmax):
     band: any-hit needs no order), B9b or B11c. ``d3`` three flat (R,)
     direction components, ``tmax`` (R,) (negative = masked ray). Returns
     blocked bool (R,)."""
-    if walks(scene):
-        orig, d, tm, n = _light_planes(light_pos, d3, tmax)
-        if is_fat(scene):
-            out = fat_shadow(orig, d, tm, packet_signs(d), scene.tri_rows,
-                             scene.nodes)
+    with trace.span("snail.shadow"):
+        if walks(scene):
+            orig, d, tm, n = _light_planes(light_pos, d3, tmax)
+            if is_fat(scene):
+                out = fat_shadow(orig, d, tm, packet_signs(d),
+                                 scene.tri_rows, scene.nodes)
+            else:
+                out = walk_shadow(orig, d, tm,
+                                  shared_rows(scene.tri_rows, orig),
+                                  scene.nodes)
         else:
-            out = walk_shadow(orig, d, tm, shared_rows(scene.tri_rows, orig),
-                              scene.nodes)
-    else:
-        orig, d, tm, n, words, summ, floors = _shared_planes(
-            scene, light_pos, d3, tmax)
-        out = shadow_wl(orig, d, tm, scene.tri_rows, scene.leaves, words,
-                        summ, floors)
-    return out.reshape(-1)[:n] > 0.0
+            orig, d, tm, n, words, summ, floors = _shared_planes(
+                scene, light_pos, d3, tmax)
+            out = shadow_wl(orig, d, tm, scene.tri_rows, scene.leaves,
+                            words, summ, floors)
+        return out.reshape(-1)[:n] > 0.0
 
 
 def any_hit_shared_stats(scene, light_pos, d3, tmax):
@@ -2158,18 +2151,18 @@ def any_hit_shared_stats(scene, light_pos, d3, tmax):
     A fat-leaf scene raises ValueError, as the JAX package asserts
     (:3685)."""
     _no_fat_counters(scene)
-    if walks(scene):
-        orig, d, tm, n = _light_planes(light_pos, d3, tmax)
-        out, stats = walk_shadow_stats(orig, d, tm,
-                                       shared_rows(scene.tri_rows, orig),
-                                       scene.nodes)
-    else:
-        orig, d, tm, n, words, summ, floors = _shared_planes(
-            scene, light_pos, d3, tmax)
-        out, stats = shadow_wl_stats(orig, d, tm,
-                                     shared_rows(scene.tri_rows, orig),
-                                     scene.leaves, words, summ, floors)
-    return out.reshape(-1)[:n] > 0.0, stats
+    with trace.span("snail.shadow"):
+        if walks(scene):
+            orig, d, tm, n = _light_planes(light_pos, d3, tmax)
+            out, stats = walk_shadow_stats(
+                orig, d, tm, shared_rows(scene.tri_rows, orig), scene.nodes)
+        else:
+            orig, d, tm, n, words, summ, floors = _shared_planes(
+                scene, light_pos, d3, tmax)
+            out, stats = shadow_wl_stats(orig, d, tm,
+                                         shared_rows(scene.tri_rows, orig),
+                                         scene.leaves, words, summ, floors)
+        return out.reshape(-1)[:n] > 0.0, stats
 
 
 def any_hit_c(scene, o3, d3, tmax):
@@ -2180,12 +2173,12 @@ def any_hit_c(scene, o3, d3, tmax):
     Returns blocked bool (R,)."""
     if is_fat(scene):
         o, d, tm, n = padded_planes(o3, d3, tmax)
-        _count_live(tm)
+        _count_rays(tm)
         out = fat_shadow_g(o, d, tm, packet_signs(d), scene.tri_rows,
                            scene.nodes)
         return out.reshape(-1)[:n] > 0.0
     o, d, tm, n = general_planes(o3, d3, tmax)
-    _count_live(tm)
+    _count_rays(tm)
     if walks(scene):
         out = walk_shadow_g(o, d, tm, scene.tri_rows, scene.nodes)
     else:
@@ -2203,15 +2196,17 @@ def closest_hit_aos(scene, orig, dirn, tmax):
     """Closest hit of rays ``orig``/``dirn`` (R, 3) with ``tmax`` (R,).
     Returns (dist, tri, bary (R, 2)): a miss has dist BIG, a masked ray
     (tmax < 0) -BIG, and a hit lies nearer than tmax."""
-    dist, u, v, tri = closest_hit_c(scene, orig.unbind(1), dirn.unbind(1),
-                                    tmax)
-    dist = torch.where(dist < tmax.clamp_max(BIG), dist, BIG)
-    dist = torch.where(tmax >= 0.0, dist, -BIG)
-    return dist, tri, torch.stack([u, v], dim=-1)
+    with trace.span("snail.closest"):
+        dist, u, v, tri = closest_hit_c(scene, orig.unbind(1),
+                                        dirn.unbind(1), tmax)
+        dist = torch.where(dist < tmax.clamp_max(BIG), dist, BIG)
+        dist = torch.where(tmax >= 0.0, dist, -BIG)
+        return dist, tri, torch.stack([u, v], dim=-1)
 
 
 def any_hit_aos(scene, orig, dirn, tmax):
     """Any-hit of rays ``orig``/``dirn`` (R, 3) with ``tmax`` (R,):
     blocked bool (R,), never for a masked ray (tmax < 0)."""
-    blocked = any_hit_c(scene, orig.unbind(1), dirn.unbind(1), tmax)
-    return blocked & (tmax >= 0.0)
+    with trace.span("snail.shadow"):
+        blocked = any_hit_c(scene, orig.unbind(1), dirn.unbind(1), tmax)
+        return blocked & (tmax >= 0.0)

@@ -22,13 +22,20 @@ frame); prints the kernels by device time and the busy share (union of
 kernel intervals over the traced window). With ``--tex``, the scene is
 bench.py's textured one (``bench_scene(..., textured=...)``: a
 checkerboard on every material), rendered with textures on and that
-filter. Needs a card.
+filter. The window runs inside ``utils.trace.tracing()``, so the trace
+carries the program's ``snail.`` spans: beside the kernels it prints the
+device time by innermost span (a backward kernel under the forward
+stage that made it, ``utils.trace.SpanIndex``) and the live share of the
+rays traced. Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -75,6 +82,7 @@ def main(argv=None) -> int:
     from .scene.bench_scenes import (BENCH_N, STEP_OPTS, bench_scene,
                                      bench_step, instanced_grid)
     from .scene.instancing import render_instanced
+    from .utils import trace
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -103,14 +111,25 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            trace.tracing():
         t0 = time.perf_counter()
         for _ in range(FRAMES):
             frame()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    counts = trace.counters()
+    path = args.trace
+    if path is None:
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            by_span = trace.SpanIndex(json.load(f)).device_us()
+    finally:
+        if not args.trace:
+            os.unlink(path)
 
     by_name = defaultdict(lambda: [0, 0.0])
     spans = []
@@ -138,6 +157,13 @@ def main(argv=None) -> int:
     for name, (count, us) in rows[:25]:
         print(f"  {us / FRAMES / 1e3:9.4f} ms/frame "
               f"{count / FRAMES:6.1f}x  {name[:90]}")
+    total = sum(by_span.values())
+    in_span = 1.0 - by_span.get(None, 0.0) / max(total, 1e-9)
+    print(f"by innermost span ({100 * in_span:.1f} % of device time in "
+          f"one), live rays {counts.get('rays.live', 0)} of "
+          f"{counts.get('rays.traced', 0)} traced in the window:")
+    for name, us in sorted(by_span.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / FRAMES / 1e3:9.4f} ms/frame  {name or 'no span'}")
     return 0
 
 

@@ -19,6 +19,7 @@ import torch
 from ..core.types import Camera, RenderOpts
 from ..core.vecmath import BIG
 from ..ops.traverse import TILE
+from ..utils import trace
 from ..utils.frame_counter import FrameCounter
 from .fast import render_frame_fast
 from .integrator import render_wavefront
@@ -34,13 +35,15 @@ def render_frame(scene, camera: Camera, width: int, height: int,
     adds the photon-map radiance term."""
     scale = 2 if opts.supersample else 1
     w, h = width * scale, height * scale
-    if w % TILE == 0 and h % TILE == 0:
-        img = render_frame_fast(scene, camera, w, h, opts, photon_grid)
-    else:
-        img = render_frame_portable(scene, camera, w, h, opts, photon_grid)
-    if opts.supersample:
-        img = (img[0::2, 0::2] + img[1::2, 0::2] + img[0::2, 1::2]
-               + img[1::2, 1::2]) * 0.25
+    with trace.span("snail.frame"):
+        if w % TILE == 0 and h % TILE == 0:
+            img = render_frame_fast(scene, camera, w, h, opts, photon_grid)
+        else:
+            img = render_frame_portable(scene, camera, w, h, opts,
+                                        photon_grid)
+        if opts.supersample:
+            img = (img[0::2, 0::2] + img[1::2, 0::2] + img[0::2, 1::2]
+                   + img[1::2, 1::2]) * 0.25
     return img
 
 
@@ -69,7 +72,9 @@ def render_frame_portable(scene, camera: Camera, width: int, height: int,
 
 def to_rgb8(img: torch.Tensor) -> np.ndarray:
     """ConvColor: clamp to [0, 255] and truncate."""
-    return torch.clamp(img * 255.0, 0.0, 255.0).to(torch.uint8).cpu().numpy()
+    with trace.span("snail.rgb8"):
+        img = torch.clamp(img * 255.0, 0.0, 255.0)
+        return img.to(torch.uint8).cpu().numpy()
 
 
 class Renderer:

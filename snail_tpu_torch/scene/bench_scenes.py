@@ -197,11 +197,10 @@ def bench_step(scene, camera, target, width: int, height: int):
     ``render_frame_fast_diff`` under :data:`STEP_OPTS` against ``target``,
     and its gradients with respect to fresh copies of the
     :data:`GRAD_PARAMS`. Returns (loss, {name: gradient})."""
+    from ..diff import render_loss_and_grads
     from ..render.fast import render_frame_fast_diff
 
-    params = grad_params(scene, camera)
-    s, c = with_params(scene, camera, params)
-    img = render_frame_fast_diff(s, c, width, height, STEP_OPTS)
-    loss = ((img - target) ** 2).mean()
-    grads = torch.autograd.grad(loss, list(params.values()))
-    return loss.detach(), dict(zip(params, grads))
+    return render_loss_and_grads(
+        lambda p: render_frame_fast_diff(*with_params(scene, camera, p),
+                                         width, height, STEP_OPTS),
+        grad_params(scene, camera), lambda img: ((img - target) ** 2).mean())

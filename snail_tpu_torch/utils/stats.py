@@ -1,7 +1,8 @@
 """Traversal and render statistics (``snail_tpu.utils.stats``, the
 reference's TreeStats, src/tree_stats.h:36-130: counters for
-intersections, loop iterations and rays, and timer sums, shown on the HUD
-by GenInfo "in:.. it:.. ms:..").
+intersections, loop iterations and rays, shown on the HUD by GenInfo
+"in:.. it:.. ms:.."). Spans of the program's stages, with time, are
+``utils.trace``'s.
 
 The counters come from the counting kernels through
 ``render.fast.render_frame_fast_stats``, under the JAX package's names:
@@ -25,9 +26,6 @@ as the render server does.
 from __future__ import annotations
 
 import dataclasses
-import time
-
-from ..ops.traverse import RAYS_PER_TRI_BLOCK
 
 
 @dataclasses.dataclass
@@ -36,15 +34,12 @@ class TreeStats:
     loop_iters: int = 0
     rays: int = 0
     runs: int = 0
-    timers_ms: dict = dataclasses.field(default_factory=dict)
 
     def __iadd__(self, other: "TreeStats") -> "TreeStats":
         self.intersects += other.intersects
         self.loop_iters += other.loop_iters
         self.rays += other.rays
         self.runs += other.runs
-        for k, v in other.timers_ms.items():
-            self.timers_ms[k] = self.timers_ms.get(k, 0.0) + v
         return self
 
     def gen_info(self, ms: float, mrays: float) -> str:
@@ -61,24 +56,6 @@ class TreeStats:
         return dataclasses.asdict(self)
 
 
-class Timer:
-    """Adds the milliseconds of its ``with`` block to ``stats.timers_ms``
-    under ``name`` (the reference's timer slots, tree_stats.h)."""
-
-    def __init__(self, stats: TreeStats, name: str):
-        self.stats = stats
-        self.name = name
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = (time.perf_counter() - self.t0) * 1e3
-        self.stats.timers_ms[self.name] = (
-            self.stats.timers_ms.get(self.name, 0.0) + dt)
-
-
 def tree_stats_from_counters(kstats: dict, n_lights: int) -> TreeStats:
     """A frame's :class:`TreeStats` from the counter dict of
     ``render_frame_fast_stats`` (the conversion of the JAX package's
@@ -86,6 +63,8 @@ def tree_stats_from_counters(kstats: dict, n_lights: int) -> TreeStats:
     times the rays of one (RAYS_PER_TRI_BLOCK), loop iterations ``nodes``
     (the bit words scanned, or the node rows walked), runs the primary
     wavefront and one per light."""
+    from ..ops.traverse import RAYS_PER_TRI_BLOCK  # ops imports utils
+
     return TreeStats(intersects=kstats["tri_blocks"] * RAYS_PER_TRI_BLOCK,
                      loop_iters=kstats["nodes"], rays=kstats["rays"],
                      runs=1 + n_lights)

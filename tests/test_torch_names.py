@@ -1,8 +1,8 @@
 """The JAX package's public names that the port lacked until it had them,
 each against the JAX package: ``diff.render_loss_and_grads``,
 ``render.raygen.camera_rays_wavefront``, ``core.vecmath``'s vector
-functions and ``core.types.Rays``, ``utils.stats.Timer``, and the
-packages' re-exports of what the JAX ``__all__`` lists."""
+functions and ``core.types.Rays``, and the packages' re-exports of what
+the JAX ``__all__`` lists."""
 
 import numpy as np
 import pytest
@@ -19,8 +19,6 @@ from snail_tpu.core.types import Camera as JCamera
 from snail_tpu.ops.intersect import intersect_dist_bary as j_dist_bary
 from snail_tpu.render.raygen import (camera_rays_wavefront as
                                      j_camera_rays_wavefront)
-from snail_tpu.utils.stats import Timer as JTimer
-from snail_tpu.utils.stats import TreeStats as JTreeStats
 
 import snail_tpu_torch.core as pcore
 import snail_tpu_torch.diff as pdiff
@@ -29,7 +27,6 @@ import snail_tpu_torch.render as prender
 from snail_tpu_torch.core import vecmath as pvec
 from snail_tpu_torch.core.types import Camera
 from snail_tpu_torch.ops.intersect import intersect_dist_bary
-from snail_tpu_torch.utils.stats import Timer, TreeStats
 
 
 def _vecs(seed, n=64):
@@ -131,21 +128,6 @@ def test_render_loss_and_grads_matches_jax():
     assert float(val) == 3.0 and isinstance(grads, list)
     assert isinstance(grads[1], tuple) and torch.equal(grads[1][0],
                                                        torch.ones(3))
-
-
-def test_timer_matches_jax():
-    """``Timer`` adds its block's milliseconds to the stats' slot under its
-    name, summing over uses, as the JAX package's."""
-    for timer, stats in ((Timer, TreeStats()), (JTimer, JTreeStats())):
-        for _ in range(2):
-            with timer(stats, "trace") as t:
-                assert t.name == "trace"
-                torch.ones(1000).sum()
-        with timer(stats, "shade"):
-            pass
-        assert set(stats.timers_ms) == {"trace", "shade"}
-        assert stats.timers_ms["trace"] > 0.0
-        assert stats.timers_ms["shade"] >= 0.0
 
 
 def test_packages_export_the_jax_names():
