@@ -49,7 +49,16 @@ Phases, each printed on its own line:
    instanced frame render_instanced on a grid of rigid instances of the
    scene (bench_scenes.instanced_grid: 16 of city_24, fwd and bounce
    options; 4 of terrain_724, fwd), where the camera must see every
-   instance and some instances hide others;
+   instance and some instances hide others; every frame that shades
+   through render/fast.py must launch the hit-row gather S1
+   (csrc/shade.cu ``surface_gather_kernel``), the instanced frame (its
+   own rows), the step and the portable frame none; on the terrain, the
+   supersampled bounce frame (bounce_ss: the benchmark's
+   terrain_1m.bounce_ss frame, 2048^2 rays a wavefront), its launches
+   from its own run, and S1 bit for bit its plain version on each of its
+   three gathers (camera, reflection, glass; recorded from the frame's
+   calls), timed beside its bound and the whole-row ``index_select`` it
+   replaced (the ``gather`` lines; ``library_ms`` in the kernels line);
 5. the walk kernels B9a-d (csrc/walk.cu) against their plain versions
    (ops/traverse_ref.py) on both scenes rebuilt with node tables
    (``walk=True``; the terrain's ~88.5k nodes are more than the 24,576 of
@@ -212,6 +221,7 @@ SRC = "snail_tpu_torch/csrc/worklist.cu"
 WALK_SRC = "snail_tpu_torch/csrc/walk.cu"
 FAT_SRC = "snail_tpu_torch/csrc/fat.cu"
 VOL_SRC = "snail_tpu_torch/csrc/volume.cu"
+GATHER_SRC = "snail_tpu_torch/csrc/shade.cu"
 # V1 replaces the JAX volume march, a lax.while_loop, not a Pallas kernel
 VOL_REPLACES = "snail_tpu/volume/vtree.py:116"
 TPU = "snail_tpu/ops/traverse_pallas.py"
@@ -237,8 +247,14 @@ REPLACES = {  # kernel -> line of the Pallas kernel it replaces
     "fat_closest": f"{TPU}:643",
     "fat_shadow": f"{TPU}:720",
     "fat_shadow_g": f"{TPU}:731",
+    # S1 replaces the frame's jnp take of sh_pack rows, not a Pallas kernel
+    "surface_rows": "snail_tpu/render/fast.py:130",
 }
 FORWARD = ("words_camera", "camera_wl", "words_shared", "shadow_wl")
+# the hit-row gather, which every frame shading through render/fast.py
+# launches on every table kind (not the instanced frame, the step or the
+# portable frame, which gather their own rows)
+GATHER = ("surface_rows",)
 BOUNCE = FORWARD + ("words_general", "closest_wl_g")
 STATS = ("words_camera", "camera_wl_stats", "words_shared", "shadow_wl_stats")
 INSTANCED = ("words_general", "closest_wl_g", "shadow_wl_g")
@@ -274,7 +290,7 @@ PATH_OF = {**{k: "bounce" for k in BOUNCE}, "shadow_wl_g": "instanced_fwd",
            "walk_shadow_g": "walk_instanced_fwd",
            **{k: "walk_stats" for k in WALK_STATS},
            **{k: "fat_bounce" for k in FAT_BOUNCE},
-           "fat_shadow_g": "fat_instanced_fwd"}
+           "fat_shadow_g": "fat_instanced_fwd", "surface_rows": "bounce_ss"}
 # kind -> a low light for the blocked-ray checks of B3/B4 and of the small
 # frame: the terrain's bench light is overhead and its hills cast no
 # shadow toward it (~20 % of the frame's shadow rays toward this light are
@@ -1295,10 +1311,94 @@ def run_frame(name, path, opts, need, scene, cam, small, card):
     """Phase 4, one path through render_frame (see run_path)."""
     from snail_tpu_torch.render.renderer import render_frame
 
-    return run_path(name, path, need,
+    return run_path(name, path, need + GATHER,
                     lambda s, c, w, h: render_frame(s, c, w, h, opts),
                     scene, cam, small, card,
                     WIDTH * HEIGHT * (1 + len(scene.lights)))
+
+
+def check_gather(name, scene, cam, card):
+    """Phase 4 on the terrain, S1: one supersampled bounce frame (the
+    benchmark's terrain_1m.bounce_ss frame: 2048^2 rays a wavefront), its
+    launches from its own run (three gathers: the camera's, the
+    reflection's and the glass wavefront's, each recorded from the
+    frame's call), and on each wavefront ``surface_gather_kernel`` bit
+    for bit its plain version (the CPU path), its device ms beside its
+    bound (time_words ``gather_bytes``: the 32-byte sectors of the
+    distinct rows that hold a requested column, dist and tri, the planes)
+    and the whole-row ``index_select`` the frame called before
+    (``library_ms``). Returns (S1's entry, the frame's launch counts)."""
+    import torch
+
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.core.vecmath import BIG
+    from snail_tpu_torch.ops import traverse as pt
+    from snail_tpu_torch.ops.gather import surface_rows
+    from snail_tpu_torch.render import fast
+    from snail_tpu_torch.render.renderer import render_frame
+
+    from time_words import device_ms, gather_bytes
+
+    opts = RenderOpts(textures=False, supersample=True)
+    calls = []
+
+    def record(sh_pack, dist, tri, cols):
+        calls.append((dist.clone(), tri.clone(), tuple(cols)))
+        return surface_rows(sh_pack, dist, tri, cols)
+
+    torch.cuda.synchronize()
+    pt.reset_launch_counts()
+    fast.surface_rows = record
+    try:
+        render_frame(scene, cam, WIDTH, HEIGHT, opts)
+    finally:
+        fast.surface_rows = surface_rows
+    torch.cuda.synchronize()
+    launches = launched(name, "bounce_ss", GATHER)
+    rays = 4 * WIDTH * HEIGHT
+    if (launches["surface_rows"] != 3 or len(calls) != 3
+            or any(d.numel() != rays for d, _, _ in calls)):
+        fail(f"{name} bounce_ss: {launches['surface_rows']} gathers "
+             f"launched, {[d.numel() for d, _, _ in calls]} rays recorded; "
+             f"want 3 of {rays}")
+    sh, host = scene.sh_pack, scene.sh_pack.cpu()
+    waves, total = [], {"ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+                        "library_ms": 0.0, "library_bytes": 0}
+    for wave, (dist, tri, cols) in zip(("camera", "reflection", "glass"),
+                                       calls):
+        out = surface_rows(sh, dist, tri, cols)
+        hd, ht = dist.cpu(), tri.cpu()
+        plain, plain_ms = timed_plain(lambda: surface_rows(host, hd, ht,
+                                                           cols))
+        n_diff = int((out.cpu().view(torch.int32)
+                      != plain.view(torch.int32)).sum())
+        hit = (dist > 0.0) & (dist < BIG)
+        idx = torch.where(hit, tri, 0).long()
+        need, lib = gather_bytes(idx, rays, cols)
+        ms = device_ms(lambda: surface_rows(sh, dist, tri, cols),
+                       KERNEL_REPS)
+        lib_ms = device_ms(lambda: sh.index_select(0, idx), KERNEL_REPS)
+        row = {"wavefront": wave, "rays": rays, "hits": int(hit.sum()),
+               "cols": len(cols), "values_differ": n_diff, "ms": ms,
+               "plain_ms": plain_ms,
+               "bound_ms": need / HBM_BYTES_PER_MS, "bytes": need,
+               "library_ms": lib_ms, "library_bytes": lib}
+        print(f"gather {name} bounce_ss {wave}: {json.dumps(row)}",
+              flush=True)
+        if n_diff:
+            fail(f"{name} bounce_ss {wave}: surface_gather_kernel differs "
+                 f"from its plain version in {n_diff} values")
+        waves.append(row)
+        for k in total:
+            total[k] += row[k]
+    e = entry(0, total["ms"], total["plain_ms"], total["bytes"], 0,
+              library_ms=total["library_ms"],
+              library_bytes=total["library_bytes"], wavefronts=waves)
+    print(f"gather {name} bounce_ss: the frame's three gathers "
+          f"{e['ms']:.4f} ms beside their bound {e['bound_ms']:.4f} ms and "
+          f"the whole-row index_select's {e['library_ms']:.4f} ms, on "
+          f"{card}", flush=True)
+    return e, launches
 
 
 def run_stats(name, opts, scene, cam, small, card):
@@ -1324,8 +1424,8 @@ def run_stats(name, opts, scene, cam, small, card):
     walk = pt.walks(scene)
     path, need, twins = (("walk stats", WALK_STATS, WALK_FWD) if walk else
                          ("stats", STATS, ("camera_wl", "shadow_wl")))
-    launches = run_path(name, path, need, frame, scene, cam, small, card,
-                        rays, only=WALK if walk else None)
+    launches = run_path(name, path, need + GATHER, frame, scene, cam, small,
+                        card, rays, only=WALK + GATHER if walk else None)
     if any(launches[k] for k in twins):
         fail(f"{name} {path}: {twins} ran beside {need}: {launches}")
     img, st = render_frame_fast_stats(scene, cam, WIDTH, HEIGHT, opts)
@@ -2206,11 +2306,11 @@ def run_walk_frame(name, path, opts, need, walk, scene, cam, small, card):
     geometry with leaf tables. Returns the launch counts."""
     from snail_tpu_torch.render.renderer import render_frame
 
-    launches = run_path(name, path, need,
+    launches = run_path(name, path, need + GATHER,
                         lambda s, c, w, h: render_frame(s, c, w, h, opts),
                         walk, cam, small, card,
                         WIDTH * HEIGHT * (1 + len(walk.lights)),
-                        only=only_kernels(walk))
+                        only=only_kernels(walk) + GATHER)
     against_frame(name, path, render_frame(walk, cam, WIDTH, HEIGHT, opts),
                   render_frame(scene, cam, WIDTH, HEIGHT, opts))
     return launches
@@ -2350,12 +2450,12 @@ def run_portable_step(name, scene, cam, small, card):
 def kernel_lines(name, checks, launches):
     """The ``kernels`` line's entries of one scene's checks."""
     source = lambda k: (FAT_SRC if k in FAT else WALK_SRC if k in WALK
-                        else SRC)
+                        else GATHER_SRC if k in GATHER else SRC)
     return [{"name": f"{k}/{name}", "route": "cuda", "source": source(k),
              "replaces": REPLACES[k], "launches": launches[PATH_OF[k]][k],
              "path": PATH_OF[k],
              "launches_by_path": {p: n[k] for p, n in launches.items()},
-             **e, "library_ms": None} for k, e in checks.items()]
+             "library_ms": None, **e} for k, e in checks.items()]
 
 
 def fat_scene(kind, n):
@@ -2492,7 +2592,7 @@ def run_textured(name, kind, scene, cam, small, card):
         opts = RenderOpts(reflections=False, transparency=False,
                           tex_filter=filt)
         path = f"tex {filt} fwd"
-        launches[f"tex_{filt}_fwd"] = run_path(name, path, FORWARD,
+        launches[f"tex_{filt}_fwd"] = run_path(name, path, FORWARD + GATHER,
                                                frame(opts), tex, cam,
                                                tsmall, card, rays)
         img = render_frame(tex, cam, WIDTH, HEIGHT, opts)
@@ -2508,7 +2608,7 @@ def run_textured(name, kind, scene, cam, small, card):
                card)
     if kind == "terrain":
         opts, flat_opts = RenderOpts(), RenderOpts(textures=False)
-        launches["tex_bounce"] = run_path(name, "tex bounce", BOUNCE,
+        launches["tex_bounce"] = run_path(name, "tex bounce", BOUNCE + GATHER,
                                           frame(opts), tex, cam, tsmall,
                                           card, rays)
         beside(name, "tex bounce",
@@ -2614,9 +2714,10 @@ def run_loaded(card, n=24):
     opts = RenderOpts(reflections=False, transparency=False, textures=False)
     frame = lambda s, c, w, h: render_frame(s, c, w, h, opts)
     rays = WIDTH * HEIGHT * (1 + len(a.lights))
-    run_path(name, "fwd", FORWARD, frame, a, cam, (a, cam), card, rays)
-    run_path(name, "walk fwd", WALK_FWD, frame, walk, cam, (walk, cam), card,
-             rays, only=WALK)
+    run_path(name, "fwd", FORWARD + GATHER, frame, a, cam, (a, cam), card,
+             rays)
+    run_path(name, "walk fwd", WALK_FWD + GATHER, frame, walk, cam,
+             (walk, cam), card, rays, only=WALK + GATHER)
     against_frame(name, "walk fwd", frame(walk, cam, WIDTH, HEIGHT),
                   frame(a, cam, WIDTH, HEIGHT))
 
@@ -2708,8 +2809,9 @@ def run_photon_frame(name, path, need, tables, scene, cam, small, card, pg,
     off = RenderOpts(**fwd)
     frame = lambda s, c, w, h: render_frame(s, c, w, h, on,
                                             photon_grid=pg.to(s.device))
-    launches = run_path(name, path, need, frame, scene, cam, small, card,
-                        WIDTH * HEIGHT * (1 + len(scene.lights)), only=only)
+    launches = run_path(name, path, need + GATHER, frame, scene, cam, small,
+                        card, WIDTH * HEIGHT * (1 + len(scene.lights)),
+                        only=None if only is None else only + GATHER)
     delta = (render_frame(scene, cam, WIDTH, HEIGHT, on, photon_grid=pg)
              - render_frame(scene, cam, WIDTH, HEIGHT, off))
     want, _ = photon_oracle(scene, cam, pg, exposure)
@@ -3166,7 +3268,7 @@ def run_apps(card, n=24):
                               on_frame=lambda *a: got.append(a))
             torch.cuda.synchronize()
             launches[path] = launched(name, path,
-                                      STATS if stats else BOUNCE)
+                                      (STATS if stats else BOUNCE) + GATHER)
             sessions[path] = got
         th.join(APPS_TIMEOUT_S)
         if th.is_alive() or rc != [0]:
@@ -3213,7 +3315,7 @@ def run_apps(card, n=24):
                       ":".join(",".join(map(str, light[k]))
                                for k in ("pos", "color")) + f":{radius}"])
         torch.cuda.synchronize()
-        launches["rtracer"] = launched(name, "rtracer", BOUNCE)
+        launches["rtracer"] = launched(name, "rtracer", BOUNCE + GATHER)
         cam = Camera.look_at(pos=tuple(client.orbit_pos(tgt, pos - tgt, 0,
                                                          1)),
                              target=tuple(tgt))
@@ -3615,10 +3717,10 @@ def run_10m(card):
           flush=True)
     checks, extra = kernels_10m(name, scene, walk, cam)
     launches = {}
-    img, launches["fwd"], fwd = frame_10m(name, "fwd", scene, cam, FORWARD,
-                                          card)
+    img, launches["fwd"], fwd = frame_10m(name, "fwd", scene, cam,
+                                          FORWARD + GATHER, card)
     wimg, launches["walk_fwd"], wfwd = frame_10m(name, "walk fwd", walk, cam,
-                                                 WALK_FWD, card)
+                                                 WALK_FWD + GATHER, card)
     against_frame(name, "walk fwd", wimg, img)
     numbers = {**secs, "walk_pack_s": walk_pack_s, "fwd": fwd,
                "walk_fwd": wfwd, **extra}
@@ -3687,6 +3789,10 @@ def main() -> None:
                                        RenderOpts(textures=False), BOUNCE,
                                        scene, cam, small, card)
         stamp(f"{name} fwd and bounce frames")
+        if kind == "terrain":
+            checks["surface_rows"], launches["bounce_ss"] = check_gather(
+                name, scene, cam, card)
+            stamp(f"{name} hit-row gather")
         launches["fwd_bwd"] = run_step(name, scene, cam, small, card)
         stamp(f"{name} fwd_bwd step")
         launches["stats"] = run_stats(name, fwd, scene, cam, small, card)

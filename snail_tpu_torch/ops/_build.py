@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("worklist.cu", "walk.cu", "fat.cu", "volume.cu")
+SOURCES = ("worklist.cu", "walk.cu", "fat.cu", "volume.cu", "shade.cu")
 # included by the sources; part of the build's hash
 HEADERS = ("rays.cuh", "walk.cuh")
 NVCC_FLAGS = (
@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 _SIGNATURES = {
     "snail_words_camera": [_P] * 3 + [_I] * 5 + [_P] * 4,
     "snail_words_shared": [_P] * 7 + [_I] * 5 + [_P] * 4,
@@ -56,6 +57,7 @@ _SIGNATURES = {
     "snail_march": [_P] * 5 + [_I] + [_P] * 3 + [_F] + [_I] * 6
     + [_P] * 6,
     "snail_march_mip_extra": [_P] * 5 + [_I, _P] + [_I] * 4 + [_P] * 5,
+    "snail_surface_gather": [_P, _I, _P, _P, _I, _U, _P, _P],
 }
 
 

@@ -1892,14 +1892,16 @@ def fat_shadow_g(o, d, tm, signs, rows, nodes: NodeTables):
 
 
 # every kernel's wrapper, each counting its launches; the volume march
-# (V1, ops/march.py) too, so one reset and one read cover them all
+# (V1, ops/march.py) and the hit-row gather (ops/gather.py) too, so one
+# reset and one read cover them all
+from .gather import surface_rows  # noqa: E402
 from .march import march  # noqa: E402
 
 KERNELS = (words_camera, camera_wl, words_shared, shadow_wl, words_general,
            closest_wl_g, shadow_wl_g, camera_wl_stats, shadow_wl_stats,
            walk_camera, walk_shadow, walk_closest_g, walk_shadow_g,
            walk_camera_stats, walk_shadow_stats, fat_camera, fat_closest,
-           fat_shadow, fat_shadow_g, march)
+           fat_shadow, fat_shadow_g, march, surface_rows)
 for _k in KERNELS:
     _k.launches = 0
 

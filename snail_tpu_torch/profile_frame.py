@@ -25,8 +25,9 @@ checkerboard on every material), rendered with textures on and that
 filter. The window runs inside ``utils.trace.tracing()``, so the trace
 carries the program's ``snail.`` spans: beside the kernels it prints the
 device time by innermost span (a backward kernel under the forward
-stage that made it, ``utils.trace.SpanIndex``) and the live share of the
-rays traced. Needs a card.
+stage that made it, ``utils.trace.SpanIndex``), the live share of the
+rays traced and the rows and columns of the hit-row gathers
+(``gather.rows``, ``gather.cols``). Needs a card.
 """
 
 from __future__ import annotations
@@ -161,7 +162,9 @@ def main(argv=None) -> int:
     in_span = 1.0 - by_span.get(None, 0.0) / max(total, 1e-9)
     print(f"by innermost span ({100 * in_span:.1f} % of device time in "
           f"one), live rays {counts.get('rays.live', 0)} of "
-          f"{counts.get('rays.traced', 0)} traced in the window:")
+          f"{counts.get('rays.traced', 0)} traced, rows gathered "
+          f"{counts.get('gather.rows', 0)} with {counts.get('gather.cols', 0)}"
+          f" columns summed over the gathers in the window:")
     for name, us in sorted(by_span.items(), key=lambda kv: -kv[1]):
         print(f"  {us / FRAMES / 1e3:9.4f} ms/frame  {name or 'no span'}")
     return 0

@@ -3,7 +3,9 @@
 
 Every wavefront quantity is a flat (R,) float32 tensor in packet order:
 primary rays come from the camera kernels (``ops.traverse.camera_trace``),
-shading data from one row gather of ``scene.sh_pack`` per hit, each light
+shading data from one gather of ``scene.sh_pack`` per traced wavefront
+(``ops.gather.surface_rows``: the columns the shading reads, each in a
+plane), each light
 casts one shadow wavefront through the shared-origin any-hit kernels
 (``ops.traverse.any_hit_shared``), and reflection and transparency
 bounces trace rays with their own origins through the general kernels
@@ -44,6 +46,7 @@ import torch
 
 from ..core.types import Camera, RenderOpts
 from ..core.vecmath import BIG, rsqrt_rn
+from ..ops.gather import surface_rows
 from ..ops.traverse import (QX, STATS, TILE, _pixel_xy, any_hit_shared,
                             any_hit_shared_stats, camera_trace,
                             camera_trace_stats, closest_hit_c, is_fat,
@@ -52,6 +55,13 @@ from ..scene.textures import sample_diffuse
 from ..utils import trace
 
 DIFF_ROWS = 42  # sh_pack (32) | tri_a | tri_ba | tri_ca (9) | mat id
+# sh_pack's columns as the shading reads them: the normal rows n0, n_e1,
+# n_e2; uv0, uv_e1, uv_e2; the material row's diffuse, specular,
+# reflectivity and opacity; its diffuse texture id
+NORMAL_COLS = tuple(range(0, 9))
+UV_COLS = tuple(range(9, 15))
+MATERIAL_COLS = tuple(range(16, 24))
+REFL_COL, OPACITY_COL, TEX_COL = 22, 23, 24
 
 
 def _packets_to_image(cr, cg, cb, width: int, height: int):
@@ -98,17 +108,40 @@ def _shadow_rays(fl3, ldist, mask):
     return substitute_masked(fl3, stm, unit_fallback=True), stm
 
 
-def _surface(scene, o3, d3, dist, u, v, tri, sh=None, normals=None):
-    """Hit mask, shading rows (``sh_pack`` gathered, (32, R), unless given),
-    normals (interpolated, unless given) and hit points of a traced
-    wavefront from ``o3`` (a shared origin, three 0-d tensors, or three
-    (R,))."""
+class _Planes:
+    """Gathered ``sh_pack`` columns addressed by column number: ``p[k]``
+    is column k's (R,) plane, ``p[a:b]`` the (b - a, R) planes of columns
+    a to b - 1, each of them gathered. A (C, R) tensor of whole rows (the
+    differentiable frame's pack columns, the instanced frame's rows) is
+    addressed the same way by its own indexing."""
+
+    def __init__(self, planes, cols):
+        self.planes = planes
+        self.at = {c: i for i, c in enumerate(cols)}
+
+    def __getitem__(self, k):
+        if isinstance(k, slice):
+            i, n = self.at[k.start], k.stop - k.start
+            if self.at.get(k.stop - 1) != i + n - 1:
+                raise KeyError(f"columns {k.start}:{k.stop} not all gathered")
+            return self.planes[i:i + n]
+        return self.planes[self.at[k]]
+
+
+def _surface(scene, o3, d3, dist, u, v, tri, sh=None, normals=None,
+             textured=False):
+    """Hit mask, shading rows (unless given: ``sh_pack``'s material
+    columns, the normal rows unless ``normals`` are given, and the uv rows
+    and texture id if ``textured``, gathered as :class:`_Planes`), normals
+    (interpolated, unless given) and hit points of a traced wavefront from
+    ``o3`` (a shared origin, three 0-d tensors, or three (R,))."""
     hit = (dist > 0.0) & (dist < BIG)
     if sh is None:
-        # ONE row gather per hit: shading deltas + the material row
+        cols = ((() if normals is not None else NORMAL_COLS)
+                + (UV_COLS if textured else ()) + MATERIAL_COLS
+                + ((TEX_COL,) if textured else ()))
         with trace.span("snail.gather"):
-            sh = scene.sh_pack.index_select(
-                0, torch.where(hit, tri, 0).long()).T
+            sh = _Planes(surface_rows(scene.sh_pack, dist, tri, cols), cols)
     n3 = normals if normals is not None else (
         sh[0] + sh[3] * u + sh[6] * v,
         sh[1] + sh[4] * u + sh[7] * v,
@@ -153,7 +186,7 @@ def bounce_wavefront(scene, o3, d3, dist, u, v, tri):
     wavefront: (o3, d3, tmax) of ``_reflect_rays``, the rays of hits on
     reflective materials live."""
     hit, sh, n3, p3 = _surface(scene, o3, d3, dist, u, v, tri)
-    return _reflect_rays(d3, n3, p3, hit & (sh[22] > 0.0))
+    return _reflect_rays(d3, n3, p3, hit & (sh[REFL_COL] > 0.0))
 
 
 def _lights(scene, p3, n3, hit, opts: RenderOpts, any_hit=None,
@@ -229,19 +262,19 @@ def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
         trace_bounce = bounce or (
             lambda bo3, bd3, btm, bdepth: _trace_and_shade(
                 scene, bo3, bd3, btm, opts, bdepth, pack))
+        textured = opts.textures and scene.tex_atlas is not None
         hit, sh, n3, p3 = _surface(scene, o3, d3, dist, u, v, tri, sh_row,
-                                   normals)
-        mp = sh[16:32]  # the triangle's material row
+                                   normals, textured)
         if pack is not None:
             mid = sh[DIFF_ROWS - 1].long()
             kd = _SmallLookup.apply(scene.mat_diffuse, mid)
             ks = _SmallLookup.apply(scene.mat_specular, mid)
         else:
-            kd, ks = mp[0:3], mp[3:6]
-        if opts.textures and scene.tex_atlas is not None:
+            kd, ks = sh[16:19], sh[19:22]
+        if textured:
             uv = torch.stack([sh[9] + sh[11] * u + sh[13] * v,
                               sh[10] + sh[12] * u + sh[14] * v], -1)
-            tex_id = mp[8].to(torch.int32)
+            tex_id = sh[TEX_COL].to(torch.int32)
             rgb = sample_diffuse(scene, opts, tex_id, uv, hit,
                                  tile_hw if depth == 0 else None)
             kd = torch.where(tex_id[None] >= 0, rgb.T, kd)
@@ -253,7 +286,7 @@ def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
         # has a reflective material, with no test for a selected ray: the
         # JAX package's lax.cond skip would be a host sync here ---
         if opts.reflections and depth < opts.max_bounces and scene.has_refl:
-            refl = torch.where(hit, mp[6], 0.0)
+            refl = torch.where(hit, sh[REFL_COL], 0.0)
             rsel = hit & (refl > 0.0)
             ro3, rd3, rtm = _reflect_rays(d3, n3, p3, rsel)
             rc = trace_bounce(ro3, rd3, rtm, depth + 1)
@@ -262,7 +295,7 @@ def _shade_and_light(scene, o3, d3, dist, u, v, tri, opts: RenderOpts,
 
         # --- transparency continuation (scene_inl.h:445-458) ---
         if opts.transparency and depth < opts.max_bounces and scene.has_transp:
-            opac = torch.where(hit, mp[7], 1.0)
+            opac = torch.where(hit, sh[OPACITY_COL], 1.0)
             tsel = hit & (opac < 1.0)
             to3 = tuple(p + d * 0.1 for p, d in zip(p3, d3))
             ttm = torch.where(tsel, BIG, -BIG)

@@ -3,8 +3,8 @@
     python -m snail_tpu_torch.sass_check OTHER_TREE [--out FILE]
 
 Compiles every kernel source of ``snail_tpu_torch/csrc`` (``ops/_build.py``
-SOURCES: worklist.cu, walk.cu, fat.cu, volume.cu) of this tree and of
-``OTHER_TREE`` (a checkout of another commit) with the build's flags
+SOURCES: worklist.cu, walk.cu, fat.cu, volume.cu, shade.cu) of this tree
+and of ``OTHER_TREE`` (a checkout of another commit) with the build's flags
 (``ops/_build.py``: sm_90a, ``--fmad=false``, ``-Xptxas -v``), all at
 once, and prints for each kernel of either the registers, stack and spills
 that ptxas reports, its SASS instruction count (``cuobjdump -sass``) and

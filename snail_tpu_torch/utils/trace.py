@@ -19,14 +19,17 @@ The spans, all named ``snail.<stage>``:
   snail.shadow    a light's shadow wavefront (``any_hit_shared``, the
                   frame's ``_lights``), any-hits of the dispatch seam
   snail.closest   a bounce wavefront's closest hit (``closest_hit_c``)
-  snail.gather    the shading rows' gathers (``render.fast``)
+  snail.gather    the shading rows' gathers (``render.fast``: the hit-row
+                  gather's kernel, the differentiable frame's pack)
   snail.shade     one traced wavefront's shading, its bounces inside
 
 A stage entered inside itself (a wrapper calling the entry point it
 wraps, a bounce depth's shading inside its parent's) stays one span.
 
 The counters: ``rays.traced``, each wavefront's rays as handed to the
-kernels, and ``rays.live``, those with tmax >= 0 (every primary ray).
+kernels, and ``rays.live``, those with tmax >= 0 (every primary ray);
+``gather.rows``, each hit-row gather's rays (``ops.gather.surface_rows``),
+and ``gather.cols``, its columns, summed over the gathers (host ints).
 
 :class:`SpanIndex` reads an exported trace back: each device operation
 belongs to the innermost span around its launch, and a backward kernel to

@@ -810,6 +810,8 @@ def test_entry_points_default_to_the_card():
 # --- The walk kernels (B9a-d) on scenes with node tables ------------------
 
 WALK = ("walk_camera", "walk_shadow", "walk_closest_g", "walk_shadow_g")
+# the kernel every table kind's forward frame shades through
+GATHER = ("surface_rows",)
 
 
 def _assert_closest_equal(kern, plain, live=None):
@@ -894,8 +896,9 @@ def test_walk_shadow_g_kernel_matches_plain(which):
 @pytest.mark.parametrize("bounce", [False, True], ids=["fwd", "bounce"])
 @pytest.mark.parametrize("which", SCENES)
 def test_walk_frame_on_card(which, bounce):
-    """The walk frame launches the walk kernels and no worklist kernel,
-    matches the CPU path, and matches the same scene's worklist frame."""
+    """The walk frame launches the walk kernels, the hit-row gather and no
+    worklist kernel, matches the CPU path, and matches the same scene's
+    worklist frame."""
     _need_cuda()
     scene, cam, w, h, _ = _scene(which, bounce=bounce, walk=True)
     opts = RenderOpts(textures=False) if bounce else OPTS
@@ -903,9 +906,10 @@ def test_walk_frame_on_card(which, bounce):
     img = render_frame(scene, cam, w, h, opts)
     torch.cuda.synchronize()
     counts = pt.launch_counts()
-    need = WALK[:3] if bounce else WALK[:2]
+    need = (WALK[:3] if bounce else WALK[:2]) + GATHER
     assert all(counts[k] > 0 for k in need), counts
-    assert not any(n for k, n in counts.items() if k not in WALK), counts
+    assert not any(n for k, n in counts.items() if k not in WALK + GATHER), \
+        counts
     ref = render_frame(scene.to("cpu"), cam.to("cpu"), w, h, opts)
     err = (img.cpu() - ref).abs().amax(-1)
     assert torch.isfinite(img).all() and img.abs().amax() > 0
@@ -1663,8 +1667,9 @@ def test_fat_shadow_g_kernel_matches_plain(which):
 @pytest.mark.parametrize("bounce", [False, True], ids=["fwd", "bounce"])
 @pytest.mark.parametrize("which", SCENES)
 def test_fat_frame_on_card(which, bounce):
-    """The fat frame launches the fat-leaf kernels and no other, matches
-    the CPU path, and matches the same geometry's worklist frame."""
+    """The fat frame launches the fat-leaf kernels, the hit-row gather and
+    no other, matches the CPU path, and matches the same geometry's
+    worklist frame."""
     _need_cuda()
     scene, cam, w, h, _ = _scene(which, bounce=bounce, leaf=64)
     opts = RenderOpts(textures=False) if bounce else OPTS
@@ -1672,9 +1677,10 @@ def test_fat_frame_on_card(which, bounce):
     img = render_frame(scene, cam, w, h, opts)
     torch.cuda.synchronize()
     counts = pt.launch_counts()
-    need = FAT[:3] if bounce else (FAT[0], FAT[2])
+    need = (FAT[:3] if bounce else (FAT[0], FAT[2])) + GATHER
     assert all(counts[k] > 0 for k in need), counts
-    assert not any(n for k, n in counts.items() if k not in FAT), counts
+    assert not any(n for k, n in counts.items() if k not in FAT + GATHER), \
+        counts
     ref = render_frame(scene.to("cpu"), cam.to("cpu"), w, h, opts)
     err = (img.cpu() - ref).abs().amax(-1)
     assert torch.isfinite(img).all() and img.abs().amax() > 0
@@ -2042,3 +2048,102 @@ def test_nccl_world_size_one(tmp_path):
     finally:
         tdist.destroy_process_group()
         torch.use_deterministic_algorithms(False)
+
+
+@pytest.fixture(scope="module")
+def bounce_ss_gathers():
+    """The three gathers of terrain_724's supersampled 1024^2 bounce frame
+    (bench.py's 1 Mtri scene, material 0 half mirror half glass: the
+    camera's 2048^2 rays, then the reflection and the glass wavefronts),
+    taken from the frame's own calls: (sh_pack, [(dist, tri, cols)])."""
+    _need_cuda()
+    from snail_tpu_torch.render import fast
+
+    scene, cam, _, _ = bench_scene("terrain", 724, bounce=True)
+    calls, gather = [], fast.surface_rows
+
+    def record(sh_pack, dist, tri, cols):
+        calls.append((dist.clone(), tri.clone(), tuple(cols)))
+        return gather(sh_pack, dist, tri, cols)
+
+    fast.surface_rows = record
+    try:
+        render_frame(scene, cam, 1024, 1024,
+                     RenderOpts(textures=False, supersample=True))
+    finally:
+        fast.surface_rows = gather
+    torch.cuda.synchronize()
+    return scene.sh_pack, calls
+
+
+@pytest.mark.parametrize("cols", ["frame", "textured"])
+def test_surface_gather_kernel_matches_plain(bounce_ss_gathers, cols):
+    """``surface_gather_kernel`` equals its plain version bit for bit on
+    the bounce_ss frame's three wavefronts (17 columns each), with the
+    frame's columns and with the textured set (normals, uv, colours,
+    reflectivity, opacity, texture id), on an all-miss wavefront, and on
+    hits whose tri lies outside the table (row 0, as the plain version)."""
+    from snail_tpu_torch.ops.gather import surface_rows
+    from snail_tpu_torch.render import fast
+
+    sh_pack, calls = bounce_ss_gathers
+    assert [len(c[2]) for c in calls] == [17, 17, 17]
+    assert all(c[0].shape == (2048 * 2048,) for c in calls)
+    miss = torch.where(torch.arange(2048 * 2048, device="cuda") % 2 == 0,
+                       -BIG, BIG)
+    n_rows = sh_pack.shape[0]
+    outside = torch.where(torch.arange(2048 * 2048, device="cuda") % 3 == 0,
+                          n_rows + 5, -2).to(torch.int32)
+    waves = [(d, t) for d, t, _ in calls] + [
+        (miss, calls[0][1]), (torch.ones_like(miss), outside)]
+    every = tuple(sorted(fast.NORMAL_COLS + fast.UV_COLS + fast.MATERIAL_COLS
+                         + (fast.TEX_COL,)))
+    host = sh_pack.cpu()
+    for k, (dist, tri) in enumerate(waves):
+        want = every if cols == "textured" else (
+            calls[k][2] if k < 3 else calls[0][2])
+        before = pt.launch_counts()["surface_rows"]
+        out = surface_rows(sh_pack, dist, tri, want)
+        torch.cuda.synchronize()
+        assert pt.launch_counts()["surface_rows"] == before + 1
+        plain = surface_rows(host, dist.cpu(), tri.cpu(), want)
+        assert torch.equal(out.cpu(), plain), k
+        if k >= 3:  # every ray reads row 0
+            assert torch.equal(plain, host[0, list(want)][:, None].expand(
+                -1, dist.numel())), k
+    hit = (calls[0][0] > 0.0) & (calls[0][0] < BIG)
+    assert 0 < int(hit.sum()) < hit.numel()
+
+
+def test_surface_gather_checks_inputs():
+    """The wrapper refuses a wrong dtype, a non-contiguous input, a table
+    not 16-byte aligned, a table not 32 columns wide and a table on
+    another device."""
+    _need_cuda()
+    from snail_tpu_torch.ops.gather import surface_rows
+
+    n, rows = 4096, 100
+    sh_pack = torch.randn((rows, 32), device="cuda")
+    dist = torch.rand(n, device="cuda") + 0.5
+    tri = torch.randint(0, rows, (n,), device="cuda", dtype=torch.int32)
+    cols = (0, 1, 2, 16)
+    out = surface_rows(sh_pack, dist, tri, cols)
+    assert torch.equal(out, sh_pack[tri.long()].T[list(cols)])
+    with pytest.raises(ValueError, match="float32"):
+        surface_rows(sh_pack, dist.double(), tri, cols)
+    with pytest.raises(ValueError, match="int32"):
+        surface_rows(sh_pack, dist, tri.long(), cols)
+    with pytest.raises(ValueError, match="float32"):
+        surface_rows(sh_pack.double(), dist, tri, cols)
+    with pytest.raises(ValueError, match="not contiguous"):
+        surface_rows(sh_pack, torch.rand(2 * n, device="cuda")[::2], tri,
+                     cols)
+    with pytest.raises(ValueError, match="not contiguous"):
+        surface_rows(sh_pack.T.contiguous().T, dist, tri, cols)
+    shifted = torch.randn(rows * 32 + 1, device="cuda")[1:].view(rows, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        surface_rows(shifted, dist, tri, cols)
+    with pytest.raises(ValueError, match="shape"):
+        surface_rows(sh_pack[:, :16].contiguous(), dist, tri, cols)
+    with pytest.raises(ValueError, match="on cpu"):
+        surface_rows(sh_pack.cpu(), dist, tri, cols)

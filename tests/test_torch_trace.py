@@ -204,7 +204,7 @@ def test_ray_counters_per_wavefront(scenes, entry, tables):
 def test_ray_counters_of_a_frame(scenes):
     """A frame without bounces counts its camera wavefront and one shadow
     wavefront a light, each live ray as the frame's own shadow rays
-    (``shadow_wavefront``) have it."""
+    (``shadow_wavefront``) have it, and its one gather of 17 columns."""
     scene, cam = scenes["leaves"]
     dist, u, v, tri, dx, dy, dz = pt.camera_trace(scene, cam, W, H)
     o3 = tuple(cam.pos)
@@ -217,7 +217,33 @@ def test_ray_counters_of_a_frame(scenes):
     counts = trace.counters()
     assert 0 < live < W * H * (1 + len(scene.lights))
     assert counts == {"snail.frame": 1, "rays.live": live,
-                      "rays.traced": W * H * (1 + len(scene.lights))}
+                      "rays.traced": W * H * (1 + len(scene.lights)),
+                      "gather.rows": W * H, "gather.cols": 17}
+
+
+@pytest.mark.parametrize("run", ["bounce", "bounce_ss", "step"])
+def test_gather_counters(scenes, run):
+    """A bounce frame gathers three wavefronts of rows, the camera's and
+    each bounce's, each with the frame's 17 columns (normals, colours,
+    reflectivity, opacity); the supersampled frame four times the rays; a
+    step, whose pack rows come from its own gathers, none through
+    ``surface_rows``."""
+    scene, cam = scenes["leaves"]
+    if run == "step":
+        target = render_frame(scene, cam, W, H, STEP_OPTS)
+        fn = lambda: bench_step(scene, cam, target, W, H)
+    else:
+        fn = lambda: RUNS[run](scene, cam)
+    with trace.tracing():
+        fn()
+    counts = trace.counters()
+    rays = W * H * (4 if run == "bounce_ss" else 1)
+    if run == "step":
+        assert counts["snail.forward"] == 1
+        assert "gather.rows" not in counts and "gather.cols" not in counts
+    else:
+        assert counts["gather.rows"] == 3 * rays
+        assert counts["gather.cols"] == 3 * 17
 
 
 def test_backward_follows_its_forward_stage(scenes, tmp_path):

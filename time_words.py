@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Device time of the words passes B1, B3 and B5, of the closest hits B9c
 and B11b, of the any-hits B7, B9d, B11c and B11d, of the shared-origin
-scans B2, B8a, B9b and B9f, and of the camera walks B9a, B9e and B11a on
-one CUDA card.
+scans B2, B8a, B9b and B9f, of the camera walks B9a, B9e and B11a, and
+of the forward frame's hit-row gather on one CUDA card.
 
     python3 time_words.py [--tree DIR] [--reps N]
-                          [--only words|closest|anyhit|shared|camera]
+                          [--only words|closest|anyhit|shared|camera|gather]
                           [--scan]
     python3 time_words.py [--tree DIR] [--reps N]
                           [--only closest|anyhit|shared|camera]
@@ -75,6 +75,16 @@ does not count (``device_ms``).
   frame; with ``--scan``, the ``scan`` lines of the warps on a few
   packets, simulated with either warp footprint, 32 consecutive rays and
   an 8 x 4 pixel tile (``camera_scan``).
+- gather: ``surface_gather_kernel`` (``ops/gather.py`` ``surface_rows``)
+  on the three wavefronts of terrain_724's supersampled 1024 x 1024
+  bounce frame (2048^2 rays each, material 0 half mirror, half glass:
+  the frame of the benchmark's ``terrain_1m.bounce_ss`` cell), taken
+  from the frame's own calls; with each, its bound (the sectors of the
+  rows it needs, each read once, its dist and tri, and its planes, over
+  the H100's 3.35 TB/s) and, as ``library_ms``, the ``index_select`` of
+  whole rows that the frame called before (``library_path_ms`` with the
+  hit mask and index conversion in front of it), with the bytes that
+  moves; and the bounce frame (CUDA events over 10 frames).
 
 With ``--sweep``, times the closest hits (``--only closest``, the
 default), the any-hits (``--only anyhit``: the kernels' times only), the
@@ -186,6 +196,8 @@ VARIANTS = {
 # (B9d; B5 + B7 on the same geometry's leaf tables), or leaf 64 (B11d)
 ANYHIT = (("city", 24, None), ("terrain", 724, None), ("city", 24, 64),
           ("terrain", 530, 64))
+# the H100 SXM's HBM rate, bytes/s (NVIDIA's data sheet)
+HBM_BPS = 3.35e12
 # ~50 ms at the H100's 1.98 GHz boost clock: far longer than the host
 # takes to queue the timed calls
 SPIN_CYCLES = 100_000_000
@@ -886,6 +898,84 @@ def time_camera(tree, reps: int, quick: bool = False,
         torch.cuda.empty_cache()
 
 
+def gather_calls(n: int = 724):
+    """terrain_``n``'s bounce scene on the card and the three gathers of
+    its supersampled 1024 x 1024 bounce frame, taken from the frame's own
+    calls: (scene, camera, opts, [(dist, tri, cols)])."""
+    from snail_tpu_torch.core.types import RenderOpts
+    from snail_tpu_torch.render import fast
+    from snail_tpu_torch.render.renderer import render_frame
+    from snail_tpu_torch.scene.bench_scenes import bench_scene
+
+    scene, cam, _, _ = bench_scene("terrain", n, bounce=True)
+    opts = RenderOpts(textures=False, supersample=True)
+    calls, gather = [], fast.surface_rows
+
+    def record(sh_pack, dist, tri, cols):
+        calls.append((dist.clone(), tri.clone(), tuple(cols)))
+        return gather(sh_pack, dist, tri, cols)
+
+    fast.surface_rows = record
+    try:
+        render_frame(scene, cam, WIDTH, HEIGHT, opts)
+    finally:
+        fast.surface_rows = gather
+    return scene, cam, opts, calls
+
+
+def gather_bytes(rows, n_rays: int, cols) -> tuple:
+    """(bytes the gather needs, bytes the whole-row ``index_select``
+    moves) for ``n_rays`` rays reading the sh_pack ``rows`` (R,): the
+    32-byte sectors of each distinct row that hold a requested column,
+    read once, 8 bytes of dist and tri a ray and 4 a column written; the
+    library reads every distinct row whole once, an 8-byte index a ray,
+    and writes 128 bytes a ray."""
+    import torch
+
+    distinct = int(torch.unique(rows).numel())
+    sectors = sum(any(8 * s <= c < 8 * s + 8 for c in cols)
+                  for s in range(4))
+    need = distinct * 32 * sectors + n_rays * (8 + 4 * len(cols))
+    return need, distinct * 128 + n_rays * (8 + 128)
+
+
+def time_gather(reps: int) -> None:
+    import torch
+
+    from snail_tpu_torch.core.vecmath import BIG
+    from snail_tpu_torch.ops.gather import surface_rows
+    from snail_tpu_torch.render.renderer import render_frame
+
+    scene, cam, opts, calls = gather_calls()
+    sh = scene.sh_pack
+    names = ("camera", "reflection", "glass")
+    total = {"kernel_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+             "library_path_ms": 0.0}
+    for name, (dist, tri, cols) in zip(names, calls):
+        hit = (dist > 0.0) & (dist < BIG)
+        idx = torch.where(hit, tri, 0).long()
+        need, lib = gather_bytes(idx, dist.numel(), cols)
+        out = surface_rows(sh, dist, tri, cols)
+        same = torch.equal(out, sh.index_select(0, idx).T[list(cols)])
+        row = {
+            "wavefront": name, "rays": dist.numel(), "hits": int(hit.sum()),
+            "cols": len(cols), "equal_to_library": same,
+            "kernel_ms": device_ms(lambda: surface_rows(sh, dist, tri, cols),
+                                   reps),
+            "bound_ms": need / HBM_BPS * 1e3, "bound_bytes": need,
+            "library_ms": device_ms(lambda: sh.index_select(0, idx), reps),
+            "library_path_ms": device_ms(lambda: sh.index_select(
+                0, torch.where((dist > 0.0) & (dist < BIG), tri, 0).long()),
+                reps),
+            "library_bytes": lib}
+        for k in total:
+            total[k] += row[k]
+        print(json.dumps(row), flush=True)
+    fms = frame_ms(lambda: render_frame(scene, cam, WIDTH, HEIGHT, opts))
+    print(json.dumps({"wavefront": "frame", **total, "bounce_ss_frame_ms":
+                      fms}), flush=True)
+
+
 def copies(tree: Path, only: str, runs, reps: int) -> None:
     """Times ``only``'s kernels (``--quick``) in copies of ``tree``'s
     package, one per run of ``runs`` in turn, each by this script in a
@@ -943,7 +1033,7 @@ def main() -> None:
                     default=Path(__file__).resolve().parent)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", choices=("words", "closest", "anyhit",
-                                       "shared", "camera"))
+                                       "shared", "camera", "gather"))
     ap.add_argument("--sweep", type=lambda v: [int(t) for t in v.split(",")])
     ap.add_argument("--variant", type=lambda v: v.split(","),
                     help="with --only camera, time these VARIANTS in turn "
@@ -988,6 +1078,8 @@ def main() -> None:
         time_shared(args.tree, args.reps, args.quick, args.scan)
     if args.only in (None, "camera"):
         time_camera(args.tree, args.reps, args.quick, args.scan)
+    if args.only in (None, "gather"):
+        time_gather(args.reps)
 
 
 if __name__ == "__main__":
