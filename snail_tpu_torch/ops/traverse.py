@@ -294,16 +294,20 @@ def shared_rows(tris: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
     RayGroup<sharedOrigin=1>, ray_group.h:74-110).
 
     tris (T, 16) rows [a, ba, ca, n, pad] -> (T, 16) rows
-    [n(0:3), c1(3:6), c2(6:9), tmul(9), 0...]."""
-    a, ba, ca, n = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9], tris[:, 9:12]
-    tv = origin.reshape(1, 3) - a
-    out = torch.zeros_like(tris)
-    out[:, 0:3] = n
-    out[:, 3:6] = _cross(tv, ca)
-    out[:, 6:9] = _cross(ba, tv)
-    out[:, 9] = -(tv[:, 0] * n[:, 0] + tv[:, 1] * n[:, 1]
-                  + tv[:, 2] * n[:, 2])
-    return out
+    [n(0:3), c1(3:6), c2(6:9), tmul(9), 0...]. Traced as the stage
+    ``snail.rows``, its T rows (a scene's triangles and their LEAF_PAD pad
+    rows) counted in ``rows.tris``."""
+    with trace.span("snail.rows"):
+        trace.count("rows.tris", tris.shape[0])
+        a, ba, ca, n = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9], tris[:, 9:12]
+        tv = origin.reshape(1, 3) - a
+        out = torch.zeros_like(tris)
+        out[:, 0:3] = n
+        out[:, 3:6] = _cross(tv, ca)
+        out[:, 6:9] = _cross(ba, tv)
+        out[:, 9] = -(tv[:, 0] * n[:, 0] + tv[:, 1] * n[:, 1]
+                      + tv[:, 2] * n[:, 2])
+        return out
 
 
 def kernel_ray_index(width: int, height: int) -> np.ndarray:

@@ -27,7 +27,17 @@ carries the program's ``snail.`` spans: beside the kernels it prints the
 device time by innermost span (a backward kernel under the forward
 stage that made it, ``utils.trace.SpanIndex``), the live share of the
 rays traced and the rows and columns of the hit-row gathers
-(``gather.rows``, ``gather.cols``). Needs a card.
+(``gather.rows``, ``gather.cols``). Where a frame builds shared-origin
+tables (node tables; the counter frame), it prints their stage too:
+``rows_ms.frame``, the device ms a frame under ``snail.rows``, and the
+triangles tabled a frame (``rows.tris``); on leaf tables the fwd frame
+builds none and prints no rows stage. bench.py's 10 Mtri terrain on node
+tables:
+
+    python -m snail_tpu_torch.profile_frame --kind terrain --n 2236 \
+        --tables nodes
+
+Needs a card.
 """
 
 from __future__ import annotations
@@ -167,6 +177,10 @@ def main(argv=None) -> int:
           f" columns summed over the gathers in the window:")
     for name, us in sorted(by_span.items(), key=lambda kv: -kv[1]):
         print(f"  {us / FRAMES / 1e3:9.4f} ms/frame  {name or 'no span'}")
+    if counts.get("rows.tris"):
+        print(f"rows stage: rows_ms.frame "
+              f"{by_span.get('snail.rows', 0.0) / FRAMES / 1e3:.4f}, "
+              f"rows.tris {counts['rows.tris'] / FRAMES:.0f} a frame")
     return 0
 
 

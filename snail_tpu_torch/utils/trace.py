@@ -22,6 +22,10 @@ The spans, all named ``snail.<stage>``:
   snail.gather    the shading rows' gathers (``render.fast``: the hit-row
                   gather's kernel, the differentiable frame's pack)
   snail.shade     one traced wavefront's shading, its bounces inside
+  snail.rows      a shared-origin triangle table's build
+                  (``ops.traverse.shared_rows``: the node-table walk's
+                  camera and light tables, the counter frame's), inside
+                  ``snail.camera`` or ``snail.shadow``
 
 A stage entered inside itself (a wrapper calling the entry point it
 wraps, a bounce depth's shading inside its parent's) stays one span.
@@ -29,7 +33,9 @@ wraps, a bounce depth's shading inside its parent's) stays one span.
 The counters: ``rays.traced``, each wavefront's rays as handed to the
 kernels, and ``rays.live``, those with tmax >= 0 (every primary ray);
 ``gather.rows``, each hit-row gather's rays (``ops.gather.surface_rows``),
-and ``gather.cols``, its columns, summed over the gathers (host ints).
+and ``gather.cols``, its columns, summed over the gathers (host ints);
+``rows.tris``, the rows of each shared-origin table built, a scene's
+triangles and their pad rows (host ints).
 
 :class:`SpanIndex` reads an exported trace back: each device operation
 belongs to the innermost span around its launch, and a backward kernel to

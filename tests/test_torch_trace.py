@@ -6,7 +6,9 @@ them, the ray counters match a hand count per wavefront, and
 stage that made it.
 
 Scene: city_scene(4) (134 triangles) with bench.py's bounce material
-(half mirror, half glass) and a second light; 64 x 64 frames."""
+(half mirror, half glass) and a second light; for the shared-origin
+tables' stage, bench.py's 10 Mtri terrain at n = 24 on both table kinds;
+64 x 64 frames."""
 
 import contextlib
 import dataclasses
@@ -21,8 +23,9 @@ from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
 from snail_tpu_torch.render.fast import shadow_wavefront
 from snail_tpu_torch.render.renderer import render_frame, to_rgb8
-from snail_tpu_torch.scene.bench_scenes import (STEP_OPTS, bench_scene,
-                                                bench_step)
+from snail_tpu_torch.scene.bench_scenes import (OPTS_10M, STEP_OPTS,
+                                                bench_scene, bench_step,
+                                                scene_10m)
 from snail_tpu_torch.utils import trace
 
 W = H = 64
@@ -198,6 +201,9 @@ def test_ray_counters_per_wavefront(scenes, entry, tables):
     else:
         want = {"rays.traced": 2 * pt.PACKET_R,
                 "rays.live": int((tm >= 0).sum())}
+    if tables == "nodes" and entry in ("camera", "shadow"):
+        # B9a and B9b take the origin's shared-origin table
+        want["rows.tris"] = scene.tri_rows.shape[0]
     assert trace.counters() == want
 
 
@@ -244,6 +250,55 @@ def test_gather_counters(scenes, run):
     else:
         assert counts["gather.rows"] == 3 * rays
         assert counts["gather.cols"] == 3 * 17
+
+
+@pytest.fixture(scope="module")
+def terrains():
+    """{tables: (scene, camera)}: bench.py's 10 Mtri terrain at n = 24
+    (1,152 triangles) on leaf tables and on node tables (the walk)."""
+    return {tables: scene_10m(24, device="cpu", walk=tables == "nodes")[:2]
+            for tables in ("leaves", "nodes")}
+
+
+@pytest.mark.parametrize("tables", ["leaves", "nodes"])
+def test_rows_stage_of_a_view_frame(terrains, tables, tmp_path):
+    """A view frame on node tables builds two shared-origin tables, the
+    camera's for B9a and the light's for B9b: ``snail.rows`` opens once
+    inside ``snail.camera`` and once inside ``snail.shadow``,
+    ``SpanIndex`` puts each table's ops (its ``zeros_like``) under it,
+    and ``rows.tris`` counts 2 x T. On leaf tables (B2 and B4 on the raw
+    rows) the frame opens no ``snail.rows`` and counts no table."""
+    scene, cam = terrains[tables]
+    assert pt.walks(scene) == (tables == "nodes")
+    prof, counts = _profiled(
+        lambda: to_rgb8(render_frame(scene, cam, W, H, OPTS_10M)))
+    chrome = _chrome(prof, tmp_path)
+    ix = trace.SpanIndex(chrome)
+    rows = sorted(parent for name, parent in _spans(ix)
+                  if name == "snail.rows")
+    in_rows = [e["name"] for e in chrome["traceEvents"]
+               if e.get("cat") == "cpu_op" and ix.at(
+                   (e.get("pid"), e.get("tid")), float(e["ts"]))
+               == "snail.rows"]
+    if tables == "leaves":
+        assert rows == [] and in_rows == [] and "rows.tris" not in counts
+        return
+    assert rows == ["snail.camera", "snail.shadow"]
+    assert in_rows.count("aten::zeros_like") == 2
+    assert counts["rows.tris"] == 2 * scene.tri_rows.shape[0]
+
+
+@pytest.mark.parametrize("tables", ["leaves", "nodes"])
+def test_rows_stage_changes_no_bit(terrains, tables):
+    """The terrain's view frame, as RGB8 and as floats, is the same bits
+    with tracing on and off on both table kinds."""
+    scene, cam = terrains[tables]
+    frame = lambda: render_frame(scene, cam, W, H, OPTS_10M)
+    off = frame()
+    with trace.tracing():
+        on = frame()
+    assert torch.equal(on, off)
+    assert (to_rgb8(on) == to_rgb8(off)).all()
 
 
 def test_backward_follows_its_forward_stage(scenes, tmp_path):
