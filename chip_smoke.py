@@ -371,9 +371,9 @@ SLAB_OPS = 25
 TRI_OPS = {"camera_wl": 56, "shadow_wl": 49, "closest_wl_g": 56,
            "shadow_wl_g": 49, "camera_wl_stats": 29, "shadow_wl_stats": 22}
 # the walk and fat-leaf kernels test triangles with the same device
-# functions; every fat-leaf kernel on the raw rows
-TRI_OPS.update(walk_camera=29, walk_shadow=22, walk_closest_g=56,
-               walk_shadow_g=49, walk_camera_stats=29, walk_shadow_stats=22,
+# functions, every one on the raw rows
+TRI_OPS.update(walk_camera=56, walk_shadow=49, walk_closest_g=56,
+               walk_shadow_g=49, walk_camera_stats=56, walk_shadow_stats=49,
                fat_camera=56, fat_closest=56, fat_shadow=49, fat_shadow_g=49)
 
 
@@ -844,7 +844,7 @@ def check_kernels(name, kind, scene, cam):
     srows = pt.shared_rows(rows, cam.pos)
     print(f"table {name} shared_rows: "
           f"{cuda_ms(lambda: pt.shared_rows(rows, cam.pos), KERNEL_REPS):.4f}"
-          f" ms a frame (B8a's, B9a's; B2 builds none)", flush=True)
+          f" ms a frame (B8a's; B2 and B9a build none)", flush=True)
     *k8, st = pt.camera_wl_stats(cv, w, h, srows, lt, words, summ, floors)
     raw_against_shared(f"{name} camera_wl", kern, k8)
     (sim_tally, n_sim), plain_ms = timed_plain(lambda: camera_tally(
@@ -1677,18 +1677,17 @@ def check_walk_kernels(name, kind, scene, cam):
     cv = pt.cam_vec(cam, w, h, scene.root_lo, scene.root_hi)
     out = {}
 
-    # B9a on the shared-origin rows, or B11a on the raw rows with the
-    # packets' ray-0 signs
+    # B9a, or B11a with the packets' ray-0 signs, on the raw rows
+    rows = scene.tri_rows
     if fat:
         k = "fat_camera"
-        rows, signs = scene.tri_rows, pt.camera_signs(cam, w, h)
+        signs = pt.camera_signs(cam, w, h)
         call = lambda: pt.fat_camera(cv, w, h, signs, rows, nodes)
         plain_fn = lambda work: ref.fat_camera_plain(cv, w, h, signs, rows,
                                                      nodes, pids, work)
         ins = (cv, signs)
     else:
         k = "walk_camera"
-        rows = pt.shared_rows(scene.tri_rows, cam.pos)
         call = lambda: pt.walk_camera(cv, w, h, rows, nodes)
         plain_fn = lambda work: ref.walk_camera_plain(cv, w, h, rows, nodes,
                                                       pids, work)
@@ -1813,7 +1812,7 @@ def check_walk_shadow(name, scene, primary, lp, need_blocked):
         return {"fat_shadow": check_fat_shadow(
             name, orig, d, tm, pt.packet_signs(d), scene.tri_rows, nodes,
             need_blocked, frac_max=0.98)}
-    k, rows = "walk_shadow", pt.shared_rows(scene.tri_rows, orig)
+    k, rows = "walk_shadow", scene.tri_rows
     call = lambda: pt.walk_shadow(orig, d, tm, rows, nodes)
     kern = call()
     work = {}
@@ -1994,8 +1993,8 @@ def warp_tally(name, kernel, o, d, tm, rows, nodes, signs, kern, seed=6,
                by_live=False):
     """The warps of a closest hit (B9c, or B11b with ``signs``) or of an
     any-hit (B9d, or B11c/B11d with ``signs``; B11c's shared origin given
-    as planes; B9b, ``walk_shadow``, with ``o`` its origin (3,) and
-    shared-origin ``rows``) on SIM_PACKETS seeded packets of the planes
+    as planes; B9b, ``walk_shadow``, with ``o`` its origin (3,)) on the
+    raw ``rows``, on SIM_PACKETS seeded packets of the planes
     ``o``, ``d``, ``tm`` with live rays (``draw_packets``, its
     ``by_live``), simulated (ops/traverse_ref.py ``closest_g_sim`` /
     ``shadow_g_sim`` / ``shadow_sim``): their
@@ -3533,9 +3532,9 @@ def kernels_10m(name, scene, walk, cam):
     brute-force spot check (``oracle_check``); B2 and B4 bit for bit B8a
     and B8b on the shared-origin rows (``raw_against_shared``), and the
     time of each shared-origin table (``shared_rows``) that they build
-    and B2 and B4 do not; B4 also toward the low light, where rays are
-    blocked; B9a and B9b on the node tables against their plain versions
-    over their whole wavefronts. Returns ({kernel: entry}, {what:
+    and B2, B4, B9a and B9b do not; B4 also toward the low light, where
+    rays are blocked; B9a and B9b on the node tables against their plain
+    versions over their whole wavefronts. Returns ({kernel: entry}, {what:
     numbers})."""
     import torch
 
@@ -3583,7 +3582,7 @@ def kernels_10m(name, scene, walk, cam):
     extra["shared_rows ms"] = cuda_ms(lambda: pt.shared_rows(rows, cam.pos),
                                       KERNEL_REPS)
     print(f"table {name} shared_rows: {extra['shared_rows ms']:.4f} ms a "
-          f"frame and origin (B8a/B8b's, B9a/B9b's; B2 and B4 build none), "
+          f"frame and origin (B8a/B8b's; B2, B4, B9a and B9b build none), "
           f"on {card_line()}", flush=True)
     del srows
 
@@ -3639,32 +3638,29 @@ def kernels_10m(name, scene, walk, cam):
 
     # B9a and B9b on the node tables, whole wavefronts
     nodes = walk.nodes
-    srows = pt.shared_rows(rows, cam.pos)
-    call = lambda: pt.walk_camera(cv, w, h, srows, nodes)
+    call = lambda: pt.walk_camera(cv, w, h, rows, nodes)
     kern = call()
     work = {}
     plain, plain_ms = timed_plain(lambda: ref.walk_camera_plain(
-        cv, w, h, srows, nodes, pids, work))
+        cv, w, h, rows, nodes, pids, work))
     if not all(torch.equal(a, b) for a, b in zip(kern[4:], plain[4:])):
         fail(f"{name} walk_camera: directions differ from the plain version")
     err, _ = closest_equal(f"{name} walk_camera", kern[:4], plain[:4],
                            torch.ones_like(kern[0], dtype=torch.bool))
     ms = cuda_ms(call, KERNEL_REPS)
-    ops, tree_bytes = walk_work("walk_camera", nodes, srows, work)
+    ops, tree_bytes = walk_work("walk_camera", nodes, rows, work)
     out["walk_camera"] = entry(err, ms, plain_ms,
                                nbytes(cv, *kern) + tree_bytes, ops)
-    del srows
     primary = ((cam.pos[0], cam.pos[1], cam.pos[2]),
                tuple(c.reshape(-1) for c in kern[4:7]),
                *(c.reshape(-1) for c in kern[:4]))
     d, tm = shadow_wavefront(walk, *primary, walk.lights.pos[0])
     orig, d, tm = walk.lights.pos[0].contiguous(), tuple(map(pkp, d)), pkp(tm)
-    lrows = pt.shared_rows(rows, orig)
-    call = lambda: pt.walk_shadow(orig, d, tm, lrows, nodes)
+    call = lambda: pt.walk_shadow(orig, d, tm, rows, nodes)
     kb = call()
     work = {}
     plain, plain_ms = timed_plain(lambda: ref.walk_shadow_plain(
-        orig, d, tm, lrows, nodes, work))
+        orig, d, tm, rows, nodes, work))
     live = tm >= 0
     n_diff = int((kb != plain).sum())
     print(f"check {name} walk_shadow: {n_diff} verdicts differ, blocked "
@@ -3673,7 +3669,7 @@ def kernels_10m(name, scene, walk, cam):
     if n_diff or bool(kb[~live].any()):
         fail(f"{name} walk_shadow: {n_diff} verdicts differ")
     ms = cuda_ms(call, KERNEL_REPS)
-    ops, tree_bytes = walk_work("walk_shadow", nodes, lrows, work)
+    ops, tree_bytes = walk_work("walk_shadow", nodes, rows, work)
     out["walk_shadow"] = entry(0.0, ms, plain_ms, nbytes(orig)
                                + anyhit_bytes((), d, tm, None, kb)
                                + tree_bytes, ops)

@@ -21,8 +21,9 @@
 // first by the warp's direction signs (the sign of the midpoint of its live
 // lanes' inverse directions, as _ival_bounds takes the packet's). At a
 // leaf, the lanes that enter it test its triangles with the device
-// functions of the worklist kernels (rays.cuh): shared-origin rows for
-// B9a/B9b, raw rows for B9c/B9d. B9c copies each leaf it visits into the
+// functions of the worklist kernels (rays.cuh), on the raw triangle rows
+// (B9a/B9b with the full Moller test from their shared origin, as B2 and
+// B4 take it; no per-frame table). B9c copies each leaf it visits into the
 // warp's shared memory once and tests it lane per triangle where few lanes
 // enter it (walk.cuh leaf_closest_staged): on reflection rays a warp's
 // lanes scatter, and a visit has a handful of entering lanes. Its walk
@@ -30,12 +31,11 @@
 // same leaves in the same order in fewer dependent steps. B9d and B9b
 // walk so too, and stage their leaves and test them lane per triangle
 // where few lanes enter, each lane per ray up to its first occluder where
-// many do (rays.cuh leaf_blocks_staged; B9b's on shared-origin rows,
-// whose shared light makes a visit's lanes few on the terrain). B9a
-// stages its leaves too and tests them lane per triangle where few lanes
-// enter (rays.cuh staged_closest_sh, B2's, on shared-origin rows), on
-// walk_pairs, its warps on 8 x 4 pixel tiles (rays.cuh tile_ray), as
-// B2's. Any-hit warps stop once every live lane is blocked
+// many do (rays.cuh leaf_blocks_staged; B9b's shared light makes a
+// visit's lanes few on the terrain). B9a stages its leaves too and tests
+// them lane per triangle where few lanes enter (rays.cuh
+// staged_closest_sh, B2's, on raw rows), on walk_pairs, its warps on
+// 8 x 4 pixel tiles (rays.cuh tile_ray), as B2's. Any-hit warps stop once every live lane is blocked
 // (_shadow_ival_drain's exit, :1698). B9e/B9f are B9a/B9b with
 // STATS: the walk counts what each warp did (walk.cuh WalkCounts) and lane
 // 0 adds it to the packet's (P, 8) int32 row with integer atomics, so the
@@ -76,31 +76,31 @@ constexpr int kWalkLaneTriMax = 12;
 // most kWalkAnyLaneTriMax lanes enter (set by a sweep on the H100,
 // PERF.md).
 constexpr int kWalkAnyLaneTriMax = 12;
-// B9b's (and B9f's) leaf stage on shared-origin rows: the same leaves,
-// tested lane per triangle where at most kWalkShadowLaneTriMax lanes
-// enter.
+// B9b's (and B9f's) leaf stage: the same leaves, tested lane per
+// triangle where at most kWalkShadowLaneTriMax lanes enter.
 constexpr int kWalkShadowLaneTriMax = 12;
-// B9a's (and B9e's) leaf stage on shared-origin rows: the same leaves,
-// tested lane per triangle where at most kWalkCamLaneTriMax lanes enter
-// (set by a sweep on the H100, PERF.md).
+// B9a's (and B9e's) leaf stage: the same leaves, tested lane per
+// triangle where at most kWalkCamLaneTriMax lanes enter (set by a sweep
+// on the H100, PERF.md).
 constexpr int kWalkCamLaneTriMax = 12;
 
-// B9a / B10a: camera raygen + closest hit on the shared-origin rows. A
+// B9a / B10a: camera raygen + closest hit on the raw rows. A
 // ray's bound starts at its root-box exit (0 when it misses the box);
 // outputs as camera_wl_kernel's: a miss has dist BIG and tri -1. A warp's
 // rays are an 8 x 4 pixel tile (rays.cuh tile_ray), whose near-child
 // signs are its own (warp_signs); each thread writes its own ray's slot.
 // Leaves go through the staged shared-origin closest-hit stage (rays.cuh
-// stage_leaf into the warp's stage, then staged_closest_sh), lane per
+// stage_leaf into the warp's stage, then staged_closest_sh on raw rows,
+// the full Moller test from the camera's position), lane per
 // triangle where at most kWalkCamLaneTriMax lanes enter. B9a walks with
 // walk_pairs (both children of a node in one step). B9e (STATS) walks
 // with ``walk``, whose node steps its counters count, into ``stats`` (P,
 // 8): the same leaves in the same order with the same lanes entering
 // them, and a closest hit changes only on a strictly nearer hit, so its
 // outputs are B9a's. Asked for at least 2 blocks an SM, ptxas gives B9a
-// 50 registers and spills none (48 and 4 bytes spilled with no minimum)
-// and B9e 64: B9e 2 % faster, B9a within 1 %; at 3 or 4 blocks both
-// were slower (PERF.md).
+// 62 registers and B9e 68 and spills none. On the shared-origin rows it
+// gave them 50 (48 and 4 bytes spilled with no minimum) and 64: B9e 2 %
+// faster, B9a within 1 %; at 3 or 4 blocks both were slower (PERF.md).
 template <bool STATS>
 __global__ void __launch_bounds__(kWalkThreads, 2)
 walk_camera_kernel(const float* __restrict__ cam,
@@ -124,8 +124,9 @@ walk_camera_kernel(const float* __restrict__ cam,
   auto bound = [&] { return best; };
   auto leaf = [&](bool enter, int first, int count) {
     stage_leaf(rows, first, count, stage);
-    staged_closest_sh<kWalkCamLaneTriMax>(stage, first, count, enter, o,
-                                          r.d, best, tri, bu, bv, lane);
+    staged_closest_sh<kWalkCamLaneTriMax, true>(stage, first, count, enter,
+                                                o, r.d, best, tri, bu, bv,
+                                                lane);
   };
   if constexpr (STATS) {
     WalkCounts wc;
@@ -149,14 +150,17 @@ walk_camera_kernel(const float* __restrict__ cam,
   out_dz[g] = r.d[2];
 }
 
-// B9b / B10b: any-hit from a shared origin on the shared-origin rows;
-// blocked as 1.0f, a masked ray (tmax < 0) never blocked. Leaves go
-// through the staged any-hit leaf stage on shared-origin rows (rays.cuh
-// leaf_blocks_staged), lane per triangle where at most
+// B9b / B10b: any-hit from a shared origin on the raw rows; blocked as
+// 1.0f, a masked ray (tmax < 0) never blocked. Leaves go through the
+// staged any-hit leaf stage on raw rows (rays.cuh leaf_blocks_staged, the
+// full Moller test from ``orig``), lane per triangle where at most
 // kWalkShadowLaneTriMax lanes enter; B9b walks with walk_pairs (both
 // children of a node in one step). B9f (STATS) walks with ``walk``, whose
 // node steps its counters count: the same leaves in the same order, with
-// the same lanes entering them, so its verdicts are B9b's.
+// the same lanes entering them, so its verdicts are B9b's. With no
+// minimum of blocks an SM, ptxas gives B9b 48 registers and spills 12
+// bytes; asked for 2 it gave 55 and spilled none, and ran within 2 %, no
+// faster beyond the noise (PERF.md).
 template <bool STATS>
 __global__ void __launch_bounds__(kWalkThreads)
 walk_shadow_kernel(const float* __restrict__ orig,
@@ -177,7 +181,7 @@ walk_shadow_kernel(const float* __restrict__ orig,
   const Signs sg = warp_signs(idir, limit > 0.0f);
   auto bound = [&] { return blocked ? -kBig : limit; };
   auto leaf = [&](bool enter, int first, int count, int* tested) {
-    if (leaf_blocks_staged<kWalkLeafRows, kWalkShadowLaneTriMax, false,
+    if (leaf_blocks_staged<kWalkLeafRows, kWalkShadowLaneTriMax, true,
                            STATS>(rows, stage, first, count, enter, o, d,
                                   limit, tested))
       blocked = true;

@@ -3,7 +3,8 @@
 worklist kernels (the JAX package's ``SNAIL_WL=1`` path, B1-B8, below); a
 scene with node tables takes the walk kernels (B9a-d, the ``SNAIL_WL=0``
 path, whose paged twins B10a-d they also cover, and B9e/B9f, the walk's
-counters: see ``NodeTables`` and the section "Walk kernels"), or, where
+counters: see ``NodeTables`` and the section "Walk kernels"; all on the
+raw triangle rows, B9a/B9b/B9e/B9f from their shared origin), or, where
 its leaves hold more than IVAL_LEAF triangles, the fat-leaf kernels
 (B11a-d, section "Fat-leaf kernels").
 
@@ -286,7 +287,10 @@ def _cross(a, b):
 
 
 def shared_rows(tris: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
-    """Per-frame shared-origin triangle table, one per origin.
+    """Per-frame shared-origin triangle table, one per origin: the rows of
+    the leaf-table counter frame's B8a/B8b alone, as the JAX package's
+    ``camera_trace_stats`` takes them; every other kernel tests the raw
+    rows.
 
     For a shared ray origin ``o`` every origin-dependent term of the Moller
     test is a per-triangle constant: tv = o - a, c1 = tv x ca,
@@ -1590,7 +1594,8 @@ def _walk_camera_launch(cam, width, height, rows, nodes, stats):
 
 def walk_camera(cam, width: int, height: int, rows, nodes: NodeTables):
     """B9a: raygen + closest hit of a width x height frame of primary rays
-    through the node tree on the shared-origin ``rows`` (replaces
+    through the node tree on the raw triangle ``rows``, tested with the
+    full Moller test from the camera's position (replaces
     ``_camera_ival_kernel`` and the paged ``_camera_ival_kernel_paged``).
     Returns B2's outputs: (dist, u, v, tri, dx, dy, dz), each (P,
     PACKET_R); a miss has dist BIG and tri -1. Its warps take B2's 8 x 4
@@ -1652,7 +1657,8 @@ def _walk_shadow_launch(orig, d, tm, rows, nodes, stats):
 
 def walk_shadow(orig, d, tm, rows, nodes: NodeTables):
     """B9b: any-hit from the shared origin ``orig`` through the node tree
-    on the shared-origin ``rows`` (replaces ``_shadow_ival_kernel`` and
+    on the raw triangle ``rows``, tested with the full Moller test from
+    ``orig`` (replaces ``_shadow_ival_kernel`` and
     ``_shadow_ival_kernel_paged``); ``d`` three and ``tm`` one (P,
     PACKET_R) planes. Returns blocked float32 (P, PACKET_R). The kernel
     stages leaves of up to IVAL_LEAF rows; a tree with larger ones is the
@@ -1968,13 +1974,6 @@ def _camera_vec(scene, camera, width: int, height: int):
     return cam_vec(camera, width, height, scene.root_lo, scene.root_hi)
 
 
-def _camera_setup(scene, camera, width: int, height: int):
-    """The camera scalars and the camera's shared-origin rows (B8a, B9a,
-    B9e)."""
-    cam = _camera_vec(scene, camera, width, height)
-    return cam, shared_rows(scene.tri_rows, camera.pos)
-
-
 def _camera_words(scene, camera, width: int, height: int):
     """B1 for a full frame of primary rays: (cam, words, summ, floors)
     for B2/B8a."""
@@ -2000,8 +1999,9 @@ def camera_trace(scene, camera, width: int, height: int):
                              camera_signs(camera, width, height),
                              scene.tri_rows, scene.nodes)
         elif walks(scene):
-            cam, rows = _camera_setup(scene, camera, width, height)
-            out = walk_camera(cam, width, height, rows, scene.nodes)
+            cam = _camera_vec(scene, camera, width, height)
+            out = walk_camera(cam, width, height, scene.tri_rows,
+                              scene.nodes)
         else:
             cam, words, summ, floors = _camera_words(scene, camera, width,
                                                      height)
@@ -2017,13 +2017,13 @@ def camera_trace_stats(scene, camera, width: int, height: int):
     (P, 8) (see :func:`camera_wl_stats`, :func:`walk_camera_stats`). A
     fat-leaf scene raises ValueError, as the JAX package asserts. B8a
     takes shared-origin rows, as the JAX package's ``camera_trace_stats``
-    (:3665)."""
+    (:3665); B9e the raw rows, as B9a."""
     _no_fat_counters(scene)
     with trace.span("snail.camera"):
         if walks(scene):
-            cam, rows = _camera_setup(scene, camera, width, height)
-            *out, stats = walk_camera_stats(cam, width, height, rows,
-                                            scene.nodes)
+            cam = _camera_vec(scene, camera, width, height)
+            *out, stats = walk_camera_stats(cam, width, height,
+                                            scene.tri_rows, scene.nodes)
         else:
             cam, words, summ, floors = _camera_words(scene, camera, width,
                                                      height)
@@ -2139,9 +2139,7 @@ def any_hit_shared(scene, light_pos, d3, tmax):
                 out = fat_shadow(orig, d, tm, packet_signs(d),
                                  scene.tri_rows, scene.nodes)
             else:
-                out = walk_shadow(orig, d, tm,
-                                  shared_rows(scene.tri_rows, orig),
-                                  scene.nodes)
+                out = walk_shadow(orig, d, tm, scene.tri_rows, scene.nodes)
         else:
             orig, d, tm, n, words, summ, floors = _shared_planes(
                 scene, light_pos, d3, tmax)
@@ -2155,13 +2153,13 @@ def any_hit_shared_stats(scene, light_pos, d3, tmax):
     tables: blocked bool (R,), bit for bit, and the per-packet counters
     int32 (P, 8) (see :func:`shadow_wl_stats`, :func:`walk_shadow_stats`).
     A fat-leaf scene raises ValueError, as the JAX package asserts
-    (:3685)."""
+    (:3685). B8b takes shared-origin rows, B9f the raw rows, as B9b."""
     _no_fat_counters(scene)
     with trace.span("snail.shadow"):
         if walks(scene):
             orig, d, tm, n = _light_planes(light_pos, d3, tmax)
-            out, stats = walk_shadow_stats(
-                orig, d, tm, shared_rows(scene.tri_rows, orig), scene.nodes)
+            out, stats = walk_shadow_stats(orig, d, tm, scene.tri_rows,
+                                           scene.nodes)
         else:
             orig, d, tm, n, words, summ, floors = _shared_planes(
                 scene, light_pos, d3, tmax)

@@ -19,12 +19,13 @@ sign of the midpoint of its live rays' inverse directions; for B11, by
 the signs of its packet's ray 0 (``traverse.camera_signs`` /
 ``packet_signs``), so that a ray meets its leaves in the kernel's order,
 whatever its warp, and closest-hit ties resolve alike. The
-intersection arithmetic is each kernel's, operation for operation:
-shared-origin rows (``traverse.shared_rows``) for B9a/B9b, the full
-Moller test on raw rows for B9c/B9d and B11a-d (as
-``traverse._moller_sh`` / ``_moller_g``); the closest-hit rule is
-two-sided and keeps the first strictly nearer hit, the any-hit rule
-one-sided, and a blocked ray stops.
+intersection arithmetic is each kernel's, operation for operation: the
+full Moller test on raw rows for every walk kernel, B9a/B9b and B11a/B11c
+from their shared origin (as ``traverse._moller_g``). ``walk_plain``
+also takes the shared-origin rows of ``traverse.shared_rows``
+(``raw=False``), whose terms are the raw test's, rounded alike; the
+closest-hit rule is two-sided and keeps the first strictly nearer hit,
+the any-hit rule one-sided, and a blocked ray stops.
 """
 
 from __future__ import annotations
@@ -259,18 +260,18 @@ def walk_camera_plain(cam, width: int, height: int, rows, nodes: NodeTables,
     shape = t_exit.shape
     best, tri, u, v = (_untiled(x, order, shape) for x in walk_plain(
         nodes, cam[9:12].unbind(), [_tiles(c, order) for c in d],
-        _tiles(t_exit, order), rows, False, True, work))
+        _tiles(t_exit, order), rows, True, True, work))
     dist = torch.where(tri >= 0, best, BIG)
     return dist, u, v, tri.to(torch.int32), *d
 
 
 def walk_shadow_plain(orig, d, tm, rows, nodes: NodeTables, work=None):
     """Plain B9b: any-hit from ``orig`` (3,) of rays ``d`` (three (P,
-    PACKET_R)) up to ``tm`` (P, PACKET_R), on shared-origin rows. Returns
-    blocked float32 (P, PACKET_R)."""
+    PACKET_R)) up to ``tm`` (P, PACKET_R), on raw rows. Returns blocked
+    float32 (P, PACKET_R)."""
     limit = torch.where(tm >= 0.0, tm, -BIG).reshape(-1)
     blocked = walk_plain(nodes, orig.unbind(), [c.reshape(-1) for c in d],
-                         limit, rows, False, False, work)
+                         limit, rows, True, False, work)
     return blocked.float().reshape(tm.shape)
 
 
@@ -513,7 +514,7 @@ def walk_camera_stats_plain(cam, width: int, height: int, rows,
 
 def camera_sim(cam, width: int, height: int, rows, nodes: NodeTables,
                pids: torch.Tensor, signs=None):
-    """B9a (B9e) or, with ``signs`` (P, 3) and the raw ``rows``, B11a on
+    """B9a (B9e) or, with ``signs`` (P, 3), B11a on the raw ``rows`` for
     the primary rays of packets ``pids``, simulated warp by warp as
     ``walk`` runs them, a warp's rays an 8 x 4 pixel tile
     (:func:`traverse.camera_wl_order`). Returns (the outputs (dist, u, v, tri, dx, dy, dz) as
@@ -526,12 +527,12 @@ def camera_sim(cam, width: int, height: int, rows, nodes: NodeTables,
     order = camera_wl_order().to(t_exit.device)
     shape = t_exit.shape
     if signs is None:
-        bound0, raw, rs = _tiles(t_exit, order), False, None
+        bound0, rs = _tiles(t_exit, order), None
     else:
         bound0 = torch.full_like(t_exit.reshape(-1), BIG)
-        raw, rs = True, _ray_signs(signs[pids.to(signs.device)], PACKET_R)
+        rs = _ray_signs(signs[pids.to(signs.device)], PACKET_R)
     w = _WarpWalk(nodes, cam[9:12].unbind(), [_tiles(c, order) for c in d],
-                  bound0, rows, raw, True, rs)
+                  bound0, rows, True, True, rs)
     stats = w.run()
     best, tri, u, v = (_untiled(x, order, shape)
                        for x in (w.bound, w.tri, w.bu, w.bv))
@@ -551,7 +552,7 @@ def walk_shadow_stats_plain(orig, d, tm, rows, nodes: NodeTables):
 
 def shadow_sim(orig, d, tm, rows, nodes: NodeTables):
     """B9b (and B9f) from ``orig`` (3,) on the planes ``d`` (three) and
-    ``tm`` (P, PACKET_R), on the shared-origin ``rows``, simulated warp by
+    ``tm`` (P, PACKET_R), on the raw ``rows``, simulated warp by
     warp. Returns (blocked float32 (P, PACKET_R), as
     :func:`walk_shadow_plain` gives it; B9f's counters, int32 (P, 8); the
     tally ``_WarpWalk.tally`` (len(TALLY), P * WARPS)). A warp stops
@@ -561,7 +562,7 @@ def shadow_sim(orig, d, tm, rows, nodes: NodeTables):
     the same lanes, in fewer node steps than the tally's."""
     limit = torch.where(tm >= 0.0, tm, -BIG).reshape(-1)
     w = _WarpWalk(nodes, orig.unbind(), [c.reshape(-1) for c in d], limit,
-                  rows, False, False)
+                  rows, True, False)
     stats = w.run()
     return w.blocked.float().reshape(tm.shape), stats, w.tally
 

@@ -28,11 +28,11 @@ device time by innermost span (a backward kernel under the forward
 stage that made it, ``utils.trace.SpanIndex``), the live share of the
 rays traced and the rows and columns of the hit-row gathers
 (``gather.rows``, ``gather.cols``). Where a frame builds shared-origin
-tables (node tables; the counter frame), it prints their stage too:
-``rows_ms.frame``, the device ms a frame under ``snail.rows``, and the
-triangles tabled a frame (``rows.tris``); on leaf tables the fwd frame
-builds none and prints no rows stage. bench.py's 10 Mtri terrain on node
-tables:
+tables (the leaf-table counter frame's B8a/B8b: ``--path stats``), it
+prints their stage too: ``rows_ms.frame``, the device ms a frame under
+``snail.rows``, and the triangles tabled a frame (``rows.tris``); every
+other frame, on either table kind, builds none and prints no rows stage.
+bench.py's 10 Mtri terrain on node tables:
 
     python -m snail_tpu_torch.profile_frame --kind terrain --n 2236 \
         --tables nodes

@@ -23,9 +23,10 @@ The spans, all named ``snail.<stage>``:
                   gather's kernel, the differentiable frame's pack)
   snail.shade     one traced wavefront's shading, its bounces inside
   snail.rows      a shared-origin triangle table's build
-                  (``ops.traverse.shared_rows``: the node-table walk's
-                  camera and light tables, the counter frame's), inside
-                  ``snail.camera`` or ``snail.shadow``
+                  (``ops.traverse.shared_rows``: the leaf-table counter
+                  frame's camera and light tables for B8a/B8b; the walk
+                  kernels test the raw rows), inside ``snail.camera`` or
+                  ``snail.shadow``
 
 A stage entered inside itself (a wrapper calling the entry point it
 wraps, a bounce depth's shading inside its parent's) stays one span.

@@ -18,7 +18,8 @@ from snail_tpu_torch.bvh.build import BVH
 from snail_tpu_torch.core.types import Camera, Light, RenderOpts
 from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
-from snail_tpu_torch.ops.traverse_ref import (camera_sim,
+from snail_tpu_torch.ops.traverse_ref import (_tiles, _WarpWalk,
+                                              camera_sim,
                                               fat_camera_plain,
                                               fat_closest_plain,
                                               fat_shadow_g_plain,
@@ -26,6 +27,7 @@ from snail_tpu_torch.ops.traverse_ref import (camera_sim,
                                               walk_camera_plain,
                                               walk_camera_stats_plain,
                                               walk_closest_g_plain,
+                                              walk_plain,
                                               walk_shadow_g_plain,
                                               walk_shadow_plain,
                                               walk_shadow_stats_plain)
@@ -836,7 +838,7 @@ def test_walk_camera_kernel_matches_plain(which):
     _need_cuda()
     scene, cam, w, h, _ = _scene(which, walk=True)
     cv = pt.cam_vec(cam, w, h, scene.root_lo, scene.root_hi)
-    rows = pt.shared_rows(scene.tri_rows, cam.pos)
+    rows = scene.tri_rows
     kern = pt.walk_camera(cv, w, h, rows, scene.nodes)
     torch.cuda.synchronize()
     p = (w // pt.TILE) * (h // pt.TILE)
@@ -854,7 +856,7 @@ def test_walk_shadow_kernel_matches_plain(which):
     _need_cuda()
     scene, _, _, _, light = _scene(which, walk=True)
     d, tm = _shadow_rays(scene, light, 6)
-    rows = pt.shared_rows(scene.tri_rows, light)
+    rows = scene.tri_rows
     kern = pt.walk_shadow(light, d, tm, rows, scene.nodes)
     torch.cuda.synchronize()
     plain = walk_shadow_plain(light, d, tm, rows, scene.nodes)
@@ -950,7 +952,7 @@ def test_walk_camera_stats_kernel_matches_b9a_and_simulation(which):
     _need_cuda()
     scene, cam, w, h, _ = _scene(which, walk=True)
     cv = pt.cam_vec(cam, w, h, scene.root_lo, scene.root_hi)
-    rows = pt.shared_rows(scene.tri_rows, cam.pos)
+    rows = scene.tri_rows
     *out, stats = pt.walk_camera_stats(cv, w, h, rows, scene.nodes)
     ref = pt.walk_camera(cv, w, h, rows, scene.nodes)
     torch.cuda.synchronize()
@@ -968,7 +970,7 @@ def test_walk_shadow_stats_kernel_matches_b9b_and_simulation(which):
     _need_cuda()
     scene, _, _, _, light = _scene(which, walk=True)
     d, tm = _shadow_rays(scene, light, 3)
-    rows = pt.shared_rows(scene.tri_rows, light)
+    rows = scene.tri_rows
     blocked, stats = pt.walk_shadow_stats(light, d, tm, rows, scene.nodes)
     ref = pt.walk_shadow(light, d, tm, rows, scene.nodes)
     torch.cuda.synchronize()
@@ -977,6 +979,84 @@ def test_walk_shadow_stats_kernel_matches_b9b_and_simulation(which):
     assert torch.equal(stats, sim), (stats, sim)
     assert torch.equal(plain, blocked)
     assert (stats[:, 3] > 0).sum() > 1
+
+
+def walk_wave(kernel, cv, w, h, origin, d=None, tm=None):
+    """The wavefront of B9a/B9e (``cv``, a w x h frame) or of B9b/B9f (the
+    planes ``d``, ``tm`` from ``origin``) as the plain walk takes it:
+    (directions, bounds), flat in the order of the kernel's threads (the
+    camera kernels': 8 x 4 pixel warps)."""
+    if kernel in ("B9a", "B9e"):
+        pids = torch.arange((w // pt.TILE) * (h // pt.TILE),
+                            device=cv.device)
+        d, _, t_exit = pt._camera_rays(cv, w, h, pids)
+        order = pt.camera_wl_order().to(cv.device)
+        return [_tiles(c, order) for c in d], _tiles(t_exit, order)
+    return ([c.reshape(-1) for c in d],
+            torch.where(tm >= 0.0, tm, -BIG).reshape(-1))
+
+
+def plain_walk(kernel, nodes, rows, raw, origin, dirs, bound0):
+    """The plain walk of B9a or B9b (``walk_plain``), or the simulation of
+    the warps of B9e or B9f (``_WarpWalk``), from ``origin`` (3,) on the
+    raw ``rows`` or (``raw`` False) on the shared-origin rows of
+    ``origin``: (best, tri, u, v) or (blocked,), flat in the order of the
+    kernel's threads, and for B9e/B9f the counters, int32 (P, 8)."""
+    closest = kernel in ("B9a", "B9e")
+    if kernel in ("B9a", "B9b"):
+        out = walk_plain(nodes, origin.unbind(), dirs, bound0, rows, raw,
+                         closest)
+        return tuple(out) if closest else (out,)
+    walk = _WarpWalk(nodes, origin.unbind(), dirs, bound0, rows, raw,
+                     closest)
+    stats = walk.run()
+    out = ((walk.bound, walk.tri, walk.bu, walk.bv) if closest
+           else (walk.blocked,))
+    return (*out, stats)
+
+
+@pytest.mark.parametrize("kernel", ["B9a", "B9b", "B9e", "B9f"])
+@pytest.mark.parametrize("which", SCENES)
+def test_walk_raw_kernels_match_plain_on_shared_rows(which, kernel):
+    """B9a, B9b, B9e and B9f on the raw triangle rows against the plain
+    walk (B9e/B9f: the simulation of their warps) on the shared-origin
+    rows of the same origin (``shared_rows``): outputs and counters bit
+    for bit, tri included, since the table rounds the origin's terms as
+    the full Moller test does."""
+    _need_cuda()
+    scene, cam, w, h, light = _scene(which, walk=True)
+    nodes, rows = scene.nodes, scene.tri_rows
+    cv = pt.cam_vec(cam, w, h, scene.root_lo, scene.root_hi)
+    if kernel in ("B9a", "B9e"):
+        origin = cv[9:12]
+        dirs, bound0 = walk_wave(kernel, cv, w, h, origin)
+        kern = (pt.walk_camera(cv, w, h, rows, nodes) if kernel == "B9a"
+                else pt.walk_camera_stats(cv, w, h, rows, nodes))
+    else:
+        origin = light
+        d, tm = _shadow_rays(scene, light, 6)
+        dirs, bound0 = walk_wave(kernel, cv, w, h, origin, d, tm)
+        kern = (pt.walk_shadow(light, d, tm, rows, nodes) if kernel == "B9b"
+                else pt.walk_shadow_stats(light, d, tm, rows, nodes))
+    table = pt.shared_rows(rows, origin)
+    plain = plain_walk(kernel, nodes, table, False, origin, dirs, bound0)
+    torch.cuda.synchronize()
+    if kernel in ("B9e", "B9f"):
+        *kern, stats = kern
+        *plain, sim = plain
+        assert torch.equal(stats, sim), (stats, sim)
+    if kernel in ("B9a", "B9e"):
+        order = pt.camera_wl_order().to(cv.device)
+        best, tri, u, v = plain
+        want = (torch.where(tri >= 0, best, BIG), u, v, tri.to(torch.int32))
+        assert all(torch.equal(_tiles(a, order), b)
+                   for a, b in zip(kern[:4], want))
+        assert bool((tri >= 0).any()) and bool((tri < 0).any())
+    else:
+        blocked = (kern[0] if kernel == "B9f" else kern).reshape(-1) > 0
+        assert torch.equal(blocked, plain[0])
+        live = bound0 > 0.0
+        assert 0.02 < float(blocked[live].float().mean()) < 0.98
 
 
 @pytest.mark.parametrize("which", SCENES)
@@ -1273,7 +1353,7 @@ def test_staged_camera_kernels_match_plain_exactly(kind, view):
         hit = kern[0] < BIG
         assert bool((kern[3][~hit] == 0).all())
     else:
-        cv, rows = pt._camera_setup(scene, cam, w, h)
+        cv, rows = pt._camera_vec(scene, cam, w, h), scene.tri_rows
         signs = None
         kern = pt.walk_camera(cv, w, h, rows, nodes)
         *b9e, stats = pt.walk_camera_stats(cv, w, h, rows, nodes)
@@ -1355,8 +1435,8 @@ def _shared_blocker_rays(n_leaves, seed=37):
 def test_staged_any_hit_kernel_matches_plain_exactly(kind, row):
     """B9d (``walk``), B11d (``fat``), B7 (``wl``: the same leaves on leaf
     tables, B5's words), B11c (``fat_shared``: rays from one origin,
-    ``_shared_blocker_rays``) and B9b (``walk_shared``: the same rays on
-    the shared-origin rows, with B9f), whose leaf stage stages a whole
+    ``_shared_blocker_rays``) and B9b (``walk_shared``: the same rays,
+    with B9f), whose leaf stage stages a whole
     leaf and tests it lane per triangle (lane j: rows j and j + 32) where
     at most a threshold of unblocked lanes enter it and lane per ray
     above: verdicts equal to the plain version's and to what the rays
@@ -1378,11 +1458,10 @@ def test_staged_any_hit_kernel_matches_plain_exactly(kind, row):
     if kind == "walk_shared":
         orig, d, tm, want = _shared_blocker_rays(len(sizes))
         orig, d, tm = orig.cuda(), tuple(c.cuda() for c in d), tm.cuda()
-        srows = pt.shared_rows(rows, orig)
-        kern = pt.walk_shadow(orig, d, tm, srows, nodes)
-        plain = walk_shadow_plain(orig, d, tm, srows, nodes)
-        blocked, stats = pt.walk_shadow_stats(orig, d, tm, srows, nodes)
-        _, sim = walk_shadow_stats_plain(orig, d, tm, srows, nodes)
+        kern = pt.walk_shadow(orig, d, tm, rows, nodes)
+        plain = walk_shadow_plain(orig, d, tm, rows, nodes)
+        blocked, stats = pt.walk_shadow_stats(orig, d, tm, rows, nodes)
+        _, sim = walk_shadow_stats_plain(orig, d, tm, rows, nodes)
         assert torch.equal(blocked, kern) and torch.equal(stats, sim)
     elif kind == "fat_shared":
         orig, d, tm, want = _shared_blocker_rays(len(sizes))

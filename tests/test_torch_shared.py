@@ -1,7 +1,7 @@
 """The warps of B9b and of B2 (B8a) simulated on city_scene(24) at leaf
 16, the bench city's tree: ``traverse_ref.shadow_sim`` (B9b on node
-tables: shared-origin rows, each warp's walk and its exit once every live
-lane is blocked) against the plain B9b and the JAX package's
+tables: the raw rows from the light, each warp's walk and its exit once
+every live lane is blocked) against the plain B9b and the JAX package's
 ``any_hit_shared`` on the same scene with its leaf tables cleared (B9 in
 interpret mode), and ``traverse.camera_wl_sim`` (B2's word scan, its kept
 leaves in order) against the plain B2; each tally against its counters
@@ -93,7 +93,7 @@ def test_shadow_sim_matches_plain_and_jax(city24):
     tm[::61] = -BIG
     pk = lambda a: _t(a).reshape(1, pt.PACKET_R)
     planes = tuple(pk(d[:, k]) for k in range(3))
-    rows = pt.shared_rows(walk.tri_rows, _t(LIGHT))
+    rows = walk.tri_rows
     blocked, stats, tally = shadow_sim(_t(LIGHT), planes, pk(tm), rows,
                                        walk.nodes)
     assert torch.equal(blocked, walk_shadow_plain(_t(LIGHT), planes, pk(tm),

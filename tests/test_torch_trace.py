@@ -7,8 +7,8 @@ stage that made it.
 
 Scene: city_scene(4) (134 triangles) with bench.py's bounce material
 (half mirror, half glass) and a second light; for the shared-origin
-tables' stage, bench.py's 10 Mtri terrain at n = 24 on both table kinds;
-64 x 64 frames."""
+tables' stage (the leaf-table counter frame's alone), bench.py's 10 Mtri
+terrain at n = 24 on both table kinds; 64 x 64 frames."""
 
 import contextlib
 import dataclasses
@@ -201,9 +201,7 @@ def test_ray_counters_per_wavefront(scenes, entry, tables):
     else:
         want = {"rays.traced": 2 * pt.PACKET_R,
                 "rays.live": int((tm >= 0).sum())}
-    if tables == "nodes" and entry in ("camera", "shadow"):
-        # B9a and B9b take the origin's shared-origin table
-        want["rows.tris"] = scene.tri_rows.shape[0]
+    # every kernel here, B9a and B9b too, tests the raw rows: no table
     assert trace.counters() == want
 
 
@@ -260,18 +258,9 @@ def terrains():
             for tables in ("leaves", "nodes")}
 
 
-@pytest.mark.parametrize("tables", ["leaves", "nodes"])
-def test_rows_stage_of_a_view_frame(terrains, tables, tmp_path):
-    """A view frame on node tables builds two shared-origin tables, the
-    camera's for B9a and the light's for B9b: ``snail.rows`` opens once
-    inside ``snail.camera`` and once inside ``snail.shadow``,
-    ``SpanIndex`` puts each table's ops (its ``zeros_like``) under it,
-    and ``rows.tris`` counts 2 x T. On leaf tables (B2 and B4 on the raw
-    rows) the frame opens no ``snail.rows`` and counts no table."""
-    scene, cam = terrains[tables]
-    assert pt.walks(scene) == (tables == "nodes")
-    prof, counts = _profiled(
-        lambda: to_rgb8(render_frame(scene, cam, W, H, OPTS_10M)))
+def _rows_stage(prof, tmp_path):
+    """The parents of every ``snail.rows`` span of a profiled run, sorted,
+    and the names of the CPU ops ``SpanIndex`` puts under one."""
     chrome = _chrome(prof, tmp_path)
     ix = trace.SpanIndex(chrome)
     rows = sorted(parent for name, parent in _spans(ix)
@@ -280,8 +269,45 @@ def test_rows_stage_of_a_view_frame(terrains, tables, tmp_path):
                if e.get("cat") == "cpu_op" and ix.at(
                    (e.get("pid"), e.get("tid")), float(e["ts"]))
                == "snail.rows"]
-    if tables == "leaves":
-        assert rows == [] and in_rows == [] and "rows.tris" not in counts
+    return rows, in_rows
+
+
+@pytest.mark.parametrize("tables", ["leaves", "nodes"])
+def test_rows_stage_of_a_view_frame(terrains, tables, tmp_path):
+    """A view frame builds no shared-origin table on either table kind:
+    B2 and B4 (leaf tables) and B9a and B9b (node tables) test the raw
+    rows from their shared origin, so the frame opens no ``snail.rows``,
+    no op falls under one, and ``rows.tris`` stays 0."""
+    scene, cam = terrains[tables]
+    assert pt.walks(scene) == (tables == "nodes")
+    prof, counts = _profiled(
+        lambda: to_rgb8(render_frame(scene, cam, W, H, OPTS_10M)))
+    rows, in_rows = _rows_stage(prof, tmp_path)
+    assert counts["snail.frame"] == 1
+    assert rows == [] and in_rows == []
+    assert counts.get("rows.tris", 0) == 0
+
+
+@pytest.mark.parametrize("tables", ["leaves", "nodes"])
+def test_rows_stage_of_the_counter_wavefronts(terrains, tables, tmp_path):
+    """The counter frame's wavefronts: on leaf tables B8a and B8b take the
+    shared-origin rows, so ``snail.rows`` opens once inside
+    ``snail.camera`` and once inside ``snail.shadow``, ``SpanIndex`` puts
+    each table's ops (its ``zeros_like``) under it, and ``rows.tris``
+    counts 2 x T; on node tables B9e and B9f test the raw rows, as B9a and
+    B9b, and build none."""
+    scene, cam = terrains[tables]
+    _, d, tm = _random_rays(cam, 5000, seed=7)
+
+    def run():
+        pt.camera_trace_stats(scene, cam, W, H)
+        pt.any_hit_shared_stats(scene, scene.lights.pos[0], d.unbind(1), tm)
+
+    prof, counts = _profiled(run)
+    rows, in_rows = _rows_stage(prof, tmp_path)
+    if tables == "nodes":
+        assert rows == [] and in_rows == []
+        assert counts.get("rows.tris", 0) == 0
         return
     assert rows == ["snail.camera", "snail.shadow"]
     assert in_rows.count("aten::zeros_like") == 2

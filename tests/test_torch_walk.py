@@ -42,7 +42,7 @@ from snail_tpu_torch.core.vecmath import BIG
 from snail_tpu_torch.ops import traverse as pt
 from snail_tpu_torch.ops.intersect import (intersect_any_brute_force,
                                            intersect_brute_force)
-from snail_tpu_torch.ops.traverse_ref import (LANE_BINS, TALLY,
+from snail_tpu_torch.ops.traverse_ref import (LANE_BINS, TALLY, _tiles,
                                               _warp_signs, closest_g_sim,
                                               fat_shadow_g_plain,
                                               shadow_g_sim,
@@ -51,10 +51,13 @@ from snail_tpu_torch.ops.traverse_ref import (LANE_BINS, TALLY,
                                               walk_closest_g_plain,
                                               walk_plain,
                                               walk_shadow_g_plain,
+                                              walk_shadow_plain,
                                               walk_shadow_stats_plain)
 from snail_tpu_torch.render.fast import (render_frame_fast,
                                          render_frame_fast_stats,
+                                         shadow_wavefront,
                                          stats_path_available)
+from snail_tpu_torch.scene.bench_scenes import scene_10m
 from snail_tpu_torch.scene.base_scene import FlatGeometry
 from snail_tpu_torch.scene.scene import (make_traced_scene,
                                          traced_scene_from_numpy)
@@ -419,7 +422,7 @@ def test_walk_camera_trace_stats_matches_jax(scenes):
     same = hit & (ptri == jt)
     np.testing.assert_allclose(pu[same], ju[same], atol=2e-3)
     assert stats.shape == (1, 8) and stats.dtype == torch.int32
-    cam, rows = pt._camera_setup(ps, pcam, W, H)
+    cam, rows = pt._camera_vec(ps, pcam, W, H), ps.tri_rows
     *_, sim = walk_camera_stats_plain(cam, W, H, rows, ps.nodes,
                                       torch.arange(1))
     assert torch.equal(stats, sim)
@@ -437,7 +440,7 @@ def test_walk_camera_warps_are_pixel_tiles(scenes):
     this frame the signs of 32 consecutive rays differ from the tiles'."""
     _, _, ps, _, pcam = scenes
     w, h = 128, 64
-    cam, rows = pt._camera_setup(ps, pcam, w, h)
+    cam, rows = pt._camera_vec(ps, pcam, w, h), ps.tri_rows
     pids = torch.arange(2)
     d, idir, t_exit = pt._camera_rays(cam, w, h, pids)
     px, py = pt._pixel_xy(w, h, pids, "cpu")
@@ -456,7 +459,7 @@ def test_walk_camera_warps_are_pixel_tiles(scenes):
                                               live))
     best, tri, u, v = walk_plain(ps.nodes, cam[9:12].unbind(),
                                  [c.reshape(-1) for c in d],
-                                 t_exit.reshape(-1), rows, False, True,
+                                 t_exit.reshape(-1), rows, True, True,
                                  signs=signs)
     want = (torch.where(tri >= 0, best, BIG), u, v, tri.to(torch.int32))
     got = walk_camera_plain(cam, w, h, rows, ps.nodes, pids)
@@ -486,7 +489,7 @@ def test_walk_any_hit_shared_stats_matches_jax(scenes, shadow_rays):
     live = tm >= 0
     assert not pb[~live].any() and 0.05 < pb[live].mean() < 0.95
     assert (pb[live] == jb[live]).mean() > 0.999
-    rows = pt.shared_rows(ps.tri_rows, _t(lp))
+    rows = ps.tri_rows
     pk = lambda a: _t(a).reshape(-1, pt.PACKET_R)
     blocked, sim = walk_shadow_stats_plain(
         _t(lp), tuple(pk(d[:, k]) for k in range(3)), pk(tm), rows, ps.nodes)
@@ -494,7 +497,7 @@ def test_walk_any_hit_shared_stats_matches_jax(scenes, shadow_rays):
     np.testing.assert_array_equal(blocked.numpy().reshape(-1) > 0, pb)
     work = {}
     walk_plain(ps.nodes, _t(lp).unbind(), [_t(d[:, k]) for k in range(3)],
-               torch.where(_t(tm) >= 0, _t(tm), -BIG), rows, False, False,
+               torch.where(_t(tm) >= 0, _t(tm), -BIG), rows, True, False,
                work)
     _assert_counters_hold(stats, work, False)
 
@@ -513,6 +516,66 @@ def test_walk_counter_frame_matches_fwd_frame(scenes):
     assert st["tri_blocks"] >= st["quarters"] and st["chunks"] > 0
     *_, primary = pt.camera_trace_stats(ps, pcam, W, H)
     assert st["nodes"] > int(primary[:, 0].sum())  # the shadow rays count
+
+
+@pytest.fixture(scope="module")
+def terrain():
+    """bench.py's 10 Mtri terrain at n = 24 (1,216 rows) on node tables,
+    its camera vector for a 64 x 64 view frame, and the planes (d, tm) of
+    that frame's shadow rays toward a low light (-80, 20, 0), which leaves
+    some of the lit terrain in shadow."""
+    scene, cam = scene_10m(24, device="cpu", walk=True)[:2]
+    assert pt.walks(scene) and not pt.is_fat(scene)
+    cv = pt._camera_vec(scene, cam, W, H)
+    dist, u, v, tri, dx, dy, dz = pt.camera_trace(scene, cam, W, H)
+    lp = torch.tensor((-80.0, 20.0, 0.0))
+    d3, tm = shadow_wavefront(scene, tuple(cam.pos), (dx, dy, dz), dist, u,
+                              v, tri, lp)
+    orig, d, tm, _ = pt._light_planes(lp, d3, tm)
+    return scene, cv, orig, d, tm
+
+
+@pytest.mark.parametrize("kernel", ["B9a", "B9b", "B9e", "B9f"])
+def test_walk_raw_rows_match_shared_rows(terrain, kernel):
+    """B9a, B9b and their counting twins B9e, B9f test the raw triangle
+    rows with the full Moller test from their shared origin: the plain
+    walk on the raw rows (``walk_plain(..., raw=True)``; the simulation
+    of the warps for B9e/B9f) gives exactly what it gives on the
+    shared-origin rows of the same origin (``shared_rows``), outputs and
+    counters, since the table computes the origin's terms with the raw
+    test's products and sums in the same order; and the plain versions
+    of the kernels, on the raw rows, give the same. On the terrain's view
+    frame some rays hit and some miss, and some live shadow rays are
+    blocked and some not."""
+    from test_torch_cuda import plain_walk, walk_wave
+
+    scene, cv, light, d, tm = terrain
+    camera = kernel in ("B9a", "B9e")
+    origin = cv[9:12] if camera else light
+    dirs, bound0 = walk_wave(kernel, cv, W, H, origin, d, tm)
+    table = pt.shared_rows(scene.tri_rows, origin)
+    raw, shared = (plain_walk(kernel, scene.nodes, rows, form, origin, dirs,
+                              bound0)
+                   for rows, form in ((scene.tri_rows, True), (table, False)))
+    assert all(torch.equal(a, b) for a, b in zip(raw, shared))
+    pids = torch.arange(1)
+    if camera:
+        tri = raw[1]
+        assert bool((tri >= 0).any()) and bool((tri < 0).any())
+        fn = walk_camera_plain if kernel == "B9a" else walk_camera_stats_plain
+        got = fn(cv, W, H, scene.tri_rows, scene.nodes, pids)
+        assert torch.equal(_tiles(got[3], pt.camera_wl_order()),
+                           tri.to(torch.int32))
+    else:
+        blocked = raw[0]
+        live = bound0 > 0.0
+        assert 0.02 < float(blocked[live].float().mean()) < 0.98
+        fn = walk_shadow_plain if kernel == "B9b" else walk_shadow_stats_plain
+        got = fn(light, d, tm, scene.tri_rows, scene.nodes)
+        got = got if kernel == "B9f" else (got,)
+        assert torch.equal(got[0].reshape(-1) > 0, blocked)
+    if kernel in ("B9e", "B9f"):
+        assert torch.equal(got[-1], raw[-1])
 
 
 def _packet_rays(lo, hi, n_packets, seed):

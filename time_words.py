@@ -716,10 +716,10 @@ def time_shared(tree, reps: int, quick: bool = False,
                 out["camera_wl scan"], _ = sm.camera_tally(
                     f"{kind}_{n}", cv, rows, lt, words, floors, kern, st)
             info = {}
-            for k, (orig, d, tm, srows, nodes) in waves.items():
-                blocked, work = pt.walk_shadow(orig, d, tm, srows, nodes), {}
-                ref.walk_shadow_plain(orig, d, tm, srows, nodes, work)
-                ops, tree_bytes = sm.walk_work("walk_shadow", nodes, srows,
+            for k, (orig, d, tm, wrows, nodes) in waves.items():
+                blocked, work = pt.walk_shadow(orig, d, tm, wrows, nodes), {}
+                ref.walk_shadow_plain(orig, d, tm, wrows, nodes, work)
+                ops, tree_bytes = sm.walk_work("walk_shadow", nodes, wrows,
                                                work)
                 n_bytes = (sm.nbytes(orig) + tree_bytes
                            + sm.anyhit_bytes((), d, tm, None, blocked))
@@ -733,7 +733,7 @@ def time_shared(tree, reps: int, quick: bool = False,
                 if scan:
                     info[k]["scan"] = sm.warp_tally(
                         f"{kind}_{n} nodes {k}", "walk_shadow", orig, d, tm,
-                        srows, nodes, None, blocked, by_live=True)
+                        wrows, nodes, None, blocked, by_live=True)
             out["walk_shadow wavefronts"] = info
             out["frame ms"] = {
                 "fwd": frame_ms(lambda: render_frame(scene, cam, w, h, fwd)),
@@ -856,7 +856,11 @@ def time_camera(tree, reps: int, quick: bool = False,
             plain = lambda work: ref.fat_camera_plain(cv, w, h, signs, rows,
                                                       nodes, pids, work)
         else:
-            cv, rows = pt._camera_setup(scene, cam, w, h)
+            if hasattr(pt, "_camera_setup"):
+                # a tree whose B9a takes the camera's shared-origin rows
+                cv, rows = pt._camera_setup(scene, cam, w, h)
+            else:
+                cv, rows = pt._camera_vec(scene, cam, w, h), scene.tri_rows
             signs, k, ins = None, "walk_camera", (cv,)
             call = lambda: pt.walk_camera(cv, w, h, rows, nodes)
             plain = lambda work: ref.walk_camera_plain(cv, w, h, rows, nodes,
